@@ -1,0 +1,105 @@
+"""Plain PyTorch versions of the port's kernels.
+
+They are the CPU path of the model (``ops`` dispatches here for a tensor
+on the CPU) and the yardstick the Hopper kernels are held against on the
+card. The math is that of ``repro.kernels.ref``: float32 logits, masked
+logits set to -1e30, query positions right-aligned to the keys
+(``qpos = i + Sk - Sq``), GQA through the KV head ``h // g``, and a value
+head dim that may differ from the key head dim (MLA).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["flash_attention_ref", "flash_attention_dense_ref"]
+
+_NEG_INF = -1e30
+
+
+def _mask(sq: int, kpos: torch.Tensor, sk: int, causal: bool, window: Optional[int]):
+    """(Sq, len(kpos)) validity of each (query, key) pair."""
+    qpos = torch.arange(sq, device=kpos.device)[:, None] + (sk - sq)
+    valid = (kpos < sk)[None, :].expand(sq, kpos.numel())
+    if causal:
+        valid = valid & (kpos[None, :] <= qpos)
+    if window is not None:
+        valid = valid & (kpos[None, :] > qpos - window)
+    return valid
+
+
+def flash_attention_dense_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """O(S²)-memory oracle for small shapes.
+
+    q: (B, Hq, Sq, D), k: (B, Hkv, Sk, D), v: (B, Hkv, Sk, Dv); Hq % Hkv == 0.
+    ``window``: each query attends to keys in (pos - window, pos].
+    """
+    d = q.shape[-1]
+    g = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else d**-0.5
+    sq, sk = q.shape[2], k.shape[2]
+    kx = k.repeat_interleave(g, dim=1).float()
+    vx = v.repeat_interleave(g, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    valid = _mask(sq, torch.arange(sk, device=q.device), sk, causal, window)
+    logits = torch.where(valid, logits, torch.full_like(logits, _NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Blocked online-softmax attention: the Hopper kernel's plain version.
+
+    Keys are visited ``block_k`` at a time with a running max, sum and
+    float32 accumulator, as the kernel does; memory is O(Sq·D + block_k·D)
+    per head. Padded keys (past Sk) are masked like any other.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale = scale if scale is not None else d**-0.5
+    qf = q.float()
+    m = torch.full((b, hq, sq), _NEG_INF, dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, sq, dv), dtype=torch.float32, device=q.device)
+    for start in range(0, sk, block_k):
+        kpos = torch.arange(start, start + block_k, device=q.device)
+        kblk = k[:, :, start : start + block_k].float()
+        vblk = v[:, :, start : start + block_k].float()
+        pad = block_k - kblk.shape[2]
+        if pad:
+            kblk = torch.nn.functional.pad(kblk, (0, 0, 0, pad))
+            vblk = torch.nn.functional.pad(vblk, (0, 0, 0, pad))
+        kq = kblk.repeat_interleave(g, dim=1)
+        vq = vblk.repeat_interleave(g, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kq) * scale
+        valid = _mask(sq, kpos, sk, causal, window)
+        s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vq)
+        m = m_new
+    out = acc / torch.clamp(l_sum[..., None], min=1e-37)
+    return out.to(q.dtype)

@@ -1,0 +1,237 @@
+"""Transformer assembly: layer pattern, segments, the stack's prefill and decode.
+
+Counterpart of ``repro.models.transformer``. The layer stack is split into
+the reference's SEGMENTS, (unit kinds, repeats), with params and caches
+stacked along axis 0 of each segment, so the JAX param tree loads as it is.
+Where the reference runs a segment unrolled (repeats <= 4) or as one
+``lax.scan`` (the 8-layer demo), the port indexes the stacked params per
+repeat in a Python loop: both layouts run the same way.
+
+This slice runs the ``dense`` kind (GQA self-attention + GLU MLP) in the
+modes ``prefill`` (build the cache) and ``decode`` (one token against the
+cache, updated in place). Every other kind raises ``NotImplementedError``
+naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .attention import _project_qkv, gqa_attention, init_gqa, init_gqa_cache
+from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
+
+__all__ = [
+    "layer_pattern",
+    "derive_segments",
+    "init_layer",
+    "init_layer_cache",
+    "apply_layer",
+    "init_stack",
+    "init_stack_cache",
+    "run_stack",
+]
+
+_NOT_PORTED = {
+    "moe": "ROADMAP Queue 1, MoE (models/moe.py)",
+    "rec": "ROADMAP Queue 1, hybrid family (models/rglru.py)",
+    "attn": "ROADMAP Queue 1, hybrid family (local-window attention)",
+    "rwkv": "ROADMAP Queue 1, RWKV6 family (models/rwkv.py)",
+    "enc": "ROADMAP Queue 1, encoder-decoder and VLM",
+    "xattn": "ROADMAP Queue 1, encoder-decoder and VLM",
+}
+
+
+def _require_ported(cfg, kind: str) -> None:
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
+    if kind != "dense":
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if cfg.mla:
+        raise NotImplementedError("MLA attention is not ported yet: ROADMAP Queue 1, MLA + MTP")
+
+
+# --------------------------------------------------------------------------
+# pattern -> segments
+# --------------------------------------------------------------------------
+
+
+def layer_pattern(cfg) -> Tuple[str, ...]:
+    if cfg.block_pattern:
+        return tuple(cfg.block_pattern)
+    if cfg.family == "ssm":
+        return ("rwkv",) * cfg.num_layers
+    if cfg.num_experts:
+        return ("dense",) * cfg.first_k_dense + ("moe",) * (cfg.num_layers - cfg.first_k_dense)
+    if cfg.is_encdec:
+        return ("xattn",) * cfg.num_layers  # decoder layers cross-attend
+    return ("dense",) * cfg.num_layers
+
+
+def derive_segments(pattern: Sequence[str], max_unit: int = 4) -> List[Tuple[Tuple[str, ...], int]]:
+    """Greedy tiling: [(unit_kinds, repeats), ...] covering the pattern."""
+    segments: List[Tuple[Tuple[str, ...], int]] = []
+    i = 0
+    n = len(pattern)
+    while i < n:
+        best: Tuple[int, int] = (1, 1)  # (unit_len, repeats)
+        best_score = 0
+        for ul in range(1, min(max_unit, n - i) + 1):
+            unit = tuple(pattern[i : i + ul])
+            r = 1
+            while tuple(pattern[i + r * ul : i + (r + 1) * ul]) == unit:
+                r += 1
+            # only true repetition wins coverage: a long non-repeating unit
+            # must not swallow a repeatable prefix (e.g. d,d,d,m vs (d)x3)
+            score = r * ul if r >= 2 else 1
+            if score > best_score or (score == best_score and ul < best[0]):
+                best, best_score = (ul, r), score
+        ul, r = best
+        segments.append((tuple(pattern[i : i + ul]), r))
+        i += ul * r
+    return segments
+
+
+# --------------------------------------------------------------------------
+# single layer
+# --------------------------------------------------------------------------
+
+
+def init_layer(store: ParamStore, cfg, kind: str) -> None:
+    _require_ported(cfg, kind)
+    norm_param(store, "ln1", cfg.d_model, cfg.norm)
+    init_gqa(store, "attn", cfg)
+    norm_param(store, "ln2", cfg.d_model, cfg.norm)
+    init_glu_mlp(store, "mlp", cfg.d_model, cfg.d_ff, cfg.glu)
+
+
+def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) -> Dict[str, Any]:
+    _require_ported(cfg, kind)
+    return init_gqa_cache(cfg, batch, seq_len, dtype, device)
+
+
+def _prefill_cache_from_full(h_in, lp, cfg, positions, seq_len):
+    """Recompute k/v once more to build the cache, as the reference does."""
+    b = h_in.shape[0]
+    pos_vec = torch.full((b,), seq_len, dtype=torch.int32, device=h_in.device)
+    _, k, v = _project_qkv(h_in, lp["attn"], cfg, positions)
+    k = k.transpose(1, 2).contiguous()  # (B, S, KV, hd)
+    v = v.transpose(1, 2).contiguous()
+    return {"k": k, "v": v, "pos": pos_vec}
+
+
+def apply_layer(
+    h: torch.Tensor,
+    lp: Dict[str, Any],
+    cfg,
+    kind: str,
+    *,
+    positions: torch.Tensor,
+    mode: str,
+    cache: Optional[Dict[str, Any]] = None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One layer. Returns (h, cache): the new cache in prefill, ``cache``
+    itself (updated in place) in decode."""
+    _require_ported(cfg, kind)
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: this slice runs prefill and decode")
+    x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+    attn_out, new_cache = gqa_attention(
+        x1,
+        lp["attn"],
+        cfg,
+        positions=positions,
+        cache=cache if mode == "decode" else None,
+    )
+    h = h + attn_out
+    if mode == "prefill":
+        new_cache = _prefill_cache_from_full(x1, lp, cfg, positions, h.shape[1])
+    x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+    h = h + glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
+    return h, new_cache
+
+
+# --------------------------------------------------------------------------
+# stacked segments
+# --------------------------------------------------------------------------
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: Sequence[Any]):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(list(trees))
+
+
+def init_stack(
+    store: ParamStore, cfg, pattern: Sequence[str], prefix: str = "seg"
+) -> List[Tuple[Tuple[str, ...], int]]:
+    """Draw all layers, stacked per segment-unit position. Returns segments."""
+    segments = derive_segments(pattern)
+    for si, (unit, repeats) in enumerate(segments):
+        seg = store.sub(f"{prefix}{si}")
+        for uj, kind in enumerate(unit):
+            copies = []
+            for _ in range(repeats):
+                tmp = ParamStore(store.generator, store.dtype, store.device)
+                init_layer(tmp, cfg, kind)
+                copies.append(tmp.params)
+            seg.params[f"u{uj}"] = _stack(copies)
+    return segments
+
+
+def init_stack_cache(
+    cfg, segments, batch: int, seq_len: int, dtype, device, prefix: str = "seg"
+) -> Dict[str, Any]:
+    cache: Dict[str, Any] = {}
+    for si, (unit, repeats) in enumerate(segments):
+        cache[f"{prefix}{si}"] = {
+            f"u{uj}": _stack([init_layer_cache(cfg, kind, batch, seq_len, dtype, device)] * repeats)
+            for uj, kind in enumerate(unit)
+        }
+    return cache
+
+
+def run_stack(
+    h: torch.Tensor,
+    params: Dict[str, Any],
+    cfg,
+    segments,
+    *,
+    positions: torch.Tensor,
+    mode: str,
+    cache: Optional[Dict[str, Any]] = None,
+    prefix: str = "seg",
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run all segments in order. Returns (h, cache): a fresh stacked cache in
+    prefill, the given ``cache`` (updated in place) in decode."""
+    if mode == "decode" and cache is None:
+        raise ValueError("decode needs a cache")
+    new_cache: Dict[str, Any] = {} if mode == "prefill" else cache
+    for si, (unit, repeats) in enumerate(segments):
+        seg_params = params[f"{prefix}{si}"]
+        outs: Dict[str, list] = {f"u{uj}": [] for uj in range(len(unit))}
+        for r in range(repeats):
+            for uj, kind in enumerate(unit):
+                key = f"u{uj}"
+                layer_cache = None if mode == "prefill" else _index(cache[f"{prefix}{si}"][key], r)
+                h, c_new = apply_layer(
+                    h,
+                    _index(seg_params[key], r),
+                    cfg,
+                    kind,
+                    positions=positions,
+                    mode=mode,
+                    cache=layer_cache,
+                )
+                if mode == "prefill":
+                    outs[key].append(c_new)
+        if mode == "prefill":
+            new_cache[f"{prefix}{si}"] = {key: _stack(cs) for key, cs in outs.items()}
+    return h, new_cache

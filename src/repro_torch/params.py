@@ -1,0 +1,88 @@
+"""The port's param tree: drawing it, loading the JAX package's, counting it.
+
+The tree has the reference's names and layouts (``embed/table``,
+``seg{i}/u{j}/attn/wq`` stacked on axis 0, ``final_norm/scale``,
+``unembed``), so a tree of numpy arrays taken from ``repro``'s
+``model.init`` loads with :func:`from_numpy_tree` as it is, without
+renaming or transposing anything.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import DTYPES, ParamStore, norm_param
+from repro_torch.models.model import padded_vocab
+from repro_torch.models.transformer import init_stack, layer_pattern
+
+__all__ = ["init_params", "from_numpy_tree", "count_params"]
+
+
+def _draw(cfg: ModelConfig, generator: Optional[torch.Generator], device: torch.device):
+    if cfg.is_encdec or cfg.frontend != "none" or cfg.mtp:
+        raise NotImplementedError(
+            "encoder, frontend and MTP params are not ported yet: ROADMAP Queue 1"
+        )
+    vpad = padded_vocab(cfg)
+    store = ParamStore(generator, DTYPES[cfg.param_dtype], device)
+    store.sub("embed").param("table", (vpad, cfg.d_model), init="embed")
+    init_stack(store, cfg, layer_pattern(cfg), prefix="seg")
+    norm_param(store, "final_norm", cfg.d_model, cfg.norm)
+    if not cfg.tie_embeddings:
+        store.param("unembed", (cfg.d_model, vpad), scale=0.02)
+    return store.params
+
+
+def init_params(
+    cfg: ModelConfig, generator: Optional[torch.Generator] = None, device: DeviceLike = None
+) -> Dict[str, Any]:
+    """Draw the param tree on ``device`` (default ``cuda``; raises without one).
+
+    Truncated normal on [-2σ, 2σ] with σ = 1/√fan_in, σ = 0.02 for the
+    embedding and unembedding; norms start at one. Pass a seeded
+    ``torch.Generator`` on the same device for a reproducible draw.
+    """
+    return _draw(cfg, generator, resolve_device(device))
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Number of parameters in ``cfg``'s tree (shapes only, nothing drawn)."""
+    total = 0
+
+    def visit(tree):
+        nonlocal total
+        if isinstance(tree, Mapping):
+            for v in tree.values():
+                visit(v)
+        else:
+            total += tree.numel()
+
+    visit(_draw(cfg, None, torch.device("meta")))
+    return total
+
+
+def _tensor(x: Any) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":  # numpy has no bfloat16: move the bits
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True, order="C"))
+
+
+def from_numpy_tree(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """A nested dict of arrays (e.g. the JAX package's params through
+    ``np.asarray``) as the port's tree on ``device`` (default ``cuda``).
+    Names, shapes, layouts and dtypes are kept as they are."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, Mapping):
+            return {k: walk(v) for k, v in t.items()}
+        return _tensor(t).to(dev)
+
+    return walk(tree)

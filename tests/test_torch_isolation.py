@@ -1,0 +1,107 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in it, its own config copy,
+and no silent fall back to the CPU."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro_torch.configs as tconfigs
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    mods = list(_port_modules())
+    assert "repro_torch.serve.batcher" in mods and "repro_torch.launch.serve" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=300
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_jax_or_repro_import_in_the_source(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = [(node.module or "").split(".")[0]]
+        else:
+            continue
+        assert not FORBIDDEN.intersection(roots), f"{path}:{node.lineno} imports {roots}"
+
+
+def test_config_mirror_equals_the_reference_for_every_arch():
+    assert tconfigs.list_archs() == jconfigs.list_archs()
+    for name in jconfigs.list_archs():
+        want, got = jconfigs.get_config(name), tconfigs.get_config(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        smoke_want = jconfigs.smoke_variant(want)
+        assert dataclasses.asdict(tconfigs.smoke_variant(got)) == dataclasses.asdict(smoke_want)
+    assert [f.name for f in dataclasses.fields(tconfigs.ModelConfig)] == [
+        f.name for f in dataclasses.fields(jconfigs.ModelConfig)
+    ]
+    assert tconfigs.SHAPES == {
+        k: tconfigs.ShapeConfig(**dataclasses.asdict(v)) for k, v in jconfigs.SHAPES.items()
+    }
+
+
+def _entry_points():
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.params import from_numpy_tree, init_params
+
+    cfg = tconfigs.smoke_variant(tconfigs.get_config("serpytor-demo-100m"))
+    return {
+        "build": lambda: build(cfg),
+        "init_params": lambda: init_params(cfg),
+        "from_numpy_tree": lambda: from_numpy_tree({}),
+        "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["build", "init_params", "from_numpy_tree", "launch.serve"])
+def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
+    """No device given means cuda; with no card that raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points()[name]()
+
+
+def test_launch_serve_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+
+    args = "--smoke --requests 2 --slots 2 --max-len 48 --min-prompt 4 --max-prompt 9"
+    serve.main(args.split() + ["--new-tokens", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "serpytor-demo-100m-smoke on cpu: 2 requests, 6 tokens" in out
