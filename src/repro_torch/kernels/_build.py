@@ -30,6 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> source file under csrc/
 KERNEL_SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 
 NVCC_FLAGS = (

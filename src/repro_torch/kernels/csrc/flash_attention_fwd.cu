@@ -8,16 +8,24 @@
 // padding copy), masked logits at -1e30, the sum in float32, the denominator clamped
 // at 1e-37, and the output in the input dtype (float32 or bfloat16).
 //
-// Design. A block owns (batch b, query head h, a tile of BQ = 64 query rows) and loops
-// over key tiles of BK = 64 staged in shared memory; the TPU's sequential grid axis is
-// that loop. The running max, running sum and the (BQ x Dv) accumulator stay in
-// registers for the whole loop and the output is written once. 128 threads: thread
-// (tr, tc) owns query rows 8*tr .. 8*tr+7 and key / value columns tc + 16*j, so a row's
-// max and sum are reductions over the 16 lanes of one half-warp (shuffles, no shared
-// memory). Q and K tiles are stored with a row stride of D+1 so the 16 lanes of a
-// half-warp read 16 different banks. The probabilities P go through shared memory to
+// Design. A block owns (batch b, query head h, a tile of BQ query rows) and loops over
+// key tiles of BK keys staged in shared memory; the TPU's sequential grid axis is that
+// loop. The running max, running sum and the (BQ x Dv) accumulator stay in registers
+// for the whole loop and the output is written once. 128 threads: thread (tr, tc) owns
+// ROWS query rows ROWS*tr .. ROWS*tr+ROWS-1 and key / value columns tc + 16*j, so a
+// row's max and sum are reductions over the 16 lanes of one half-warp (shuffles, no
+// shared memory). Q and K tiles are stored with a row stride of D+1 so the 16 lanes of
+// a half-warp read 16 different banks. The probabilities P go through shared memory to
 // the P.V product. Key tiles wholly above the causal diagonal or wholly outside the
 // window of every row of the block are skipped: they contribute exactly 0.
+//
+// Two tilings. Head dims up to 128 take BQ = BK = 64 (ROWS = 8): at most 8 x 8
+// accumulators a thread. Head dims up to 256 take BQ = BK = 32 (ROWS = 4): at Dv = 256
+// a thread holds 4 x 16 accumulators, where 8 x 16 would spill, and the float32 tiles
+// take (32+32)*257*4 + 32*256*4 + 32*33*4 = 102,784 bytes of shared memory, so two
+// blocks fit on an SM (64-row tiles would need 213,760 bytes, one block an SM).
+// With MQA (one KV head for 16 query heads) each block stages the same K and V again;
+// the 16 reads of a tile come from L2, not memory (not yet shared across heads).
 //
 // Bound on this card. At the demo's prefill shapes (Hq=12, Hkv=4, D=Dv=64, causal) the
 // work is 2*Hq*Sq*Sk*(D+Dv) FLOPs, halved by causality, against
@@ -25,6 +33,10 @@
 // float32 ridge of an H100 (67 TFLOP/s / 3.35 TB/s = 20 FLOP/byte) for S >= 128, so
 // the kernel is bound by operations. The float32 path uses FMA on CUDA cores, not TF32
 // tensor cores: the reference tolerance is 2e-5 and TF32 keeps about three digits.
+// At recurrentgemma-9b's local attention (Hq=16, Hkv=1, D=Dv=256, window 2048, bf16)
+// each query sees up to 2048 keys, about 4*2048 FLOPs per byte, so operations bound it
+// there too; the bf16 path converts to float32 and also runs FMA on CUDA cores, far
+// from the bf16 tensor-core peak (989 TFLOP/s).
 // Not yet done (later work): wgmma / TMA, and a bf16 tensor-core path.
 //
 // Plain C interface, loaded with ctypes; every pointer and the stream are void*.
@@ -35,12 +47,9 @@
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per shared-memory tile
 constexpr int THREADS = 128;
-constexpr int ROWS = 8;      // query rows per thread (BQ / (THREADS / 16))
-constexpr int KCOLS = 4;     // key columns per thread (BK / 16)
-constexpr int LDP = BK + 1;  // row stride of the P tile
+constexpr int ROW_GROUPS = THREADS / 16;  // half-warps: each owns ROWS query rows
+constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -61,12 +70,16 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// NV: value columns per thread; the block covers Dv <= 16 * NV.
-template <typename T, int NV>
+// NV: value columns per thread, so the block covers Dv <= 16 * NV; ROWS: query rows
+// per thread, so a block has BQ = 8 * ROWS rows; BK: keys per shared-memory tile.
+template <typename T, int NV, int ROWS, int BK>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, int hq, int hkv, int sq, int sk, int d, int dv,
                      int causal, int window, float scale) {
+  constexpr int BQ = ROWS * ROW_GROUPS;
+  constexpr int KCOLS = BK / 16;  // key columns per thread
+  constexpr int LDP = BK + 1;     // row stride of the P tile
   constexpr int LDV = 16 * NV;
   extern __shared__ float smem[];
   const int ldqk = d + 1;
@@ -130,7 +143,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    // S = Q K^T for this thread's 8 rows x 4 columns.
+    // S = Q K^T for this thread's ROWS rows x KCOLS columns.
     float s[ROWS][KCOLS];
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
@@ -181,7 +194,7 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    // acc += P V for this thread's 8 rows x NV value columns.
+    // acc += P V for this thread's ROWS rows x NV value columns.
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
       float vv[NV];
@@ -209,16 +222,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int NV>
+template <typename T, int NV, int ROWS, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int sq,
            int sk, int d, int dv, int causal, int window, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(BQ + BK) * (d + 1) + (size_t)BK * 16 * NV + (size_t)BQ * LDP);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int BQ = ROWS * ROW_GROUPS;
+  const size_t smem = sizeof(float) * ((size_t)(BQ + BK) * (d + 1) + (size_t)BK * 16 * NV +
+                                        (size_t)BQ * (BK + 1));
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NV, ROWS, BK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  flash_fwd_kernel<T, NV><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, NV, ROWS, BK><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), hq, hkv, sq, sk, d, dv, causal, window, scale);
   return (int)cudaGetLastError();
@@ -228,9 +242,17 @@ template <typename T>
 int launch_dv(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
               int sq, int sk, int d, int dv, int causal, int window, float scale,
               cudaStream_t stream) {
-  if (dv <= 32) return launch<T, 2>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, stream);
-  if (dv <= 64) return launch<T, 4>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, stream);
-  return launch<T, 8>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, stream);
+#define REPRO_LAUNCH(NV, ROWS, BK) \
+  launch<T, NV, ROWS, BK>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, stream)
+  if (d <= 128 && dv <= 128) {  // 64-row tiles
+    if (dv <= 32) return REPRO_LAUNCH(2, 8, 64);
+    if (dv <= 64) return REPRO_LAUNCH(4, 8, 64);
+    return REPRO_LAUNCH(8, 8, 64);
+  }
+  // 32-row tiles for head dims up to 256
+  if (dv <= 128) return REPRO_LAUNCH(8, 4, 32);
+  return REPRO_LAUNCH(16, 4, 32);
+#undef REPRO_LAUNCH
 }
 
 }  // namespace
@@ -239,12 +261,12 @@ extern "C" {
 
 // q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), o (B,Hq,Sq,Dv), all contiguous and of
 // one dtype (is_bf16: 0 float32, 1 bfloat16). window <= 0 means no window. The caller
-// has checked 1 <= D, Dv <= 128, Hq % Hkv == 0 and the grid limits. Returns the
+// has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the grid limits. Returns the
 // cudaError_t of the launch (0 on success). Does not synchronise.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int b, int hq,
                               int hkv, int sq, int sk, int d, int dv, int causal, int window,
                               float scale, int is_bf16, void* stream) {
-  if (d < 1 || d > 128 || dv < 1 || dv > 128 || hkv < 1 || hq % hkv != 0)
+  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

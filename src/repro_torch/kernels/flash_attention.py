@@ -24,7 +24,7 @@ from . import ref as _ref
 
 __all__ = ["flash_attention_fwd", "MAX_HEAD_DIM"]
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 

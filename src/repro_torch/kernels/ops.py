@@ -3,21 +3,25 @@
 Counterpart of ``repro.kernels.ops``. Models import only from this module.
 
   impl="auto" or "pallas" : the Hopper kernel on a CUDA tensor, its plain
-                            version (``ref.flash_attention_ref``) on a CPU
-                            tensor; "pallas" is accepted so that the
-                            reference's ``cfg.attn_impl`` values carry over
-  impl="ref"              : the blocked plain version on any device
-  impl="dense"            : the O(S²) dense oracle (small test shapes only)
+                            version (``ref.flash_attention_ref``,
+                            ``ref.rglru_ref``) on a CPU tensor; "pallas" is
+                            accepted so that the reference's
+                            ``cfg.attn_impl`` values carry over
+  impl="ref"              : the blocked attention / associative-scan RG-LRU
+                            plain version on any device
+  impl="dense"            : the O(S²) dense attention oracle (small test
+                            shapes only) / the sequential RG-LRU
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import ref as _ref
 from .flash_attention import flash_attention_fwd
+from .rglru import rglru_scan
 
 __all__ = ["flash_attention", "wkv6", "rglru"]
 
@@ -47,6 +51,18 @@ def wkv6(*args, **kwargs):
     raise NotImplementedError("wkv6 is not ported yet: ROADMAP Queue 2 item 3 (_wkv6_kernel)")
 
 
-def rglru(*args, **kwargs):
-    """RG-LRU scan: not ported yet (ROADMAP Queue 2, item 4, ``_rglru_kernel``)."""
-    raise NotImplementedError("rglru is not ported yet: ROADMAP Queue 2 item 4 (_rglru_kernel)")
+def rglru(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RG-LRU h_t = a_t h_{t-1} + sqrt(1 - a_t²) x_t. x, a (B,T,W) -> (h, final state (B,W))."""
+    if impl in ("auto", "pallas"):
+        return rglru_scan(x, a, initial_state=initial_state)
+    if impl == "ref":
+        return _ref.rglru_scan_ref(x, a, initial_state=initial_state)
+    if impl == "dense":
+        return _ref.rglru_ref(x, a, initial_state=initial_state)
+    raise ValueError(f"unknown rglru impl {impl!r}")

@@ -2,19 +2,26 @@
 
 They are the CPU path of the model (``ops`` dispatches here for a tensor
 on the CPU) and the yardstick the Hopper kernels are held against on the
-card. The math is that of ``repro.kernels.ref``: float32 logits, masked
-logits set to -1e30, query positions right-aligned to the keys
-(``qpos = i + Sk - Sq``), GQA through the KV head ``h // g``, and a value
-head dim that may differ from the key head dim (MLA).
+card. The math is that of ``repro.kernels.ref``.
+
+Attention: float32 logits, masked logits set to -1e30, query positions
+right-aligned to the keys (``qpos = i + Sk - Sq``), GQA through the KV head
+``h // g``, and a value head dim that may differ from the key head dim (MLA).
+
+RG-LRU: ``h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * x_t`` with the
+state in float32, h returned in the dtype of x and the final state in
+float32. ``rglru_ref`` steps through time; ``rglru_scan_ref`` is the
+associative-scan form (torch has no ``associative_scan``: it doubles the
+span ``log2(T)`` times, Hillis-Steele, with the reference's combine).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention_ref", "flash_attention_dense_ref"]
+__all__ = ["flash_attention_ref", "flash_attention_dense_ref", "rglru_ref", "rglru_scan_ref"]
 
 _NEG_INF = -1e30
 
@@ -103,3 +110,51 @@ def flash_attention_ref(
         m = m_new
     out = acc / torch.clamp(l_sum[..., None], min=1e-37)
     return out.to(q.dtype)
+
+
+def _rglru_h0(x: torch.Tensor, initial_state: Optional[torch.Tensor]) -> torch.Tensor:
+    if initial_state is None:
+        return torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
+    return initial_state.float()
+
+
+def rglru_ref(
+    x: torch.Tensor, a: torch.Tensor, *, initial_state: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RG-LRU: the Hopper kernel's plain version.
+
+    x: (B, T, W) gated input; a: (B, T, W) decay in (0, 1); initial_state
+    (B, W) or None (zeros). Returns (h (B, T, W) in x's dtype, final state
+    (B, W) float32). The arithmetic order is the kernel's: ``a*a``,
+    ``1 - .``, max, sqrt, ``* x``, then ``a*h + .``, each rounded once.
+    """
+    xf, af = x.float(), a.float()
+    gated = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * xf
+    h = _rglru_h0(x, initial_state)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + gated[:, t]
+        out[:, t] = h.to(x.dtype)
+    return out, h
+
+
+def rglru_scan_ref(
+    x: torch.Tensor, a: torch.Tensor, *, initial_state: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Associative-scan RG-LRU: the same result as :func:`rglru_ref`.
+
+    Pairs (A, B) combine as (a1, b1) . (a2, b2) = (a1*a2, b1*a2 + b2), the
+    reference's combine; after the scan h_t = B_t + A_t * h0.
+    """
+    af = a.float()
+    bf = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.float()
+    t_len, span = x.shape[1], 1
+    while span < t_len:
+        b_new = bf.clone()
+        b_new[:, span:] = bf[:, :-span] * af[:, span:] + bf[:, span:]
+        a_new = af.clone()
+        a_new[:, span:] = af[:, :-span] * af[:, span:]
+        af, bf, span = a_new, b_new, 2 * span
+    if initial_state is not None:
+        bf = bf + af * initial_state.float()[:, None, :]
+    return bf.to(x.dtype), bf[:, -1].clone()

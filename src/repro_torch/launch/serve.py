@@ -2,6 +2,8 @@
 
     python -m repro_torch.launch.serve --arch serpytor-demo-100m --requests 8 \\
         --slots 4 --max-len 1536 [--device cpu]
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --requests 8 \\
+        --slots 4 --max-len 3072 --max-prompt 3000
 
 Builds the architecture at its full registered size (``--smoke`` for the
 reduced variant), draws params from ``--seed``, submits ``--requests``
@@ -26,7 +28,7 @@ from repro_torch.models import build
 from repro_torch.params import init_params
 from repro_torch.serve import ContinuousBatcher, Generation, Request
 
-__all__ = ["make_prompts", "serve", "main"]
+__all__ = ["make_prompts", "serve", "drain", "main"]
 
 
 def make_prompts(n: int, vocab: int, min_len: int, max_len: int, seed: int) -> List[np.ndarray]:
@@ -41,10 +43,18 @@ def serve(
 ) -> Dict[str, object]:
     """Drain ``prompts`` through a fresh batcher; returns generations and timings."""
     eng = ContinuousBatcher(model, params, slots=slots, max_len=max_len)
+    return drain(eng, prompts, new_tokens=new_tokens)
+
+
+def drain(
+    eng: ContinuousBatcher, prompts: List[np.ndarray], *, new_tokens: int
+) -> Dict[str, object]:
+    """Submit ``prompts`` as requests r0, r1, ... to ``eng`` and run it until
+    drained; returns generations and timings."""
     for i, p in enumerate(prompts):
         eng.submit(Request(rid=f"r{i}", prompt=p, max_new_tokens=new_tokens))
-    if model.device.type == "cuda":
-        torch.cuda.synchronize(model.device)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
     t0 = time.monotonic()
     done: Dict[str, Generation] = eng.run_until_drained()
     wall = time.monotonic() - t0
@@ -76,6 +86,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda (raises without a card)")
     args = ap.parse_args(argv)
+    if args.max_prompt >= args.max_len:
+        ap.error(f"--max-prompt {args.max_prompt} must be below --max-len {args.max_len}")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)

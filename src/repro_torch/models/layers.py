@@ -159,7 +159,10 @@ def rope(
         return x
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     half = rot // 2
-    freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    # float64, rounded once: float32 pow is off by an ulp in a few frequencies, and
+    # differently on the CPU and the card, which position (up to the window and
+    # beyond) multiplies into a visible difference of angle
+    freqs = (theta ** (-torch.arange(half, dtype=torch.float64, device=x.device) / half)).float()
     ang = positions[..., None].float() * freqs  # (..., S, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     # broadcast cos/sin over any head dims between batch and S

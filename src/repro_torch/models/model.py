@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 from .layers import DTYPES, apply_norm, softcap
-from .transformer import derive_segments, init_stack_cache, layer_pattern, run_stack
+from .transformer import _window, derive_segments, init_stack_cache, layer_pattern, run_stack
 
 __all__ = ["Model", "build", "padded_vocab"]
 
@@ -74,7 +74,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         h, cache = run_stack(h, params, cfg, segments, positions=positions, mode="prefill")
         logits = unembed(params, h[:, -1:, :])[:, 0, : cfg.vocab_size]
         if pad_to:
-            cache = _pad_cache(cache, pad_to)
+            cache = _pad_cache(cache, pad_to, cfg, segments)
         return logits, cache
 
     def init_cache(batch_size: int, seq_len: int) -> Dict:
@@ -100,35 +100,46 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     )
 
 
-_PAD_AXIS = {"k": -3, "v": -3}
+def _pad_cache(cache, pad_to: int, cfg, segments):
+    """Grow a prefill cache to the decode cache's size (decode appends after S).
 
+    A global layer's k/v grow to ``pad_to`` slots. A windowed layer's grow
+    to ``min(window, pad_to)`` and never past the window, which is the size
+    of the batcher's cache for that layer (``init_layer_cache``); a ring
+    (a prompt longer than the window) is already that size and stays as it
+    is. So slot i of a window-sized cache always holds the position p with
+    p % window == i, and decode masks it as a ring. The reference pads a
+    windowed cache shorter than the window to ``pad_to``: the batcher then
+    cannot splice it, and decode through it is no longer local.
+    """
 
-def _pad_cache(cache, pad_to: int):
-    """Grow a prefill cache to ``pad_to`` slots (decode appends after S)."""
-
-    def walk(tree, key):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        if key not in _PAD_AXIS:
-            return tree
-        ax = _PAD_AXIS[key] % tree.dim()
-        cur = tree.shape[ax]
-        if cur >= pad_to:
-            return tree
-        shape = list(tree.shape)
-        shape[ax] = pad_to
-        out = tree.new_zeros(shape)
-        out.narrow(ax, 0, cur).copy_(tree)
+    def grow(x, target):  # x: (L, B, S, KV, hd), grown along S
+        if x.shape[-3] >= target:
+            return x
+        out = x.new_zeros(x.shape[:-3] + (target,) + x.shape[-2:])
+        out.narrow(-3, 0, x.shape[-3]).copy_(x)
         return out
 
-    return walk(cache, "")
+    out = {}
+    for si, (unit, _) in enumerate(segments):
+        seg = cache[f"seg{si}"]
+        out[f"seg{si}"] = {}
+        for uj, kind in enumerate(unit):
+            window = _window(cfg, kind)
+            target = min(window, pad_to) if window else pad_to
+            out[f"seg{si}"][f"u{uj}"] = {
+                k: (grow(v, target) if k in ("k", "v") else v) for k, v in seg[f"u{uj}"].items()
+            }
+    return out
 
 
 def _cache_pos(cache, batch: int) -> torch.Tensor:
     """Per-sequence decode positions (B,): the max over every 'pos' leaf.
 
     Leaves are (L, B), stacked per segment; layers advance together, so
-    the max across layers is exact."""
+    the max across layers is exact. A cache with no 'pos' leaf (RG-LRU
+    state only) gives zeros, as in the reference: those layers take no
+    positions."""
     poses = []
 
     def visit(tree, key):
@@ -142,7 +153,15 @@ def _cache_pos(cache, batch: int) -> torch.Tensor:
             poses.append(v.expand(batch))
 
     visit(cache, "")
+    if not poses:
+        return torch.zeros((batch,), dtype=torch.int32, device=_any_leaf(cache).device)
     out = poses[0]
     for p in poses[1:]:
         out = torch.maximum(out, p)
     return out
+
+
+def _any_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree

@@ -7,10 +7,15 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 ``lax.scan`` (the 8-layer demo), the port indexes the stacked params per
 repeat in a Python loop: both layouts run the same way.
 
-This slice runs the ``dense`` kind (GQA self-attention + GLU MLP) in the
-modes ``prefill`` (build the cache) and ``decode`` (one token against the
-cache, updated in place). Every other kind raises ``NotImplementedError``
-naming its ROADMAP item.
+This port runs three kinds, in the modes ``prefill`` (build the cache) and
+``decode`` (one token against the cache, updated in place):
+
+  dense : GQA self-attention + GLU MLP
+  rec   : Griffin recurrent block (conv1d + RG-LRU) + GLU MLP
+  attn  : dense inside a hybrid pattern; its attention is local (``cfg.window``)
+          and its cache a ring of ``min(window, seq_len)`` slots
+
+Every other kind raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from .attention import _project_qkv, gqa_attention, init_gqa, init_gqa_cache
 from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
+from .rglru import init_recurrent_block, init_rglru_state, recurrent_block
 
 __all__ = [
     "layer_pattern",
@@ -35,8 +41,6 @@ __all__ = [
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1, MoE (models/moe.py)",
-    "rec": "ROADMAP Queue 1, hybrid family (models/rglru.py)",
-    "attn": "ROADMAP Queue 1, hybrid family (local-window attention)",
     "rwkv": "ROADMAP Queue 1, RWKV6 family (models/rwkv.py)",
     "enc": "ROADMAP Queue 1, encoder-decoder and VLM",
     "xattn": "ROADMAP Queue 1, encoder-decoder and VLM",
@@ -46,9 +50,9 @@ _NOT_PORTED = {
 def _require_ported(cfg, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if kind != "dense":
+    if kind not in ("dense", "rec", "attn"):
         raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.mla:
+    if cfg.mla and kind != "rec":
         raise NotImplementedError("MLA attention is not ported yet: ROADMAP Queue 1, MLA + MTP")
 
 
@@ -98,27 +102,47 @@ def derive_segments(pattern: Sequence[str], max_unit: int = 4) -> List[Tuple[Tup
 # --------------------------------------------------------------------------
 
 
+def _window(cfg, kind: str) -> Optional[int]:
+    """The local-attention window of a layer of ``kind``, or None (global)."""
+    return cfg.window if (cfg.window and kind == "attn") else None
+
+
 def init_layer(store: ParamStore, cfg, kind: str) -> None:
     _require_ported(cfg, kind)
     norm_param(store, "ln1", cfg.d_model, cfg.norm)
-    init_gqa(store, "attn", cfg)
+    if kind == "rec":
+        init_recurrent_block(store, "rec", cfg)
+    else:
+        init_gqa(store, "attn", cfg)
     norm_param(store, "ln2", cfg.d_model, cfg.norm)
     init_glu_mlp(store, "mlp", cfg.d_model, cfg.d_ff, cfg.glu)
 
 
 def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) -> Dict[str, Any]:
     _require_ported(cfg, kind)
-    return init_gqa_cache(cfg, batch, seq_len, dtype, device)
+    if kind == "rec":
+        return init_rglru_state(cfg, batch, dtype, device)
+    window = _window(cfg, kind)
+    size = min(window, seq_len) if window else seq_len
+    return init_gqa_cache(cfg, batch, size, dtype, device)
 
 
-def _prefill_cache_from_full(h_in, lp, cfg, positions, seq_len):
-    """Recompute k/v once more to build the cache, as the reference does."""
+def _prefill_cache_from_full(h_in, lp, cfg, kind, positions, seq_len):
+    """Recompute k/v once more to build the cache, as the reference does.
+
+    A windowed layer longer than its window keeps the last ``window`` keys
+    in ring order: slot i holds the key of position p with p % window == i.
+    """
     b = h_in.shape[0]
     pos_vec = torch.full((b,), seq_len, dtype=torch.int32, device=h_in.device)
     _, k, v = _project_qkv(h_in, lp["attn"], cfg, positions)
-    k = k.transpose(1, 2).contiguous()  # (B, S, KV, hd)
-    v = v.transpose(1, 2).contiguous()
-    return {"k": k, "v": v, "pos": pos_vec}
+    k = k.transpose(1, 2)  # (B, S, KV, hd)
+    v = v.transpose(1, 2)
+    window = _window(cfg, kind)
+    if window and seq_len > window:
+        k = torch.roll(k[:, -window:], seq_len % window, dims=1)
+        v = torch.roll(v[:, -window:], seq_len % window, dims=1)
+    return {"k": k.contiguous(), "v": v.contiguous(), "pos": pos_vec}
 
 
 def apply_layer(
@@ -135,18 +159,31 @@ def apply_layer(
     itself (updated in place) in decode."""
     _require_ported(cfg, kind)
     if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: this slice runs prefill and decode")
+        raise ValueError(f"mode {mode!r}: this port runs prefill and decode")
     x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
-    attn_out, new_cache = gqa_attention(
-        x1,
-        lp["attn"],
-        cfg,
-        positions=positions,
-        cache=cache if mode == "decode" else None,
-    )
-    h = h + attn_out
-    if mode == "prefill":
-        new_cache = _prefill_cache_from_full(x1, lp, cfg, positions, h.shape[1])
+    if kind == "rec":
+        if mode == "prefill":
+            cache = init_rglru_state(cfg, h.shape[0], h.dtype, h.device)
+        rec_out, state = recurrent_block(x1, lp["rec"], cfg, state=cache)
+        h = h + rec_out
+        if mode == "prefill":
+            new_cache = state
+        else:  # decode: write the new state into the cache in place
+            cache["h"].copy_(state["h"])
+            cache["conv"].copy_(state["conv"])
+            new_cache = cache
+    else:
+        attn_out, new_cache = gqa_attention(
+            x1,
+            lp["attn"],
+            cfg,
+            positions=positions,
+            cache=cache if mode == "decode" else None,
+            window=_window(cfg, kind),
+        )
+        h = h + attn_out
+        if mode == "prefill":
+            new_cache = _prefill_cache_from_full(x1, lp, cfg, kind, positions, h.shape[1])
     x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
     h = h + glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
     return h, new_cache

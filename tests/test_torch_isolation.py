@@ -29,6 +29,8 @@ def _port_modules():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = list(_port_modules())
     assert "repro_torch.serve.batcher" in mods and "repro_torch.launch.serve" in mods
+    for new in ("repro_torch.kernels.rglru", "repro_torch.models.rglru"):
+        assert new in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
