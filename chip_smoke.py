@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and the MLA 48/32 case), on edge cases, on the demo model's prefill
    shapes and at recurrentgemma-9b's head dim 256 (MQA, window 2048, float32
    and bfloat16); the RG-LRU scan at recurrentgemma-9b's prefill and decode
-   shapes. Each timed case prints the kernel's time, its plain version's,
-   one PyTorch library call's where one computes the same function, and
-   the least time the card could take;
+   shapes; WKV6 on the cases of ``tests/test_kernels.py`` (WKV_CASES), a
+   ragged T and rwkv6-7b's prefill and decode shapes. Each timed case prints
+   the kernel's time, its plain version's, one PyTorch library call's where
+   one computes the same function, and the least time the card could take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
    through ``ContinuousBatcher(slots=4, max_len=1536)``; tokens equal
    sequential greedy decoding, the flash kernel ran in every prefill
@@ -34,7 +35,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    greedy decoding; decode across the window equals a fresh prefill within
    1e-4; one rec and one attn layer on the card equal the port's CPU path
    on a (1, 2100, 4096) input within 1e-4;
-7. the JSON line of kernels, the card's name and power limit, and last the
+7. rwkv: ``rwkv6-7b`` at full width and depth (32 layers, 7.66B params,
+   bfloat16) serves 8 requests (prompts up to 3000 tokens, one shorter than
+   a WKV chunk) through ``ContinuousBatcher(slots=4, max_len=3072)``; the
+   WKV6 kernel ran in the 32 layers of every prefill and decode step and no
+   other kernel ran; each request's logits equal a teacher-forced run at the
+   batcher's width bit for bit and agree with it at batch 1 within
+   LOGIT_TOL_RWKV; a profiled window of decode steps gives the device's
+   busy share;
+8. rwkv exactness: a float32 copy of rwkv6-7b at full width and depth 2
+   serves the same requests: tokens equal sequential greedy decoding; 32
+   decode steps after a prompt equal a fresh prefill within 1e-4; one layer
+   on the card equals the port's CPU path on a (1, 333, 4096) input within
+   1e-4;
+9. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
 Every model is freed before the next is built. It imports the port
@@ -63,6 +77,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rglru as rg  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch.serve import drain, make_prompts, serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.transformer import apply_layer  # noqa: E402
@@ -116,6 +131,21 @@ RGLRU_CASES = [
     (1, 3000, 4096, "float32", True),
 ]
 RGLRU_JSON = (1, 3000, 4096, "bfloat16", True)  # prefill passes the zero state as h0
+# (B, H, T, K, V, dtype, with h0): WKV_CASES of tests/test_kernels.py, a ragged T,
+# rwkv6-7b's prefill (T up to 3000, 64 heads of 64; prefill passes the zero
+# state as h0) and decode (B = slots, T = 1) shapes
+WKV_CASES = [
+    (1, 1, 32, 16, 16, "float32", False),
+    (2, 3, 64, 32, 32, "float32", True),
+    (1, 2, 128, 64, 64, "float32", True),
+    (2, 1, 48, 16, 32, "float32", False),  # K != V
+    (1, 2, 21, 16, 16, "float32", True),  # ragged T: a last chunk of 5 rows
+    (1, 64, 3000, 64, 64, "bfloat16", True),
+    (1, 64, 3000, 64, 64, "bfloat16", False),
+    (4, 64, 1, 64, 64, "bfloat16", True),
+]
+WKV_JSON = (1, 64, 3000, 64, 64, "bfloat16", True)
+WKV_TIMED = (WKV_JSON, WKV_CASES[-2], WKV_CASES[-1])
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, tests/test_kernels.py:47
 DEMO_SEQ = (128, 777, 2048)
 JSON_SEQ = 777  # the demo prefill length whose times go into the kernels line
@@ -137,6 +167,29 @@ LOGIT_TOL_BF16 = 0.25
 SAME_SHAPE_TOL = 0.0
 EXACT_TOL = 1e-4  # float32 both sides, XLA-free: summation order only
 LAYER_CHECK_SHAPE = (1, 2100, 4096)
+RWKV_MAX_LEN = 3072
+# Batched and teacher-forced runs of bfloat16 rwkv6-7b at batch 4 and batch 1
+# differ only where cuBLAS sums a product in another order at the two batch
+# sizes: the WKV6 kernel (one block per batch row and head), the norms and the
+# elementwise ops are row-wise and give the same bits at any batch. A GEMM
+# output rounded to bfloat16 then differs by at most one unit in the last
+# place, 2^-8 of its size. Summed over 32 layers (each adds a time-mix and a
+# channel-mix output to the residual stream) that is at most 32 * 2^-8 = 0.125
+# of the stream's size, which the final LayerNorm hands to the logits: each
+# logit may move by 0.125 of its own size. Logits at this initialisation have
+# a standard deviation of 0.02 * 0.88 (a normal truncated at 2 sigma) * sqrt(4096)
+# = 1.13, and the largest of 65,536 is ~4.7 of those, 5.3: a bound of
+# 0.125 * 5.3 = 0.66 on any logit. A fault (a state in the wrong slot, a lost
+# token shift) moves logits by their own size. The norms are row-wise because they
+# go through F.layer_norm, one block a row: with PyTorch's generic mean/var
+# reductions in its place, a request's logits at batch 1 and at batch 4 drifted
+# 1.3 apart within 32 decode steps.
+LOGIT_TOL_RWKV = 0.66
+RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
+
+
+# the device-side names of the port's kernels (csrc/*.cu), as the profiler reports them
+PORT_KERNEL_SYMBOLS = ("flash_fwd_kernel", "rglru_scan_kernel", "wkv6_kernel")
 
 
 def log(msg: str) -> None:
@@ -177,6 +230,28 @@ def rglru_bound_ms(b, t, w, itemsize, with_h0):
     Its ~6 flops an element are far below the ridge of any type."""
     nbytes = b * t * w * (itemsize + 4 + itemsize) + b * w * 4 * (2 if with_h0 else 1)
     return 1e3 * nbytes / PEAK_HBM_BYTES, "bytes"
+
+
+def wkv6_bound_ms(b, h, t, kd, vd, itemsize, with_h0):
+    """Least time for one WKV6 pass: max(FLOPs / peak of the input type, bytes / bandwidth).
+
+    Bytes: r, k, v read and the output written in the input type, w read in
+    float32, h0 read and the final state written in float32. FLOPs: the
+    chunked form (chunk 16) that the kernel and its plain version compute; a
+    chunk of c rows does 4cKV (cross term, state update) + 2KV (state decay)
+    + 2c^2(K + V) (attention tile, its product with v) + 13cK + 3cV
+    (log, cumsum, exps and factors, the bonus, the sums)."""
+
+    def per_chunk(c):
+        return 4 * c * kd * vd + 2 * kd * vd + 2 * c * c * (kd + vd) + 13 * c * kd + 3 * c * vd
+
+    full, rem = divmod(t, wk.CHUNK)
+    flops = b * h * (full * per_chunk(wk.CHUNK) + (per_chunk(rem) if rem else 0))
+    nbytes = b * h * t * ((2 * kd + 2 * vd) * itemsize + 4 * kd)
+    nbytes += b * h * kd * vd * 4 * (2 if with_h0 else 1)
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_device() -> str:
@@ -334,10 +409,67 @@ def _rglru_rows(gen):
     return rows
 
 
+def _wkv6_inputs(gen, b, h, t, kd, vd, dtype, with_h0):
+    """r, k, v, w in the model's layout, (B, T, H, .) seen as (B, H, T, .); decays
+    as the model makes them, exp(clamp(-exp(clip(x, -20, 1.3863)), -4, -1e-4))."""
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV)
+
+    r, k = (rnd(b, t, h, kd).to(dtype).transpose(1, 2) for _ in range(2))
+    v = rnd(b, t, h, vd).to(dtype).transpose(1, 2)
+    logw = -torch.exp(torch.clamp(rnd(b, t, h, kd), -20.0, 1.3863))
+    w = torch.exp(torch.clamp(logw, -4.0, -1e-4)).transpose(1, 2)
+    u = (0.5 * rnd(h, kd)).to(dtype)
+    h0 = rnd(b, h, kd, vd) if with_h0 else None
+    return r, k, v, w, u, h0
+
+
+def _wkv6_rows(gen):
+    """WKV6 kernel vs its plain version on every case; times at rwkv6-7b's shapes.
+    The final state is float32 on both sides and is held to the float32 tolerance."""
+    rows = {}
+    for case in WKV_CASES:
+        b, h, t, kd, vd, dt, with_h0 = case
+        r, k, v, w, u, h0 = _wkv6_inputs(gen, b, h, t, kd, vd, getattr(torch, dt), with_h0)
+        got, got_state = wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+        want, want_state = ref.wkv6_chunked_ref(r, k, v, w, u, initial_state=h0)
+        torch.cuda.synchronize()
+        label = f"wkv6_chunked r{tuple(r.shape)} v{tuple(v.shape)} {dt} h0={with_h0}"
+        err = _check(label, got, want, TOL[dt])
+        state_err = _check(label + " state", got_state, want_state, TOL["float32"])
+        msg = f"[kernels] {label}: max |err| {err:.3e} (tol {TOL[dt]}), state {state_err:.3e}"
+        if case not in WKV_TIMED:
+            log(msg)
+            continue
+        bound, bound_by = wkv6_bound_ms(b, h, t, kd, vd, r.element_size(), with_h0)
+
+        def kernel(r=r, k=k, v=v, w=w, u=u, h0=h0):
+            return wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+
+        def plain(r=r, k=k, v=v, w=w, u=u, h0=h0):
+            return ref.wkv6_chunked_ref(r, k, v, w, u, initial_state=h0)
+
+        row = {
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, iters=3, warmup=1),
+            "library_ms": None,  # no PyTorch call computes this recurrence
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": max(err, state_err),
+        }
+        rows[case] = row
+        log(
+            f"{msg}; kernel_ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, library_ms none, "
+            f"bound_ms {bound:.5f} ({bound_by}), kernel/bound {row['ms'] / bound:.1f}"
+        )
+    return rows
+
+
 def phase_kernels():
     gen = _gen(7)
     flash_rows, demo_err = _flash_rows(gen)
-    return flash_rows, demo_err, _rglru_rows(gen)
+    return flash_rows, demo_err, _rglru_rows(gen), _wkv6_rows(gen)
 
 
 def _sequential(model, params, prompt, n, max_len):
@@ -351,6 +483,13 @@ def _sequential(model, params, prompt, n, max_len):
         logits, cache = model.decode_step(params, cache, {"token": tok})
         tok = torch.argmax(logits, dim=-1)
     return out, logits
+
+
+def _reset_launches() -> None:
+    """Set every kernel's launch count to 0 just before a serving run."""
+    fa.flash_attention_fwd.launches = 0
+    rg.rglru_scan.launches = 0
+    wk.wkv6_chunked.launches = 0
 
 
 def _release() -> None:
@@ -376,8 +515,7 @@ def phase_demo() -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
-    rg.rglru_scan.launches = 0
+    _reset_launches()
     res = serve(model, params, prompts, new_tokens=NEW_TOKENS, slots=SLOTS, max_len=MAX_LEN)
     launches = fa.flash_attention_fwd.launches
     peak = torch.cuda.max_memory_allocated()
@@ -389,10 +527,10 @@ def phase_demo() -> int:
         if done[rid].tokens != toks:
             raise AssertionError(f"[demo] {rid}: batched {done[rid].tokens} != sequential {toks}")
     expected = cfg.num_layers * len(prompts)
-    if launches != expected or rg.rglru_scan.launches != 0:
+    if launches != expected or rg.rglru_scan.launches or wk.wkv6_chunked.launches:
         raise AssertionError(
-            f"[demo] flash launches {launches}, expected {expected}; "
-            f"rglru launches {rg.rglru_scan.launches}, expected 0"
+            f"[demo] flash launches {launches}, expected {expected}; rglru launches "
+            f"{rg.rglru_scan.launches}, wkv6 launches {wk.wkv6_chunked.launches}, expected 0"
         )
     log(f"[demo] tokens of all {len(done)} requests equal sequential greedy decoding")
     check_against_cpu(cfg, model, params, min(prompts, key=len))
@@ -455,14 +593,32 @@ def _recording(model, engine_box):
     return dataclasses.replace(model, prefill=prefill, decode_step=decode_step), seen
 
 
-def _teacher_forced(model, params, prompt, toks, rows):
+def _serve_recorded(model, params, prompts, max_len):
+    """Warm up, then drain ``prompts`` through a 4-slot batcher with every kernel's
+    launch count set to 0 just before; returns (serving numbers, the logits each
+    request saw, peak device memory). The caller reads the counts right after."""
+    model.prefill(params, {"tokens": torch.zeros((1, 64), dtype=torch.long, device=DEV)})
+    zeros = torch.zeros(SLOTS, dtype=torch.long, device=DEV)
+    model.decode_step(params, model.init_cache(SLOTS, max_len), {"token": zeros})
+    engine_box = []
+    rec_model, seen = _recording(model, engine_box)
+    eng = ContinuousBatcher(rec_model, params, slots=SLOTS, max_len=max_len)
+    engine_box.append(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    res = drain(eng, prompts, new_tokens=NEW_TOKENS)
+    return res, seen, torch.cuda.max_memory_allocated()
+
+
+def _teacher_forced(model, params, prompt, toks, rows, max_len=HYBRID_MAX_LEN):
     """Logits of one request decoded alone and fed ``toks``: at batch 1, or with its
     cache spliced into all ``rows`` rows of a batch (row 0's logits, the batcher's
     matmul shapes)."""
     ids = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
-    logits, cache = model.prefill(params, {"tokens": ids}, pad_to=HYBRID_MAX_LEN)
+    logits, cache = model.prefill(params, {"tokens": ids}, pad_to=max_len)
     if rows > 1:
-        fresh, cache = cache, model.init_cache(rows, HYBRID_MAX_LEN)
+        fresh, cache = cache, model.init_cache(rows, max_len)
         for r in range(rows):
             _splice_cache(cache, fresh, r)
     out = [logits[0].float().cpu()]
@@ -493,30 +649,16 @@ def phase_hybrid() -> dict:
     )
     prompts = hybrid_prompts(cfg.vocab_size)
     log(f"[hybrid] prompt lengths {[len(p) for p in prompts]}, {NEW_TOKENS} new tokens each")
-
-    # warm up: a short prefill and a 4-slot decode step (counted launches are reset below)
-    model.prefill(params, {"tokens": torch.zeros((1, 64), dtype=torch.long, device=DEV)})
-    zeros = torch.zeros(SLOTS, dtype=torch.long, device=DEV)
-    model.decode_step(params, model.init_cache(SLOTS, HYBRID_MAX_LEN), {"token": zeros})
-
-    engine_box = []
-    rec_model, seen = _recording(model, engine_box)
-    eng = ContinuousBatcher(rec_model, params, slots=SLOTS, max_len=HYBRID_MAX_LEN)
-    engine_box.append(eng)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
-    rg.rglru_scan.launches = 0
-    res = drain(eng, prompts, new_tokens=NEW_TOKENS)
+    res, seen, peak = _serve_recorded(model, params, prompts, HYBRID_MAX_LEN)
     flash_launches, rglru_launches = fa.flash_attention_fwd.launches, rg.rglru_scan.launches
-    peak = torch.cuda.max_memory_allocated()
+    wkv6_launches = wk.wkv6_chunked.launches
 
     want_flash = n_attn * len(prompts)
     want_rglru = n_rec * (len(prompts) + res["steps"])
-    if (flash_launches, rglru_launches) != (want_flash, want_rglru):
+    if (flash_launches, rglru_launches, wkv6_launches) != (want_flash, want_rglru, 0):
         raise AssertionError(
             f"[hybrid] launches flash {flash_launches} (expected {want_flash}), rglru "
-            f"{rglru_launches} (expected {want_rglru})"
+            f"{rglru_launches} (expected {want_rglru}), wkv6 {wkv6_launches} (expected 0)"
         )
     log(
         f"[hybrid] flash_attention_fwd launches {flash_launches} = {n_attn} attn layers x "
@@ -524,53 +666,63 @@ def phase_hybrid() -> dict:
         f"({len(prompts)} prefills + {res['steps']} decode steps)"
     )
 
-    # each request against a teacher-forced sequential run fed its batched tokens
+    _check_teacher_forced("[hybrid]", model, params, prompts, res, seen, LOGIT_TOL_BF16)
+    _log_serving("[hybrid]", res, peak)
+    _decode_profile(model, params, "[hybrid]", HYBRID_MAX_LEN)
+    return {"flash": flash_launches, "rglru": rglru_launches}
+
+
+def _check_teacher_forced(tag, model, params, prompts, res, seen, tol, max_len=HYBRID_MAX_LEN):
+    """Each request's batched logits (prefill and every decode step) against a
+    teacher-forced run of it alone, fed its batched tokens: at batch 1 within
+    ``tol``, at the batcher's width bit for bit (SAME_SHAPE_TOL)."""
     done = res["generations"]
     worst, worst_wide, total, flips = 0.0, 0.0, 0, 0
     for i, prompt in enumerate(prompts):
         rid = f"r{i}"
         toks = done[rid].tokens
         if len(toks) != NEW_TOKENS:
-            raise AssertionError(f"[hybrid] {rid}: {len(toks)} tokens, expected {NEW_TOKENS}")
+            raise AssertionError(f"{tag} {rid}: {len(toks)} tokens, expected {NEW_TOKENS}")
         batched = [seen["prefill"][i]] + seen["decode"][rid]
-        forced = _teacher_forced(model, params, prompt, toks, rows=1)
-        wide = _teacher_forced(model, params, prompt, toks, rows=SLOTS)
+        forced = _teacher_forced(model, params, prompt, toks, rows=1, max_len=max_len)
+        wide = _teacher_forced(model, params, prompt, toks, rows=SLOTS, max_len=max_len)
         if not len(batched) == len(forced) == len(wide):
-            raise AssertionError(f"[hybrid] {rid}: {len(batched)} logits, {len(forced)} sequential")
+            raise AssertionError(f"{tag} {rid}: {len(batched)} logits, {len(forced)} sequential")
         errs = [(b_ - f_).abs().max().item() for b_, f_ in zip(batched, forced)]
         wide_err = max((b_ - w_).abs().max().item() for b_, w_ in zip(batched, wide))
         finite = all(torch.isfinite(b_).all() for b_ in batched)
         diff = sum(int(torch.argmax(f_)) != t for f_, t in zip(forced, toks))
         worst, total, flips = max(worst, max(errs)), total + len(toks), flips + diff
         worst_wide = max(worst_wide, wide_err)
-        if not finite or max(errs) > LOGIT_TOL_BF16 or wide_err > SAME_SHAPE_TOL:
+        if not finite or max(errs) > tol or wide_err > SAME_SHAPE_TOL:
             raise AssertionError(
-                f"[hybrid] {rid}: logits vs teacher-forced: {max(errs):.4f} at batch 1, "
+                f"{tag} {rid}: logits vs teacher-forced: {max(errs):.4f} at batch 1, "
                 f"{wide_err:.4e} at batch {SLOTS}"
             )
         log(
-            f"[hybrid] {rid} (prompt {len(prompt)}): logits vs teacher-forced sequential max |err| "
+            f"{tag} {rid} (prompt {len(prompt)}): logits vs teacher-forced sequential max |err| "
             f"{max(errs):.4e}, mean of per-step max {np.mean(errs):.4e}, greedy tokens that "
             f"differ {diff}/{len(toks)}; at the batcher's width {wide_err:.4e}"
         )
     log(
-        f"[hybrid] all requests: max |err| {worst:.4e} (tol {LOGIT_TOL_BF16}), greedy tokens that "
+        f"{tag} all requests: max |err| {worst:.4e} (tol {tol}), greedy tokens that "
         f"differ {flips}/{total}; at the batcher's width {worst_wide:.4e} (tol {SAME_SHAPE_TOL})"
     )
+
+
+def _log_serving(tag, res, peak) -> None:
     log(
-        f"[hybrid] {res['tokens']} tokens in {res['wall_s']:.4f} s: {res['tok_per_s']:.2f} tok/s; "
+        f"{tag} {res['tokens']} tokens in {res['wall_s']:.4f} s: {res['tok_per_s']:.2f} tok/s; "
         f"prefill {res['prefill_ms_mean']:.3f} ms mean; decode {res['decode_ms_per_step']:.3f} "
         f"ms/step over {res['steps']} steps; max_memory_allocated {peak} bytes "
         f"(times include copying each step's logits to the host for the check)"
     )
-    _decode_profile(model, params)
-    return {"flash": flash_launches, "rglru": rglru_launches}
 
 
-def _decode_profile(model, params, steps: int = 5) -> None:
+def _decode_profile(model, params, tag: str, max_len: int, steps: int = 5) -> None:
     """Host time of a 4-slot decode step, and under torch.profiler the device's
     busy share and the kernels that take most of its time."""
-    cache = model.init_cache(SLOTS, HYBRID_MAX_LEN)
+    cache = model.init_cache(SLOTS, max_len)
     tok = torch.zeros(SLOTS, dtype=torch.long, device=DEV)
     for _ in range(2):
         model.decode_step(params, cache, {"token": tok})
@@ -595,14 +747,20 @@ def _decode_profile(model, params, steps: int = 5) -> None:
     rows = sorted((r for r in kernels if r[0] > 0), reverse=True)
     device_us = sum(r[0] for r in rows)
     if not rows:
-        log("[hybrid] decode profile: no device time recorded (busy share not measured)")
+        log(f"{tag} decode profile: no device time recorded (busy share not measured)")
         return
     top = "; ".join(f"{k[:60]} {us / steps:.0f} us x{n // steps}" for us, n, k in rows[:6])
+    ours = "; ".join(  # the port's own kernels: device time of one launch at decode
+        f"{name} {us / n:.2f} us a launch x{n // steps}"
+        for us, n, k in rows
+        for name in PORT_KERNEL_SYMBOLS
+        if name in k
+    )
     log(
-        f"[hybrid] decode step (4 slots): {plain_ms:.3f} ms host wall; under the profiler "
+        f"{tag} decode step (4 slots): {plain_ms:.3f} ms host wall; under the profiler "
         f"{wall_us / 1e3 / steps:.3f} ms wall, device busy {device_us / 1e3 / steps:.3f} ms "
         f"({100 * device_us / wall_us:.1f}%), {sum(r[1] for r in rows) // steps} kernels a step; "
-        f"top by device time per step: {top}"
+        f"top by device time per step: {top}; the port's kernels: {ours or 'none'}"
     )
 
 
@@ -669,6 +827,115 @@ def phase_exactness() -> None:
         )
 
 
+def rwkv_prompts(vocab: int, seed: int = 0):
+    """8 prompts, lengths drawn in [64, 3000]; r6 (11 tokens) is shorter than a
+    WKV chunk and r2 (2048) a multiple of it."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 3001, size=N_REQUESTS)
+    lens[6], lens[2] = 11, 2048
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32) for n in lens]
+
+
+def phase_rwkv() -> int:
+    """Serve full-width rwkv6-7b; returns the WKV6 kernel's launch count."""
+    cfg = get_config("rwkv6-7b")
+    t0 = time.monotonic()
+    params = init_params(cfg, _gen(0), DEV)
+    model = build(cfg, DEV)
+    torch.cuda.synchronize()
+    log(
+        f"[rwkv] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_size} heads of {cfg.rwkv_head_size}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.param_count()} params {cfg.param_dtype}; segments "
+        f"{model.segments}; drawn in {time.monotonic() - t0:.1f} s"
+    )
+    prompts = rwkv_prompts(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    ragged = sum(n % wk.CHUNK != 0 for n in lens)
+    log(
+        f"[rwkv] prompt lengths {lens} ({ragged} of {len(lens)} no multiple of {wk.CHUNK}), "
+        f"{NEW_TOKENS} new tokens each"
+    )
+    res, seen, peak = _serve_recorded(model, params, prompts, RWKV_MAX_LEN)
+    launches = wk.wkv6_chunked.launches
+    others = fa.flash_attention_fwd.launches + rg.rglru_scan.launches
+
+    want = cfg.num_layers * (len(prompts) + res["steps"])
+    if launches != want or others:
+        raise AssertionError(
+            f"[rwkv] wkv6 launches {launches} (expected {want}), flash + rglru {others} "
+            "(expected 0)"
+        )
+    log(
+        f"[rwkv] wkv6_chunked launches {launches} = {cfg.num_layers} layers x ({len(prompts)} "
+        f"prefills + {res['steps']} decode steps); flash and rglru 0"
+    )
+    _check_teacher_forced("[rwkv]", model, params, prompts, res, seen, LOGIT_TOL_RWKV, RWKV_MAX_LEN)
+    _log_serving("[rwkv]", res, peak)
+    _decode_profile(model, params, "[rwkv]", RWKV_MAX_LEN)
+    return launches
+
+
+def phase_rwkv_exactness() -> None:
+    """Float32 rwkv6-7b at full width, depth 2: exact batched tokens, decode =
+    fresh prefill, one layer on the card = CPU path."""
+    base = get_config("rwkv6-7b")
+    cfg = dataclasses.replace(
+        base,
+        name=base.name + "-f32-depth2",
+        num_layers=2,
+        param_dtype="float32",
+        compute_dtype="float32",
+    )
+    params = init_params(cfg, _gen(1), DEV)
+    model = build(cfg, DEV)
+    log(f"[rwkv-exact] {cfg.name}: {cfg.param_count()} params float32, segments {model.segments}")
+    prompts = rwkv_prompts(cfg.vocab_size)
+
+    seq = {}
+    for i, p in enumerate(prompts):
+        seq[f"r{i}"] = _sequential(model, params, p, NEW_TOKENS, RWKV_MAX_LEN)
+    res = serve(model, params, prompts, new_tokens=NEW_TOKENS, slots=SLOTS, max_len=RWKV_MAX_LEN)
+    for rid, (toks, _) in seq.items():
+        if res["generations"][rid].tokens != toks:
+            got = res["generations"][rid].tokens
+            raise AssertionError(f"[rwkv-exact] {rid}: batched {got} != sequential {toks}")
+    log(f"[rwkv-exact] tokens of all {len(seq)} requests equal sequential greedy decoding")
+
+    # the shortest prompt (under a chunk) and the longest
+    for i in (int(np.argmin([len(p) for p in prompts])), int(np.argmax([len(p) for p in prompts]))):
+        toks, logits = seq[f"r{i}"]
+        full = np.concatenate([prompts[i], np.asarray(toks, np.int32)])
+        fresh, _ = model.prefill(params, {"tokens": torch.as_tensor(full, device=DEV)[None].long()})
+        err = (logits - fresh).abs().max().item()
+        if not torch.isfinite(logits).all() or err > EXACT_TOL:
+            raise AssertionError(f"[rwkv-exact] r{i}: decode vs prefill: max |err| {err:.3e}")
+        log(
+            f"[rwkv-exact] r{i}: prompt {len(prompts[i])} + {NEW_TOKENS} decoded: last decode "
+            f"logits vs fresh prefill of {len(full)} tokens max |err| {err:.3e} (tol {EXACT_TOL})"
+        )
+
+    x = np.random.default_rng(3).normal(size=RWKV_LAYER_CHECK_SHAPE).astype(np.float32)
+    positions = torch.arange(RWKV_LAYER_CHECK_SHAPE[1])
+    lp = _index(params["seg0"]["u0"], 0)
+    got, got_cache = apply_layer(
+        torch.from_numpy(x).to(DEV), lp, cfg, "rwkv", positions=positions.to(DEV), mode="prefill"
+    )
+    want, want_cache = apply_layer(
+        torch.from_numpy(x), _to_cpu(lp), cfg, "rwkv", positions=positions, mode="prefill"
+    )
+    errs = {"h": (got.cpu() - want).abs().max().item()}
+    for k, want_leaf in want_cache.items():
+        errs[k] = (got_cache[k].cpu() - want_leaf).abs().max().item()
+    if not torch.isfinite(got).all() or max(errs.values()) > EXACT_TOL:
+        raise AssertionError(f"[rwkv-exact] rwkv layer card vs CPU path: {errs}")
+    log(
+        f"[rwkv-exact] one rwkv layer on x{RWKV_LAYER_CHECK_SHAPE}: card (kernel) vs CPU path "
+        f"(plain) max |err| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+        f"(tol {EXACT_TOL})"
+    )
+
+
 def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -689,14 +956,19 @@ def _kernel_entry(name, source, replaces, launches, row, shape):
 
 
 def main() -> int:
+    t_start = time.monotonic()
     smi = phase_device()
     phase_build()
-    flash_rows, demo_err, rglru_rows = phase_kernels()
+    flash_rows, demo_err, rglru_rows, wkv6_rows = phase_kernels()
     demo_launches = phase_demo()
     _release()
     hybrid = phase_hybrid()
     _release()
     phase_exactness()
+    _release()
+    rwkv_launches = phase_rwkv()
+    _release()
+    phase_rwkv_exactness()
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
@@ -726,7 +998,16 @@ def main() -> int:
             rglru_rows[RGLRU_JSON],
             "x(1,3000,4096) bfloat16, a float32, h0 (1,4096) float32",
         ),
+        _kernel_entry(
+            "wkv6_chunked",
+            "src/repro_torch/kernels/csrc/wkv6.cu",
+            "src/repro/kernels/rwkv6.py:32",
+            rwkv_launches,
+            wkv6_rows[WKV_JSON],
+            "r,k,v(1,64,3000,64) bfloat16 in (B,T,H,K) layout, w float32, h0 (1,64,64,64) float32",
+        ),
     ]
+    log(f"[done] every phase passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()

@@ -31,6 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "rglru_scan": "rglru_scan.cu",
+    "wkv6": "wkv6.cu",
 }
 
 NVCC_FLAGS = (

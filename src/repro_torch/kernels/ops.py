@@ -4,13 +4,14 @@ Counterpart of ``repro.kernels.ops``. Models import only from this module.
 
   impl="auto" or "pallas" : the Hopper kernel on a CUDA tensor, its plain
                             version (``ref.flash_attention_ref``,
-                            ``ref.rglru_ref``) on a CPU tensor; "pallas" is
-                            accepted so that the reference's
-                            ``cfg.attn_impl`` values carry over
-  impl="ref"              : the blocked attention / associative-scan RG-LRU
-                            plain version on any device
+                            ``ref.wkv6_chunked_ref``, ``ref.rglru_ref``) on a
+                            CPU tensor; "pallas" is accepted so that the
+                            reference's ``cfg.attn_impl`` values carry over
+  impl="ref"              : the blocked attention / chunked WKV6 /
+                            associative-scan RG-LRU plain version on any device
   impl="dense"            : the O(S²) dense attention oracle (small test
-                            shapes only) / the sequential RG-LRU
+                            shapes only) / the sequential WKV6 / the
+                            sequential RG-LRU
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import torch
 from . import ref as _ref
 from .flash_attention import flash_attention_fwd
 from .rglru import rglru_scan
+from .wkv6 import CHUNK as _WKV_CHUNK
+from .wkv6 import wkv6_chunked
 
 __all__ = ["flash_attention", "wkv6", "rglru"]
 
@@ -46,9 +49,28 @@ def flash_attention(
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
-def wkv6(*args, **kwargs):
-    """RWKV6 WKV: not ported yet (ROADMAP Queue 2, item 3, ``_wkv6_kernel``)."""
-    raise NotImplementedError("wkv6 is not ported yet: ROADMAP Queue 2 item 3 (_wkv6_kernel)")
+def wkv6(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    chunk: int = _WKV_CHUNK,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 'Finch' WKV. r, k, w (B,H,T,K), v (B,H,T,V), u (H,K) -> (out (B,H,T,V),
+    state (B,H,K,V) float32). Callers keep log(w) >= -4 per step (ref.wkv6_chunked_ref)."""
+    if impl in ("auto", "pallas"):
+        if chunk != _WKV_CHUNK:
+            raise ValueError(f"wkv6: the kernel's chunk is {_WKV_CHUNK}, not {chunk}")
+        return wkv6_chunked(r, k, v, w, u, initial_state=initial_state)
+    if impl == "ref":
+        return _ref.wkv6_chunked_ref(r, k, v, w, u, chunk=chunk, initial_state=initial_state)
+    if impl == "dense":
+        return _ref.wkv6_ref(r, k, v, w, u, initial_state=initial_state)
+    raise ValueError(f"unknown wkv6 impl {impl!r}")
 
 
 def rglru(

@@ -13,6 +13,13 @@ state in float32, h returned in the dtype of x and the final state in
 float32. ``rglru_ref`` steps through time; ``rglru_scan_ref`` is the
 associative-scan form (torch has no ``associative_scan``: it doubles the
 span ``log2(T)`` times, Hillis-Steele, with the reference's combine).
+
+WKV6 (RWKV6 "Finch"): per head, with the K x V state S in float32,
+``o_t = (r_t * u)^T (k_t v_t^T) + r_t^T S_{t-1}`` and
+``S_t = diag(w_t) S_{t-1} + k_t v_t^T``. ``wkv6_ref`` steps through time;
+``wkv6_chunked_ref`` is the chunked form the Hopper kernel computes, with
+the reference's per-chunk order of operations. Both return the output in
+r's dtype and the state in float32.
 """
 
 from __future__ import annotations
@@ -20,8 +27,16 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["flash_attention_ref", "flash_attention_dense_ref", "rglru_ref", "rglru_scan_ref"]
+__all__ = [
+    "flash_attention_ref",
+    "flash_attention_dense_ref",
+    "rglru_ref",
+    "rglru_scan_ref",
+    "wkv6_ref",
+    "wkv6_chunked_ref",
+]
 
 _NEG_INF = -1e30
 
@@ -158,3 +173,85 @@ def rglru_scan_ref(
     if initial_state is not None:
         bf = bf + af * initial_state.float()[:, None, :]
     return bf.to(x.dtype), bf[:, -1].clone()
+
+
+def _wkv_s0(r: torch.Tensor, v: torch.Tensor, initial_state: Optional[torch.Tensor]):
+    if initial_state is None:
+        b, h, _, kd = r.shape
+        return torch.zeros((b, h, kd, v.shape[-1]), dtype=torch.float32, device=r.device)
+    return initial_state.float()
+
+
+def wkv6_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential oracle. r, k, w (B,H,T,K); v (B,H,T,V); u (H,K); w is the decay
+    multiplier in (0, 1]. Returns (out (B,H,T,V) in r's dtype, state (B,H,K,V) float32)."""
+    rf, kf, vf, wf = r.float(), k.float(), v.float(), w.float()
+    ru = rf * u.float()[None, :, None, :]
+    s = _wkv_s0(r, v, initial_state)
+    out = torch.empty(v.shape, dtype=r.dtype, device=r.device)
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]  # (B,H,K,V)
+        o = torch.einsum("bhk,bhkv->bhv", ru[:, :, t], kv) + torch.einsum(
+            "bhk,bhkv->bhv", rf[:, :, t], s
+        )
+        s = wf[:, :, t, :, None] * s + kv
+        out[:, :, t] = o.to(r.dtype)
+    return out, s
+
+
+def wkv6_chunked_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    *,
+    chunk: int = 16,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked form: the Hopper kernel's plain version, the same result as :func:`wkv6_ref`.
+
+    Within a chunk, ``r^ = r D_{t-1}`` and ``k^ = k / D_t`` with ``D_t`` the
+    running product of w, so the strictly lower ``(r^ k^T) v`` is the
+    intra-chunk sum; ``r^ S`` carries the state in. A ragged T is padded with
+    r = k = 0, w = 1 rows, which change neither the kept rows nor the state
+    (the reference's ``ops.wkv6`` pads so).
+
+    Range: the factored exponents stay inside float32 only while
+    ``|sum of log w over a chunk|`` is below ~80; the model clamps log w to
+    [-4, -1e-4], so chunk 16 gives at most 60.
+    """
+    b, h, t, kd = r.shape
+    pad = (-t) % chunk
+    rf, kf, vf, wf = r.float(), k.float(), v.float(), w.float()
+    if pad:
+        rf, kf, vf = (F.pad(x, (0, 0, 0, pad)) for x in (rf, kf, vf))
+        wf = F.pad(wf, (0, 0, 0, pad), value=1.0)
+    uf = u.float()[None, :, None, :]
+    s = _wkv_s0(r, v, initial_state)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=r.device), -1)
+    outs = []
+    for c0 in range(0, t + pad, chunk):
+        rt, kt, vt, wt = (x[:, :, c0 : c0 + chunk] for x in (rf, kf, vf, wf))
+        logw = torch.log(torch.clamp(wt, min=1e-38))
+        cum = torch.cumsum(logw, dim=2)
+        dt = torch.exp(cum)
+        r_hat = rt * torch.exp(cum - logw)
+        k_hat = kt / torch.clamp(dt, min=1e-30)
+        cross = torch.matmul(r_hat, s)
+        att = torch.matmul(r_hat, k_hat.transpose(-1, -2)) * tri
+        intra = torch.matmul(att, vt)
+        diag = (rt * uf * kt).sum(-1, keepdim=True) * vt
+        outs.append(cross + intra + diag)
+        k_scaled = kt * torch.exp(cum[:, :, -1:, :] - cum)
+        s = dt[:, :, -1, :, None] * s + torch.matmul(k_scaled.transpose(-1, -2), vt)
+    out = torch.cat(outs, dim=2)[:, :, :t]
+    return out.to(r.dtype), s

@@ -4,6 +4,8 @@
         --slots 4 --max-len 1536 [--device cpu]
     python -m repro_torch.launch.serve --arch recurrentgemma-9b --requests 8 \\
         --slots 4 --max-len 3072 --max-prompt 3000
+    python -m repro_torch.launch.serve --arch rwkv6-7b --requests 8 \\
+        --slots 4 --max-len 3072 --max-prompt 3000
 
 Builds the architecture at its full registered size (``--smoke`` for the
 reduced variant), draws params from ``--seed``, submits ``--requests``

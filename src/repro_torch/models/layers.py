@@ -110,10 +110,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 def layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    out = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    """In float32, with the population variance. ``F.layer_norm`` reduces each row
+    in one block, so a row's result does not depend on how many rows share the
+    call (with mean/var reductions here, rwkv6-7b's logits for one request drifted
+    apart between batch 1 and batch 4 on the card)."""
+    out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
     return out.to(x.dtype)
 
 

@@ -108,9 +108,11 @@ def _pad_cache(cache, pad_to: int, cfg, segments):
     of the batcher's cache for that layer (``init_layer_cache``); a ring
     (a prompt longer than the window) is already that size and stays as it
     is. So slot i of a window-sized cache always holds the position p with
-    p % window == i, and decode masks it as a ring. The reference pads a
-    windowed cache shorter than the window to ``pad_to``: the batcher then
-    cannot splice it, and decode through it is no longer local.
+    p % window == i, and decode masks it as a ring. Every other leaf (``pos``,
+    the RG-LRU and RWKV states) is O(1) in the length and stays as it is.
+    The reference pads a windowed cache shorter than the window to
+    ``pad_to``: the batcher then cannot splice it, and decode through it is
+    no longer local.
     """
 
     def grow(x, target):  # x: (L, B, S, KV, hd), grown along S
@@ -138,8 +140,8 @@ def _cache_pos(cache, batch: int) -> torch.Tensor:
 
     Leaves are (L, B), stacked per segment; layers advance together, so
     the max across layers is exact. A cache with no 'pos' leaf (RG-LRU
-    state only) gives zeros, as in the reference: those layers take no
-    positions."""
+    or RWKV state only) gives zeros, as in the reference: those layers take
+    no positions."""
     poses = []
 
     def visit(tree, key):

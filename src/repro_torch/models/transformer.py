@@ -7,13 +7,15 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 ``lax.scan`` (the 8-layer demo), the port indexes the stacked params per
 repeat in a Python loop: both layouts run the same way.
 
-This port runs three kinds, in the modes ``prefill`` (build the cache) and
+This port runs four kinds, in the modes ``prefill`` (build the cache) and
 ``decode`` (one token against the cache, updated in place):
 
   dense : GQA self-attention + GLU MLP
   rec   : Griffin recurrent block (conv1d + RG-LRU) + GLU MLP
   attn  : dense inside a hybrid pattern; its attention is local (``cfg.window``)
           and its cache a ring of ``min(window, seq_len)`` slots
+  rwkv  : RWKV6 time mix (WKV6) + channel mix; its cache is the O(1) state
+          ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
 
 Every other kind raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -27,6 +29,7 @@ import torch
 from .attention import _project_qkv, gqa_attention, init_gqa, init_gqa_cache
 from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
 from .rglru import init_recurrent_block, init_rglru_state, recurrent_block
+from .rwkv import init_rwkv_layer, init_rwkv_state, rwkv_channel_mix, rwkv_time_mix
 
 __all__ = [
     "layer_pattern",
@@ -41,7 +44,6 @@ __all__ = [
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1, MoE (models/moe.py)",
-    "rwkv": "ROADMAP Queue 1, RWKV6 family (models/rwkv.py)",
     "enc": "ROADMAP Queue 1, encoder-decoder and VLM",
     "xattn": "ROADMAP Queue 1, encoder-decoder and VLM",
 }
@@ -50,9 +52,9 @@ _NOT_PORTED = {
 def _require_ported(cfg, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if kind not in ("dense", "rec", "attn"):
+    if kind not in ("dense", "rec", "attn", "rwkv"):
         raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.mla and kind != "rec":
+    if cfg.mla and kind in ("dense", "attn"):
         raise NotImplementedError("MLA attention is not ported yet: ROADMAP Queue 1, MLA + MTP")
 
 
@@ -109,6 +111,11 @@ def _window(cfg, kind: str) -> Optional[int]:
 
 def init_layer(store: ParamStore, cfg, kind: str) -> None:
     _require_ported(cfg, kind)
+    if kind == "rwkv":  # the reference's order: both norms, then the block
+        norm_param(store, "ln1", cfg.d_model, cfg.norm)
+        norm_param(store, "ln2", cfg.d_model, cfg.norm)
+        init_rwkv_layer(store, "rwkv", cfg)
+        return
     norm_param(store, "ln1", cfg.d_model, cfg.norm)
     if kind == "rec":
         init_recurrent_block(store, "rec", cfg)
@@ -120,6 +127,8 @@ def init_layer(store: ParamStore, cfg, kind: str) -> None:
 
 def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) -> Dict[str, Any]:
     _require_ported(cfg, kind)
+    if kind == "rwkv":
+        return init_rwkv_state(cfg, batch, dtype, device)
     if kind == "rec":
         return init_rglru_state(cfg, batch, dtype, device)
     window = _window(cfg, kind)
@@ -160,6 +169,8 @@ def apply_layer(
     _require_ported(cfg, kind)
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode {mode!r}: this port runs prefill and decode")
+    if kind == "rwkv":
+        return _apply_rwkv(h, lp, cfg, mode=mode, cache=cache)
     x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
     if kind == "rec":
         if mode == "prefill":
@@ -187,6 +198,25 @@ def apply_layer(
     x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
     h = h + glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
     return h, new_cache
+
+
+def _apply_rwkv(h, lp, cfg, *, mode, cache):
+    """Time mix then channel mix, each behind its LayerNorm. Prefill starts from
+    the zero state, as the reference does; decode writes the new state into
+    ``cache`` in place."""
+    if mode == "prefill":
+        cache = init_rwkv_state(cfg, h.shape[0], h.dtype, h.device)
+    x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
+    tm_out, state = rwkv_time_mix(x1, lp["rwkv"], cfg, state=cache)
+    h = h + tm_out
+    x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
+    cm_out, state = rwkv_channel_mix(x2, lp["rwkv"], cfg, state=state)
+    h = h + cm_out
+    if mode == "prefill":
+        return h, state  # tm_prev = x1[:, -1], cm_prev = x2[:, -1]
+    for key in ("wkv", "tm_prev", "cm_prev"):
+        cache[key].copy_(state[key])
+    return h, cache
 
 
 # --------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The port's param tree: drawing it, loading the JAX package's, counting it.
 
 The tree has the reference's names and layouts (``embed/table``,
-``seg{i}/u{j}/attn/wq`` stacked on axis 0, ``final_norm/scale``,
-``unembed``), so a tree of numpy arrays taken from ``repro``'s
+``seg{i}/u{j}/attn/wq`` or ``seg{i}/u{j}/rwkv/time_mix/wr`` stacked on
+axis 0, ``final_norm/scale``, ``unembed``), so a tree of numpy arrays taken from ``repro``'s
 ``model.init`` loads with :func:`from_numpy_tree` as it is, without
 renaming or transposing anything.
 """

@@ -29,7 +29,12 @@ def _port_modules():
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = list(_port_modules())
     assert "repro_torch.serve.batcher" in mods and "repro_torch.launch.serve" in mods
-    for new in ("repro_torch.kernels.rglru", "repro_torch.models.rglru"):
+    for new in (
+        "repro_torch.kernels.rglru",
+        "repro_torch.models.rglru",
+        "repro_torch.kernels.wkv6",
+        "repro_torch.models.rwkv",
+    ):
         assert new in mods
     code = (
         "import importlib, sys\n"

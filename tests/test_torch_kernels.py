@@ -8,8 +8,12 @@ of ``tests/test_kernels.py`` and the MLA 48/32 case, at that file's
 tolerances, and at head dim 256 (MQA, local window) against the dense
 oracle. ``ref.rglru_ref`` (the RG-LRU kernel's plain version) and
 ``ref.rglru_scan_ref`` are held against ``rglru_ref``, ``rglru_scan_ref``
-and the Pallas kernel in interpret mode. The CUDA kernels themselves are
-compared with these plain versions on the card by ``chip_smoke.py``.
+and the Pallas kernel in interpret mode. ``ref.wkv6_ref`` and
+``ref.wkv6_chunked_ref`` (the WKV6 kernel's plain version) are held against
+the JAX ``wkv6_ref``, ``wkv6_chunked_ref`` and the Pallas kernel in
+interpret mode on ``WKV_CASES`` at that file's 2e-4. The CUDA kernels
+themselves are compared with these plain versions on the card by
+``chip_smoke.py``.
 """
 
 import functools
@@ -18,13 +22,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_kernels import FLASH_CASES, RGLRU_CASES
+from test_kernels import FLASH_CASES, RGLRU_CASES, WKV_CASES
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.rglru import rglru_pallas
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rglru as trg
+from repro_torch.kernels import wkv6 as twkv
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -144,8 +150,18 @@ def test_non_causal_sq_greater_than_sk_is_accepted():
 
 
 def test_not_ported_kernels_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.wkv6()
+    """Every Pallas kernel has a counterpart now (WKV6 was the last); what is not
+    ported yet is layer kinds, and each names its ROADMAP item."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_layer_cache
+
+    cfg = get_config("serpytor-demo-100m")
+    for kind in ("moe", "enc", "xattn"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_layer_cache(cfg, kind, 1, 8, torch.float32, "cpu")
+    r = torch.zeros(1, 1, 1, 4)
+    out, state = tops.wkv6(r, r, r, torch.ones(1, 1, 1, 4), torch.zeros(1, 4))
+    assert out.shape == (1, 1, 1, 4) and state.shape == (1, 1, 4, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -297,3 +313,193 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(case):
         x, a = x[:, :0], a[:, :0]
     with pytest.raises(err):
         trg.rglru_scan(x, a, initial_state=h0)
+
+
+# ---------------------------------------------------------------------------
+# WKV6
+# ---------------------------------------------------------------------------
+
+# (B, H, T, K, V, with_state): WKV_CASES of tests/test_kernels.py (chunk 16), a
+# ragged T, one decode step, and a chunk shorter than 16
+WKV_SHAPES = [c[:5] + (c[6],) for c in WKV_CASES] + [
+    (1, 2, 21, 16, 16, True),
+    (3, 2, 1, 64, 64, True),
+    (2, 1, 7, 32, 16, False),
+]
+WKV_IDS = [f"b{b}_h{h}_t{t}_k{k}_v{v}_{'s0' if s else 'zeros'}" for b, h, t, k, v, s in WKV_SHAPES]
+WKV_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:128; bf16 as rglru
+
+
+def _wkv_np(shape, seed=0):
+    """r, k, v, w, u, s0 as float32 numpy; log w within the model's clamp [-4, -1e-4]."""
+    b, h, t, kd, vd, with_state = shape
+    rng = np.random.default_rng(seed + b * 1000 + h * 100 + t * 10 + kd + vd)
+    r, k = rng.normal(size=(b, h, t, kd)), rng.normal(size=(b, h, t, kd))
+    v = rng.normal(size=(b, h, t, vd))
+    logw = -np.minimum(np.exp(rng.normal(size=(b, h, t, kd))), 4.0)
+    w = np.exp(np.minimum(logw, -1e-4))
+    u = rng.normal(size=(h, kd))
+    s0 = rng.normal(size=(b, h, kd, vd)) if with_state else None
+    return tuple(None if x is None else x.astype(np.float32) for x in (r, k, v, w, u, s0))
+
+
+@functools.lru_cache(maxsize=None)
+def _wkv_jax(shape, dtype):
+    """JAX (wkv6_ref, wkv6_chunked_ref, Pallas in interpret mode), as float32 numpy.
+    The chunked two go through the reference's ``ops.wkv6``, which pads T to the
+    chunk and, on a CPU backend, runs ``wkv6_pallas(interpret=True)`` for "pallas"."""
+    r, k, v, w, u, s0 = _wkv_np(shape)
+    jdt = getattr(jnp, dtype)
+    jr, jk, jv = (jnp.asarray(x, jdt) for x in (r, k, v))
+    jw, ju = jnp.asarray(w), jnp.asarray(u)
+    js0 = None if s0 is None else jnp.asarray(s0)
+    outs = (
+        jref.wkv6_ref(jr, jk, jv, jw, ju, initial_state=js0),
+        jops.wkv6(jr, jk, jv, jw, ju, initial_state=js0, impl="ref"),
+        jops.wkv6(jr, jk, jv, jw, ju, initial_state=js0, impl="pallas"),
+    )
+    return [(np.asarray(o, np.float32), np.asarray(s, np.float32)) for o, s in outs]
+
+
+def _wkv_torch(shape, dtype="float32", seed=0):
+    r, k, v, w, u, s0 = _wkv_np(shape, seed)
+    dt = getattr(torch, dtype)
+    tr, tk, tv = (torch.from_numpy(x).to(dt) for x in (r, k, v))
+    ts0 = None if s0 is None else torch.from_numpy(s0)
+    return tr, tk, tv, torch.from_numpy(w), torch.from_numpy(u), ts0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("oracle", ["jax_ref", "jax_chunked_ref", "pallas_interpret"])
+@pytest.mark.parametrize("fn", ["wkv6_ref", "wkv6_chunked_ref", "wrapper"])
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=WKV_IDS)
+def test_torch_wkv6_plain_matches_jax(shape, fn, oracle, dtype):
+    r, k, v, w, u, s0 = _wkv_torch(shape, dtype)
+    f = {"wkv6_ref": tref.wkv6_ref, "wkv6_chunked_ref": tref.wkv6_chunked_ref}.get(
+        fn, twkv.wkv6_chunked
+    )
+    out, state = f(r, k, v, w, u, initial_state=s0)
+    b, h, t, kd, vd, _ = shape
+    assert out.shape == (b, h, t, vd) and out.dtype == r.dtype
+    assert state.shape == (b, h, kd, vd) and state.dtype == torch.float32
+    want_out, want_state = _wkv_jax(shape, dtype)[
+        ["jax_ref", "jax_chunked_ref", "pallas_interpret"].index(oracle)
+    ]
+    tol = WKV_TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(), want_out, rtol=tol, atol=tol)
+    np.testing.assert_allclose(state.numpy(), want_state, rtol=tol, atol=tol)
+    assert twkv.wkv6_chunked.launches == 0
+
+
+def test_wkv6_chunked_ref_pads_as_the_reference_ops_does():
+    """A ragged T (21) padded inside the plain version equals the reference's
+    ``ops.wkv6`` padding plus ``wkv6_pallas`` in interpret mode, and the
+    sequential oracle: the pad rows (r = k = 0, w = 1) are no-ops."""
+    shape = (1, 2, 21, 16, 16, False)
+    r, k, v, w, u, _ = _wkv_np(shape, seed=3)
+    want, want_state = jops.wkv6(*map(jnp.asarray, (r, k, v, w, u)), impl="pallas")
+    got, got_state = tops.wkv6(*map(torch.from_numpy, (r, k, v, w, u)), impl="ref")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_state.numpy(), np.asarray(want_state), rtol=2e-4, atol=2e-4)
+    dense, dense_state = tops.wkv6(*map(torch.from_numpy, (r, k, v, w, u)), impl="dense")
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_state.numpy(), dense_state.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("split", [16, 21, 63])
+@pytest.mark.parametrize("impl", ["auto", "pallas", "ref", "dense"])
+def test_wkv6_state_chaining_equals_one_shot(impl, split):
+    """Two halves with the state carried equal one pass (what decode relies on),
+    with the split on and off the chunk grid."""
+    r, k, v, w, u, _ = _wkv_torch((1, 2, 64, 16, 16, False))
+    full, s_full = tops.wkv6(r, k, v, w, u, impl=impl)
+    first = [x[:, :, :split] for x in (r, k, v, w)]
+    rest = [x[:, :, split:] for x in (r, k, v, w)]
+    o1, s1 = tops.wkv6(*first, u, impl=impl)
+    o2, s2 = tops.wkv6(*rest, u, initial_state=s1, impl=impl)
+    np.testing.assert_allclose(torch.cat([o1, o2], 2).numpy(), full.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(s2.numpy(), s_full.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas", "ref", "dense"])
+def test_ops_wkv6_on_cpu_takes_the_plain_path_and_never_launches(impl):
+    r, k, v, w, u, s0 = _wkv_torch((2, 3, 21, 32, 16, True))
+    got, got_state = tops.wkv6(r, k, v, w, u, initial_state=s0, impl=impl)
+    assert twkv.wkv6_chunked.launches == 0
+    want, want_state = tref.wkv6_ref(r, k, v, w, u, initial_state=s0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got_state.numpy(), want_state.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_ops_wkv6_rejects_unknown_impl_and_another_chunk():
+    r, k, v, w, u, _ = _wkv_torch((1, 1, 4, 8, 8, False))
+    with pytest.raises(ValueError, match="unknown wkv6 impl"):
+        tops.wkv6(r, k, v, w, u, impl="triton")
+    with pytest.raises(ValueError, match="chunk"):
+        tops.wkv6(r, k, v, w, u, chunk=32)
+    got, _ = tops.wkv6(r, k, v, w, u, chunk=32, impl="ref")  # the plain version takes any
+    want, _ = tops.wkv6(r, k, v, w, u, impl="dense")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_wkv6_wrapper_takes_the_models_strided_layout():
+    """The model hands over (B, T, H, K) projections seen as (B, H, T, K): the
+    wrapper takes them as they are (strides, last axis contiguous)."""
+    r, k, v, w, u, s0 = _wkv_torch((2, 3, 19, 16, 32, True))
+    strided = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (r, k, v, w)]
+    assert not strided[0].is_contiguous()
+    got, got_state = twkv.wkv6_chunked(*strided, u, initial_state=s0)
+    want, want_state = twkv.wkv6_chunked(r, k, v, w, u, initial_state=s0)
+    assert torch.equal(got, want) and torch.equal(got_state, want_state)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        "k_too_big",
+        "v_too_big",
+        "w_bfloat16",
+        "r_float16",
+        "kv_dtype_mismatch",
+        "u_shape",
+        "u_float16",
+        "s0_shape",
+        "s0_dtype",
+        "last_axis_strided",
+        "empty_t",
+        "v_time_mismatch",
+    ],
+)
+def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """The checks run on every device, so the CPU sees what the card would refuse."""
+    b, h, t, kd, vd = 2, 3, 5, 8, 8
+    r, k, v = torch.randn(b, h, t, kd), torch.randn(b, h, t, kd), torch.randn(b, h, t, vd)
+    w, u, s0 = torch.rand(b, h, t, kd), torch.randn(h, kd), torch.randn(b, h, kd, vd)
+    err = ValueError
+    if case == "k_too_big":
+        r, k, w = torch.randn(1, 1, 2, 80), torch.randn(1, 1, 2, 80), torch.rand(1, 1, 2, 80)
+        v, u, s0 = torch.randn(1, 1, 2, 8), torch.randn(1, 80), None
+    elif case == "v_too_big":
+        v, s0 = torch.randn(b, h, t, 72), None
+    elif case == "w_bfloat16":
+        w, err = w.to(torch.bfloat16), TypeError
+    elif case == "r_float16":
+        r, k, v, err = r.half(), k.half(), v.half(), TypeError
+    elif case == "kv_dtype_mismatch":
+        k, err = k.to(torch.bfloat16), TypeError
+    elif case == "u_shape":
+        u = torch.randn(h, kd + 1)
+    elif case == "u_float16":
+        u, err = u.half(), TypeError
+    elif case == "s0_shape":
+        s0 = torch.randn(b, h, vd, kd + 1)
+    elif case == "s0_dtype":
+        s0, err = s0.to(torch.bfloat16), TypeError
+    elif case == "last_axis_strided":
+        r = torch.randn(b, h, kd, t).transpose(2, 3)
+    elif case == "empty_t":
+        r, k, v, w = (x[:, :, :0] for x in (r, k, v, w))
+    else:
+        v = torch.randn(b, h, t + 1, vd)
+    with pytest.raises(err):
+        twkv.wkv6_chunked(r, k, v, w, u, initial_state=s0)
