@@ -66,7 +66,7 @@ struct Strides {  // element strides of a (B, H, T, last) operand; the last axis
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     wkv6_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                const float* __restrict__ w, const void* __restrict__ u, int u_bf16,
+                const float* __restrict__ w, const T* __restrict__ u,
                 const float* __restrict__ s0, T* __restrict__ out, float* __restrict__ s_out,
                 Strides rs, Strides ks, Strides vs, Strides ws, Strides os, int n_heads,
                 int t_len, int kdim, int vdim) {
@@ -93,8 +93,7 @@ __global__ void __launch_bounds__(THREADS)
   const size_t state_base = ((size_t)b * n_heads + h) * kdim * vdim + j0;
 
   for (int i = tid; i < kdim; i += THREADS) {
-    u_s[i] = u_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(u)[h * kdim + i])
-                    : static_cast<const float*>(u)[h * kdim + i];
+    u_s[i] = to_f32(u[h * kdim + i]);
   }
   for (int i = tid; i < kdim * VB; i += THREADS) {
     const int kk = i / VB, jj = i % VB;
@@ -175,15 +174,15 @@ __global__ void __launch_bounds__(THREADS)
 
 extern "C" {
 
-// r, k (B,H,T,K), v (B,H,T,V) float32 or bfloat16 (is_bf16); w (B,H,T,K) float32; u (H,K)
-// float32 or bfloat16 (u_bf16), contiguous; s0 (B,H,K,V) float32 contiguous, or null for
-// zeros; out (B,H,T,V) in the dtype of r; s_out (B,H,K,V) float32 contiguous. `strides`
-// holds 15 element strides, (batch, head, time) of r, k, v, w and out in that order; the
-// last axis of each is contiguous. The caller has checked shapes, 1 <= K, V <= 64 and
+// r, k (B,H,T,K), v (B,H,T,V) and u (H,K, contiguous) float32 or bfloat16 (is_bf16); w
+// (B,H,T,K) float32; s0 (B,H,K,V) float32 contiguous, or null for zeros; out (B,H,T,V) in
+// the dtype of r; s_out (B,H,K,V) float32 contiguous. `strides` holds 15 element strides,
+// (batch, head, time) of r, k, v, w and out in that order; the last axis of each is
+// contiguous. The caller has checked shapes, 1 <= K, V <= 64 and
 // B, H <= 65535. Returns the cudaError_t of the launch (0 on success). Does not synchronise.
 int repro_wkv6(const void* r, const void* k, const void* v, const void* w, const void* u,
                const void* s0, void* out, void* s_out, const long long* strides, int b, int h,
-               int t_len, int kdim, int vdim, int is_bf16, int u_bf16, void* stream) {
+               int t_len, int kdim, int vdim, int is_bf16, void* stream) {
   if (b < 0 || h < 0 || t_len < 0 || kdim < 1 || kdim > MAX_K || vdim < 1 || vdim > MAX_V ||
       b > 65535 || h > 65535)
     return (int)cudaErrorInvalidValue;
@@ -201,13 +200,14 @@ int repro_wkv6(const void* r, const void* k, const void* v, const void* w, const
   if (is_bf16) {
     using T = __nv_bfloat16;
     wkv6_kernel<T><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), wf, u,
-        u_bf16, s0f, static_cast<T*>(out), sf, rs, ks, vs, ws, os, h, t_len, kdim, vdim);
+        static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v), wf,
+        static_cast<const T*>(u), s0f, static_cast<T*>(out), sf, rs, ks, vs, ws, os, h, t_len,
+        kdim, vdim);
   } else {
     wkv6_kernel<float><<<grid, THREADS, 0, st>>>(
         static_cast<const float*>(r), static_cast<const float*>(k), static_cast<const float*>(v),
-        wf, u, u_bf16, s0f, static_cast<float*>(out), sf, rs, ks, vs, ws, os, h, t_len, kdim,
-        vdim);
+        wf, static_cast<const float*>(u), s0f, static_cast<float*>(out), sf, rs, ks, vs, ws, os,
+        h, t_len, kdim, vdim);
   }
   return (int)cudaGetLastError();
 }

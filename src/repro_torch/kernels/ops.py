@@ -57,17 +57,14 @@ def wkv6(
     u: torch.Tensor,
     *,
     initial_state: Optional[torch.Tensor] = None,
-    chunk: int = _WKV_CHUNK,
     impl: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RWKV6 'Finch' WKV. r, k, w (B,H,T,K), v (B,H,T,V), u (H,K) -> (out (B,H,T,V),
     state (B,H,K,V) float32). Callers keep log(w) >= -4 per step (ref.wkv6_chunked_ref)."""
     if impl in ("auto", "pallas"):
-        if chunk != _WKV_CHUNK:
-            raise ValueError(f"wkv6: the kernel's chunk is {_WKV_CHUNK}, not {chunk}")
         return wkv6_chunked(r, k, v, w, u, initial_state=initial_state)
     if impl == "ref":
-        return _ref.wkv6_chunked_ref(r, k, v, w, u, chunk=chunk, initial_state=initial_state)
+        return _ref.wkv6_chunked_ref(r, k, v, w, u, chunk=_WKV_CHUNK, initial_state=initial_state)
     if impl == "dense":
         return _ref.wkv6_ref(r, k, v, w, u, initial_state=initial_state)
     raise ValueError(f"unknown wkv6 impl {impl!r}")

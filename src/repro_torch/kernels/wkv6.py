@@ -57,8 +57,8 @@ def _check(r, k, v, w, u, s0) -> None:
         raise TypeError(f"wkv6: w is {w.dtype}; it must be float32")
     if u.shape != (h, kd):
         raise ValueError(f"wkv6: u {tuple(u.shape)}, expected {(h, kd)}")
-    if u.dtype not in (torch.float32, r.dtype):
-        raise TypeError(f"wkv6: u is {u.dtype}; it must be float32 or r's dtype")
+    if u.dtype != r.dtype:
+        raise TypeError(f"wkv6: u is {u.dtype}; it must be r's dtype, {r.dtype}")
     if s0 is not None:
         if s0.shape != (b, h, kd, vd):
             raise ValueError(f"wkv6: initial_state {tuple(s0.shape)}, expected {(b, h, kd, vd)}")
@@ -85,7 +85,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # first use: declare the C signature
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 7 + [ptr]
+        fn.argtypes = [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 6 + [ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -100,8 +100,8 @@ def wkv6_chunked(
     *,
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k (B,H,T,K) and v (B,H,T,V) float32|bfloat16, w (B,H,T,K) float32 (the decay
-    multiplier in (0, 1]), u (H,K), initial_state (B,H,K,V) float32
+    """r, k (B,H,T,K), v (B,H,T,V) and u (H,K) float32|bfloat16, w (B,H,T,K) float32
+    (the decay multiplier in (0, 1]), initial_state (B,H,K,V) float32
     -> (out (B,H,T,V) in r's dtype, final state (B,H,K,V) float32).
 
     ``wkv6_chunked.launches`` counts kernel launches (never the CPU path).
@@ -135,7 +135,6 @@ def wkv6_chunked(
             kd,
             vd,
             int(r.dtype == torch.bfloat16),
-            int(u.dtype == torch.bfloat16),
             stream,
         )
     if err != 0:

@@ -110,10 +110,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 def layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
-    """In float32, with the population variance. ``F.layer_norm`` reduces each row
-    in one block, so a row's result does not depend on how many rows share the
-    call (with mean/var reductions here, rwkv6-7b's logits for one request drifted
-    apart between batch 1 and batch 4 on the card)."""
+    """In float32, with the population variance, through ``F.layer_norm``. On an
+    H100 its result for a 4096-wide row is the same alone and as one of four rows;
+    mean/var reductions in its place differ there in the last bit of some elements,
+    and rwkv6-7b's logits for a request then drift apart between batch 1 and
+    batch 4 (``tools/batch_invariance.py``)."""
     out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
     return out.to(x.dtype)
 

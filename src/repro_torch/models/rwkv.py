@@ -12,8 +12,7 @@ Decay contract: the per-step log decay is
 then clamped to [-4, -1e-4] before the WKV op; the chunked kernel's float32
 range rests on it (``ref.wkv6_chunked_ref``). The per-head group norm
 (``ln_x``) uses the population variance and eps 64e-5 in float32, through
-``F.layer_norm`` over each head, which reduces each row in one block: a
-request's result does not depend on the batch it is decoded in.
+``F.layer_norm`` over each head, as ``layers.layernorm`` does (see there why).
 
 The reference's ``shard_activation`` calls are left out: on one device they
 are the identity.
@@ -116,7 +115,7 @@ def rwkv_time_mix(
         k.transpose(1, 2),
         v.transpose(1, 2),
         w.transpose(1, 2),
-        tm["u"],
+        tm["u"].to(r.dtype),
         initial_state=s0,
         impl=cfg.attn_impl,
     )

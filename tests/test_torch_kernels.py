@@ -351,7 +351,7 @@ def _wkv_jax(shape, dtype):
     r, k, v, w, u, s0 = _wkv_np(shape)
     jdt = getattr(jnp, dtype)
     jr, jk, jv = (jnp.asarray(x, jdt) for x in (r, k, v))
-    jw, ju = jnp.asarray(w), jnp.asarray(u)
+    jw, ju = jnp.asarray(w), jnp.asarray(u, jdt)
     js0 = None if s0 is None else jnp.asarray(s0)
     outs = (
         jref.wkv6_ref(jr, jk, jv, jw, ju, initial_state=js0),
@@ -364,9 +364,9 @@ def _wkv_jax(shape, dtype):
 def _wkv_torch(shape, dtype="float32", seed=0):
     r, k, v, w, u, s0 = _wkv_np(shape, seed)
     dt = getattr(torch, dtype)
-    tr, tk, tv = (torch.from_numpy(x).to(dt) for x in (r, k, v))
+    tr, tk, tv, tu = (torch.from_numpy(x).to(dt) for x in (r, k, v, u))
     ts0 = None if s0 is None else torch.from_numpy(s0)
-    return tr, tk, tv, torch.from_numpy(w), torch.from_numpy(u), ts0
+    return tr, tk, tv, torch.from_numpy(w), tu, ts0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -431,15 +431,10 @@ def test_ops_wkv6_on_cpu_takes_the_plain_path_and_never_launches(impl):
     np.testing.assert_allclose(got_state.numpy(), want_state.numpy(), rtol=2e-4, atol=2e-4)
 
 
-def test_ops_wkv6_rejects_unknown_impl_and_another_chunk():
+def test_ops_wkv6_rejects_unknown_impl():
     r, k, v, w, u, _ = _wkv_torch((1, 1, 4, 8, 8, False))
     with pytest.raises(ValueError, match="unknown wkv6 impl"):
         tops.wkv6(r, k, v, w, u, impl="triton")
-    with pytest.raises(ValueError, match="chunk"):
-        tops.wkv6(r, k, v, w, u, chunk=32)
-    got, _ = tops.wkv6(r, k, v, w, u, chunk=32, impl="ref")  # the plain version takes any
-    want, _ = tops.wkv6(r, k, v, w, u, impl="dense")
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
 
 
 def test_wkv6_wrapper_takes_the_models_strided_layout():
@@ -463,6 +458,7 @@ def test_wkv6_wrapper_takes_the_models_strided_layout():
         "kv_dtype_mismatch",
         "u_shape",
         "u_float16",
+        "u_float32_with_bfloat16_r",
         "s0_shape",
         "s0_dtype",
         "last_axis_strided",
@@ -491,6 +487,8 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(case):
         u = torch.randn(h, kd + 1)
     elif case == "u_float16":
         u, err = u.half(), TypeError
+    elif case == "u_float32_with_bfloat16_r":
+        r, k, v, err = r.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16), TypeError
     elif case == "s0_shape":
         s0 = torch.randn(b, h, vd, kd + 1)
     elif case == "s0_dtype":
