@@ -10,10 +10,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    spill report;
 3. kernels: each kernel against its plain PyTorch version on the card:
    flash attention on the cases of ``tests/test_kernels.py`` (FLASH_CASES
-   and the MLA 48/32 case), on edge cases, on the demo model's prefill
-   shapes and at recurrentgemma-9b's head dim 256 (MQA, window 2048, float32
-   and bfloat16); the RG-LRU scan at recurrentgemma-9b's prefill and decode
-   shapes; WKV6 on the cases of ``tests/test_kernels.py`` (WKV_CASES), a
+   and the MLA 48/32 case), on edge cases, on bfloat16 cases of the
+   tensor-core path (head dims 64, 128, 256 and one no multiple of 8,
+   ragged Sq, Sq < Sk, window 1), on the demo model's prefill shapes and at
+   recurrentgemma-9b's head dim 256 (MQA, window 2048, float32 and
+   bfloat16), each case logging the path that served it (wgmma or FMA);
+   the bfloat16 path gives the same bits on two launches and for a batch
+   row alone as within a batch of 3; the RG-LRU scan at recurrentgemma-9b's
+   prefill and decode shapes; WKV6 on the cases of ``tests/test_kernels.py`` (WKV_CASES), a
    ragged T and rwkv6-7b's prefill and decode shapes. Each timed case prints
    the kernel's time, its plain version's, one PyTorch library call's where
    one computes the same function, and the least time the card could take;
@@ -28,8 +32,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the RG-LRU kernel in the 26 recurrent layers of every prefill and
    decode step; each request's logits agree with a teacher-forced
    sequential run (fed the batched tokens) within LOGIT_TOL_BF16, and with
-   the same run at the batcher's width bit for bit; a profiled window of
-   decode steps gives the device's busy share;
+   the same run at the batcher's width bit for bit; a profiled prefill of
+   one prompt gives the device time by kind of kernel (flash, RG-LRU,
+   GEMMs, elementwise), a profiled window of decode steps the device's busy
+   share;
 6. exactness: a float32 copy of recurrentgemma-9b at full width and depth
    3 (rec, rec, attn) serves the same requests: tokens equal sequential
    greedy decoding; decode across the window equals a fresh prefill within
@@ -113,6 +119,19 @@ EDGE_CASES = [
     (1, 4, 1, 130, 130, 16, True, 1, "float32", 16),  # window 1: each row sees itself only
     (1, 2, 1, 77, 77, 200, True, None, "float32", 136),  # D > 128 with Dv <= 128
 ]
+# bfloat16 on the tensor-core path: head dims 64 and 128 (GQA, MQA), ragged Sq,
+# Sq < Sk with a window, window 1, Dv < D without masks, and head dims that are no
+# multiple of 8 (the wrapper pads them)
+BF16_CASES = [
+    (1, 4, 2, 256, 256, 64, True, None, "bfloat16", 64),
+    (2, 8, 1, 300, 300, 128, True, None, "bfloat16", 128),
+    (1, 4, 2, 200, 515, 128, True, 64, "bfloat16", 128),
+    (1, 4, 1, 130, 130, 256, True, 1, "bfloat16", 256),
+    (1, 2, 2, 100, 100, 256, False, None, "bfloat16", 64),
+    (1, 2, 1, 77, 77, 20, True, None, "bfloat16", 12),
+]
+# the same bits twice, and for a batch row alone as within a batch of 3
+DETERMINISM_CASE = (3, 16, 1, 777, 777, 256, True, 512, "bfloat16", 256)
 # recurrentgemma-9b's local attention: Hq=16, Hkv=1, D=Dv=256, window 2048
 HYBRID_FLASH = [
     (1, 16, 1, s_q, s_k, 256, True, 2048, dt, 256)
@@ -190,7 +209,12 @@ RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
 
 
 # the device-side names of the port's kernels (csrc/*.cu), as the profiler reports them
-PORT_KERNEL_SYMBOLS = ("flash_fwd_kernel", "rglru_scan_kernel", "wkv6_kernel")
+PORT_KERNEL_SYMBOLS = (
+    "flash_fwd_wgmma_kernel",
+    "flash_fwd_kernel",
+    "rglru_scan_kernel",
+    "wkv6_kernel",
+)
 
 
 def log(msg: str) -> None:
@@ -321,7 +345,7 @@ def _flash_rows(gen):
     """Flash kernel vs plain on every case; times at the demo and hybrid shapes."""
     cases = [c + (c[5],) for c in FLASH_CASES]  # Dv = D
     cases.append((1, 2, 2, 64, 64, 48, True, None, "float32", 32))  # MLA head dims
-    cases += EDGE_CASES
+    cases += EDGE_CASES + BF16_CASES
     cases += [(1, 12, 4, s, s, 64, True, None, "float32", 64) for s in DEMO_SEQ]
     cases += HYBRID_FLASH
     rows, demo_err = {}, 0.0
@@ -335,7 +359,10 @@ def _flash_rows(gen):
         shape = f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} {dt}"
         flags = f"causal={causal} window={window}"
         err = _check(f"flash_attention_fwd {shape} {flags}", got, want, TOL[dt])
-        log(f"[kernels] flash_attention_fwd {shape} {flags}: max |err| {err:.3e} (tol {TOL[dt]})")
+        log(
+            f"[kernels] flash_attention_fwd {shape} {flags} ({fa.PATHS[dtype]} path): "
+            f"max |err| {err:.3e} (tol {TOL[dt]})"
+        )
         demo = (hq, hkv, d) == (12, 4, 64)
         if not demo and case not in HYBRID_FLASH:
             continue
@@ -370,7 +397,30 @@ def _flash_rows(gen):
             f"{row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}), "
             f"kernel/bound {row['ms'] / bound:.1f}"
         )
+    _flash_determinism(gen)
     return rows, demo_err
+
+
+def _flash_determinism(gen) -> None:
+    """The bfloat16 path's bits: equal on two launches, and batch row 0 alone (B = 1)
+    equal to row 0 of B = 3. A replayed request must give the same answer."""
+    b, hq, hkv, sq, sk, d, causal, window, dt, dv = DETERMINISM_CASE
+    q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, getattr(torch, dt))
+    first = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    again = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    alone = fa.flash_attention_fwd(q[:1], k[:1], v[:1], causal=causal, window=window)
+    torch.cuda.synchronize()
+    relaunch = (first != again).sum().item()
+    batch = (alone != first[:1]).sum().item()
+    if relaunch or batch:
+        raise AssertionError(
+            f"[kernels] flash_attention_fwd not deterministic: {relaunch} elements differ "
+            f"between two launches, {batch} between B=1 and row 0 of B={b}"
+        )
+    log(
+        f"[kernels] flash_attention_fwd q{tuple(q.shape)} {dt} causal={causal} "
+        f"window={window}: two launches equal bit for bit; B=1 equals row 0 of B={b} bit for bit"
+    )
 
 
 def _rglru_rows(gen):
@@ -663,12 +713,14 @@ def phase_hybrid() -> dict:
         )
     log(
         f"[hybrid] flash_attention_fwd launches {flash_launches} = {n_attn} attn layers x "
-        f"{len(prompts)} prefills; rglru_scan launches {rglru_launches} = {n_rec} rec layers x "
-        f"({len(prompts)} prefills + {res['steps']} decode steps)"
+        f"{len(prompts)} prefills ({fa.PATHS[torch.bfloat16]} path); rglru_scan launches "
+        f"{rglru_launches} = {n_rec} rec layers x ({len(prompts)} prefills + {res['steps']} "
+        "decode steps)"
     )
 
     _check_teacher_forced("[hybrid]", model, params, prompts, res, seen, LOGIT_TOL_BF16)
     _log_serving("[hybrid]", res, peak)
+    _prefill_profile(model, params, "[hybrid]", prompts[0], HYBRID_MAX_LEN)
     _decode_profile(model, params, "[hybrid]", HYBRID_MAX_LEN)
     return {"flash": flash_launches, "rglru": rglru_launches}
 
@@ -717,6 +769,72 @@ def _log_serving(tag, res, peak) -> None:
         f"prefill {res['prefill_ms_mean']:.3f} ms mean; decode {res['decode_ms_per_step']:.3f} "
         f"ms/step over {res['steps']} steps; max_memory_allocated {peak} bytes "
         f"(times include copying each step's logits to the host for the check)"
+    )
+
+
+def _kernel_kind(name: str) -> str:
+    """The kind of a device kernel, by its name as the profiler reports it."""
+    low = name.lower()
+    if "flash_fwd" in name:
+        return "flash"
+    if "rglru" in name:
+        return "rglru"
+    if "wkv6" in name:
+        return "wkv6"
+    if any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
+        return "gemm"
+    if "at::native" in name or "at_cuda_detail" in name:
+        return "elementwise"  # PyTorch's elementwise, reduction, copy, index kernels
+    return "other"
+
+
+def _prefill_profile(model, params, tag: str, prompt, max_len: int) -> None:
+    """One prefill of ``prompt`` as the batcher runs it (padded to ``max_len``): host
+    time, then under torch.profiler the device time by kind of kernel."""
+    ids = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
+
+    def prefill():
+        model.prefill(params, {"tokens": ids}, pad_to=max_len)
+
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    prefill()
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.monotonic() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        prefill()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    rows = sorted(
+        (
+            (e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        ),
+        reverse=True,
+    )
+    if not rows:
+        log(f"{tag} prefill profile: no device time recorded (not measured)")
+        return
+    kinds, launches = {}, {}
+    for us, n, name in rows:
+        kind = _kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        launches[kind] = launches.get(kind, 0) + n
+    device_ms = sum(kinds.values())
+    by_kind = "; ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / device_ms:.1f}%, {launches[k]} launches)"
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
+    )
+    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}" for us, n, k in rows[:6])
+    log(
+        f"{tag} prefill of {len(prompt)} tokens: {plain_ms:.3f} ms host wall; under the "
+        f"profiler {wall_ms:.3f} ms wall, device busy {device_ms:.3f} ms "
+        f"({100 * device_ms / wall_ms:.1f}%), {sum(launches.values())} kernels; device time "
+        f"by kind: {by_kind}; top kernels: {top}"
     )
 
 

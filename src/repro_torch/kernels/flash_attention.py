@@ -1,10 +1,12 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its wrapper.
+"""Flash-attention forward: the hand-written Hopper kernels and their wrapper.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas``.
-The kernel is ``csrc/flash_attention_fwd.cu`` (CUDA C++ for ``sm_90a``,
-built by :mod:`._build`); its source note says what it replaces and what
-bounds it. Forward only: serving has no backward, and the training slice
-adds one.
+The kernels are in ``csrc/flash_attention_fwd.cu`` (CUDA C++ for
+``sm_90a``, built by :mod:`._build`); its source note says what they
+replace and what bounds them. bfloat16 runs on the tensor cores
+(``wgmma`` fed by TMA), float32 on the CUDA cores (FMA): one kernel a
+dtype, no fallback between them. Forward only: serving has no backward,
+and the training slice adds one.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU
 tensor it runs the plain version, :func:`repro_torch.kernels.ref.
@@ -22,11 +24,14 @@ import torch
 
 from . import ref as _ref
 
-__all__ = ["flash_attention_fwd", "MAX_HEAD_DIM"]
+__all__ = ["flash_attention_fwd", "MAX_HEAD_DIM", "PATHS"]
 
 MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
+#: the kernel that serves each dtype: tensor cores (wgmma) or CUDA cores (FMA)
+PATHS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+_TMA_ALIGN = 8  # head dims of the wgmma path: a TMA row stride is a multiple of 16 bytes
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window) -> None:
@@ -63,6 +68,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
         raise ValueError(f"flash_attention_fwd: B={b}, Hq={hq} exceed the grid limit")
 
 
+def _pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q, k, v with D and Dv padded with zeros to multiples of 8, for the wgmma path.
+
+    Zero q and k columns leave every score as it was; zero v columns give output
+    columns that the caller cuts off. Tensors that need no pad come back as they
+    are (a copy only where a base address is not 16-byte aligned, as TMA needs).
+    """
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        extra = -x.shape[-1] % _TMA_ALIGN
+        if extra:
+            return torch.nn.functional.pad(x, (0, extra))
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    return pad(q), pad(k), pad(v)
+
+
 def _lib() -> ctypes.CDLL:
     from . import _build
 
@@ -88,7 +110,8 @@ def flash_attention_fwd(
 ) -> torch.Tensor:
     """Attention forward. q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv) -> (B,Hq,Sq,Dv).
 
-    ``flash_attention_fwd.launches`` counts kernel launches (never the CPU path).
+    ``flash_attention_fwd.launches`` counts kernel launches (never the CPU path);
+    :data:`PATHS` names the kernel that serves each dtype.
     """
     _check(q, k, v, causal, window)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
@@ -96,6 +119,10 @@ def flash_attention_fwd(
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
+    tensor_cores = PATHS[q.dtype] == "wgmma"
+    dv_out = v.shape[-1]
+    if tensor_cores:
+        q, k, v = _pad_head_dims(q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
@@ -117,14 +144,14 @@ def flash_attention_fwd(
             int(bool(causal)),
             int(window) if window is not None else 0,
             scale,
-            int(q.dtype == torch.bfloat16),
+            int(tensor_cores),
             stream,
         )
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd: launch failed: CUDA error {err} ({msg})")
     flash_attention_fwd.launches += 1
-    return out
+    return out if dv == dv_out else out[..., :dv_out].contiguous()
 
 
 flash_attention_fwd.launches = 0

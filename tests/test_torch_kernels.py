@@ -199,6 +199,86 @@ def test_torch_flash_plain_at_head_dim_256_matches_jax(name, fn):
 
 
 # ---------------------------------------------------------------------------
+# the bfloat16 path of the flash kernel (wgmma): its rounding, and its head-dim pad
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _wgmma_path_model(q, k, v, *, causal, window, scale, block_k=64):
+    """What the kernel's bfloat16 path computes, in float32 torch on the CPU: q, k, v
+    in bfloat16; scores in float32 (in the log2 domain); online softmax over key
+    tiles of 64 with the running sum in float32; P rounded to bfloat16 before P.V,
+    summed in float32; the output divided by the clamped sum and rounded to bfloat16."""
+    g = q.shape[1] // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, dim=1) for x in (k, v))
+    sq, sk = q.shape[2], k.shape[2]
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:3] + (v.shape[-1],))
+    for k0 in range(0, sk, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, sk))[None, :]
+        s = qf @ kf[:, :, k0 : k0 + block_k].transpose(-1, -2) * (scale * LOG2E)
+        valid = torch.ones(sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            valid &= kpos <= qpos
+        if window is not None:
+            valid &= kpos > qpos - window
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        denom = denom * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0 : k0 + block_k]
+        m = m_new
+    return (acc / denom.clamp_min(1e-37)).bfloat16()
+
+
+# WIDE_CASES and head dims 64 and 128, in bfloat16: (B, Hq, Hkv, Sq, Sk, D, causal, window, Dv)
+WGMMA_MODEL_CASES = {
+    **{n: c + (136 if n == "wide_d_narrow_dv" else c[5],) for n, c in WIDE_CASES.items()},
+    "head_dim_64_gqa": (2, 4, 2, 100, 100, 64, True, None, 64),
+    "head_dim_128_window_sq_lt_sk": (1, 2, 1, 70, 150, 128, True, 32, 128),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WGMMA_MODEL_CASES))
+def test_wgmma_path_rounding_fits_the_bf16_tolerance(name):
+    """Rounding P to bfloat16 before P.V (the JAX kernel keeps it in float32) stays
+    within the bfloat16 tolerance of the JAX dense oracle, 2e-2 (tests/test_kernels.py)."""
+    b, hq, hkv, sq, sk, d, causal, window, dv = WGMMA_MODEL_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    q = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, sk, dv)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = jref.flash_attention_dense_ref(jq, jk, jv, causal=causal, window=window)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    got = _wgmma_path_model(tq, tk, tv, causal=causal, window=window, scale=d**-0.5)
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32), rtol=2e-2, atol=2e-2
+    )
+
+
+@pytest.mark.parametrize("d, dv", [(20, 12), (64, 40), (64, 64)])
+def test_pad_head_dims_leaves_attention_unchanged(d, dv):
+    """The wgmma path pads D and Dv to multiples of 8 with zeros: zero q and k columns
+    leave the scores as they were, zero v columns are cut from the output, and the
+    scale stays the unpadded D's. Shapes that need no pad come back as they are."""
+    rng = np.random.default_rng(d * 1000 + dv)
+    q = torch.from_numpy(rng.normal(size=(1, 4, 33, d)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 2, 33, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(1, 2, 33, dv)).astype(np.float32))
+    pq, pk, pv = tfa._pad_head_dims(q, k, v)
+    assert pq.shape[-1] == pk.shape[-1] == -(-d // 8) * 8 and pv.shape[-1] == -(-dv // 8) * 8
+    assert (pq is q) == (d % 8 == 0) and (pv is v) == (dv % 8 == 0)
+    got = tref.flash_attention_ref(pq, pk, pv, causal=True, window=7, scale=d**-0.5)[..., :dv]
+    want = tref.flash_attention_ref(q, k, v, causal=True, window=7)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
 # RG-LRU
 # ---------------------------------------------------------------------------
 

@@ -18,9 +18,13 @@ a bound; this script looks for where the two part:
    fed to the 4-row run, the max |diff| of the logits at every step; once
    with the port's norms (``F.layer_norm``) and once with mean/var norms in
    their place.
-3. recurrentgemma-9b at full width and depth: the same for r1 and r7 of
-   ``chip_smoke.hybrid_prompts``, with RMSNorm through ``torch.mean`` (the
-   port's) and through ``F.rms_norm``.
+3. recurrentgemma-9b at full width and depth: its products as in 2, and the
+   other ops of its decode step at batch 1 and as row 0 of batch 4: the
+   cached-decode attention's two batched matmuls and its softmax
+   (``models/attention.py``, in float32 over a bfloat16 cache of one window),
+   the causal conv and the RG-LRU gates (``models/rglru.py``); then the same
+   drift for r1 and r7 of ``chip_smoke.hybrid_prompts``, with RMSNorm
+   through ``torch.mean`` (the port's) and through ``F.rms_norm``.
 
 It only reports; it checks nothing and exits 0 unless a run fails. It needs a
 card and a checkout of the repository.
@@ -43,6 +47,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import build, layers  # noqa: E402
+from repro_torch.models import rglru as rglru_block  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 
 DEV = cs.DEV
@@ -90,6 +95,70 @@ def _at_batch_1_and_4(fn, *shape, dtype=torch.float32, seed=0):
     gen = torch.Generator(device=DEV).manual_seed(seed)
     x = torch.randn(ROWS, *shape, generator=gen, device=DEV).to(dtype)
     return fn(x[:1].clone()), fn(x)[:1]
+
+
+def _each_at_batch_1_and_4(fn, shapes, dtype, seed=0):
+    """fn of several seeded inputs, each (4, *shape), at batch 1 and as row 0 of batch 4."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    xs = [torch.randn(ROWS, *shape, generator=gen, device=DEV).to(dtype) for shape in shapes]
+    return fn(*(x[:1].clone() for x in xs)), fn(*xs)[:1]
+
+
+def _layer0(tree, key):
+    """The first sub-dict of ``tree`` that holds ``key``, with each leaf at layer 0."""
+    if not isinstance(tree, dict):
+        return None
+    if key in tree:
+        return {k: v[0] for k, v in tree.items() if not isinstance(v, dict)}
+    for sub in tree.values():
+        found = _layer0(sub, key)
+        if found is not None:
+            return found
+    return None
+
+
+def part_hybrid_decode_ops(params, cfg) -> None:
+    """The hybrid's decode-step ops beside its products, at batch 1 and as row 0 of
+    batch 4, on seeded inputs of the shapes a decode step gives them."""
+    kv, hd, sc = cfg.num_kv_heads, cfg.head_dim, cfg.window
+    g = cfg.num_heads // kv
+    w = cfg.lru_width
+
+    def cache_view(c):  # (B, Sc, KV, hd) bfloat16 -> (B, KV, 1, Sc, hd) float32, as decoding
+        return c.float().permute(0, 2, 1, 3).unsqueeze(2)
+
+    def qk(q, k_cache):
+        return torch.matmul(q.float(), cache_view(k_cache).transpose(-1, -2)) * (hd**-0.5)
+
+    def pv(probs, v_cache):
+        return torch.matmul(probs.float().softmax(-1), cache_view(v_cache))
+
+    rec = _layer0(params, "conv_w")
+
+    def conv(x, tail):
+        return rglru_block._causal_conv1d(x, rec["conv_w"], rec["conv_b"], tail)[0]
+
+    def gates(xi):
+        r = torch.sigmoid(layers.dense(xi, rec["w_a"], rec["b_a"]).float())
+        i = torch.sigmoid(layers.dense(xi, rec["w_x"], rec["b_x"]).float())
+        a = torch.exp(-8.0 * F.softplus(rec["lambda_"].float()) * r)
+        return torch.cat([a, i * xi.float()], dim=-1)
+
+    bf16 = torch.bfloat16
+    cases = [
+        (f"decode attention q.k^T (B,{kv},{g},1,{hd}) x cache (B,{sc},{kv},{hd})", qk,
+         [(kv, g, 1, hd), (sc, kv, hd)]),
+        (f"decode attention softmax (B,{kv},{g},1,{sc})", lambda x: x.float().softmax(-1),
+         [(kv, g, 1, sc)]),
+        (f"decode attention softmax + p.v (B,{kv},{g},1,{sc}) x cache (B,{sc},{kv},{hd})", pv,
+         [(kv, g, 1, sc), (sc, kv, hd)]),
+        (f"causal conv (B,1,{w}) with its tail (B,{cfg.conv1d_width - 1},{w})", conv,
+         [(1, w), (cfg.conv1d_width - 1, w)]),
+        (f"RG-LRU gates a, i*x on (B,1,{w})", gates, [(1, w)]),
+    ]
+    for name, fn, shapes in cases:
+        one, row0 = _each_at_batch_1_and_4(fn, shapes, bf16)
+        log(f"[ops] recurrentgemma-9b {name}, bfloat16 in: {_diff(one, row0)}")
 
 
 def part_norms(d: int) -> None:
@@ -145,11 +214,13 @@ def drift(tag: str, model, params, prompt, n: int) -> None:
     )
 
 
-def part_model(name: str, prompts, variants) -> None:
+def part_model(name: str, prompts, variants, more_ops=None) -> None:
     cfg = get_config(name)
     params = init_params(cfg, cs._gen(0), DEV)
     model = build(cfg, DEV)
     part_products(name, params, cfg.d_model)
+    if more_ops is not None:
+        more_ops(params, cfg)
     for label, patch in variants:
         with patch():
             for i in prompts[1]:
@@ -183,6 +254,7 @@ def main() -> int:
             ("rmsnorm torch.mean (the port's)", nullcontext),
             ("rmsnorm F.rms_norm", lambda: _patched(layers, "rmsnorm", _fused_rmsnorm)),
         ],
+        part_hybrid_decode_ops,
     )
     log(f"[done] {time.monotonic() - t0:.1f} s")
     return 0
