@@ -18,7 +18,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the bfloat16 path gives the same bits on two launches and for a batch
    row alone as within a batch of 3; the RG-LRU scan at recurrentgemma-9b's
    prefill and decode shapes; WKV6 on the cases of ``tests/test_kernels.py`` (WKV_CASES), a
-   ragged T and rwkv6-7b's prefill and decode shapes. Each timed case prints
+   ragged T, rwkv6-7b's prefill and decode shapes and the edges of its two
+   kernels (chunk and stream), each case logging the path that served it; each
+   WKV6 path gives the same bits on two launches and for a batch row alone as
+   within a batch of 4; the wrapper's host cost a decode call. Each timed case prints
    the kernel's time, its plain version's, one PyTorch library call's where
    one computes the same function, and the least time the card could take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
@@ -47,8 +50,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    WKV6 kernel ran in the 32 layers of every prefill and decode step and no
    other kernel ran; each request's logits equal a teacher-forced run at the
    batcher's width bit for bit and agree with it at batch 1 within
-   LOGIT_TOL_RWKV; a profiled window of decode steps gives the device's
-   busy share;
+   LOGIT_TOL_RWKV; a profiled prefill of one prompt gives the device time by
+   kind of kernel, a profiled window of decode steps the device's busy share;
 8. rwkv exactness: a float32 copy of rwkv6-7b at full width and depth 2
    serves the same requests: tokens equal sequential greedy decoding; 32
    decode steps after a prompt equal a fresh prefill within 1e-4; one layer
@@ -152,7 +155,10 @@ RGLRU_CASES = [
 RGLRU_JSON = (1, 3000, 4096, "bfloat16", True)  # prefill passes the zero state as h0
 # (B, H, T, K, V, dtype, with h0): WKV_CASES of tests/test_kernels.py, a ragged T,
 # rwkv6-7b's prefill (T up to 3000, 64 heads of 64; prefill passes the zero
-# state as h0) and decode (B = slots, T = 1) shapes
+# state as h0) and decode (B = slots, T = 1) shapes; then the chunk kernel's edges
+# (T around one and two chunks, a T whose 6 chunks end its 4-stage ring mid-way,
+# K != V with widths that are no multiple of 8, which the wrapper pads) and the
+# stream kernel's (float32 at the decode shape, T on both sides of the threshold)
 WKV_CASES = [
     (1, 1, 32, 16, 16, "float32", False),
     (2, 3, 64, 32, 32, "float32", True),
@@ -162,9 +168,22 @@ WKV_CASES = [
     (1, 64, 3000, 64, 64, "bfloat16", True),
     (1, 64, 3000, 64, 64, "bfloat16", False),
     (4, 64, 1, 64, 64, "bfloat16", True),
+    (1, 2, 15, 64, 64, "float32", True),
+    (1, 2, 16, 64, 64, "float32", True),
+    (2, 2, 17, 64, 64, "bfloat16", True),
+    (1, 2, 33, 64, 64, "float32", False),
+    (1, 3, 90, 64, 64, "float32", True),  # 6 chunks: the 4-stage ring wraps, ends in stage 1
+    (2, 2, 50, 20, 12, "bfloat16", True),
+    (1, 2, 50, 20, 12, "float32", True),
+    (4, 64, 1, 64, 64, "float32", True),
+    (4, 64, wk.STREAM_MAX_T, 64, 64, "bfloat16", True),
+    (4, 64, wk.STREAM_MAX_T, 64, 64, "float32", True),
+    (4, 64, wk.STREAM_MAX_T + 1, 64, 64, "bfloat16", True),
 ]
 WKV_JSON = (1, 64, 3000, 64, 64, "bfloat16", True)
-WKV_TIMED = (WKV_JSON, WKV_CASES[-2], WKV_CASES[-1])
+WKV_TIMED = (WKV_JSON, WKV_CASES[6], WKV_CASES[7])
+# the same bits twice, and for batch row 0 alone as within a batch of 4, on each path
+WKV_DETERMINISM = ((4, 64, 777, 64, 64, "bfloat16", True), (4, 64, 1, 64, 64, "bfloat16", True))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, tests/test_kernels.py:47
 DEMO_SEQ = (128, 777, 2048)
 JSON_SEQ = 777  # the demo prefill length whose times go into the kernels line
@@ -213,7 +232,8 @@ PORT_KERNEL_SYMBOLS = (
     "flash_fwd_wgmma_kernel",
     "flash_fwd_kernel",
     "rglru_scan_kernel",
-    "wkv6_kernel",
+    "wkv6_chunk_kernel",
+    "wkv6_stream_kernel",
 )
 
 
@@ -323,6 +343,12 @@ def _check(label, got, want, tol) -> float:
     if not (torch.isfinite(got.float()).all() and within):
         raise AssertionError(f"[kernels] {label}: max |err| {err:.3e}, tol {tol}")
     return err
+
+
+def _tol_used(got, want, tol) -> float:
+    """The largest |err| / (tol (1 + |want|)) over the elements: 1 is at the tolerance."""
+    diff = (got.float() - want.float()).abs()
+    return (diff / (tol * (1 + want.float().abs()))).max().item()
 
 
 def _sdpa_backend(q, k, v, mask, is_causal):
@@ -477,8 +503,9 @@ def _wkv6_inputs(gen, b, h, t, kd, vd, dtype, with_h0):
 
 
 def _wkv6_rows(gen):
-    """WKV6 kernel vs its plain version on every case; times at rwkv6-7b's shapes.
-    The final state is float32 on both sides and is held to the float32 tolerance."""
+    """WKV6 kernels vs their plain version on every case, each logging the path that
+    served it; times at rwkv6-7b's shapes. The final state is float32 on both sides
+    and is held to the float32 tolerance."""
     rows = {}
     for case in WKV_CASES:
         b, h, t, kd, vd, dt, with_h0 = case
@@ -489,7 +516,11 @@ def _wkv6_rows(gen):
         label = f"wkv6_chunked r{tuple(r.shape)} v{tuple(v.shape)} {dt} h0={with_h0}"
         err = _check(label, got, want, TOL[dt])
         state_err = _check(label + " state", got_state, want_state, TOL["float32"])
-        msg = f"[kernels] {label}: max |err| {err:.3e} (tol {TOL[dt]}), state {state_err:.3e}"
+        used = max(_tol_used(got, want, TOL[dt]), _tol_used(got_state, want_state, TOL["float32"]))
+        msg = (
+            f"[kernels] {label} ({wk.path_for(t)} path): max |err| {err:.3e} (tol {TOL[dt]}), "
+            f"state {state_err:.3e}; {100 * used:.0f}% of the tolerance used"
+        )
         if case not in WKV_TIMED:
             log(msg)
             continue
@@ -514,7 +545,58 @@ def _wkv6_rows(gen):
             f"{msg}; kernel_ms {row['ms']:.4f}, plain_ms {row['plain_ms']:.4f}, library_ms none, "
             f"bound_ms {bound:.5f} ({bound_by}), kernel/bound {row['ms'] / bound:.1f}"
         )
+    _wkv6_determinism(gen)
+    _wkv6_host_cost(gen)
     return rows
+
+
+def _wkv6_determinism(gen) -> None:
+    """Each path's bits at the model's widths: equal on two launches, and batch row 0
+    alone (B = 1) equal to row 0 of B = 4, output and final state."""
+    for case in WKV_DETERMINISM:
+        b, h, t, kd, vd, dt, with_h0 = case
+        r, k, v, w, u, h0 = _wkv6_inputs(gen, b, h, t, kd, vd, getattr(torch, dt), with_h0)
+        first = wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+        again = wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+        alone = wk.wkv6_chunked(r[:1], k[:1], v[:1], w[:1], u, initial_state=h0[:1])
+        torch.cuda.synchronize()
+        relaunch = sum((x != y).sum().item() for x, y in zip(first, again))
+        batch = sum((x != y[:1]).sum().item() for x, y in zip(alone, first))
+        label = f"wkv6_chunked r{tuple(r.shape)} {dt} ({wk.path_for(t)} path)"
+        if relaunch or batch:
+            raise AssertionError(
+                f"[kernels] {label} not deterministic: {relaunch} elements differ between two "
+                f"launches, {batch} between B=1 and row 0 of B={b}"
+            )
+        log(
+            f"[kernels] {label}: output and state equal bit for bit on two launches and for "
+            f"B=1 against row 0 of B={b}"
+        )
+
+
+def _wkv6_host_cost(gen, calls: int = 200) -> None:
+    """The wrapper's cost a call at the decode shape: host clock (the host returns
+    before the device is done) against CUDA events (the device's pace)."""
+    b, h, t, kd, vd, dt, with_h0 = WKV_CASES[7]
+    r, k, v, w, u, h0 = _wkv6_inputs(gen, b, h, t, kd, vd, getattr(torch, dt), with_h0)
+    for _ in range(10):
+        wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+    end.record()
+    host_us = 1e6 * (time.perf_counter() - t0) / calls
+    end.synchronize()
+    event_us = 1e3 * start.elapsed_time(end) / calls
+    log(
+        f"[kernels] wkv6_chunked r{tuple(r.shape)} {dt} ({wk.path_for(t)} path): host "
+        f"{host_us:.2f} us a call to enqueue, CUDA events {event_us:.2f} us a call, "
+        f"over {calls} calls"
+    )
 
 
 def phase_kernels():
@@ -991,6 +1073,7 @@ def phase_rwkv() -> int:
     )
     _check_teacher_forced("[rwkv]", model, params, prompts, res, seen, LOGIT_TOL_RWKV, RWKV_MAX_LEN)
     _log_serving("[rwkv]", res, peak)
+    _prefill_profile(model, params, "[rwkv]", prompts[0], RWKV_MAX_LEN)
     _decode_profile(model, params, "[rwkv]", RWKV_MAX_LEN)
     return launches
 

@@ -1,18 +1,23 @@
-"""RWKV6 WKV: the hand-written Hopper kernel and its wrapper.
+"""RWKV6 WKV: the hand-written Hopper kernels and their wrapper.
 
-Counterpart of ``repro.kernels.rwkv6.wkv6_pallas``. The kernel is
+Counterpart of ``repro.kernels.rwkv6.wkv6_pallas``. The kernels are in
 ``csrc/wkv6.cu`` (CUDA C++ for ``sm_90a``, built by :mod:`._build`); its
-source note says what it replaces and what bounds it.
+source note says what they replace and what bounds them. Two launch shapes,
+picked by T alone (:func:`path_for`): the chunk kernel (a pipelined walk over
+16-row chunks, S in registers) for prefill, and the stream kernel (S read
+once, stepped through the rows, written once) for T <= :data:`STREAM_MAX_T`,
+decode's T = 1 included.
 
-The kernel takes r, k, v, w by strides with the last axis contiguous, so the
+The kernels take r, k, v, w by strides with the last axis contiguous, so the
 model's ``(B, T, H, K)`` projections seen as ``(B, H, T, K)`` go in without
-a copy. It writes the output in ``(B, T, H, V)`` memory order and the
+a copy. They write the output in ``(B, T, H, V)`` memory order and the
 wrapper returns it as the ``(B, H, T, V)`` view, which the model turns back
-into ``(B, T, H*V)`` for free. A last chunk shorter than 16 rows runs in
-place (the reference's r = k = 0, w = 1 padding is a no-op), so any T >= 1
-is taken, decode's T = 1 included.
+into ``(B, T, H*V)`` for free. The chunk kernel's 16-byte copies need r, k,
+v, w 16-byte aligned with strides of whole 16 bytes; an operand that is not
+(a K or V that is no multiple of 8 in bfloat16, a view at an odd offset) is
+padded first, as the flash wrapper pads head dims.
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
+On a CUDA tensor the wrapper launches a kernel or raises. On a CPU tensor
 it runs the plain version, :func:`repro_torch.kernels.ref.wkv6_chunked_ref`,
 and only because the tensor lies on the CPU. The same checks apply on both
 devices, so the CPU tests see what the kernel would refuse.
@@ -27,12 +32,38 @@ import torch
 
 from . import ref as _ref
 
-__all__ = ["wkv6_chunked", "CHUNK", "MAX_HEAD_SIZE"]
+__all__ = ["wkv6_chunked", "path_for", "CHUNK", "MAX_HEAD_SIZE", "STREAM_MAX_T"]
 
 CHUNK = 16
 MAX_HEAD_SIZE = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
+#: the longest T that the stream kernel serves; longer T goes to the chunk kernel. On an
+#: H100 at the decode batch (4, 64, T, 64) the stream kernel takes less device time than the
+#: chunk kernel up to T = 8 and more from T = 16 (``tools/wkv6_check.py`` times both), but it
+#: steps row by row where the plain version factors a chunk, and its float32 output drifts
+#: from the plain version's with T (at T = 4 by half the 2e-5 tolerance): 4 keeps a margin.
+STREAM_MAX_T = 4
+_C_PATH = {"chunk": 0, "stream": 1}
+
+
+def path_for(t: int) -> str:
+    """The kernel that serves a call of ``t`` rows, whatever B and H: "stream" or "chunk"."""
+    return "stream" if t <= STREAM_MAX_T else "chunk"
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the chunk kernel's 16-byte copies need it: base address and (batch,
+    head, time) strides in whole 16 bytes. An ``x`` that is not comes back padded
+    with zeros along its last axis to a multiple of 16 bytes, contiguous; the
+    kernel reads only the first K (or V) columns."""
+    es = x.element_size()
+    if x.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in x.stride()[:3]):
+        return x
+    n = x.shape[-1]
+    padded = x.new_zeros(*x.shape[:-1], n + (-n) % (16 // es))
+    padded[..., :n] = x
+    return padded
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -85,10 +116,30 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # first use: declare the C signature
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [ctypes.POINTER(ctypes.c_longlong)] + [i32] * 6 + [ptr]
+        i64 = ctypes.c_longlong
+        fn.argtypes = [ptr] * 8 + [ctypes.POINTER(i64), i32, i32, i64] + [i32] * 4 + [ptr]
+        lib.repro_wkv6_shared_bytes.restype = ctypes.c_int
+        lib.repro_wkv6_shared_bytes.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _plan(r, k, v, w, initial_state):
+    """What a launch hands the C entry point for these operands: the path's code, r, k,
+    v, w and the initial state as the chosen kernel takes them, the output (a (B, H, T,
+    V) view of (B, T, H, V) memory), the final state and the 15 strides."""
+    b, h, t, kd = r.shape
+    vd = v.shape[-1]
+    path = path_for(t)
+    if path == "chunk":
+        r, k, v, w = (_aligned(x) for x in (r, k, v, w))
+    elif initial_state is not None and initial_state.data_ptr() % 16:
+        initial_state = initial_state.clone()  # the stream kernel's 16-byte state loads
+    out = torch.empty((b, t, h, vd), dtype=r.dtype, device=r.device).transpose(1, 2)
+    s_out = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
+    strides = [s for x in (r, k, v, w, out) for s in x.stride()[:3]]
+    return _C_PATH[path], (r, k, v, w, initial_state, out, s_out), strides
 
 
 def wkv6_chunked(
@@ -104,7 +155,8 @@ def wkv6_chunked(
     (the decay multiplier in (0, 1]), initial_state (B,H,K,V) float32
     -> (out (B,H,T,V) in r's dtype, final state (B,H,K,V) float32).
 
-    ``wkv6_chunked.launches`` counts kernel launches (never the CPU path).
+    ``wkv6_chunked.launches`` counts kernel launches (never the CPU path);
+    :func:`path_for` names the kernel that serves a T.
     """
     _check(r, k, v, w, u, initial_state)
     if r.device.type == "cpu":
@@ -113,9 +165,7 @@ def wkv6_chunked(
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     b, h, t, kd = r.shape
     vd = v.shape[-1]
-    out = torch.empty((b, t, h, vd), dtype=r.dtype, device=r.device).transpose(1, 2)
-    s_out = torch.empty((b, h, kd, vd), dtype=torch.float32, device=r.device)
-    strides = [s for x in (r, k, v, w, out) for s in x.stride()[:3]]
+    code, (r, k, v, w, initial_state, out, s_out), strides = _plan(r, k, v, w, initial_state)
     lib = _lib()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -135,6 +185,7 @@ def wkv6_chunked(
             kd,
             vd,
             int(r.dtype == torch.bfloat16),
+            code,
             stream,
         )
     if err != 0:

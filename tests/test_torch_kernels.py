@@ -400,11 +400,19 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(case):
 # ---------------------------------------------------------------------------
 
 # (B, H, T, K, V, with_state): WKV_CASES of tests/test_kernels.py (chunk 16), a
-# ragged T, one decode step, and a chunk shorter than 16
+# ragged T, one decode step, and a chunk shorter than 16; then the Hopper kernels'
+# edges: T around one and two chunks, K != V with widths that are no multiple of 8,
+# and the decode batch of 4 slots at T = 1
 WKV_SHAPES = [c[:5] + (c[6],) for c in WKV_CASES] + [
     (1, 2, 21, 16, 16, True),
     (3, 2, 1, 64, 64, True),
     (2, 1, 7, 32, 16, False),
+    (1, 2, 15, 64, 64, True),
+    (1, 2, 16, 64, 64, True),
+    (2, 2, 17, 64, 64, True),
+    (1, 2, 33, 64, 64, False),
+    (2, 2, 50, 20, 12, True),
+    (4, 2, 1, 64, 64, True),
 ]
 WKV_IDS = [f"b{b}_h{h}_t{t}_k{k}_v{v}_{'s0' if s else 'zeros'}" for b, h, t, k, v, s in WKV_SHAPES]
 WKV_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tests/test_kernels.py:128; bf16 as rglru
@@ -528,6 +536,45 @@ def test_wkv6_wrapper_takes_the_models_strided_layout():
     assert torch.equal(got, want) and torch.equal(got_state, want_state)
 
 
+@pytest.mark.parametrize("t", [1, 2, twkv.STREAM_MAX_T, twkv.STREAM_MAX_T + 1, 16, 17, 3000])
+def test_wkv6_launch_shape_is_a_function_of_t_alone(t):
+    """The wrapper picks the stream or the chunk kernel by T and nothing else: the
+    choice takes T as its only argument, and the path code that a launch hands the
+    C entry point (``_plan``, what the CUDA branch passes) is the same for every B
+    and H (here one row, the decode batch at the model's heads, and an odd shape);
+    decode's T = 1 streams."""
+    import inspect
+
+    assert list(inspect.signature(twkv.path_for).parameters) == ["t"]
+    assert twkv.STREAM_MAX_T >= 1 and twkv.path_for(1) == "stream"
+    want = "stream" if t <= twkv.STREAM_MAX_T else "chunk"
+    assert twkv.path_for(t) == want
+    for b, h in [(1, 1), (4, 64), (3, 7)]:
+        r, k, w = (torch.empty(b, h, t, 8) for _ in range(3))
+        v = torch.empty(b, h, t, 4)
+        code, (*_, out, s_out), strides = twkv._plan(r, k, v, w, torch.empty(b, h, 8, 4))
+        assert code == twkv._C_PATH[want]
+        assert out.shape == (b, h, t, 4) and out.stride() == (t * h * 4, 4, h * 4, 1)
+        assert s_out.shape == (b, h, 8, 4) and strides[-3:] == list(out.stride()[:3])
+
+
+@pytest.mark.parametrize(
+    "k, dtype", [(64, torch.bfloat16), (20, torch.bfloat16), (12, torch.float32)]
+)
+def test_wkv6_aligned_pads_only_what_the_copies_cannot_take(k, dtype):
+    """The chunk kernel's 16-byte copies: an operand in the model's layout whose rows
+    are whole 16 bytes goes in as it is; another is padded with zeros along K to a
+    multiple of 16 bytes, its first K columns unchanged."""
+    x = torch.randn(2, 5, 3, k).to(dtype).transpose(1, 2)  # (B, H, T, K) view of (B, T, H, K)
+    got = twkv._aligned(x)
+    per = 16 // x.element_size()
+    if k % per == 0:
+        assert got is x
+    else:
+        assert got.shape == (2, 3, 5, k + (-k) % per) and got.is_contiguous()
+        assert torch.equal(got[..., :k], x) and not got[..., k:].any()
+
+
 @pytest.mark.parametrize(
     "case",
     [
@@ -544,6 +591,9 @@ def test_wkv6_wrapper_takes_the_models_strided_layout():
         "last_axis_strided",
         "empty_t",
         "v_time_mismatch",
+        "s0_strided",
+        "u_strided",
+        "b_over_grid",
     ],
 )
 def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(case):
@@ -577,6 +627,13 @@ def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(case):
         r = torch.randn(b, h, kd, t).transpose(2, 3)
     elif case == "empty_t":
         r, k, v, w = (x[:, :, :0] for x in (r, k, v, w))
+    elif case == "s0_strided":
+        s0 = torch.randn(b, h, vd, kd).transpose(2, 3)
+    elif case == "u_strided":
+        u = torch.randn(kd, h).t()
+    elif case == "b_over_grid":
+        r, k, v = (torch.zeros(65536, 1, 1, 8) for _ in range(3))
+        w, u, s0 = torch.ones(65536, 1, 1, 8), torch.zeros(1, 8), None
     else:
         v = torch.randn(b, h, t + 1, vd)
     with pytest.raises(err):
