@@ -16,24 +16,34 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    recurrentgemma-9b's head dim 256 (MQA, window 2048, float32 and
    bfloat16), each case logging the path that served it (wgmma or FMA);
    the bfloat16 path gives the same bits on two launches and for a batch
-   row alone as within a batch of 3; the RG-LRU scan at recurrentgemma-9b's
-   prefill and decode shapes; WKV6 on the cases of ``tests/test_kernels.py`` (WKV_CASES), a
-   ragged T, rwkv6-7b's prefill and decode shapes and the edges of its two
-   kernels (chunk and stream), each case logging the path that served it; each
-   WKV6 path gives the same bits on two launches and for a batch row alone as
-   within a batch of 4; the wrapper's host cost a decode call. Each timed case prints
-   the kernel's time, its plain version's, one PyTorch library call's where
-   one computes the same function, and the least time the card could take;
+   row alone as within a batch of 3; the float32 rows also time SDPA's
+   memory-efficient backend; the cached-decode attention kernel at the
+   demo's and the hybrid's decode shapes and the tests' smoke widths (each
+   case logging the share of its tolerance it used), the same bits on two
+   launches and for a slot alone as within a batch of 4; the RG-LRU scan
+   at recurrentgemma-9b's prefill and decode shapes and the edges of its
+   two kernels (ring and step), every case bit for bit against its plain
+   version and logging its path, the same bits on two launches and for a
+   batch row alone as within a batch of 4 on each path; WKV6 on the cases
+   of ``tests/test_kernels.py`` (WKV_CASES), a ragged T, rwkv6-7b's prefill
+   and decode shapes and the edges of its two kernels (chunk and stream),
+   each case logging the path that served it; each WKV6 path gives the
+   same bits on two launches and for a batch row alone as within a batch
+   of 4; the wrapper's host cost a decode call. Each timed case prints the
+   kernel's time, its plain version's, one PyTorch library call's where one
+   computes the same function, and the least time the card could take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
    through ``ContinuousBatcher(slots=4, max_len=1536)``; tokens equal
    sequential greedy decoding, the flash kernel ran in every prefill
-   layer, and prefill logits agree with the port's CPU path within 1e-4;
+   layer and the decode-attention kernel in every layer of every decode
+   step, and prefill logits agree with the port's CPU path within 1e-4;
 5. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
    10.4B params, bfloat16) serves 8 requests of prompts on both sides of
    its 2048 window through ``ContinuousBatcher(slots=4, max_len=3072)``;
-   the flash kernel ran in the 12 attention layers of every prefill and
-   the RG-LRU kernel in the 26 recurrent layers of every prefill and
-   decode step; each request's logits agree with a teacher-forced
+   the flash kernel ran in the 12 attention layers of every prefill, the
+   decode-attention kernel in them at every decode step, and the RG-LRU
+   kernel in the 26 recurrent layers of every prefill and decode step;
+   each request's logits agree with a teacher-forced
    sequential run (fed the batched tokens) within LOGIT_TOL_BF16, and with
    the same run at the batcher's width bit for bit; a profiled prefill of
    one prompt gives the device time by kind of kernel (flash, RG-LRU,
@@ -83,13 +93,16 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rglru as rg  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch.serve import drain, make_prompts, serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from repro_torch.models.transformer import apply_layer  # noqa: E402
+from repro_torch.models.layers import apply_norm, softcap  # noqa: E402
+from repro_torch.models.model import unembed_logits  # noqa: E402
+from repro_torch.models.transformer import apply_layer, run_stack  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.serve.batcher import _splice_cache  # noqa: E402
@@ -144,15 +157,48 @@ HYBRID_FLASH = [
 HYBRID_FLASH_JSON = (1, 16, 1, 3000, 3000, 256, True, 2048, "bfloat16", 256)
 # (B, T, W, x dtype, with h0): recurrentgemma-9b's prefill (T up to 3000) and
 # decode (B = slots, T = 1) at lru_width 4096; a W that is no multiple of the
-# 64-thread block; float32 x
+# ring kernel's 16 channels; float32 x; then the two kernels' edges: T on both
+# sides of the step/ring threshold, one ring stage of 64 steps exactly and one
+# step past it, a W that is no multiple of 8 (the wrapper pads it for the ring
+# kernel), float32 at the decode shape
 RGLRU_CASES = [
     (1, 3000, 4096, "bfloat16", True),
     (1, 3000, 4096, "bfloat16", False),
     (4, 1, 4096, "bfloat16", True),
     (2, 333, 1000, "bfloat16", True),
     (1, 3000, 4096, "float32", True),
+    (1, rg.STEP_MAX_T, 4096, "bfloat16", True),
+    (1, rg.STEP_MAX_T + 1, 4096, "bfloat16", True),
+    (2, 64, 4096, "bfloat16", True),
+    (2, 65, 4096, "float32", False),
+    (3, 200, 50, "bfloat16", True),
+    (4, 1, 4096, "float32", True),
 ]
 RGLRU_JSON = (1, 3000, 4096, "bfloat16", True)  # prefill passes the zero state as h0
+RGLRU_TIMED = (RGLRU_JSON, RGLRU_CASES[2])
+# the same bits twice, and for batch row 0 alone as within a batch of 4, on each path
+RGLRU_DETERMINISM = ((4, 777, 4096, "bfloat16", True), (4, 1, 4096, "bfloat16", True))
+# (B, H, KV, Sc, D, window, dtype, each slot's position): the cached decode of
+# serpytor-demo-100m (12 query heads on 4 KV heads of 64, a linear float32 cache of
+# max_len 1536: slots at different positions, one on the last slot, one past it, where
+# every key is valid) and of recurrentgemma-9b (16 query heads on 1 KV head of 256, a
+# ring of its 2048 window: slots wrapped, before the ring fills and on its last slot;
+# bfloat16, and float32 as in its float32 copy); then the tests' smoke widths and the
+# kernel's edges: small D and Sc, a D that is no power of 2, an Sc that is no
+# multiple of the 64-key split, a ring of 50, position 0
+DECODE_CASES = [
+    (4, 12, 4, 1536, 64, None, "float32", (1031, 5, 1535, 1600)),
+    (4, 16, 1, 2048, 256, 2048, "bfloat16", (2250, 100, 2047, 4000)),
+    (4, 16, 1, 2048, 256, 2048, "float32", (2250, 100, 2047, 4000)),
+    (2, 4, 2, 16, 32, None, "float32", (5, 11)),
+    (3, 4, 1, 16, 32, 16, "bfloat16", (5, 29, 15)),
+    (2, 6, 3, 130, 40, None, "bfloat16", (129, 64)),
+    (1, 2, 2, 50, 8, 50, "float32", (77,)),
+    (2, 16, 1, 300, 128, None, "float32", (0, 299)),
+]
+DECODE_DEMO_JSON, DECODE_JSON = DECODE_CASES[0], DECODE_CASES[1]
+DECODE_TIMED = (DECODE_DEMO_JSON, DECODE_JSON)
+DECODE_DETERMINISM = DECODE_TIMED
 # (B, H, T, K, V, dtype, with h0): WKV_CASES of tests/test_kernels.py, a ragged T,
 # rwkv6-7b's prefill (T up to 3000, 64 heads of 64; prefill passes the zero
 # state as h0) and decode (B = slots, T = 1) shapes; then the chunk kernel's edges
@@ -205,6 +251,11 @@ LOGIT_TOL_BF16 = 0.25
 SAME_SHAPE_TOL = 0.0
 EXACT_TOL = 1e-4  # float32 both sides, XLA-free: summation order only
 LAYER_CHECK_SHAPE = (1, 2100, 4096)
+# The unembed on the card (bf16 operands, float32 accumulation and output) against the
+# same bf16 values taken in float32: both sums are float32 over d = 4096 terms and differ
+# only in their order, ~sqrt(d) * 2^-24 of the partial sums' size (~1e-5 at logits of
+# ~1). A transposed or wrong matrix moves a logit by its own size, ~1.
+UNEMBED_TOL = 1e-3
 RWKV_MAX_LEN = 3072
 # Batched and teacher-forced runs of bfloat16 rwkv6-7b at batch 4 and batch 1
 # differ only where cuBLAS sums a product in another order at the two batch
@@ -231,7 +282,10 @@ RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
 PORT_KERNEL_SYMBOLS = (
     "flash_fwd_wgmma_kernel",
     "flash_fwd_kernel",
-    "rglru_scan_kernel",
+    "decode_attention_split_kernel",
+    "decode_attention_combine_kernel",
+    "rglru_ring_kernel",
+    "rglru_step_kernel",
     "wkv6_chunk_kernel",
     "wkv6_stream_kernel",
 )
@@ -256,6 +310,24 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, name=None, launches: int = 50) -> float:
+    """Device time of one call of ``fn`` in us, from torch.profiler over ``launches`` calls:
+    the kernels whose name holds ``name``, or every kernel the call runs (``name=None``)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and (name is None or name in e.key)
+    )
+    return us / launches
+
+
 def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize):
     """Least time for one attention forward: max(FLOPs / peak, bytes / bandwidth),
     the peak of the input's type (float32 CUDA cores, bfloat16 tensor cores)."""
@@ -275,6 +347,19 @@ def rglru_bound_ms(b, t, w, itemsize, with_h0):
     Its ~6 flops an element are far below the ridge of any type."""
     nbytes = b * t * w * (itemsize + 4 + itemsize) + b * w * 4 * (2 if with_h0 else 1)
     return 1e3 * nbytes / PEAK_HBM_BYTES, "bytes"
+
+
+def decode_attention_bound_ms(b, h, kv, sc, d, positions, itemsize):
+    """Least time for one cached-decode attention step: max(FLOPs / peak of the input
+    type, bytes / bandwidth), counting the cache rows each slot's position makes valid
+    (min(pos + 1, Sc), for a linear cache and a ring alike): those rows of K and V read
+    once, q read and the output written in the input type, pos read."""
+    valid = sum(min(p + 1, sc) for p in positions)
+    nbytes = itemsize * (valid * kv * d * 2 + 2 * b * h * d) + 4 * b
+    flops = 4.0 * valid * (h // kv) * kv * d  # q.k and p.v, 2 flops a multiply-add each
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def wkv6_bound_ms(b, h, t, kd, vd, itemsize, with_h0):
@@ -416,15 +501,42 @@ def _flash_rows(gen):
             "bound_by": bound_by,
             "max_abs_err": err,
         }
+        library_msg = f"library_ms (SDPA {backend}, |err| {lib_err:.1e}) {row['library_ms']:.4f}"
+        if dtype == torch.float32:  # the yardstick: SDPA's memory-efficient backend
+            row["library_default_ms"] = row["library_ms"]
+            row["library_ms"], eff_err = _efficient_sdpa_ms(q, k, v, mask, want)
+            library_msg = (
+                f"library_ms (SDPA memory-efficient, K/V expanded to {hq} heads, |err| "
+                f"{eff_err:.1e}) {row['library_ms']:.4f}, SDPA {backend} (dispatched) "
+                f"{row['library_default_ms']:.4f}"
+            )
         rows[("demo", sq) if demo else case] = row
         log(
             f"[kernels]   {'demo S=' + str(sq) if demo else shape}: kernel_ms {row['ms']:.4f}, "
-            f"plain_ms {row['plain_ms']:.4f}, library_ms (SDPA {backend}, |err| {lib_err:.1e}) "
-            f"{row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}), "
+            f"plain_ms {row['plain_ms']:.4f}, {library_msg}, bound_ms {bound:.5f} ({bound_by}), "
             f"kernel/bound {row['ms'] / bound:.1f}"
         )
     _flash_determinism(gen)
     return rows, demo_err
+
+
+def _efficient_sdpa_ms(q, k, v, mask, want):
+    """SDPA on its memory-efficient backend, K and V expanded to q's heads beforehand (not
+    timed): its time in ms by CUDA events, and its max |err| against ``want``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    scale = q.shape[-1] ** -0.5
+
+    def efficient():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=mask, is_causal=mask is None, scale=scale
+        )
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        err = (efficient().float() - want.float()).abs().max().item()
+        return time_ms(efficient, iters=10), err
 
 
 def _flash_determinism(gen) -> None:
@@ -449,26 +561,41 @@ def _flash_determinism(gen) -> None:
     )
 
 
+def _rglru_inputs(gen, b, t, w, dtype, with_h0):
+    x = torch.randn(b, t, w, generator=gen, device=DEV).to(dtype)
+    # decays as the model makes them: exp(-8 softplus(lambda) sigmoid(.))
+    lam = torch.randn(w, generator=gen, device=DEV)
+    r = torch.sigmoid(torch.randn(b, t, w, generator=gen, device=DEV))
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
+    h0 = torch.randn(b, w, generator=gen, device=DEV) if with_h0 else None
+    return x, a, h0
+
+
 def _rglru_rows(gen):
-    """RG-LRU kernel vs plain on every case, with times."""
+    """RG-LRU kernels vs plain on every case, bit for bit, each logging the path that
+    served it; times at recurrentgemma-9b's prefill and decode shapes."""
     rows = {}
     for case in RGLRU_CASES:
         b, t, w, dt, with_h0 = case
-        dtype = getattr(torch, dt)
-        x = torch.randn(b, t, w, generator=gen, device=DEV).to(dtype)
-        # decays as the model makes them: exp(-8 softplus(lambda) sigmoid(.))
-        lam = torch.randn(w, generator=gen, device=DEV)
-        r = torch.sigmoid(torch.randn(b, t, w, generator=gen, device=DEV))
-        a = torch.exp(-8.0 * torch.nn.functional.softplus(lam) * r)
-        h0 = torch.randn(b, w, generator=gen, device=DEV) if with_h0 else None
+        x, a, h0 = _rglru_inputs(gen, b, t, w, getattr(torch, dt), with_h0)
         got, got_last = rg.rglru_scan(x, a, initial_state=h0)
         want, want_last = ref.rglru_ref(x, a, initial_state=h0)
         torch.cuda.synchronize()
-        label = f"rglru_scan x{tuple(x.shape)} {dt} h0={with_h0}"
+        label = f"rglru_scan x{tuple(x.shape)} {dt} h0={with_h0} ({rg.path_for(t)} path)"
         err = max(_check(label, got, want, TOL[dt]), _check(label, got_last, want_last, TOL[dt]))
+        if not (torch.equal(got, want) and torch.equal(got_last, want_last)):
+            raise AssertionError(f"[kernels] {label}: not the plain version's bits (|err| {err})")
+        msg = f"[kernels] {label}: h and final state equal the plain version bit for bit"
+        if case not in RGLRU_TIMED:
+            log(msg)
+            continue
         bound, bound_by = rglru_bound_ms(b, t, w, x.element_size(), with_h0)
+
+        def kernel(x=x, a=a, h0=h0):
+            return rg.rglru_scan(x, a, initial_state=h0)
+
         row = {
-            "ms": time_ms(lambda x=x, a=a, h0=h0: rg.rglru_scan(x, a, initial_state=h0)),
+            "ms": time_ms(kernel),
             "plain_ms": time_ms(
                 lambda x=x, a=a, h0=h0: ref.rglru_ref(x, a, initial_state=h0), iters=3, warmup=1
             ),
@@ -479,11 +606,135 @@ def _rglru_rows(gen):
         }
         rows[case] = row
         log(
-            f"[kernels] {label}: max |err| {err:.3e} (tol {TOL[dt]}); kernel_ms {row['ms']:.4f}, "
-            f"plain_ms {row['plain_ms']:.4f}, library_ms none, bound_ms {bound:.5f} ({bound_by}), "
+            f"{msg}; kernel_ms {row['ms']:.4f} (device {device_us(kernel, 'rglru'):.2f} us a "
+            f"launch), plain_ms {row['plain_ms']:.4f}, library_ms none, bound_ms {bound:.5f} "
+            f"({bound_by}), kernel/bound {row['ms'] / bound:.1f}"
+        )
+    _rglru_determinism(gen)
+    return rows
+
+
+def _rglru_determinism(gen) -> None:
+    """Each path's bits at the model's width: equal on two launches, and batch row 0
+    alone (B = 1) equal to row 0 of B = 4, h and final state."""
+    for case in RGLRU_DETERMINISM:
+        b, t, w, dt, with_h0 = case
+        x, a, h0 = _rglru_inputs(gen, b, t, w, getattr(torch, dt), with_h0)
+        first = rg.rglru_scan(x, a, initial_state=h0)
+        again = rg.rglru_scan(x, a, initial_state=h0)
+        alone = rg.rglru_scan(x[:1], a[:1], initial_state=h0[:1])
+        torch.cuda.synchronize()
+        relaunch = sum((p != q).sum().item() for p, q in zip(first, again))
+        batch = sum((p != q[:1]).sum().item() for p, q in zip(alone, first))
+        label = f"rglru_scan x{tuple(x.shape)} {dt} ({rg.path_for(t)} path)"
+        if relaunch or batch:
+            raise AssertionError(
+                f"[kernels] {label} not deterministic: {relaunch} elements differ between two "
+                f"launches, {batch} between B=1 and row 0 of B={b}"
+            )
+        log(
+            f"[kernels] {label}: h and final state equal bit for bit on two launches and for "
+            f"B=1 against row 0 of B={b}"
+        )
+
+
+def _decode_inputs(gen, b, h, kv, sc, d, dtype, positions):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+
+    pos = torch.tensor(positions, dtype=torch.int32, device=DEV)
+    return rnd(b, h, d), rnd(b, sc, kv, d), rnd(b, sc, kv, d), pos
+
+
+def _decode_valid(sc, window, pos):
+    """(B, Sc) validity of each cache slot, as the plain version masks it."""
+    idx = torch.arange(sc, device=DEV)
+    if window and sc == window:
+        ages = torch.remainder(pos[:, None] - idx[None, :], window)
+        return ages < torch.clamp(pos + 1, max=window)[:, None]
+    return idx[None, :] <= pos[:, None]
+
+
+def _decode_attention_rows(gen):
+    """Decode-attention kernel vs its plain version on every case, with the share of the
+    tolerance used; times at the demo's and the hybrid's decode shapes, with the device
+    time of a launch against that of the plain version's ops."""
+    rows = {}
+    for case in DECODE_CASES:
+        b, h, kv, sc, d, window, dt, positions = case
+        q, k, v, pos = _decode_inputs(gen, b, h, kv, sc, d, getattr(torch, dt), positions)
+        got = da.decode_attention(q, k, v, pos, window=window)
+        want = ref.decode_attention_ref(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        label = (
+            f"decode_attention q{tuple(q.shape)} cache{tuple(k.shape)} {dt} window={window} "
+            f"pos={list(positions)}"
+        )
+        err = _check(label, got, want, TOL[dt])
+        used = _tol_used(got, want, TOL[dt])
+        msg = f"[kernels] {label}: max |err| {err:.3e} (tol {TOL[dt]}), {100 * used:.0f}% used"
+        if case not in DECODE_TIMED:
+            log(msg)
+            continue
+        mask = _decode_valid(sc, window, pos)[:, None, None, :]  # (B, 1, 1, Sc)
+        kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)  # (B, KV, Sc, D) views
+
+        def kernel(q=q, k=k, v=v, pos=pos, window=window):
+            return da.decode_attention(q, k, v, pos, window=window)
+
+        def plain(q=q, k=k, v=v, pos=pos, window=window):
+            return ref.decode_attention_ref(q, k, v, pos, window=window)
+
+        def library(q=q[:, :, None], kt=kt, vt=vt, mask=mask, scale=d**-0.5):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True
+            )
+
+        lib_err = (library()[:, :, 0].float() - want.float()).abs().max().item()
+        bound, bound_by = decode_attention_bound_ms(b, h, kv, sc, d, positions, q.element_size())
+        row = {
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, iters=10),
+            "library_ms": time_ms(library, iters=10),
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": err,
+        }
+        rows[case] = row
+        log(
+            f"{msg}; kernel_ms {row['ms']:.4f} (device {device_us(kernel, 'decode_attention'):.2f}"
+            f" us a launch, split and combine), plain_ms {row['plain_ms']:.4f} (device "
+            f"{device_us(plain):.2f} us a call), library_ms (SDPA "
+            f"{_sdpa_backend(q[:, :, None], kt, vt, mask, False)}, |err| {lib_err:.1e}) "
+            f"{row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}), "
             f"kernel/bound {row['ms'] / bound:.1f}"
         )
+    _decode_attention_determinism(gen)
     return rows
+
+
+def _decode_attention_determinism(gen) -> None:
+    """The kernel's bits at the demo's and the hybrid's shapes: equal on two launches, and
+    slot 0 alone (B = 1) equal to slot 0 of B = 4."""
+    for case in DECODE_DETERMINISM:
+        b, h, kv, sc, d, window, dt, positions = case
+        q, k, v, pos = _decode_inputs(gen, b, h, kv, sc, d, getattr(torch, dt), positions)
+        first = da.decode_attention(q, k, v, pos, window=window)
+        again = da.decode_attention(q, k, v, pos, window=window)
+        alone = da.decode_attention(q[:1], k[:1], v[:1], pos[:1], window=window)
+        torch.cuda.synchronize()
+        relaunch = (first != again).sum().item()
+        batch = (alone != first[:1]).sum().item()
+        label = f"decode_attention q{tuple(q.shape)} cache{tuple(k.shape)} {dt} window={window}"
+        if relaunch or batch:
+            raise AssertionError(
+                f"[kernels] {label} not deterministic: {relaunch} elements differ between two "
+                f"launches, {batch} between B=1 and row 0 of B={b}"
+            )
+        log(
+            f"[kernels] {label}: two launches equal bit for bit; B=1 equals row 0 of B={b} "
+            "bit for bit"
+        )
 
 
 def _wkv6_inputs(gen, b, h, t, kd, vd, dtype, with_h0):
@@ -602,7 +853,7 @@ def _wkv6_host_cost(gen, calls: int = 200) -> None:
 def phase_kernels():
     gen = _gen(7)
     flash_rows, demo_err = _flash_rows(gen)
-    return flash_rows, demo_err, _rglru_rows(gen), _wkv6_rows(gen)
+    return flash_rows, demo_err, _decode_attention_rows(gen), _rglru_rows(gen), _wkv6_rows(gen)
 
 
 def _sequential(model, params, prompt, n, max_len):
@@ -621,6 +872,7 @@ def _sequential(model, params, prompt, n, max_len):
 def _reset_launches() -> None:
     """Set every kernel's launch count to 0 just before a serving run."""
     fa.flash_attention_fwd.launches = 0
+    da.decode_attention.launches = 0
     rg.rglru_scan.launches = 0
     wk.wkv6_chunked.launches = 0
 
@@ -631,8 +883,9 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_demo() -> int:
-    """Serve the full-width demo model; returns the flash kernel's launch count."""
+def phase_demo() -> dict:
+    """Serve the full-width demo model; returns the flash and decode-attention kernels'
+    launch counts."""
     cfg = get_config("serpytor-demo-100m")
     params = init_params(cfg, _gen(0), DEV)
     model = build(cfg, DEV)
@@ -650,7 +903,7 @@ def phase_demo() -> int:
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     res = serve(model, params, prompts, new_tokens=NEW_TOKENS, slots=SLOTS, max_len=MAX_LEN)
-    launches = fa.flash_attention_fwd.launches
+    launches, decode_launches = fa.flash_attention_fwd.launches, da.decode_attention.launches
     peak = torch.cuda.max_memory_allocated()
 
     done = res["generations"]
@@ -660,20 +913,30 @@ def phase_demo() -> int:
         if done[rid].tokens != toks:
             raise AssertionError(f"[demo] {rid}: batched {done[rid].tokens} != sequential {toks}")
     expected = cfg.num_layers * len(prompts)
-    if launches != expected or rg.rglru_scan.launches or wk.wkv6_chunked.launches:
+    expected_decode = cfg.num_layers * res["steps"]
+    if (
+        (launches, decode_launches) != (expected, expected_decode)
+        or rg.rglru_scan.launches
+        or wk.wkv6_chunked.launches
+    ):
         raise AssertionError(
-            f"[demo] flash launches {launches}, expected {expected}; rglru launches "
+            f"[demo] flash launches {launches}, expected {expected}; decode_attention launches "
+            f"{decode_launches}, expected {expected_decode}; rglru launches "
             f"{rg.rglru_scan.launches}, wkv6 launches {wk.wkv6_chunked.launches}, expected 0"
         )
     log(f"[demo] tokens of all {len(done)} requests equal sequential greedy decoding")
     check_against_cpu(cfg, model, params, min(prompts, key=len))
-    log(f"[demo] flash_attention_fwd launches {launches} = {cfg.num_layers} layers x 8 prefills")
+    log(
+        f"[demo] flash_attention_fwd launches {launches} = {cfg.num_layers} layers x 8 prefills;"
+        f" decode_attention launches {decode_launches} = {cfg.num_layers} layers x "
+        f"{res['steps']} decode steps"
+    )
     log(
         f"[demo] {res['tokens']} tokens in {res['wall_s']:.4f} s: {res['tok_per_s']:.2f} tok/s; "
         f"prefill {res['prefill_ms_mean']:.3f} ms mean; decode {res['decode_ms_per_step']:.3f} "
         f"ms/step over {res['steps']} steps; max_memory_allocated {peak} bytes"
     )
-    return launches
+    return {"flash": launches, "decode_attention": decode_launches}
 
 
 def check_against_cpu(cfg, model, params, prompt) -> None:
@@ -778,33 +1041,39 @@ def phase_hybrid() -> dict:
     log(
         f"[hybrid] {cfg.name}: {cfg.num_layers} layers ({n_rec} rec, {n_attn} attn, window "
         f"{cfg.window}), d={cfg.d_model}, lru_width {cfg.lru_width}, {cfg.param_count()} params "
-        f"{cfg.param_dtype}; drawn in {time.monotonic() - t0:.1f} s"
+        f"{cfg.param_dtype} ({torch.cuda.memory_allocated()} bytes on the card); drawn in "
+        f"{time.monotonic() - t0:.1f} s"
     )
     prompts = hybrid_prompts(cfg.vocab_size)
     log(f"[hybrid] prompt lengths {[len(p) for p in prompts]}, {NEW_TOKENS} new tokens each")
     res, seen, peak = _serve_recorded(model, params, prompts, HYBRID_MAX_LEN)
     flash_launches, rglru_launches = fa.flash_attention_fwd.launches, rg.rglru_scan.launches
-    wkv6_launches = wk.wkv6_chunked.launches
+    decode_launches, wkv6_launches = da.decode_attention.launches, wk.wkv6_chunked.launches
 
     want_flash = n_attn * len(prompts)
+    want_decode = n_attn * res["steps"]
     want_rglru = n_rec * (len(prompts) + res["steps"])
-    if (flash_launches, rglru_launches, wkv6_launches) != (want_flash, want_rglru, 0):
+    got = (flash_launches, decode_launches, rglru_launches, wkv6_launches)
+    if got != (want_flash, want_decode, want_rglru, 0):
         raise AssertionError(
-            f"[hybrid] launches flash {flash_launches} (expected {want_flash}), rglru "
-            f"{rglru_launches} (expected {want_rglru}), wkv6 {wkv6_launches} (expected 0)"
+            f"[hybrid] launches flash {flash_launches} (expected {want_flash}), decode_attention "
+            f"{decode_launches} (expected {want_decode}), rglru {rglru_launches} (expected "
+            f"{want_rglru}), wkv6 {wkv6_launches} (expected 0)"
         )
     log(
         f"[hybrid] flash_attention_fwd launches {flash_launches} = {n_attn} attn layers x "
-        f"{len(prompts)} prefills ({fa.PATHS[torch.bfloat16]} path); rglru_scan launches "
-        f"{rglru_launches} = {n_rec} rec layers x ({len(prompts)} prefills + {res['steps']} "
-        "decode steps)"
+        f"{len(prompts)} prefills ({fa.PATHS[torch.bfloat16]} path); decode_attention launches "
+        f"{decode_launches} = {n_attn} attn layers x {res['steps']} decode steps; rglru_scan "
+        f"launches {rglru_launches} = {n_rec} rec layers x ({len(prompts)} prefills + "
+        f"{res['steps']} decode steps)"
     )
 
     _check_teacher_forced("[hybrid]", model, params, prompts, res, seen, LOGIT_TOL_BF16)
+    _check_unembed("[hybrid]", model, params, min(prompts, key=len))
     _log_serving("[hybrid]", res, peak)
     _prefill_profile(model, params, "[hybrid]", prompts[0], HYBRID_MAX_LEN)
     _decode_profile(model, params, "[hybrid]", HYBRID_MAX_LEN)
-    return {"flash": flash_launches, "rglru": rglru_launches}
+    return {"flash": flash_launches, "decode_attention": decode_launches, "rglru": rglru_launches}
 
 
 def _check_teacher_forced(tag, model, params, prompts, res, seen, tol, max_len=HYBRID_MAX_LEN):
@@ -845,6 +1114,39 @@ def _check_teacher_forced(tag, model, params, prompts, res, seen, tol, max_len=H
     )
 
 
+def _check_unembed(tag, model, params, prompt) -> None:
+    """``unembed_logits`` on one prefill's last hidden states, at decode's rows (SLOTS)
+    and prefill's (1), against the final norm, a product of the bf16 operands taken in
+    float32, the softcap and the padding, within UNEMBED_TOL."""
+    cfg = model.cfg
+    ids = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
+    with torch.no_grad():
+        h = params["embed"]["table"][ids].to(torch.bfloat16)
+        positions = torch.arange(h.shape[1], device=DEV)
+        h, _ = run_stack(h, params, cfg, model.segments, positions=positions, mode="prefill")
+        w = params["embed"]["table"].t() if cfg.tie_embeddings else params["unembed"]
+        if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+            raise AssertionError(f"{tag} unembed operands {h.dtype} and {w.dtype}, not bfloat16")
+        worst = 0.0
+        for rows in (h[0, -SLOTS:, :], h[0, -1:, :]):
+            got = unembed_logits(params, rows, cfg)
+            hn = apply_norm(rows, params["final_norm"], cfg.norm, cfg.norm_eps).float()
+            cols = range(0, w.shape[1], 32768)
+            want = torch.cat([hn @ w[:, i : i + 32768].float() for i in cols], dim=1)
+            want = softcap(want, cfg.logit_softcap)
+            want[:, cfg.vocab_size :] = -1e30
+            if got.shape != want.shape or not torch.isfinite(got[:, : cfg.vocab_size]).all():
+                raise AssertionError(f"{tag} unembed: {tuple(got.shape)} vs {tuple(want.shape)}")
+            worst = max(worst, (got - want).abs().max().item())
+    if worst > UNEMBED_TOL:
+        raise AssertionError(f"{tag} unembed vs float32 operands: max |err| {worst:.4e}")
+    log(
+        f"{tag} unembed (bf16 x bf16 -> float32, {tuple(w.shape)}) vs float32 operands at "
+        f"{SLOTS} and 1 rows of a {len(prompt)}-token prefill: max |err| {worst:.4e} "
+        f"({worst / UNEMBED_TOL:.1%} of tol {UNEMBED_TOL})"
+    )
+
+
 def _log_serving(tag, res, peak) -> None:
     log(
         f"{tag} {res['tokens']} tokens in {res['wall_s']:.4f} s: {res['tok_per_s']:.2f} tok/s; "
@@ -859,6 +1161,8 @@ def _kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in name:
         return "flash"
+    if "decode_attention" in name:
+        return "decode_attention"
     if "rglru" in name:
         return "rglru"
     if "wkv6" in name:
@@ -880,10 +1184,13 @@ def _prefill_profile(model, params, tag: str, prompt, max_len: int) -> None:
 
     prefill()
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     prefill()
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.monotonic() - t0)
+    peak = torch.cuda.max_memory_allocated()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
@@ -913,7 +1220,8 @@ def _prefill_profile(model, params, tag: str, prompt, max_len: int) -> None:
     )
     top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}" for us, n, k in rows[:6])
     log(
-        f"{tag} prefill of {len(prompt)} tokens: {plain_ms:.3f} ms host wall; under the "
+        f"{tag} prefill of {len(prompt)} tokens: {plain_ms:.3f} ms host wall, peak memory "
+        f"{peak} bytes ({peak - held} above the {held} held before it); under the "
         f"profiler {wall_ms:.3f} ms wall, device busy {device_ms:.3f} ms "
         f"({100 * device_ms / wall_ms:.1f}%), {sum(launches.values())} kernels; device time "
         f"by kind: {by_kind}; top kernels: {top}"
@@ -928,11 +1236,14 @@ def _decode_profile(model, params, tag: str, max_len: int, steps: int = 5) -> No
     for _ in range(2):
         model.decode_step(params, cache, {"token": tok})
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     for _ in range(steps):
         model.decode_step(params, cache, {"token": tok})
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.monotonic() - t0) / steps
+    peak = torch.cuda.max_memory_allocated()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
@@ -958,7 +1269,8 @@ def _decode_profile(model, params, tag: str, max_len: int, steps: int = 5) -> No
         if name in k
     )
     log(
-        f"{tag} decode step (4 slots): {plain_ms:.3f} ms host wall; under the profiler "
+        f"{tag} decode step (4 slots): {plain_ms:.3f} ms host wall, peak memory {peak} bytes "
+        f"({peak - held} above the {held} held before it); under the profiler "
         f"{wall_us / 1e3 / steps:.3f} ms wall, device busy {device_us / 1e3 / steps:.3f} ms "
         f"({100 * device_us / wall_us:.1f}%), {sum(r[1] for r in rows) // steps} kernels a step; "
         f"top by device time per step: {top}; the port's kernels: {ours or 'none'}"
@@ -1059,19 +1371,22 @@ def phase_rwkv() -> int:
     )
     res, seen, peak = _serve_recorded(model, params, prompts, RWKV_MAX_LEN)
     launches = wk.wkv6_chunked.launches
-    others = fa.flash_attention_fwd.launches + rg.rglru_scan.launches
+    others = (
+        fa.flash_attention_fwd.launches + da.decode_attention.launches + rg.rglru_scan.launches
+    )
 
     want = cfg.num_layers * (len(prompts) + res["steps"])
     if launches != want or others:
         raise AssertionError(
-            f"[rwkv] wkv6 launches {launches} (expected {want}), flash + rglru {others} "
-            "(expected 0)"
+            f"[rwkv] wkv6 launches {launches} (expected {want}), flash + decode_attention + "
+            f"rglru {others} (expected 0)"
         )
     log(
         f"[rwkv] wkv6_chunked launches {launches} = {cfg.num_layers} layers x ({len(prompts)} "
-        f"prefills + {res['steps']} decode steps); flash and rglru 0"
+        f"prefills + {res['steps']} decode steps); flash, decode_attention and rglru 0"
     )
     _check_teacher_forced("[rwkv]", model, params, prompts, res, seen, LOGIT_TOL_RWKV, RWKV_MAX_LEN)
+    _check_unembed("[rwkv]", model, params, min(prompts, key=len))
     _log_serving("[rwkv]", res, peak)
     _prefill_profile(model, params, "[rwkv]", prompts[0], RWKV_MAX_LEN)
     _decode_profile(model, params, "[rwkv]", RWKV_MAX_LEN)
@@ -1170,8 +1485,8 @@ def main() -> int:
     t_start = time.monotonic()
     smi = phase_device()
     _timed("build", phase_build)
-    flash_rows, demo_err, rglru_rows, wkv6_rows = _timed("kernels", phase_kernels)
-    demo_launches = _timed("demo", phase_demo)
+    flash_rows, demo_err, decode_rows, rglru_rows, wkv6_rows = _timed("kernels", phase_kernels)
+    demo = _timed("demo", phase_demo)
     hybrid = _timed("hybrid", phase_hybrid)
     _timed("exactness", phase_exactness)
     rwkv_launches = _timed("rwkv", phase_rwkv)
@@ -1185,7 +1500,7 @@ def main() -> int:
             "flash_attention_fwd",
             flash_src,
             flash_tpu,
-            demo_launches,
+            demo["flash"],
             demo_row,
             f"q(1,12,{JSON_SEQ},64) k,v(1,4,{JSON_SEQ},64) float32 causal",
         ),
@@ -1196,6 +1511,22 @@ def main() -> int:
             hybrid["flash"],
             flash_rows[HYBRID_FLASH_JSON],
             "q(1,16,3000,256) k,v(1,1,3000,256) bfloat16 causal window 2048",
+        ),
+        _kernel_entry(
+            "decode_attention",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
+            demo["decode_attention"],
+            decode_rows[DECODE_DEMO_JSON],
+            "q(4,12,64) k,v cache(4,1536,4,64) float32, positions (1031,5,1535,1600)",
+        ),
+        _kernel_entry(
+            "decode_attention_hd256",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
+            hybrid["decode_attention"],
+            decode_rows[DECODE_JSON],
+            "q(4,16,256) k,v ring cache(4,2048,1,256) bfloat16, positions (2250,100,2047,4000)",
         ),
         _kernel_entry(
             "rglru_scan",

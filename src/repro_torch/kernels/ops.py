@@ -4,13 +4,16 @@ Counterpart of ``repro.kernels.ops``. Models import only from this module.
 
   impl="auto" or "pallas" : the Hopper kernel on a CUDA tensor, its plain
                             version (``ref.flash_attention_ref``,
+                            ``ref.decode_attention_ref``,
                             ``ref.wkv6_chunked_ref``, ``ref.rglru_ref``) on a
                             CPU tensor; "pallas" is accepted so that the
                             reference's ``cfg.attn_impl`` values carry over
-  impl="ref"              : the blocked attention / chunked WKV6 /
-                            associative-scan RG-LRU plain version on any device
+  impl="ref"              : the blocked attention / cached decode / chunked
+                            WKV6 / associative-scan RG-LRU plain version on
+                            any device
   impl="dense"            : the O(S²) dense attention oracle (small test
-                            shapes only) / the sequential WKV6 / the
+                            shapes only) / the cached decode's plain version
+                            (it has one) / the sequential WKV6 / the
                             sequential RG-LRU
 """
 
@@ -21,12 +24,13 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref as _ref
+from .decode_attention import decode_attention as _decode_attention_kernel
 from .flash_attention import flash_attention_fwd
 from .rglru import rglru_scan
 from .wkv6 import CHUNK as _WKV_CHUNK
 from .wkv6 import wkv6_chunked
 
-__all__ = ["flash_attention", "wkv6", "rglru"]
+__all__ = ["flash_attention", "decode_attention", "wkv6", "rglru"]
 
 
 def flash_attention(
@@ -47,6 +51,25 @@ def flash_attention(
     if impl == "dense":
         return _ref.flash_attention_dense_ref(q, k, v, causal=causal, window=window, scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One decode step of GQA attention. q (B,H,D), caches (B,Sc,KV,D), pos (B,) int32
+    -> (B,H,D); a cache of ``window`` slots is a ring. The caller has written this
+    step's key and value at each slot's position."""
+    if impl in ("auto", "pallas"):
+        return _decode_attention_kernel(q, k_cache, v_cache, pos, window=window)
+    if impl in ("ref", "dense"):
+        return _ref.decode_attention_ref(q, k_cache, v_cache, pos, window=window)
+    raise ValueError(f"unknown decode attention impl {impl!r}")
 
 
 def wkv6(

@@ -8,6 +8,10 @@ Attention: float32 logits, masked logits set to -1e30, query positions
 right-aligned to the keys (``qpos = i + Sk - Sq``), GQA through the KV head
 ``h // g``, and a value head dim that may differ from the key head dim (MLA).
 
+Cached decode: one query token a slot against its cache (B, Sc, KV, D), the
+logits and the softmax in float32, keys masked to -1e30 past the slot's
+position, or outside the window when the cache is a ring of ``window`` slots.
+
 RG-LRU: ``h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0)) * x_t`` with the
 state in float32, h returned in the dtype of x and the final state in
 float32. ``rglru_ref`` steps through time; ``rglru_scan_ref`` is the
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 __all__ = [
     "flash_attention_ref",
     "flash_attention_dense_ref",
+    "decode_attention_ref",
     "rglru_ref",
     "rglru_scan_ref",
     "wkv6_ref",
@@ -125,6 +130,40 @@ def flash_attention_ref(
         m = m_new
     out = acc / torch.clamp(l_sum[..., None], min=1e-37)
     return out.to(q.dtype)
+
+
+def decode_attention_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One decode step of GQA attention over a cache: the Hopper kernel's plain version.
+
+    q (B, H, D); k_cache, v_cache (B, Sc, KV, D); pos (B,) the slot each sequence
+    writes this step (its keys 0..pos are valid). A cache of ``window`` slots is a
+    ring: slot i holds the position p with p % window == i, valid when it is among
+    the last min(pos + 1, window) positions. Returns (B, H, D) in q's dtype.
+    """
+    b, h, d = q.shape
+    sc, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    # (B, KV, g, 1, D) x (B, KV, 1, Sc, D): GQA without repeating the cache
+    qf = q.float().reshape(b, kv, g, 1, d)
+    kf = k_cache.float().permute(0, 2, 1, 3).unsqueeze(2)
+    vf = v_cache.float().permute(0, 2, 1, 3).unsqueeze(2)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * (d**-0.5)  # (B, KV, g, 1, Sc)
+    idx = torch.arange(sc, device=q.device)
+    if window and sc == window:
+        ages = torch.remainder(pos[:, None] - idx[None, :], window)  # (B, Sc)
+        valid = ages < torch.clamp(pos + 1, max=window)[:, None]
+    else:
+        valid = idx[None, :] <= pos[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, None, :], _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, vf).to(q.dtype).reshape(b, h, d)
 
 
 def _rglru_h0(x: torch.Tensor, initial_state: Optional[torch.Tensor]) -> torch.Tensor:

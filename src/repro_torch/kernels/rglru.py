@@ -1,8 +1,18 @@
-"""RG-LRU scan: the hand-written Hopper kernel and its wrapper.
+"""RG-LRU scan: the hand-written Hopper kernels and their wrapper.
 
-Counterpart of ``repro.kernels.rglru.rglru_pallas``. The kernel is
+Counterpart of ``repro.kernels.rglru.rglru_pallas``. The kernels are in
 ``csrc/rglru_scan.cu`` (CUDA C++ for ``sm_90a``, built by :mod:`._build`);
-its source note says what it replaces and what bounds it.
+its source note says what they replace and what bounds them. Two launch
+shapes, picked by T alone (:func:`path_for`): the ring kernel (a block per
+batch row and :data:`RING_CHANNELS` channels, fed by a ring of ``cp.async``
+stages) for prefill, and the step kernel (a thread a channel) for
+T <= :data:`STEP_MAX_T`, decode's T = 1 included. Both walk each channel's
+steps in order with the plain version's rounding: the same bits as
+:func:`repro_torch.kernels.ref.rglru_ref`.
+
+The ring kernel's 16-byte copies need W a multiple of 8 and x, a 16-byte
+aligned; the wrapper pads W with zeros (a = 0, x = 0 keep h = 0 there) when
+they are not, as the flash wrapper pads head dims.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU
 tensor it runs the plain version, :func:`repro_torch.kernels.ref.rglru_ref`,
@@ -19,10 +29,22 @@ import torch
 
 from . import ref as _ref
 
-__all__ = ["rglru_scan"]
+__all__ = ["rglru_scan", "path_for", "RING_CHANNELS", "STEP_MAX_T"]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
+#: channels a ring-kernel block (``CH`` in the source): its grid is (ceil(W / 16), B)
+RING_CHANNELS = 16
+#: the longest T that the step kernel serves; longer T goes to the ring kernel. On an H100
+#: at (1, T, 4096) bfloat16 the step kernel takes less device time up to T = 32 and more
+#: from T = 48 (``tools/rglru_check.py`` times both); decode's T = 1 is far inside.
+STEP_MAX_T = 32
+_C_PATH = {"ring": 0, "step": 1}
+
+
+def path_for(t: int) -> str:
+    """The kernel that serves a call of ``t`` steps, whatever B and W: "step" or "ring"."""
+    return "step" if t <= STEP_MAX_T else "ring"
 
 
 def _check(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> None:
@@ -59,10 +81,30 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # first use: declare the C signature
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _plan(x, a, h0):
+    """What a launch hands the C entry point: the path's code and x, a and the initial
+    state as the chosen kernel takes them. For the ring kernel, operands whose W is no
+    multiple of 8 or whose address is no multiple of 16 bytes come back padded with
+    zeros along W to a multiple of 8, contiguous; the caller keeps the first W channels."""
+    w = x.shape[2]
+    path = path_for(x.shape[1])
+    if path == "ring" and (w % 8 or x.data_ptr() % 16 or a.data_ptr() % 16):
+        wp = w + (-w) % 8
+        x, a = _padded(x, wp), _padded(a, wp)
+        h0 = None if h0 is None else _padded(h0, wp)
+    return _C_PATH[path], x, a, h0
+
+
+def _padded(y: torch.Tensor, width: int) -> torch.Tensor:
+    out = y.new_zeros(*y.shape[:-1], width)
+    out[..., : y.shape[-1]] = y
+    return out
 
 
 def rglru_scan(
@@ -71,16 +113,19 @@ def rglru_scan(
     """x (B,T,W) float32|bfloat16, a (B,T,W) float32, initial_state (B,W) float32
     -> (h (B,T,W) in x's dtype, final state (B,W) float32).
 
-    ``rglru_scan.launches`` counts kernel launches (never the CPU path).
+    ``rglru_scan.launches`` counts kernel launches (never the CPU path);
+    :func:`path_for` names the kernel that serves a T.
     """
     _check(x, a, initial_state)
     if x.device.type == "cpu":
         return _ref.rglru_ref(x, a, initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {x.device}")
-    b, t, w = x.shape
+    w = x.shape[2]
+    code, x, a, initial_state = _plan(x, a, initial_state)
+    b, t, wp = x.shape
     h = torch.empty_like(x)
-    h_last = torch.empty((b, w), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((b, wp), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -92,14 +137,17 @@ def rglru_scan(
             h_last.data_ptr(),
             b,
             t,
-            w,
+            wp,
             int(x.dtype == torch.bfloat16),
+            code,
             stream,
         )
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"rglru_scan: launch failed: CUDA error {err} ({msg})")
     rglru_scan.launches += 1
+    if wp != w:
+        return h[..., :w].contiguous(), h_last[:, :w].contiguous()
     return h, h_last
 
 

@@ -1,10 +1,13 @@
-"""GQA attention: full-sequence (prefill) through the kernel, cached decode in plain torch.
+"""GQA attention: full-sequence (prefill) and cached decode, each through a kernel.
 
 Counterpart of ``repro.models.attention`` (GQA only; MLA waits for its
 slice). Two call modes:
   - full-sequence: ``ops.flash_attention`` (the Hopper kernel on the card);
   - cached decode: one token per sequence against a fixed-size cache with a
-    per-sequence position, in plain torch as the reference is plain jnp.
+    per-sequence position, through ``ops.decode_attention``. The reference
+    is plain jnp here; the port's kernel gives a sequence the same bits
+    whatever batch it is decoded in, which batched products and softmax do
+    not (``tools/batch_invariance.py``).
 
 Cache layout per layer: {"k": (B, S, Hkv, D), "v": (B, S, Hkv, D), "pos": (B,)}.
 The decode step writes the new key and value into the cache IN PLACE (the
@@ -103,21 +106,9 @@ def gqa_attention(
     bidx = torch.arange(b, device=x.device)
     k_cache[bidx, slot] = k[:, :, 0].to(k_cache.dtype)
     v_cache[bidx, slot] = v[:, :, 0].to(v_cache.dtype)
-    g = h // cfg.num_kv_heads
-    # (B, KV, g, 1, hd) x (B, KV, 1, Sc, hd): GQA without repeating the cache
-    qf = q.float().reshape(b, cfg.num_kv_heads, g, 1, hd)
-    kf = k_cache.float().permute(0, 2, 1, 3).unsqueeze(2)
-    vf = v_cache.float().permute(0, 2, 1, 3).unsqueeze(2)
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * (hd**-0.5)  # (B, KV, g, 1, Sc)
-    idx = torch.arange(sc, device=x.device)
-    if ring:
-        ages = torch.remainder(pos[:, None] - idx[None, :], window)  # (B, Sc)
-        valid = ages < torch.clamp(pos + 1, max=window)[:, None]
-    else:
-        valid = idx[None, :] <= pos[:, None]
-    logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs, vf).to(x.dtype)  # (B, KV, g, 1, hd)
-    out = out.reshape(b, h, 1, hd).transpose(1, 2).reshape(b, s, h * hd)
+    out = ops.decode_attention(
+        q[:, :, 0].contiguous(), k_cache, v_cache, pos, window=window, impl=cfg.attn_impl
+    )  # (B, H, hd)
+    out = out.reshape(b, s, h * hd)
     pos.add_(1)
     return dense(out, p["wo"]), cache

@@ -101,9 +101,11 @@ def norm_param(store: ParamStore, name: str, dim: int, kind: str) -> None:
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * scale.float()
+    """In float32, through ``F.rms_norm``. On an H100 its result for a 4096-wide row is
+    the same alone and as one of four rows; a ``torch.mean`` reduction in its place
+    differs there in the last bit of every element, and recurrentgemma-9b's logits for a
+    request then drift apart between batch 1 and batch 4 (``tools/batch_invariance.py``)."""
+    out = F.rms_norm(x.float(), (x.shape[-1],), scale.float(), eps)
     return out.to(x.dtype)
 
 
@@ -199,5 +201,5 @@ def glu_mlp(
 ) -> torch.Tensor:
     actf = _ACTS[act]
     up = dense(x, p["w_up"])
-    h = actf(dense(x, p["w_gate"])) * up if glu else actf(up)
+    h = up.mul_(actf(dense(x, p["w_gate"]))) if glu else actf(up)  # in place: one buffer fewer
     return dense(h, p["w_down"])

@@ -21,7 +21,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from .layers import DTYPES, apply_norm, softcap
 from .transformer import _window, derive_segments, init_stack_cache, layer_pattern, run_stack
 
-__all__ = ["Model", "build", "padded_vocab"]
+__all__ = ["Model", "build", "padded_vocab", "unembed_logits"]
 
 _NEG_INF = -1e30
 
@@ -29,6 +29,29 @@ _NEG_INF = -1e30
 def padded_vocab(cfg: ModelConfig) -> int:
     """Vocab padded to a multiple of 512, as the reference's tables are."""
     return ((cfg.vocab_size + 511) // 512) * 512
+
+
+def unembed_logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm, then float32 logits over the padded vocab; pad slots at -1e30.
+
+    On the card, bf16 ``h`` and a bf16 vocabulary matrix (``unembed``, or the tied
+    ``embed/table`` transposed) go into one product with float32 accumulation and
+    output, the reference's ``preferred_element_type=jnp.float32`` einsum: no float32
+    copy of the (d, vocab) matrix is made (4.19 GB for recurrentgemma-9b). Elsewhere
+    (float32 models, the CPU) both operands are taken in float32.
+    """
+    h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
+    w = params["embed"]["table"].t() if cfg.tie_embeddings else params["unembed"]
+    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
+        h2d = h.reshape(-1, h.shape[-1])
+        logits = torch.mm(h2d, w, out_dtype=torch.float32).reshape(*h.shape[:-1], -1)
+    else:
+        logits = torch.matmul(h.float(), w.float())
+    logits = softcap(logits, cfg.logit_softcap)
+    vpad = padded_vocab(cfg)
+    if vpad != cfg.vocab_size:  # pad-vocab slots never win a softmax or argmax
+        logits[..., cfg.vocab_size :] = _NEG_INF
+    return logits
 
 
 @dataclass
@@ -51,21 +74,12 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     dev = resolve_device(device)
     segments = derive_segments(layer_pattern(cfg))
     cdtype = DTYPES[cfg.compute_dtype]
-    vpad = padded_vocab(cfg)
 
     def embed_tokens(params, tokens):
         return params["embed"]["table"][tokens].to(cdtype)
 
     def unembed(params, h):
-        h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
-        if cfg.tie_embeddings:
-            logits = torch.matmul(h.float(), params["embed"]["table"].float().t())
-        else:
-            logits = torch.matmul(h.float(), params["unembed"].float())
-        logits = softcap(logits, cfg.logit_softcap)
-        if vpad != cfg.vocab_size:  # pad-vocab slots never win a softmax or argmax
-            logits[..., cfg.vocab_size :] = _NEG_INF
-        return logits
+        return unembed_logits(params, h, cfg)
 
     def prefill(params, batch, pad_to: int = 0) -> Tuple[torch.Tensor, Dict]:
         tokens = batch["tokens"]

@@ -63,10 +63,12 @@ def _causal_conv1d(
         tail = x.new_zeros((b, k - 1, w))
     xp = torch.cat([tail.to(x.dtype), x], dim=1)  # (B, T+K-1, W)
     y = torch.zeros((b, t, w), dtype=torch.float32, device=x.device)
-    for i in range(k):  # K is tiny (4): unrolled taps, in float32
-        y = y + xp[:, i : i + t, :].float() * weight[i].float()
-    y = (y + bias.float()).to(x.dtype)
-    return y, xp[:, t:, :]
+    tap = torch.empty_like(y)
+    for i in range(k):  # K is tiny (4): unrolled taps, in float32, one buffer for all
+        y.add_(torch.mul(xp[:, i : i + t, :], weight[i].float(), out=tap))
+    y = y.add_(bias.float()).to(x.dtype)
+    # the tail as a copy: a view would keep all of xp alive in a prefill cache
+    return y, xp[:, t:, :].clone()
 
 
 def recurrent_block(

@@ -395,6 +395,41 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(case):
         trg.rglru_scan(x, a, initial_state=h0)
 
 
+@pytest.mark.parametrize("t", [1, 2, trg.STEP_MAX_T, trg.STEP_MAX_T + 1, 64, 65, 3000])
+def test_rglru_launch_shape_is_a_function_of_t_and_w_alone(t):
+    """The wrapper picks the step or the ring kernel by T and nothing else, and the ring
+    kernel's channel grouping (16 a block, W padded to a multiple of 8) depends on W
+    alone: the path code and the operands' width that ``_plan`` hands the C entry point
+    are the same for every B; decode's T = 1 takes the step kernel."""
+    import inspect
+
+    assert list(inspect.signature(trg.path_for).parameters) == ["t"]
+    assert trg.path_for(1) == "step" and trg.RING_CHANNELS == 16
+    want = "step" if t <= trg.STEP_MAX_T else "ring"
+    assert trg.path_for(t) == want
+    for w in (4096, 1000, 50):
+        width = w + (-w) % 8 if want == "ring" else w
+        for b in (1, 4, 3):
+            x, a, h0 = torch.zeros(b, t, w), torch.zeros(b, t, w), torch.zeros(b, w)
+            code, x2, a2, h02 = trg._plan(x, a, h0)
+            assert code == trg._C_PATH[want]
+            assert x2.shape == a2.shape == (b, t, width) and h02.shape == (b, width)
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zeros", "h0"])
+def test_rglru_channel_padding_leaves_the_scan_unchanged(with_h0):
+    """The ring kernel's operands padded along W with zeros (a = 0, x = 0 keep h = 0
+    there) give the first W channels' bits unchanged: the plain version on both."""
+    x, a, h0 = _rg_torch((2, 37, 50), with_h0, "bfloat16")
+    code, xp, ap, h0p = trg._plan(x, a, h0)
+    assert code == trg._C_PATH["ring"] and xp.shape[2] == 56
+    assert not xp[..., 50:].any() and not ap[..., 50:].any()
+    want, want_last = tref.rglru_ref(x, a, initial_state=h0)
+    got, got_last = tref.rglru_ref(xp, ap, initial_state=h0p)
+    assert torch.equal(got[..., :50], want) and torch.equal(got_last[:, :50], want_last)
+    assert not got[..., 50:].any() and not got_last[:, 50:].any()
+
+
 # ---------------------------------------------------------------------------
 # WKV6
 # ---------------------------------------------------------------------------

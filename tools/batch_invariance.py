@@ -8,7 +8,8 @@ logits. ``chip_smoke.py`` holds each served request to its batch-1 run within
 a bound; this script looks for where the two part:
 
 1. ops: every bfloat16 product of one layer of the full model (its 2-D
-   weights) and the float32 unembed, at M = 1 and as row 0 of M = 4; the
+   weights) and the unembed (bfloat16 operands, float32 out, as the port
+   computes it), at M = 1 and as row 0 of M = 4; the
    norms in float32 (mean/var and ``torch.mean`` reductions against
    ``F.layer_norm`` and ``F.rms_norm``) at (B, 1, d) and at rwkv6-7b's
    per-head (B, 1, 64, 64). Fresh seeded inputs; a result is the max |diff|
@@ -20,11 +21,12 @@ a bound; this script looks for where the two part:
    their place.
 3. recurrentgemma-9b at full width and depth: its products as in 2, and the
    other ops of its decode step at batch 1 and as row 0 of batch 4: the
-   cached-decode attention's two batched matmuls and its softmax
-   (``models/attention.py``, in float32 over a bfloat16 cache of one window),
-   the causal conv and the RG-LRU gates (``models/rglru.py``); then the same
+   cached-decode attention, through the kernel (``ops.decode_attention``) and
+   through its plain version (batched float32 matmuls and a softmax over a
+   bfloat16 ring of one window), the causal conv and the RG-LRU gates
+   (``models/rglru.py``); then the same
    drift for r1 and r7 of ``chip_smoke.hybrid_prompts``, with RMSNorm
-   through ``torch.mean`` (the port's) and through ``F.rms_norm``.
+   through ``F.rms_norm`` (the port's) and through ``torch.mean``.
 
 It only reports; it checks nothing and exits 0 unless a run fails. It needs a
 card and a checkout of the repository.
@@ -45,7 +47,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models import build, layers  # noqa: E402
 from repro_torch.models import rglru as rglru_block  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
@@ -76,8 +78,11 @@ def _mean_var_layer_norm(x, shape, weight=None, bias=None, eps=1e-5):
     return out
 
 
-def _fused_rmsnorm(x, scale, eps=1e-6):
-    return F.rms_norm(x.float(), (x.shape[-1],), scale.float(), eps).to(x.dtype)
+def _mean_rmsnorm(x, scale, eps=1e-6):
+    """RMSNorm through a ``torch.mean`` reduction (the port's form before F.rms_norm)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 @contextmanager
@@ -121,17 +126,17 @@ def part_hybrid_decode_ops(params, cfg) -> None:
     """The hybrid's decode-step ops beside its products, at batch 1 and as row 0 of
     batch 4, on seeded inputs of the shapes a decode step gives them."""
     kv, hd, sc = cfg.num_kv_heads, cfg.head_dim, cfg.window
-    g = cfg.num_heads // kv
     w = cfg.lru_width
 
-    def cache_view(c):  # (B, Sc, KV, hd) bfloat16 -> (B, KV, 1, Sc, hd) float32, as decoding
-        return c.float().permute(0, 2, 1, 3).unsqueeze(2)
+    pos_at = torch.tensor([2250], dtype=torch.int32, device=DEV)  # a ring that has wrapped
 
-    def qk(q, k_cache):
-        return torch.matmul(q.float(), cache_view(k_cache).transpose(-1, -2)) * (hd**-0.5)
+    def kernel(q, k_cache, v_cache):
+        pos = pos_at.expand(q.shape[0]).contiguous()
+        return ops.decode_attention(q, k_cache, v_cache, pos, window=sc)
 
-    def pv(probs, v_cache):
-        return torch.matmul(probs.float().softmax(-1), cache_view(v_cache))
+    def plain(q, k_cache, v_cache):
+        pos = pos_at.expand(q.shape[0]).contiguous()
+        return ref.decode_attention_ref(q, k_cache, v_cache, pos, window=sc)
 
     rec = _layer0(params, "conv_w")
 
@@ -145,13 +150,12 @@ def part_hybrid_decode_ops(params, cfg) -> None:
         return torch.cat([a, i * xi.float()], dim=-1)
 
     bf16 = torch.bfloat16
+    heads = cfg.num_heads
     cases = [
-        (f"decode attention q.k^T (B,{kv},{g},1,{hd}) x cache (B,{sc},{kv},{hd})", qk,
-         [(kv, g, 1, hd), (sc, kv, hd)]),
-        (f"decode attention softmax (B,{kv},{g},1,{sc})", lambda x: x.float().softmax(-1),
-         [(kv, g, 1, sc)]),
-        (f"decode attention softmax + p.v (B,{kv},{g},1,{sc}) x cache (B,{sc},{kv},{hd})", pv,
-         [(kv, g, 1, sc), (sc, kv, hd)]),
+        (f"decode attention kernel q (B,{heads},{hd}) x ring cache (B,{sc},{kv},{hd})", kernel,
+         [(heads, hd), (sc, kv, hd), (sc, kv, hd)]),
+        ("decode attention plain (ref.decode_attention_ref), same inputs", plain,
+         [(heads, hd), (sc, kv, hd), (sc, kv, hd)]),
         (f"causal conv (B,1,{w}) with its tail (B,{cfg.conv1d_width - 1},{w})", conv,
          [(1, w), (cfg.conv1d_width - 1, w)]),
         (f"RG-LRU gates a, i*x on (B,1,{w})", gates, [(1, w)]),
@@ -195,9 +199,10 @@ def part_products(tag: str, params, d: int) -> None:
 
     visit(params["seg0"], "seg0")
     un = params["unembed"] if "unembed" in params else params["embed"]["table"].t()
-    un = un.float()
-    one, row0 = _at_batch_1_and_4(lambda x: torch.matmul(x, un), 1, d)
-    log(f"[ops] {tag} float32 unembed {tuple(un.shape)}: {_diff(one, row0)}")
+    one, row0 = _at_batch_1_and_4(
+        lambda x: torch.mm(x[:, 0], un, out_dtype=torch.float32), 1, d, dtype=un.dtype
+    )
+    log(f"[ops] {tag} {un.dtype} unembed {tuple(un.shape)}, float32 out: {_diff(one, row0)}")
 
 
 def drift(tag: str, model, params, prompt, n: int) -> None:
@@ -251,8 +256,8 @@ def main() -> int:
         "recurrentgemma-9b",
         (cs.hybrid_prompts(hybrid.vocab_size), (1, 7)),
         [
-            ("rmsnorm torch.mean (the port's)", nullcontext),
-            ("rmsnorm F.rms_norm", lambda: _patched(layers, "rmsnorm", _fused_rmsnorm)),
+            ("rmsnorm F.rms_norm (the port's)", nullcontext),
+            ("rmsnorm torch.mean", lambda: _patched(layers, "rmsnorm", _mean_rmsnorm)),
         ],
         part_hybrid_decode_ops,
     )
