@@ -11,16 +11,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 3. kernels: each kernel against its plain PyTorch version on the card:
    flash attention on the cases of ``tests/test_kernels.py`` (FLASH_CASES
    and the MLA 48/32 case), on edge cases, on bfloat16 cases of the
-   tensor-core path (head dims 64, 128, 256 and one no multiple of 8,
-   ragged Sq, Sq < Sk, window 1), on the demo model's prefill shapes and at
-   recurrentgemma-9b's head dim 256 (MQA, window 2048, float32 and
-   bfloat16), each case logging the path that served it (wgmma or FMA);
-   the bfloat16 path gives the same bits on two launches and for a batch
-   row alone as within a batch of 3; the float32 rows also time SDPA's
-   memory-efficient backend; the cached-decode attention kernel at the
-   demo's and the hybrid's decode shapes and the tests' smoke widths (each
-   case logging the share of its tolerance it used), the same bits on two
-   launches and for a slot alone as within a batch of 4; the RG-LRU scan
+   wgmma path (head dims 64, 128, 256 and one no multiple of 8, ragged Sq,
+   Sq < Sk, window 1), on float32 cases of the 3xTF32 path (head dims 16
+   to 256, one no multiple of 4, walks cut into pieces), on the demo
+   model's prefill shapes and at recurrentgemma-9b's head dim 256 (MQA,
+   window 2048, float32 and bfloat16), each case logging the path that
+   served it and the share of its tolerance used; each path gives the
+   same bits on two launches and for a batch row alone as within a batch
+   of 3 (bfloat16 at head dim 256, float32 at the demo's heads and at head
+   dim 256 with window 2048); the float32 rows also time SDPA's
+   memory-efficient backend and the wrapper's host time a call, and print
+   the bound on the tensor cores in 3xTF32 beside the one on the CUDA
+   cores; the cached-decode attention kernel at the demo's and the
+   hybrid's decode shapes and the tests' smoke widths (each case logging
+   the share of its tolerance it used, the timed ones their device time a
+   call), the same bits on two launches and for a slot alone as within a
+   batch of 4; the RG-LRU scan
    at recurrentgemma-9b's prefill and decode shapes and the edges of its
    two kernels (ring and step), every case bit for bit against its plain
    version and logging its path, the same bits on two launches and for a
@@ -51,7 +57,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    share;
 6. exactness: a float32 copy of recurrentgemma-9b at full width and depth
    3 (rec, rec, attn) serves the same requests: tokens equal sequential
-   greedy decoding; decode across the window equals a fresh prefill within
+   greedy decoding, the float32 flash and decode-attention kernels counted
+   in that run; decode across the window equals a fresh prefill within
    1e-4; one rec and one attn layer on the card equal the port's CPU path
    on a (1, 2100, 4096) input within 1e-4;
 7. rwkv: ``rwkv6-7b`` at full width and depth (32 layers, 7.66B params,
@@ -110,10 +117,11 @@ from repro_torch.serve.batcher import _splice_cache  # noqa: E402
 DEV = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32 on
-# CUDA cores, bfloat16 on tensor cores, HBM bandwidth. A card with a lower
-# power limit is slower.
+# CUDA cores, bfloat16 and TF32 on tensor cores, HBM bandwidth. A card with a
+# lower power limit is slower.
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # (B, Hq, Hkv, Sq, Sk, D, causal, window, dtype): FLASH_CASES of tests/test_kernels.py
@@ -146,8 +154,24 @@ BF16_CASES = [
     (1, 2, 2, 100, 100, 256, False, None, "bfloat16", 64),
     (1, 2, 1, 77, 77, 20, True, None, "bfloat16", 12),
 ]
-# the same bits twice, and for a batch row alone as within a batch of 3
-DETERMINISM_CASE = (3, 16, 1, 777, 777, 256, True, 512, "bfloat16", 256)
+# float32 on the 3xTF32 path: head dims 16 to 200 that are no power of 2, one that is no
+# multiple of 4 (4-byte copies), walks cut into pieces (Sq < Sk with a window, no mask)
+F32_CASES = [
+    (1, 4, 2, 300, 300, 20, True, None, "float32", 20),
+    (2, 4, 1, 150, 400, 96, True, 100, "float32", 96),
+    (1, 3, 3, 90, 90, 136, False, None, "float32", 136),
+    (1, 2, 1, 700, 700, 18, True, None, "float32", 13),
+    (1, 2, 2, 33, 33, 256, True, None, "float32", 256),
+    (1, 4, 2, 1500, 1500, 64, False, None, "float32", 32),
+    (1, 2, 1, 515, 515, 200, True, 300, "float32", 200),
+]
+# the same bits twice, and for a batch row alone as within a batch of 3: the bfloat16
+# path, and the float32 path at the demo's heads and at head dim 256 with window 2048
+DETERMINISM_CASES = (
+    (3, 16, 1, 777, 777, 256, True, 512, "bfloat16", 256),
+    (3, 12, 4, 777, 777, 64, True, None, "float32", 64),
+    (3, 16, 1, 3000, 3000, 256, True, 2048, "float32", 256),
+)
 # recurrentgemma-9b's local attention: Hq=16, Hkv=1, D=Dv=256, window 2048
 HYBRID_FLASH = [
     (1, 16, 1, s_q, s_k, 256, True, 2048, dt, 256)
@@ -155,6 +179,7 @@ HYBRID_FLASH = [
     for s_q, s_k in ((3000, 3000), (1000, 3000), (2111, 2111))  # full, Sq < Sk, ragged
 ]
 HYBRID_FLASH_JSON = (1, 16, 1, 3000, 3000, 256, True, 2048, "bfloat16", 256)
+HYBRID_FLASH_F32_JSON = (1, 16, 1, 3000, 3000, 256, True, 2048, "float32", 256)
 # (B, T, W, x dtype, with h0): recurrentgemma-9b's prefill (T up to 3000) and
 # decode (B = slots, T = 1) at lru_width 4096; a W that is no multiple of the
 # ring kernel's 16 channels; float32 x; then the two kernels' edges: T on both
@@ -281,9 +306,9 @@ RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
 # the device-side names of the port's kernels (csrc/*.cu), as the profiler reports them
 PORT_KERNEL_SYMBOLS = (
     "flash_fwd_wgmma_kernel",
-    "flash_fwd_kernel",
-    "decode_attention_split_kernel",
-    "decode_attention_combine_kernel",
+    "flash_fwd_tf32_kernel",
+    "flash_merge_kernel",
+    "decode_attention_kernel",
     "rglru_ring_kernel",
     "rglru_step_kernel",
     "wkv6_chunk_kernel",
@@ -328,17 +353,26 @@ def device_us(fn, name=None, launches: int = 50) -> float:
     return us / launches
 
 
-def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize):
-    """Least time for one attention forward: max(FLOPs / peak, bytes / bandwidth),
-    the peak of the input's type (float32 CUDA cores, bfloat16 tensor cores)."""
+def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize, form=None):
+    """Least time for one attention forward: max(FLOPs / peak, bytes / bandwidth).
+
+    ``form`` picks the peak: "bf16" the tensor cores' bfloat16 rate; "3xtf32" three TF32
+    tensor-core products a float32 one (the form the float32 kernel runs: 3 x FLOPs at
+    the TF32 rate); "cuda_core" float32 on the CUDA cores. By default the input's type:
+    bfloat16 or 3xTF32."""
     qpos = np.arange(sq) + (sk - sq)
     hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
     pairs = int(np.maximum(hi - lo, 0).sum())  # (query, key) pairs the masks keep
     flops = 2.0 * b * hq * pairs * (d + dv)
     nbytes = itemsize * (b * hq * sq * d + b * hkv * sk * (d + dv) + b * hq * sq * dv)
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    form = form or ("bf16" if itemsize == 2 else "3xtf32")
+    t_ops = {
+        "bf16": flops / PEAK_BF16_FLOPS,
+        "3xtf32": 3 * flops / PEAK_TF32_FLOPS,
+        "cuda_core": flops / PEAK_F32_FLOPS,
+    }[form]
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -456,7 +490,7 @@ def _flash_rows(gen):
     """Flash kernel vs plain on every case; times at the demo and hybrid shapes."""
     cases = [c + (c[5],) for c in FLASH_CASES]  # Dv = D
     cases.append((1, 2, 2, 64, 64, 48, True, None, "float32", 32))  # MLA head dims
-    cases += EDGE_CASES + BF16_CASES
+    cases += EDGE_CASES + BF16_CASES + F32_CASES
     cases += [(1, 12, 4, s, s, 64, True, None, "float32", 64) for s in DEMO_SEQ]
     cases += HYBRID_FLASH
     rows, demo_err = {}, 0.0
@@ -470,9 +504,10 @@ def _flash_rows(gen):
         shape = f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} {dt}"
         flags = f"causal={causal} window={window}"
         err = _check(f"flash_attention_fwd {shape} {flags}", got, want, TOL[dt])
+        used = _tol_used(got, want, TOL[dt])
         log(
             f"[kernels] flash_attention_fwd {shape} {flags} ({fa.PATHS[dtype]} path): "
-            f"max |err| {err:.3e} (tol {TOL[dt]})"
+            f"max |err| {err:.3e} (tol {TOL[dt]}), {100 * used:.1f}% used"
         )
         demo = (hq, hkv, d) == (12, 4, 64)
         if not demo and case not in HYBRID_FLASH:
@@ -491,8 +526,12 @@ def _flash_rows(gen):
         bound, bound_by = attention_bound_ms(
             b, hq, hkv, sq, sk, d, dv, causal, window, q.element_size()
         )
+        def kernel(q=q, k=k, v=v, causal=causal, window=window):
+            return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+
         row = {
-            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal, window=window)),
+            "ms": time_ms(kernel),
+            "device_us": device_us(kernel, launches=20),
             "plain_ms": time_ms(
                 lambda: ref.flash_attention_ref(q, k, v, causal=causal, window=window), iters=5
             ),
@@ -505,15 +544,24 @@ def _flash_rows(gen):
         if dtype == torch.float32:  # the yardstick: SDPA's memory-efficient backend
             row["library_default_ms"] = row["library_ms"]
             row["library_ms"], eff_err = _efficient_sdpa_ms(q, k, v, mask, want)
+            row["bound_cuda_core_ms"] = attention_bound_ms(
+                b, hq, hkv, sq, sk, d, dv, causal, window, 4, form="cuda_core"
+            )[0]
+            faster = "faster" if row["ms"] < row["library_ms"] else "NOT faster"
+            row["host_us"] = _host_cost(kernel)[0]
             library_msg = (
                 f"library_ms (SDPA memory-efficient, K/V expanded to {hq} heads, |err| "
-                f"{eff_err:.1e}) {row['library_ms']:.4f}, SDPA {backend} (dispatched) "
-                f"{row['library_default_ms']:.4f}"
+                f"{eff_err:.1e}) {row['library_ms']:.4f} (kernel {faster}), SDPA {backend} "
+                f"(dispatched) {row['library_default_ms']:.4f}, the wrapper's host "
+                f"{row['host_us']:.2f} us a call to enqueue, bound on the CUDA cores "
+                f"{row['bound_cuda_core_ms']:.5f}"
             )
         rows[("demo", sq) if demo else case] = row
         log(
-            f"[kernels]   {'demo S=' + str(sq) if demo else shape}: kernel_ms {row['ms']:.4f}, "
-            f"plain_ms {row['plain_ms']:.4f}, {library_msg}, bound_ms {bound:.5f} ({bound_by}), "
+            f"[kernels]   {'demo S=' + str(sq) if demo else shape}: kernel_ms {row['ms']:.4f} "
+            f"(device {row['device_us']:.2f} us a call), "
+            f"plain_ms {row['plain_ms']:.4f}, {library_msg}, bound_ms {bound:.5f} ({bound_by}, "
+            f"{'3xTF32' if dtype == torch.float32 else 'bf16'} tensor cores), "
             f"kernel/bound {row['ms'] / bound:.1f}"
         )
     _flash_determinism(gen)
@@ -540,25 +588,29 @@ def _efficient_sdpa_ms(q, k, v, mask, want):
 
 
 def _flash_determinism(gen) -> None:
-    """The bfloat16 path's bits: equal on two launches, and batch row 0 alone (B = 1)
-    equal to row 0 of B = 3. A replayed request must give the same answer."""
-    b, hq, hkv, sq, sk, d, causal, window, dt, dv = DETERMINISM_CASE
-    q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, getattr(torch, dt))
-    first = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    again = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    alone = fa.flash_attention_fwd(q[:1], k[:1], v[:1], causal=causal, window=window)
-    torch.cuda.synchronize()
-    relaunch = (first != again).sum().item()
-    batch = (alone != first[:1]).sum().item()
-    if relaunch or batch:
-        raise AssertionError(
-            f"[kernels] flash_attention_fwd not deterministic: {relaunch} elements differ "
-            f"between two launches, {batch} between B=1 and row 0 of B={b}"
+    """Each path's bits: equal on two launches, and batch row 0 alone (B = 1) equal to
+    row 0 of B = 3. A replayed request must give the same answer."""
+    for b, hq, hkv, sq, sk, d, causal, window, dt, dv in DETERMINISM_CASES:
+        q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, getattr(torch, dt))
+        first = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        alone = fa.flash_attention_fwd(q[:1], k[:1], v[:1], causal=causal, window=window)
+        torch.cuda.synchronize()
+        relaunch = (first != again).sum().item()
+        batch = (alone != first[:1]).sum().item()
+        label = (
+            f"flash_attention_fwd q{tuple(q.shape)} {dt} causal={causal} window={window} "
+            f"({fa.PATHS[q.dtype]} path)"
         )
-    log(
-        f"[kernels] flash_attention_fwd q{tuple(q.shape)} {dt} causal={causal} "
-        f"window={window}: two launches equal bit for bit; B=1 equals row 0 of B={b} bit for bit"
-    )
+        if relaunch or batch:
+            raise AssertionError(
+                f"[kernels] {label} not deterministic: {relaunch} elements differ between two "
+                f"launches, {batch} between B=1 and row 0 of B={b}"
+            )
+        log(
+            f"[kernels] {label}: two launches equal bit for bit; B=1 equals row 0 of B={b} "
+            "bit for bit"
+        )
 
 
 def _rglru_inputs(gen, b, t, w, dtype, with_h0):
@@ -699,11 +751,12 @@ def _decode_attention_rows(gen):
             "bound_ms": bound,
             "bound_by": bound_by,
             "max_abs_err": err,
+            "device_us": device_us(kernel),
         }
         rows[case] = row
         log(
-            f"{msg}; kernel_ms {row['ms']:.4f} (device {device_us(kernel, 'decode_attention'):.2f}"
-            f" us a launch, split and combine), plain_ms {row['plain_ms']:.4f} (device "
+            f"{msg}; kernel_ms {row['ms']:.4f} (device {row['device_us']:.2f} us a call, one "
+            f"launch), plain_ms {row['plain_ms']:.4f} (device "
             f"{device_us(plain):.2f} us a call), library_ms (SDPA "
             f"{_sdpa_backend(q[:, :, None], kt, vt, mask, False)}, |err| {lib_err:.1e}) "
             f"{row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}), "
@@ -825,24 +878,30 @@ def _wkv6_determinism(gen) -> None:
         )
 
 
-def _wkv6_host_cost(gen, calls: int = 200) -> None:
-    """The wrapper's cost a call at the decode shape: host clock (the host returns
-    before the device is done) against CUDA events (the device's pace)."""
-    b, h, t, kd, vd, dt, with_h0 = WKV_CASES[7]
-    r, k, v, w, u, h0 = _wkv6_inputs(gen, b, h, t, kd, vd, getattr(torch, dt), with_h0)
+def _host_cost(fn, calls: int = 200):
+    """(host us a call to enqueue, CUDA events us a call) of ``fn`` over ``calls`` calls:
+    the host clock stops before the device is done, the events at the device's pace."""
     for _ in range(10):
-        wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
     for _ in range(calls):
-        wk.wkv6_chunked(r, k, v, w, u, initial_state=h0)
+        fn()
     end.record()
     host_us = 1e6 * (time.perf_counter() - t0) / calls
     end.synchronize()
-    event_us = 1e3 * start.elapsed_time(end) / calls
+    return host_us, 1e3 * start.elapsed_time(end) / calls
+
+
+def _wkv6_host_cost(gen, calls: int = 200) -> None:
+    """The wrapper's cost a call at the decode shape: host clock (the host returns
+    before the device is done) against CUDA events (the device's pace)."""
+    b, h, t, kd, vd, dt, with_h0 = WKV_CASES[7]
+    r, k, v, w, u, h0 = _wkv6_inputs(gen, b, h, t, kd, vd, getattr(torch, dt), with_h0)
+    host_us, event_us = _host_cost(lambda: wk.wkv6_chunked(r, k, v, w, u, initial_state=h0), calls)
     log(
         f"[kernels] wkv6_chunked r{tuple(r.shape)} {dt} ({wk.path_for(t)} path): host "
         f"{host_us:.2f} us a call to enqueue, CUDA events {event_us:.2f} us a call, "
@@ -1159,7 +1218,7 @@ def _log_serving(tag, res, peak) -> None:
 def _kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name as the profiler reports it."""
     low = name.lower()
-    if "flash_fwd" in name:
+    if "flash_fwd" in name or "flash_merge" in name:
         return "flash"
     if "decode_attention" in name:
         return "decode_attention"
@@ -1277,9 +1336,10 @@ def _decode_profile(model, params, tag: str, max_len: int, steps: int = 5) -> No
     )
 
 
-def phase_exactness() -> None:
+def phase_exactness() -> dict:
     """Float32 recurrentgemma-9b at full width, depth 3: exact batched tokens,
-    decode across the window = fresh prefill, layers on the card = CPU path."""
+    decode across the window = fresh prefill, layers on the card = CPU path.
+    Returns the kernels' launch counts of the batched run."""
     base = get_config("recurrentgemma-9b")
     cfg = dataclasses.replace(
         base,
@@ -1297,12 +1357,23 @@ def phase_exactness() -> None:
     seq = {}
     for i, p in enumerate(prompts):
         seq[f"r{i}"] = _sequential(model, params, p, NEW_TOKENS, HYBRID_MAX_LEN)
+    _reset_launches()
     res = serve(model, params, prompts, new_tokens=NEW_TOKENS, slots=SLOTS, max_len=HYBRID_MAX_LEN)
+    counts = {
+        "flash": fa.flash_attention_fwd.launches,
+        "decode_attention": da.decode_attention.launches,
+    }
+    if not all(counts.values()):
+        raise AssertionError(f"[exact] a kernel of the float32 path never ran: {counts}")
     for rid, (toks, _) in seq.items():
         if res["generations"][rid].tokens != toks:
             got = res["generations"][rid].tokens
             raise AssertionError(f"[exact] {rid}: batched {got} != sequential {toks}")
-    log(f"[exact] tokens of all {len(seq)} requests equal sequential greedy decoding")
+    log(
+        f"[exact] tokens of all {len(seq)} requests equal sequential greedy decoding; launches "
+        f"in the batched run: flash {counts['flash']} ({fa.PATHS[torch.float32]} path), "
+        f"decode_attention {counts['decode_attention']}"
+    )
 
     crossing = next(i for i, p in enumerate(prompts) if len(p) < base.window < len(p) + NEW_TOKENS)
     toks, logits = seq[f"r{crossing}"]
@@ -1338,6 +1409,7 @@ def phase_exactness() -> None:
             f"[exact] one {kind} layer on x{LAYER_CHECK_SHAPE}: card (kernel) vs CPU path (plain) "
             f"max |err| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {EXACT_TOL})"
         )
+    return counts
 
 
 def rwkv_prompts(vocab: int, seed: int = 0):
@@ -1488,7 +1560,7 @@ def main() -> int:
     flash_rows, demo_err, decode_rows, rglru_rows, wkv6_rows = _timed("kernels", phase_kernels)
     demo = _timed("demo", phase_demo)
     hybrid = _timed("hybrid", phase_hybrid)
-    _timed("exactness", phase_exactness)
+    exact = _timed("exactness", phase_exactness)
     rwkv_launches = _timed("rwkv", phase_rwkv)
     _timed("rwkv exactness", phase_rwkv_exactness)
 
@@ -1511,6 +1583,14 @@ def main() -> int:
             hybrid["flash"],
             flash_rows[HYBRID_FLASH_JSON],
             "q(1,16,3000,256) k,v(1,1,3000,256) bfloat16 causal window 2048",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_f32_hd256",
+            flash_src,
+            flash_tpu,
+            exact["flash"],
+            flash_rows[HYBRID_FLASH_F32_JSON],
+            "q(1,16,3000,256) k,v(1,1,3000,256) float32 causal window 2048",
         ),
         _kernel_entry(
             "decode_attention",

@@ -2,9 +2,10 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled for
 ``sm_90a`` into a shared library at first use. Libraries go to
-``build/repro_torch_kernels/<hash of the sources and flags>/`` at the root of
-the checkout (``.gitignore`` lists ``build/``), so an edited source is
-rebuilt and an unchanged one is loaded as it is. A missing ``nvcc`` or a
+``build/repro_torch_kernels/<hash of the sources, headers and flags>/`` at
+the root of the checkout (``.gitignore`` lists ``build/``), so an edited
+source or header (``csrc/*.cuh``) is rebuilt and an unchanged one is loaded
+as it is. A missing ``nvcc`` or a
 failed build raises: there is no fallback to the plain versions.
 
 Nothing here runs at import time; the tests import every module on a
@@ -61,6 +62,9 @@ def build_dir() -> Path:
     for name in sorted(KERNEL_SOURCES):
         digest.update(name.encode())
         digest.update((CSRC / KERNEL_SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     return _repo_root() / "build" / "repro_torch_kernels" / digest.hexdigest()[:16]
 
 

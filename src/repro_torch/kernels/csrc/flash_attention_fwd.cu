@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a): bfloat16 on the tensor cores, float32 on
-// the CUDA cores.
+// Flash-attention forward for Hopper (sm_90a): both dtypes on the tensor cores, bfloat16
+// through wgmma, float32 through mma.sync in 3xTF32.
 //
 // Replaces the TPU kernel `_fwd_kernel` in src/repro/kernels/flash_attention.py
 // (launched by `_fwd_impl` through `pl.pallas_call`). Same function: online-softmax
@@ -14,8 +14,9 @@
 // key) pairs the masks keep, against one read of q, k, v and one write of o. At the
 // demo's prefill (Hq=12, Hkv=4, D=Dv=64, causal) that is about S/2 FLOPs a byte, and at
 // recurrentgemma-9b's local attention (Hq=16, Hkv=1, D=Dv=256, window 2048) about
-// 4*2048: both far above the ridge of an H100 (20 FLOP/byte for float32 on CUDA cores,
-// 295 for bfloat16 on tensor cores), so operations bound both paths.
+// 4*2048: both far above the ridge of an H100 (148 FLOP/byte for TF32 and 295 for
+// bfloat16 on the tensor cores), so operations bound both paths. The float32 path does
+// three TF32 products a float32 one, 3 x FLOPs at the 495 TFLOP/s TF32 peak.
 //
 // bfloat16: `flash_fwd_wgmma_kernel`. Operations bound it, so it runs both products on
 // the tensor cores with `wgmma` and keeps the data movement off the threads that issue
@@ -51,20 +52,34 @@
 //   The wrapper pads a head dim that is no multiple of 8 (a TMA stride must be a multiple
 //   of 16 bytes) with zeros.
 //
-// float32: `flash_fwd_kernel`, FMA on CUDA cores. The reference's 2e-5 float32 tolerance
-// rules out TF32 tensor cores (about three decimal digits). A block owns (b, h, a tile of
-// BQ query rows) and loops over key tiles of BK keys staged in shared memory; the TPU's
-// sequential grid axis is that loop. The running max, running sum and the (BQ x Dv)
-// accumulator stay in registers for the whole loop and the output is written once. 128
-// threads: thread (tr, tc) owns ROWS query rows ROWS*tr .. ROWS*tr+ROWS-1 and key / value
-// columns tc + 16*j, so a row's max and sum are reductions over the 16 lanes of one
-// half-warp (shuffles, no shared memory). Q and K tiles are stored with a row stride of
-// D+1 so the 16 lanes of a half-warp read 16 different banks. The probabilities P go
-// through shared memory to the P.V product. Key tiles wholly above the causal diagonal or
-// wholly outside the window of every row of the block are skipped: they contribute
-// exactly 0. Head dims up to 128 take BQ = BK = 64 (ROWS = 8); head dims up to 256 take
-// BQ = BK = 32 (ROWS = 4): at Dv = 256 a thread holds 4 x 16 accumulators, where 8 x 16
-// would spill, and the tiles take 102,784 bytes of shared memory, two blocks an SM.
+// float32: `flash_fwd_tf32_kernel`, 3xTF32 on the tensor cores. One TF32 pass keeps about
+// three decimal digits, which the reference's 2e-5 float32 tolerance rules out; each
+// operand x is split into TF32 halves hi = tf32(x), lo = tf32(x - hi) and a b is taken as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi (mma_tf32.cuh), float32 accuracy (the CPU model in
+// tests/test_torch_kernels.py holds it to 2e-5; one pass does not fit):
+//   - A block owns (b, h, a tile of BQ = 64 query rows, a piece of their key walk) and 4
+//     warps of 16 rows. Both products are mma.sync m16n8k8: S = Q K^T with Q's hi/lo A
+//     fragments in registers for the whole walk (D <= 64; above, Q stays in shared memory
+//     and is split as it is read), and O += P V with P taken from S's accumulator in
+//     registers: with the k index of a k-step permuted (k = q <-> column or key 2q,
+//     q + 4 <-> 2q + 1) a thread's accumulator pair is its A pair, no shuffle and no trip
+//     through shared memory.
+//   - K and V tiles of BK keys (64 up to head dims of 64, else 16) come in by 16-byte
+//     `cp.async` copies (4-byte ones where D or Dv is no multiple of 4), zero-filled past
+//     Sk and past D within the k-step; the next tile lands while this one is used. All
+//     128 threads then split the landed tile once into hi/lo words laid out so that each
+//     B fragment, hi and lo, is one conflict-free 16-byte load of two register pairs; the
+//     warps that issue the products convert nothing.
+//   - A warp issues in order, so the products of a k-step go in three passes (lo*hi,
+//     hi*lo, hi*hi) over eight n-tiles: no product waits on the one just before it.
+//   - Online softmax in float32 with accurate expf (no fast math), -1e30 masking on the
+//     tiles an edge cuts, tiles wholly outside every row of a warp skipped.
+//   - The grid fills the card at batch 1: items run from the last query tile (the longest
+//     causal walk) to the first, and where a (batch, head) has fewer than 80 query tiles a
+//     long walk is cut into pieces (flash_attention.f32_plan, a function of Sq, Sk, the
+//     masks, D and Dv alone, never of B, the heads or the card). A piece writes its (m, l)
+//     and unnormalised O to a float32 workspace, and `flash_merge_kernel` merges a tile's
+//     pieces in piece order; no atomics, so a row's bits depend on its own q and keys.
 //
 // Plain C interface, loaded with ctypes; every pointer and the stream are void*. The TMA
 // encoder is reached through the runtime's driver entry point, so the library needs no
@@ -76,214 +91,612 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Reductions over the four lanes of a quad: the lanes that hold one row of an mma
+// accumulator fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // ---------------------------------------------------------------------------
-// float32: FMA on CUDA cores
+// float32: 3xTF32 on the tensor cores (mma.sync m16n8k8), fed by a cp.async ring
 // ---------------------------------------------------------------------------
 namespace f32 {
 
+constexpr int BQ = 64;          // query rows a block: 4 warps of 16
 constexpr int THREADS = 128;
-constexpr int ROW_GROUPS = THREADS / 16;  // half-warps: each owns ROWS query rows
+constexpr int MAX_PIECES = 16;  // pieces a query tile's key walk is cut into, at most
 
-// Reductions over the 16 lanes of a half-warp (xor offsets < 16 stay in the half).
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
+// The least row stride >= cols (floats) that is r modulo 32: rows then start r banks apart.
+__host__ __device__ __forceinline__ int bank_ld(int cols, int r) {
+  return cols + ((r - cols) % 32 + 32) % 32;
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// The key walk of each query tile and the split plan, the same on the host and in the
+// kernels (flash_attention.f32_plan computes it in Python).
+struct Walk {
+  int sq, sk, causal, window, bk, split_tiles;
+
+  __host__ __device__ int q_tiles() const { return (sq + BQ - 1) / BQ; }
+  // Key tiles that some row of query tile qt can see, from *k_begin: no other is loaded.
+  __host__ __device__ int key_tiles(int qt, int* k_begin) const {
+    const int offset = sk - sq;  // right-aligned query positions
+    const int qpos_first = qt * BQ + offset;
+    const int qpos_last = imin(qt * BQ + BQ, sq) - 1 + offset;
+    const int k_end = causal ? imin(sk, qpos_last + 1) : sk;
+    *k_begin = (window > 0 ? imax(0, qpos_first - window + 1) : 0) / bk * bk;
+    return (k_end - *k_begin + bk - 1) / bk;
+  }
+  __host__ __device__ int pieces(int tiles) const {
+    return (tiles + split_tiles - 1) / split_tiles;
+  }
+};
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// NV: value columns per thread, so the block covers Dv <= 16 * NV; ROWS: query rows
-// per thread, so a block has BQ = 8 * ROWS rows; BK: keys per shared-memory tile.
-template <int NV, int ROWS, int BK>
+// Rows [row0, row0 + rows) of a row-major (n, cols) float32 matrix into shared rows of ld
+// floats: 16-byte copies (VEC) or 4-byte ones; rows past n are zero-filled.
+template <bool VEC>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0,
+                                          int rows, int n, int cols) {
+  constexpr int W = VEC ? 4 : 1;  // floats a copy
+  const int per_row = cols / W;
+  // chunk i = r * per_row + c, walked as (r, c) without a division a chunk
+  int r = threadIdx.x / per_row, c = threadIdx.x - r * per_row;
+  const int dr = THREADS / per_row, dc = THREADS - dr * per_row;
+  for (; r < rows; r += dr, c += dc) {
+    if (c >= per_row) {
+      c -= per_row;
+      ++r;
+      if (r >= rows) break;
+    }
+    const bool in = row0 + r < n;
+    const float* s = src + (size_t)(in ? row0 + r : 0) * cols + c * W;
+    if constexpr (VEC) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       smem_u32(dst + r * ld + c * W)),
+                   "l"(s), "r"(in ? 16 : 0)
+                   : "memory");
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       smem_u32(dst + r * ld + c)),
+                   "l"(s), "r"(in ? 4 : 0)
+                   : "memory");
+    }
+  }
+}
+
+// Zeros in columns [c0, c1) of `rows` shared rows of ld floats: the pad of a k-step or an
+// n-tile, which no copy writes.
+__device__ __forceinline__ void zero_cols(float* dst, int ld, int rows, int c0, int c1) {
+  const int w = c1 - c0;
+  for (int i = threadIdx.x; i < rows * w; i += THREADS) dst[(i / w) * ld + c0 + i % w] = 0.f;
+}
+
+// Shared memory of a block, in 4-byte words (d8, dv8: D and Dv rounded up to 8):
+//   Q    BQ x d8 floats (rows of ldq = 8 mod 32), when Q is not held in registers;
+//   raw  the K and V rows of one tile as copied, BK x d8 and BK x dv8 floats;
+//   K2   the tile's K split: row `key`, words 4p + (0, 1, 2, 3) = hi of columns 2p and 2p + 1,
+//        then lo of the same two; a row is ldk2 = 16 (mod 32) words;
+//   V2   the tile's V split by pairs of keys: row kp, words 4n + (0, 1, 2, 3) = hi of
+//        V[2kp][n] and V[2kp + 1][n], then lo of the same two; a row is ldv2 = 8 (mod 32).
+// Each B fragment of the two products, hi and lo, is then one conflict-free 16-byte load
+// whose halves are the register pairs the mma takes, with no conversion in the warps that
+// issue the products. With Q in registers, Q's tile is staged in the K2 words before the
+// first tile is split.
+struct Smem {
+  int ldq, ldkr, ldvr, ldk2, ldv2;
+  size_t q, kr, vr, k2, v2, total;  // offsets and total, in 4-byte words
+
+  __host__ __device__ Smem(int bk, int d, int dv, bool q_regs) {
+    const int d8 = round8(d), dv8 = round8(dv);
+    ldq = bank_ld(d8, 8);
+    ldkr = d8 + 4;
+    ldvr = dv8 + 4;
+    ldk2 = bank_ld(2 * d8, 16);
+    ldv2 = bank_ld(4 * dv8, 8);
+    kr = q_regs ? 0 : (size_t)BQ * ldq;
+    vr = kr + (size_t)bk * ldkr;
+    k2 = vr + (size_t)bk * ldvr;
+    v2 = k2 + (size_t)bk * ldk2;
+    size_t end = v2 + (size_t)(bk / 2) * ldv2;
+    q = q_regs ? k2 : 0;
+    if (q_regs && q + (size_t)BQ * ldq > end) end = q + (size_t)BQ * ldq;
+    total = end;
+  }
+};
+
+// The raw tile into its split form (all threads of the block).
+__device__ __forceinline__ void split_tile(const float* kr, const float* vr, uint32_t* k2,
+                                           uint32_t* v2, const Smem& L, int bk, int d8,
+                                           int dv8) {
+  const int kq = d8 / 4;  // 4 K columns an item
+#pragma unroll 4
+  for (int i = threadIdx.x; i < bk * kq; i += THREADS) {
+    const int key = i / kq, c = (i - key * kq) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(kr + key * L.ldkr + c);
+    const Tf32x2 a = split(x.x), b = split(x.y), e = split(x.z), f = split(x.w);
+    uint4* dst = reinterpret_cast<uint4*>(k2 + key * L.ldk2 + 2 * c);
+    dst[0] = make_uint4(a.hi, b.hi, a.lo, b.lo);
+    dst[1] = make_uint4(e.hi, f.hi, e.lo, f.lo);
+  }
+  const int vq = dv8 / 4;  // 4 V columns of a pair of keys an item
+#pragma unroll 2
+  for (int i = threadIdx.x; i < (bk / 2) * vq; i += THREADS) {
+    const int kp = i / vq, n = (i - kp * vq) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(vr + (2 * kp) * L.ldvr + n);
+    const float4 y = *reinterpret_cast<const float4*>(vr + (2 * kp + 1) * L.ldvr + n);
+    uint4* dst = reinterpret_cast<uint4*>(v2 + kp * L.ldv2 + 4 * n);
+    const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const Tf32x2 a = split(xs[u]), b = split(ys[u]);
+      dst[u] = make_uint4(a.hi, b.hi, a.lo, b.lo);
+    }
+  }
+}
+
+// Q's A fragment of k-step kk for rows lr0 and lr0 + 8 of the tile, hi and lo, from Q's
+// rows in shared memory. The k index of a k-step is permuted (k = q <-> column 2q, q + 4
+// <-> 2q + 1) so that a thread's two columns are adjacent; K's B fragments follow the
+// same order.
+__device__ __forceinline__ void q_fragment(const float* qs, int ldq, int lr0, int kk, int qd,
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(qs + lr0 * ldq + kk * 8 + 2 * qd);
+  const float2 x1 = *reinterpret_cast<const float2*>(qs + (lr0 + 8) * ldq + kk * 8 + 2 * qd);
+  const float xs[4] = {x0.x, x1.x, x0.y, x1.y};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Tf32x2 s = split(xs[e]);
+    hi[e] = s.hi;
+    lo[e] = s.lo;
+  }
+}
+
+// BK keys a tile; DVT: n-tiles of 8 value columns a warp holds (Dv <= 8 DVT); Q_REGS: Q's
+// hi/lo fragments in registers for the whole walk (D <= 64), else Q in shared memory, split
+// as it is read; VEC: 16-byte copies (D and Dv multiples of 4, 16-byte aligned pointers).
+template <int BK, int DVT, bool Q_REGS, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int hq, int hkv, int sq, int sk, int d, int dv,
-                     int causal, int window, float scale) {
-  constexpr int BQ = ROWS * ROW_GROUPS;
-  constexpr int KCOLS = BK / 16;  // key columns per thread
-  constexpr int LDP = BK + 1;     // row stride of the P tile
-  constexpr int LDV = 16 * NV;
-  extern __shared__ float smem[];
-  const int ldqk = d + 1;
-  float* qs = smem;               // BQ x ldqk
-  float* ks = qs + BQ * ldqk;     // BK x ldqk
-  float* vs = ks + BK * ldqk;     // BK x LDV (columns >= dv hold zeros)
-  float* ps = vs + BK * LDV;      // BQ x LDP
+    flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ part, int hq, int hkv, int d, int dv, Walk walk,
+                          float scale) {
+  constexpr int NT = BK / 8;                // n-tiles of S, k-steps of P V
+  constexpr int SETS = Q_REGS ? 1 : 2;      // sums of S taking alternate k-steps
+  extern __shared__ __align__(16) float smem[];
+  const int d8 = round8(d), dv8 = round8(dv);
+  const Smem L(BK, d, dv, Q_REGS);
+  float* qs = smem + L.q;
+  float* kr = smem + L.kr;
+  float* vr = smem + L.vr;
+  uint32_t* k2 = reinterpret_cast<uint32_t*>(smem + L.k2);
+  uint32_t* v2 = reinterpret_cast<uint32_t*>(smem + L.v2);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int sq = walk.sq, sk = walk.sk, causal = walk.causal, window = walk.window;
 
-  const int tid = threadIdx.x;
-  const int tr = tid >> 4;
-  const int tc = tid & 15;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // This block's query tile and piece of its key walk. Items run from the last query tile
+  // (the longest walk under a causal mask) to the first.
+  int qt = walk.q_tiles() - 1, item = blockIdx.x, k_begin = 0;
+  int n_tiles = walk.key_tiles(qt, &k_begin), n_pieces = walk.pieces(n_tiles);
+  while (item >= n_pieces) {
+    item -= n_pieces;
+    --qt;
+    n_tiles = walk.key_tiles(qt, &k_begin);
+    n_pieces = walk.pieces(n_tiles);
+  }
+  const int t_begin = item * n_tiles / n_pieces, t_end = (item + 1) * n_tiles / n_pieces;
+
+  const int q0 = qt * BQ, offset = sk - sq;
   const int hk = h / (hq / hkv);
-  const int offset = sk - sq;  // right-aligned query positions
-
   const float* qb = q + ((size_t)b * hq + h) * (size_t)sq * d;
   const float* kb = k + ((size_t)b * hkv + hk) * (size_t)sk * d;
   const float* vb = v + ((size_t)b * hkv + hk) * (size_t)sk * dv;
-  float* ob = o + ((size_t)b * hq + h) * (size_t)sq * dv;
 
-  for (int i = tid; i < BQ * d; i += THREADS) {
-    const int r = i / d;
-    const int c = i - r * d;
-    const int qr = q0 + r;
-    qs[r * ldqk + c] = qr < sq ? qb[(size_t)qr * d + c] : 0.f;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, qd = lane % 4;
+  const int lr0 = 16 * warp + g, lr1 = lr0 + 8;  // this thread's rows in the tile
+  const int row0 = q0 + lr0, row1 = q0 + lr1;
+  const int r_lo = q0 + 16 * warp;  // the warp's rows, for the tile tests (warp-uniform)
+  const bool rows_live = r_lo < sq;
+  const int qpos_lo = r_lo + offset, qpos_hi = imin(r_lo + 16, sq) - 1 + offset;
+  const int qpos0 = row0 + offset, qpos1 = row1 + offset;
+  const int nks = d8 / 8, nvt = dv8 / 8;
+
+  // Q, K and V of the first tile in one group of copies; the pads no copy writes are zeros
+  zero_cols(qs, L.ldq, BQ, d, d8);
+  zero_cols(kr, L.ldkr, BK, d, d8);
+  zero_cols(vr, L.ldvr, BK, dv, dv8);
+  load_rows<VEC>(qs, L.ldq, qb, q0, BQ, sq, d);
+  load_rows<VEC>(kr, L.ldkr, kb, k_begin + t_begin * BK, BK, sk, d);
+  load_rows<VEC>(vr, L.ldvr, vb, k_begin + t_begin * BK, BK, sk, dv);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qh[Q_REGS ? 8 : 1][4], ql[Q_REGS ? 8 : 1][4];  // Q's fragments, hi and lo
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      if (kk < nks) q_fragment(qs, L.ldq, lr0, kk, qd, qh[kk], ql[kk]);
+    }
+    __syncthreads();  // Q's words are K2's: every warp has its fragments
   }
 
-  // Key range any row of this block can see.
-  const int qpos_first = q0 + offset;
-  const int qpos_last = min(q0 + BQ, sq) - 1 + offset;
-  const int k_end = causal ? min(sk, qpos_last + 1) : sk;
-  int k_begin = window > 0 ? max(0, qpos_first - window + 1) : 0;
-  k_begin = (k_begin / BK) * BK;
+  float acc[DVT][4];
+#pragma unroll
+  for (int nt = 0; nt < DVT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max of each row
+  float l0 = 0.f, l1 = 0.f;          // running sum of this thread's columns
 
-  float acc[ROWS][NV];
-  float m_i[ROWS];
-  float l_i[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) acc[i][j] = 0.f;
+  // One raw tile and one split tile: the copy of tile t + 1 lands while tile t is used,
+  // then all threads split it.
+  split_tile(kr, vr, k2, v2, L, BK, d8, dv8);
+  __syncthreads();
+  if (t_begin + 1 < t_end) {
+    load_rows<VEC>(kr, L.ldkr, kb, k_begin + (t_begin + 1) * BK, BK, sk, d);
+    load_rows<VEC>(vr, L.ldvr, vb, k_begin + (t_begin + 1) * BK, BK, sk, dv);
+    cp_async_commit();
   }
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed; Q is stored
-    for (int i = tid; i < BK * d; i += THREADS) {
-      const int r = i / d;
-      const int c = i - r * d;
-      const int kr = k0 + r;
-      ks[r * ldqk + c] = kr < sk ? kb[(size_t)kr * d + c] : 0.f;
-    }
-    for (int i = tid; i < BK * LDV; i += THREADS) {
-      const int r = i / LDV;
-      const int c = i - r * LDV;
-      const int kr = k0 + r;
-      vs[i] = (kr < sk && c < dv) ? vb[(size_t)kr * dv + c] : 0.f;
-    }
-    __syncthreads();
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = k_begin + t * BK;
+    const bool skip = !rows_live || (causal && k0 > qpos_hi) ||
+                      (window > 0 && k0 + BK - 1 <= qpos_lo - window);
+    if (!skip) {
+      // S = Q K^T. One sum an n-tile (and SETS of them taking alternate k-steps when the
+      // tile is narrow); the three products of a k-step go in three passes over the
+      // n-tiles, so that no product waits on the one before it.
+      float sc[SETS][NT][4];
+#pragma unroll
+      for (int u = 0; u < SETS; ++u) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[u][nt][e] = 0.f;
+        }
+      }
+      auto s_step = [&](const uint32_t(&ah)[4], const uint32_t(&al)[4], int kk,
+                        float(&c)[NT][4]) {
+        uint4 kb4[NT];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          kb4[nt] = *reinterpret_cast<const uint4*>(k2 + (nt * 8 + g) * L.ldk2 + 16 * kk + 4 * qd);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_tf32(c[nt], al[0], al[1], al[2], al[3], kb4[nt].x, kb4[nt].y);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_tf32(c[nt], ah[0], ah[1], ah[2], ah[3], kb4[nt].z, kb4[nt].w);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_tf32(c[nt], ah[0], ah[1], ah[2], ah[3], kb4[nt].x, kb4[nt].y);
+      };
+      if constexpr (Q_REGS) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          if (kk < nks) s_step(qh[kk], ql[kk], kk, sc[0]);
+        }
+      } else {
+        int kk = 0;
+        for (; kk + SETS <= nks; kk += SETS) {
+#pragma unroll
+          for (int u = 0; u < SETS; ++u) {
+            uint32_t ah[4], al[4];
+            q_fragment(qs, L.ldq, lr0, kk + u, qd, ah, al);
+            s_step(ah, al, kk + u, sc[u]);
+          }
+        }
+        if (kk < nks) {
+          uint32_t ah[4], al[4];
+          q_fragment(qs, L.ldq, lr0, kk, qd, ah, al);
+          s_step(ah, al, kk, sc[0]);
+        }
+#pragma unroll
+        for (int u = 1; u < SETS; ++u) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[0][nt][e] += sc[u][nt][e];
+          }
+        }
+      }
+      float(&s)[NT][4] = sc[0];
 
-    // S = Q K^T for this thread's ROWS rows x KCOLS columns.
-    float s[ROWS][KCOLS];
+      // scale; mask only a tile that an edge cuts; online softmax with accurate expf
+      const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qpos_lo) ||
+                        (window > 0 && k0 <= qpos_hi - window);
+      float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float kv[KCOLS];
+        for (int e = 0; e < 2; ++e) {
+          float x0 = s[nt][e] * scale;
+          float x1 = s[nt][2 + e] * scale;
+          if (edge) {
+            const int kpos = k0 + 8 * nt + 2 * qd + e;
+            const bool in = kpos < sk;
+            if (!(in && (!causal || kpos <= qpos0) && (window <= 0 || kpos > qpos0 - window)))
+              x0 = NEG_INF;
+            if (!(in && (!causal || kpos <= qpos1) && (window <= 0 || kpos > qpos1 - window)))
+              x1 = NEG_INF;
+          }
+          s[nt][e] = x0;
+          s[nt][2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float alpha0 = expf(m0 - mn0);
+      const float alpha1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < KCOLS; ++j) kv[j] = ks[(tc + 16 * j) * ldqk + c];
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float qv = qs[(tr * ROWS + i) * ldqk + c];
+        for (int e = 0; e < 2; ++e) {
+          s[nt][e] = expf(s[nt][e] - mn0);
+          s[nt][2 + e] = expf(s[nt][2 + e] - mn1);
+          rs0 += s[nt][e];
+          rs1 += s[nt][2 + e];
+        }
+      }
+      l0 = l0 * alpha0 + rs0;
+      l1 = l1 * alpha1 + rs1;
 #pragma unroll
-        for (int j = 0; j < KCOLS; ++j) s[i][j] = fmaf(qv, kv[j], s[i][j]);
+      for (int nt = 0; nt < DVT; ++nt) {
+        acc[nt][0] *= alpha0;
+        acc[nt][1] *= alpha0;
+        acc[nt][2] *= alpha1;
+        acc[nt][3] *= alpha1;
+      }
+
+      // O += P V. P stays in registers: S's accumulator fragment of keys 8j..8j+7 is the A
+      // fragment of k-step j once the k index is permuted as for S (k = q <-> key 2q,
+      // q + 4 <-> 2q + 1); V2 holds the B fragments in that order. Eight n-tiles at a
+      // time, three passes.
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t ph[4], pl[4];
+        const float ps[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const Tf32x2 x = split(ps[e]);
+          ph[e] = x.hi;
+          pl[e] = x.lo;
+        }
+        const uint32_t* vrow = v2 + (4 * j + qd) * L.ldv2 + 4 * g;
+#pragma unroll
+        for (int n0 = 0; n0 < DVT; n0 += 8) {
+          if (n0 < nvt) {
+            uint4 vb4[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (n0 + u < nvt) vb4[u] = *reinterpret_cast<const uint4*>(vrow + 32 * (n0 + u));
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (n0 + u < nvt)
+                mma_tf32(acc[n0 + u], pl[0], pl[1], pl[2], pl[3], vb4[u].x, vb4[u].y);
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (n0 + u < nvt)
+                mma_tf32(acc[n0 + u], ph[0], ph[1], ph[2], ph[3], vb4[u].z, vb4[u].w);
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              if (n0 + u < nvt)
+                mma_tf32(acc[n0 + u], ph[0], ph[1], ph[2], ph[3], vb4[u].x, vb4[u].y);
+          }
+        }
       }
     }
-
-    // Mask, online softmax update, P to shared memory.
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int qpos = q0 + tr * ROWS + i + offset;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        const int kpos = k0 + tc + 16 * j;
-        const bool ok = kpos < sk && (!causal || kpos <= qpos) &&
-                        (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(tr * ROWS + i) * LDP + tc + 16 * j] = p;
-        rs += p;
-      }
-      rs = half_warp_sum(rs);
-      l_i[i] = l_i[i] * alpha + rs;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NV; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V for this thread's ROWS rows x NV value columns.
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float vv[NV];
-#pragma unroll
-      for (int j = 0; j < NV; ++j) vv[j] = vs[kk * LDV + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float p = ps[(tr * ROWS + i) * LDP + kk];
-#pragma unroll
-        for (int j = 0; j < NV; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+    if (t + 1 < t_end) {  // split the next tile once it has landed and this one is done
+      cp_async_wait<0>();
+      __syncthreads();
+      split_tile(kr, vr, k2, v2, L, BK, d8, dv8);
+      __syncthreads();
+      if (t + 2 < t_end) {
+        load_rows<VEC>(kr, L.ldkr, kb, k_begin + (t + 2) * BK, BK, sk, d);
+        load_rows<VEC>(vr, L.ldvr, vb, k_begin + (t + 2) * BK, BK, sk, dv);
+        cp_async_commit();
       }
     }
   }
 
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (!rows_live) return;
+  if (n_pieces == 1) {  // the whole walk: normalise (one division a row) and store
+    const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+    float* ob = o + ((size_t)b * hq + h) * (size_t)sq * dv;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int qr = q0 + tr * ROWS + i;
-    if (qr >= sq) continue;
-    const float denom = fmaxf(l_i[i], 1e-37f);
+    for (int nt = 0; nt < DVT; ++nt) {
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int c = tc + 16 * j;
-      if (c < dv) ob[(size_t)qr * dv + c] = acc[i][j] / denom;
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * nt + 2 * qd + e;
+        if (nt >= nvt || col >= dv) continue;
+        if (row0 < sq) ob[(size_t)row0 * dv + col] = acc[nt][e] * inv0;
+        if (row1 < sq) ob[(size_t)row1 * dv + col] = acc[nt][2 + e] * inv1;
+      }
     }
+    return;
+  }
+  // One piece of a split walk: its (m, l) and unnormalised O, for the merge kernel.
+  const size_t slot = ((size_t)b * hq + h) * gridDim.x + blockIdx.x;
+  float* po = part + slot * BQ * dv8;
+  float* pml = part + (size_t)gridDim.z * hq * gridDim.x * BQ * dv8 + slot * BQ * 2;
+  if (qd == 0) {
+    pml[2 * lr0] = m0;
+    pml[2 * lr0 + 1] = l0;
+    pml[2 * lr1] = m1;
+    pml[2 * lr1 + 1] = l1;
+  }
+#pragma unroll
+  for (int nt = 0; nt < DVT; ++nt) {
+    if (nt >= nvt) continue;
+    *reinterpret_cast<float2*>(po + lr0 * dv8 + 8 * nt + 2 * qd) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(po + lr1 * dv8 + 8 * nt + 2 * qd) =
+        make_float2(acc[nt][2], acc[nt][3]);
   }
 }
 
-template <int NV, int ROWS, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int sq,
-           int sk, int d, int dv, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int BQ = ROWS * ROW_GROUPS;
-  const size_t smem = sizeof(float) * ((size_t)(BQ + BK) * (d + 1) + (size_t)BK * 16 * NV +
-                                        (size_t)BQ * (BK + 1));
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<NV, ROWS, BK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Merges the pieces of each split query tile in piece order: M = max m, w = exp(m - M),
+// O = sum w O / max(sum w l, 1e-37). One block per (query tile, head, batch); a tile that
+// was walked whole has nothing to merge.
+__global__ void __launch_bounds__(THREADS)
+    flash_merge_kernel(const float* __restrict__ part, float* __restrict__ o, int hq, int dv,
+                       Walk walk, int n_items) {
+  __shared__ float wgt[MAX_PIECES][BQ];
+  __shared__ float den[BQ];
+  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int n_qt = walk.q_tiles(), qt = blockIdx.x;
+  int first = 0, kb;
+  for (int t = n_qt - 1; t > qt; --t) first += walk.pieces(walk.key_tiles(t, &kb));
+  const int np = walk.pieces(walk.key_tiles(qt, &kb));
+  if (np == 1) return;
+  const int dv8 = round8(dv);
+  const size_t slot0 = ((size_t)b * hq + h) * n_items + first;
+  const float* po = part + slot0 * BQ * dv8;
+  const float* pml = part + (size_t)gridDim.z * hq * n_items * BQ * dv8 + slot0 * BQ * 2;
+  if (tid < BQ) {
+    float ms[MAX_PIECES], ls[MAX_PIECES];  // every piece's (m, l) loaded before any is used
+#pragma unroll
+    for (int s = 0; s < MAX_PIECES; ++s) {
+      if (s < np) {
+        ms[s] = pml[(size_t)s * BQ * 2 + 2 * tid];
+        ls[s] = pml[(size_t)s * BQ * 2 + 2 * tid + 1];
+      }
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int s = 0; s < MAX_PIECES; ++s)
+      if (s < np) mx = fmaxf(mx, ms[s]);
+    float l = 0.f;
+#pragma unroll
+    for (int s = 0; s < MAX_PIECES; ++s) {
+      if (s < np) {
+        const float w = expf(ms[s] - mx);
+        wgt[s][tid] = w;
+        l += w * ls[s];
+      }
+    }
+    den[tid] = fmaxf(l, 1e-37f);
+  }
+  __syncthreads();
+  // a thread 4 columns of a row; the pieces' values are loaded before they are summed
+  const int q0 = qt * BQ, rows = imin(BQ, walk.sq - q0), quads = dv8 / 4;
+  float* ob = o + (((size_t)b * hq + h) * walk.sq + q0) * dv;
+  for (int i = tid; i < rows * quads; i += THREADS) {
+    const int r = i / quads, c = (i - r * quads) * 4;
+    float4 x[MAX_PIECES];
+#pragma unroll
+    for (int s = 0; s < MAX_PIECES; ++s)
+      if (s < np) x[s] = *reinterpret_cast<const float4*>(po + (size_t)s * BQ * dv8 + r * dv8 + c);
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < MAX_PIECES; ++s) {
+      if (s < np) {
+        const float w = wgt[s][r];
+        a[0] += w * x[s].x;
+        a[1] += w * x[s].y;
+        a[2] += w * x[s].z;
+        a[3] += w * x[s].w;
+      }
+    }
+    const float inv = 1.f / den[r];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < dv) ob[(size_t)r * dv + c + e] = a[e] * inv;
+  }
+}
+
+template <int BK, int DVT, bool Q_REGS, bool VEC>
+int launch(const void* q, const void* k, const void* v, void* o, void* part, int b, int hq,
+           int hkv, int d, int dv, const Walk& walk, int n_items, float scale,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Smem(BK, d, dv, Q_REGS).total;
+  auto kernel = flash_fwd_tf32_kernel<BK, DVT, Q_REGS, VEC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  flash_fwd_kernel<NV, ROWS, BK><<<grid, THREADS, smem, stream>>>(
+  kernel<<<dim3(n_items, hq, b), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), hq, hkv, sq, sk, d, dv, causal, window, scale);
+      static_cast<float*>(o), static_cast<float*>(part), hq, hkv, d, dv, walk, scale);
   return (int)cudaGetLastError();
 }
 
-int launch_dv(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv,
-              int sq, int sk, int d, int dv, int causal, int window, float scale,
-              cudaStream_t stream) {
-#define REPRO_LAUNCH(NV, ROWS, BK) \
-  launch<NV, ROWS, BK>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, stream)
-  if (d <= 128 && dv <= 128) {  // 64-row tiles
-    if (dv <= 32) return REPRO_LAUNCH(2, 8, 64);
-    if (dv <= 64) return REPRO_LAUNCH(4, 8, 64);
-    return REPRO_LAUNCH(8, 8, 64);
+template <int BK, int DVT, bool Q_REGS>
+int launch_vec(bool vec, const void* q, const void* k, const void* v, void* o, void* part, int b,
+               int hq, int hkv, int d, int dv, const Walk& walk, int n_items, float scale,
+               cudaStream_t stream) {
+  if (vec)
+    return launch<BK, DVT, Q_REGS, true>(q, k, v, o, part, b, hq, hkv, d, dv, walk, n_items,
+                                         scale, stream);
+  return launch<BK, DVT, Q_REGS, false>(q, k, v, o, part, b, hq, hkv, d, dv, walk, n_items,
+                                        scale, stream);
+}
+
+// Key tiles of 64 with Q in registers for head dims up to 64; tiles of 16 with Q in shared
+// memory above (flash_attention.f32_key_block). split_tiles and n_items are the wrapper's
+// plan; a plan that does not fit these shapes is refused.
+int run(const void* q, const void* k, const void* v, void* o, void* part, int b, int hq, int hkv,
+        int sq, int sk, int d, int dv, int causal, int window, float scale, int split_tiles,
+        int n_items, cudaStream_t stream) {
+  const bool small = d <= 64 && dv <= 64;
+  const Walk walk{sq, sk, causal, window > 0 ? window : 0, small ? 64 : 16, split_tiles};
+  if (split_tiles < 1) return (int)cudaErrorInvalidValue;
+  int items = 0, most = 0, kb;
+  for (int t = 0; t < walk.q_tiles(); ++t) {
+    const int tiles = walk.key_tiles(t, &kb);
+    if (tiles < 1) return (int)cudaErrorInvalidValue;
+    items += walk.pieces(tiles);
+    most = imax(most, walk.pieces(tiles));
   }
-  // 32-row tiles for head dims up to 256
-  if (dv <= 128) return REPRO_LAUNCH(8, 4, 32);
-  return REPRO_LAUNCH(16, 4, 32);
+  if (items != n_items || most > MAX_PIECES || (most > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v);
+  const bool vec = d % 4 == 0 && dv % 4 == 0 && any % 16 == 0;
+#define REPRO_LAUNCH(BK, DVT, Q_REGS)                                                         \
+  launch_vec<BK, DVT, Q_REGS>(vec, q, k, v, o, part, b, hq, hkv, d, dv, walk, n_items, scale, \
+                              stream)
+  const int err = small ? REPRO_LAUNCH(64, 8, true)
+                        : (dv <= 128 ? REPRO_LAUNCH(16, 16, false) : REPRO_LAUNCH(16, 32, false));
 #undef REPRO_LAUNCH
+  if (err != 0 || most == 1) return err;
+  flash_merge_kernel<<<dim3(walk.q_tiles(), hq, b), THREADS, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(o), hq, dv, walk, n_items);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace f32
@@ -305,10 +718,6 @@ constexpr uint32_t Q_CHUNK = BQ * ROW_BYTES;            // 16 KB: 128 rows x 64 
 constexpr uint32_t KV_CHUNK = BK * ROW_BYTES;           // 8 KB: 64 keys x 64 columns
 constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;         // 8 rows: one swizzle atom
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -427,16 +836,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // DC, DVC: 64-column chunks of D and Dv (1, 2 or 4). Shared memory, 1024-byte aligned:
@@ -762,19 +1161,25 @@ int run(const void* q, const void* k, const void* v, void* o, int b, int hq, int
 extern "C" {
 
 // q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), o (B,Hq,Sq,Dv), all contiguous and of
-// one dtype (is_bf16: 0 float32 on the FMA path, 1 bfloat16 on the tensor-core path,
-// which also needs D and Dv multiples of 8 and 16-byte aligned pointers). window <= 0
-// means no window. The caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the grid
-// limits. Returns the cudaError_t of the launch (0 on success). Does not synchronise.
-int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int b, int hq,
-                              int hkv, int sq, int sk, int d, int dv, int causal, int window,
-                              float scale, int is_bf16, void* stream) {
+// one dtype (is_bf16: 0 float32 on the 3xTF32 path, 1 bfloat16 on the wgmma path, which
+// also needs D and Dv multiples of 8 and 16-byte aligned pointers). window <= 0 means no
+// window. float32 only: split_tiles and n_items are the wrapper's split plan (key tiles a
+// piece of a query tile's walk, pieces of every query tile together; the call is refused
+// if they do not fit the shapes), and workspace is float32 scratch of at least
+// B*Hq*n_items*64*(round8(Dv) + 2) elements when some walk is split, else may be null.
+// The caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the grid limits. Returns the
+// cudaError_t of the launches (0 on success). Does not synchronise.
+int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                              void* workspace, int b, int hq, int hkv, int sq, int sk, int d,
+                              int dv, int causal, int window, float scale, int split_tiles,
+                              int n_items, int is_bf16, void* stream) {
   if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return bf16::run(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
-  return f32::launch_dv(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
+  return f32::run(q, k, v, o, workspace, b, hq, hkv, sq, sk, d, dv, causal, window, scale,
+                  split_tiles, n_items, s);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -18,21 +18,23 @@ devices, so the CPU tests see what the kernel would refuse.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import ref as _ref
 
-__all__ = ["decode_attention", "SPLIT_KEYS", "MAX_GROUP", "MAX_HEAD_DIM", "MAX_CACHE"]
+__all__ = ["decode_attention", "split_plan", "MAX_SPLITS", "MAX_GROUP", "MAX_HEAD_DIM", "MAX_CACHE"]
 
-#: cache slots a split of the kernel (``KEYS`` in the source)
-SPLIT_KEYS = 64
-#: query heads a KV head, at most
+#: splits of a cache, at most: the blocks of one portable thread-block cluster
+MAX_SPLITS = 8
+_GROUP = 8  # cache slots a warp takes at a time (``GROUP`` in the source)
+_MIN_SPLIT_KEYS = 64
+#: query heads a KV head, at most: the 16 rows of an ``mma.sync``
 MAX_GROUP = 16
 MAX_HEAD_DIM = 256
-#: cache slots, at most: 4,096 splits (the combine keeps a weight a split in shared memory)
-MAX_CACHE = 4096 * SPLIT_KEYS
+#: cache slots, at most: a block then walks at most 32,768 of them
+MAX_CACHE = 262144
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 
@@ -82,6 +84,17 @@ def _check(q, k_cache, v_cache, pos, window) -> None:
         raise ValueError(f"decode_attention: B={b} or KV={kv} exceeds the grid limit")
 
 
+def split_plan(sc: int) -> Tuple[int, int]:
+    """(cache slots a split, splits) for a cache of ``sc`` slots: a function of Sc alone.
+
+    ceil(Sc / MAX_SPLITS) rounded up to whole groups of 8 slots, at least 64; the
+    source's ``split_keys`` and ``n_splits`` compute the same, and the kernel refuses
+    a split count that differs.
+    """
+    keys = max(_MIN_SPLIT_KEYS, -(-(-(-sc // MAX_SPLITS)) // _GROUP) * _GROUP)
+    return keys, -(-sc // keys)
+
+
 def _lib() -> ctypes.CDLL:
     from . import _build
 
@@ -90,7 +103,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # first use: declare the C signature
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 6 + [i32] * 7 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, i32, ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -117,9 +130,8 @@ def decode_attention(
     b, h, d = q.shape
     sc, kv = k_cache.shape[1], k_cache.shape[2]
     ring = window if window is not None and sc == window else 0
-    n_split = -(-sc // SPLIT_KEYS)
+    n_split = split_plan(sc)[1]
     out = torch.empty_like(q)
-    workspace = torch.empty(b * h * n_split * (d + 2), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -129,7 +141,6 @@ def decode_attention(
             v_cache.data_ptr(),
             pos.data_ptr(),
             out.data_ptr(),
-            workspace.data_ptr(),
             b,
             h,
             kv,

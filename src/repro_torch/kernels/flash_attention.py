@@ -3,10 +3,15 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas``.
 The kernels are in ``csrc/flash_attention_fwd.cu`` (CUDA C++ for
 ``sm_90a``, built by :mod:`._build`); its source note says what they
-replace and what bounds them. bfloat16 runs on the tensor cores
-(``wgmma`` fed by TMA), float32 on the CUDA cores (FMA): one kernel a
-dtype, no fallback between them. Forward only: serving has no backward,
-and the training slice adds one.
+replace and what bounds them. Both dtypes run on the tensor cores, one
+kernel a dtype with no fallback between them: bfloat16 through ``wgmma``
+fed by TMA, float32 through ``mma.sync`` in 3xTF32 (each operand split
+into TF32 hi and lo halves, three products a step: float32 accuracy). The
+float32 kernel may cut a long key walk into pieces that run on separate
+blocks and are merged in a fixed order; :func:`f32_plan` chooses the cut
+from the shapes and masks alone, never from B or the card, so a row's bits
+do not depend on the batch it runs in. Forward only: serving has no
+backward, and the training slice adds one.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU
 tensor it runs the plain version, :func:`repro_torch.kernels.ref.
@@ -18,20 +23,69 @@ would refuse.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import ref as _ref
 
-__all__ = ["flash_attention_fwd", "MAX_HEAD_DIM", "PATHS"]
+__all__ = ["flash_attention_fwd", "f32_plan", "MAX_HEAD_DIM", "PATHS"]
 
 MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
-#: the kernel that serves each dtype: tensor cores (wgmma) or CUDA cores (FMA)
-PATHS = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+#: the kernel that serves each dtype, both on the tensor cores: wgmma (bfloat16) and
+#: mma.sync in 3xTF32 (float32)
+PATHS = {torch.bfloat16: "wgmma", torch.float32: "3xtf32"}
 _TMA_ALIGN = 8  # head dims of the wgmma path: a TMA row stride is a multiple of 16 bytes
+
+# The float32 kernel's tiles and split plan (``f32`` in csrc/flash_attention_fwd.cu).
+F32_BLOCK_Q = 64  # query rows a block
+#: a (batch, head) with fewer query tiles than this has its long key walks cut into pieces
+F32_SPLIT_TARGET = 80
+F32_MIN_PIECE_TILES = 2  # key tiles a piece, at least
+F32_MAX_PIECES = 16  # pieces a query tile, at most (the merge kernel's weights)
+
+
+def f32_key_block(d: int, dv: int) -> int:
+    """Keys a tile of the float32 kernel: 64 (Q in registers) up to head dims of 64, else 16."""
+    return 64 if d <= 64 and dv <= 64 else 16
+
+
+def _f32_key_tiles(sq: int, sk: int, causal: bool, window: int, bk: int):
+    """Key tiles each query tile walks: those some row of it can see (``Walk::key_tiles``)."""
+    offset, tiles = sk - sq, []
+    for q0 in range(0, sq, F32_BLOCK_Q):
+        first, last = q0 + offset, min(q0 + F32_BLOCK_Q, sq) - 1 + offset
+        k_end = min(sk, last + 1) if causal else sk
+        k_begin = (max(0, first - window + 1) if window > 0 else 0) // bk * bk
+        tiles.append(-(-(k_end - k_begin) // bk))
+    return tiles
+
+
+@functools.lru_cache(maxsize=1024)
+def f32_plan(
+    sq: int, sk: int, causal: bool, window: Optional[int], d: int, dv: int
+) -> Tuple[int, int]:
+    """(key tiles a piece, pieces of all query tiles) for the float32 kernel.
+
+    A function of the shapes and masks of one (batch, head) alone: never of B, of the
+    head count or of the card, so the reduction order of a row, and with it its bits,
+    is the same at any batch. A (batch, head) with at least ``F32_SPLIT_TARGET`` query
+    tiles is not cut. Below that, the longest walk is cut into about
+    ``F32_SPLIT_TARGET / tiles`` pieces (at most ``F32_MAX_PIECES``, each of at least
+    ``F32_MIN_PIECE_TILES`` key tiles) and every walk into pieces of that length, split
+    evenly; the pieces of a tile are merged in order by a second kernel.
+    """
+    tiles = _f32_key_tiles(sq, sk, bool(causal), window or 0, f32_key_block(d, dv))
+    longest = max(tiles)
+    if len(tiles) >= F32_SPLIT_TARGET:
+        split = longest
+    else:
+        pieces = min(F32_MAX_PIECES, -(-F32_SPLIT_TARGET // len(tiles)))
+        split = max(F32_MIN_PIECE_TILES, -(-longest // pieces))
+    return split, sum(-(-n // split) for n in tiles)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window) -> None:
@@ -93,7 +147,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:  # first use: declare the C signature
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i32] * 9 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -126,6 +180,12 @@ def flash_attention_fwd(
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    split_tiles, n_items, workspace = 0, 0, None
+    if not tensor_cores and sq > 0 and b > 0:
+        split_tiles, n_items = f32_plan(sq, sk, causal, window, d, dv)
+        if n_items > -(-sq // F32_BLOCK_Q):  # some walk is cut: room for the pieces
+            n = b * hq * n_items * F32_BLOCK_Q * (-(-dv // 8) * 8 + 2)
+            workspace = torch.empty(n, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -134,6 +194,7 @@ def flash_attention_fwd(
             k.data_ptr(),
             v.data_ptr(),
             out.data_ptr(),
+            None if workspace is None else workspace.data_ptr(),
             b,
             hq,
             hkv,
@@ -144,6 +205,8 @@ def flash_attention_fwd(
             int(bool(causal)),
             int(window) if window is not None else 0,
             scale,
+            split_tiles,
+            n_items,
             int(tensor_cores),
             stream,
         )

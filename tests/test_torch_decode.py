@@ -11,7 +11,9 @@ Inputs are drawn with numpy from a seed and handed to both packages.
 
 Tolerances: float32 2e-5 (summation order only: XLA's einsum against torch's
 matmul), bfloat16 2e-2 (the output rounded to bfloat16 on both sides; the
-kernels' bfloat16 tolerance, tests/test_kernels.py).
+kernels' bfloat16 tolerance, tests/test_kernels.py). A CPU model of the
+kernel's tensor-core rounding (bf16 products with P in hi/lo halves, 3xTF32
+for float32 caches) is held to the same tolerances.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tf32 import mm_3xtf32
 
 import repro_torch.configs as tconfigs
 from repro.configs import get_config
@@ -92,6 +95,65 @@ def test_decode_attention_matches_jax_cached_decode(heads, cache, dtype):
     q = torch.from_numpy(x).to(tdt).reshape(b, h, HD)
     got = tops.decode_attention(q, k_cache, v_cache, torch.from_numpy(pos), window=window)
     assert got.shape == (b, h, HD) and got.dtype == tdt
+    np.testing.assert_allclose(
+        got.float().reshape(b, 1, h * HD).numpy(),
+        np.asarray(want, np.float32),
+        rtol=TOL[dtype],
+        atol=TOL[dtype],
+    )
+
+
+def _tensor_core_decode_model(q, k_cache, v_cache, pos):
+    """The decode kernel's arithmetic in float32 torch on the CPU. bfloat16: q.k as exact
+    bf16 products summed in float32, P split into bfloat16 hi and lo halves before P.V;
+    float32: both products in 3xTF32. Softmax over the valid slots (j <= pos), accurate
+    exp, the output rounded to q's dtype."""
+    b, h, d = q.shape
+    kv = k_cache.shape[2]
+    qf = q.float().reshape(b, kv, h // kv, d)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k_cache, v_cache))  # (B, KV, Sc, D)
+    bf16 = q.dtype == torch.bfloat16
+    s = (qf @ kf.transpose(-1, -2) if bf16 else mm_3xtf32(qf, kf.transpose(-1, -2))) * d**-0.5
+    valid = torch.arange(kf.shape[2])[None, :] <= pos[:, None].long()  # (B, Sc)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    if bf16:
+        p_hi = p.bfloat16().float()
+        o = p_hi @ vf + (p - p_hi).bfloat16().float() @ vf
+    else:
+        o = mm_3xtf32(p, vf)
+    return (o / p.sum(-1, keepdim=True)).to(q.dtype).reshape(b, h, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache", CACHES, ids=[c[0] for c in CACHES])
+@pytest.mark.parametrize("heads", HEADS + [("g16", 16, 1)], ids=[h[0] for h in HEADS] + ["g16"])
+def test_tensor_core_decode_rounding_fits_the_tolerance(heads, cache, dtype):
+    """The kernel's tensor-core rounding (P in bf16 hi/lo halves for bfloat16 caches,
+    3xTF32 for float32 ones) stays within TOL of the reference's cached decode, on the
+    same inputs as test_decode_attention_matches_jax_cached_decode and on 16 heads a KV
+    head (all 16 rows of the mma)."""
+    _, h, kv = heads
+    _, window, positions = cache
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(31 + h + kv)
+    b = len(positions)
+    x = rng.normal(size=(b, 1, h * HD)).astype(np.float32)
+    k = rng.normal(size=(b, SC, kv, HD)).astype(np.float32)
+    v = rng.normal(size=(b, SC, kv, HD)).astype(np.float32)
+    pos = np.array(positions, np.int32)
+    jcache = {"k": jnp.asarray(k, jdt), "v": jnp.asarray(v, jdt), "pos": jnp.asarray(pos)}
+    want, jnew = jgqa(
+        jnp.asarray(x, jdt),
+        _identity_params(h, kv, jdt),
+        _jcfg(h, kv),
+        positions=jnp.asarray(pos)[:, None],
+        cache=jcache,
+        window=window,
+    )
+    k_cache, v_cache = (torch.from_numpy(np.array(jnew[n], np.float32)).to(tdt) for n in "kv")
+    q = torch.from_numpy(x).to(tdt).reshape(b, h, HD)
+    got = _tensor_core_decode_model(q, k_cache, v_cache, torch.from_numpy(pos))
     np.testing.assert_allclose(
         got.float().reshape(b, 1, h * HD).numpy(),
         np.asarray(want, np.float32),

@@ -11,7 +11,10 @@ oracle. ``ref.rglru_ref`` (the RG-LRU kernel's plain version) and
 and the Pallas kernel in interpret mode. ``ref.wkv6_ref`` and
 ``ref.wkv6_chunked_ref`` (the WKV6 kernel's plain version) are held against
 the JAX ``wkv6_ref``, ``wkv6_chunked_ref`` and the Pallas kernel in
-interpret mode on ``WKV_CASES`` at that file's 2e-4. The CUDA kernels
+interpret mode on ``WKV_CASES`` at that file's 2e-4. CPU models of the flash
+kernel's arithmetic (bfloat16 on wgmma; float32 in 3xTF32, ``_tf32.py``) are
+held against the JAX dense oracle at the kernel tolerances, and its float32
+split plan is checked to depend on the shapes alone. The CUDA kernels
 themselves are compared with these plain versions on the card by
 ``chip_smoke.py``.
 """
@@ -22,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _tf32 import mm_3xtf32, mm_tf32, tf32
 from test_kernels import FLASH_CASES, RGLRU_CASES, WKV_CASES
 
 from repro.kernels import ops as jops
@@ -259,6 +263,128 @@ def test_wgmma_path_rounding_fits_the_bf16_tolerance(name):
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want, np.float32), rtol=2e-2, atol=2e-2
     )
+
+
+# ---------------------------------------------------------------------------
+# the float32 path of the flash kernel (mma.sync in 3xTF32): its rounding, its split plan
+# ---------------------------------------------------------------------------
+
+
+def _tensor_core_f32_model(q, k, v, *, causal, window, mm, block_k=64):
+    """The float32 kernel's arithmetic in float32 torch on the CPU: both products through
+    ``mm``, online softmax over key tiles of 64 with accurate exp in float32, the output
+    divided by the clamped sum."""
+    g = q.shape[1] // k.shape[1]
+    kf, vf = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    sq, sk = q.shape[2], k.shape[2]
+    scale = q.shape[-1] ** -0.5
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    denom = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:3] + (v.shape[-1],))
+    for k0 in range(0, sk, block_k):
+        kpos = torch.arange(k0, min(k0 + block_k, sk))[None, :]
+        s = mm(q, kf[:, :, k0 : k0 + block_k].transpose(-1, -2)) * scale
+        valid = torch.ones(sq, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            valid &= kpos <= qpos
+        if window is not None:
+            valid &= kpos > qpos - window
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        denom = denom * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + mm(p, vf[:, :, k0 : k0 + block_k])
+        m = m_new
+    return acc / denom.clamp_min(1e-37)
+
+
+# float32 rows of FLASH_CASES and the MLA 48/32 case (CASES), the demo's prefill and a head
+# dim of 256 with a window: (B, Hq, Hkv, Sq, Sk, D, causal, window, Dv)
+TF32_MODEL_CASES = {
+    **{f"case{i}": c[:8] + c[9:] for i, c in enumerate(CASES) if c[8] == jnp.float32},
+    "demo_prefill": (1, 12, 4, 777, 777, 64, True, None, 64),
+    "head_dim_256_window": (1, 4, 1, 300, 300, 256, True, 96, 256),
+}
+
+
+def _tf32_model_inputs(name):
+    b, hq, hkv, sq, sk, d, causal, window, dv = TF32_MODEL_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)) + 2)
+    q = rng.normal(size=(b, hq, sq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, sk, dv)).astype(np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = jref.flash_attention_dense_ref(jq, jk, jv, causal=causal, window=window)
+    return [torch.from_numpy(x) for x in (q, k, v)], np.asarray(want), causal, window
+
+
+@pytest.mark.parametrize("name", sorted(TF32_MODEL_CASES))
+def test_3xtf32_path_rounding_fits_the_f32_tolerance(name):
+    """Both products in 3xTF32 (hi/lo halves, the lo*lo term dropped) stay within the
+    float32 tolerance of the JAX dense oracle, 2e-5 (tests/test_kernels.py)."""
+    (q, k, v), want, causal, window = _tf32_model_inputs(name)
+    got = _tensor_core_f32_model(q, k, v, causal=causal, window=window, mm=mm_3xtf32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_single_pass_tf32_exceeds_the_f32_tolerance():
+    """The companion of the test above: one TF32 pass a product (about three decimal
+    digits) does not fit 2e-5 at the demo's prefill shape, so the float32 path needs
+    the split."""
+    (q, k, v), want, causal, window = _tf32_model_inputs("demo_prefill")
+    got = _tensor_core_f32_model(q, k, v, causal=causal, window=window, mm=mm_tf32)
+    diff = np.abs(got.numpy() - want)
+    assert (diff > 2e-5 * (1 + np.abs(want))).any(), diff.max()
+
+
+def test_tf32_rounding_is_to_nearest_with_ties_away_from_zero():
+    """The model's rounding on hand-picked bits: below, at and above the half of the
+    dropped 13 bits, for both signs."""
+    x = torch.tensor([0x3F800FFF, 0x3F801000, 0x3F801001, 0xBF801000 - 2**32], dtype=torch.int32)
+    got = tf32(x.view(torch.float32)).view(torch.int32).tolist()
+    assert got == [0x3F800000, 0x3F802000, 0x3F802000, 0xBF802000 - 2**32]
+
+
+@pytest.mark.parametrize(
+    "sq, sk, causal, window, d, dv",
+    [
+        (128, 128, True, None, 64, 64),
+        (777, 777, True, None, 64, 64),
+        (2048, 2048, True, None, 64, 64),
+        (3000, 3000, True, 2048, 256, 256),
+        (1000, 3000, True, 2048, 256, 256),
+        (1, 513, True, None, 64, 64),
+        (700, 700, True, None, 18, 13),
+        (1500, 1500, False, None, 64, 32),
+    ],
+)
+def test_f32_split_plan_is_a_function_of_the_shapes_alone(sq, sk, causal, window, d, dv):
+    """The float32 kernel's split plan depends on (Sq, Sk, the masks, D, Dv) and nothing
+    else, so a row's reduction order is the same at any batch, head count or card; it
+    cuts a walk only where a (batch, head) has fewer than F32_SPLIT_TARGET query tiles,
+    into at most F32_MAX_PIECES pieces of at least F32_MIN_PIECE_TILES key tiles."""
+    import inspect
+
+    assert list(inspect.signature(tfa.f32_plan).parameters) == [
+        "sq",
+        "sk",
+        "causal",
+        "window",
+        "d",
+        "dv",
+    ]
+    split, n_items = tfa.f32_plan(sq, sk, causal, window, d, dv)
+    tiles = tfa._f32_key_tiles(sq, sk, causal, window or 0, tfa.f32_key_block(d, dv))
+    assert len(tiles) == -(-sq // tfa.F32_BLOCK_Q) and min(tiles) >= 1
+    pieces = [-(-n // split) for n in tiles]
+    assert n_items == sum(pieces) and max(pieces) <= tfa.F32_MAX_PIECES
+    if len(tiles) >= tfa.F32_SPLIT_TARGET:
+        assert n_items == len(tiles)  # enough query tiles: no walk is cut
+    elif max(pieces) > 1:
+        assert split >= tfa.F32_MIN_PIECE_TILES
+    if (sq, d) == (777, 64):  # the demo's prefill: 13 query tiles, walks cut in 2 tiles
+        assert (split, n_items) == (2, 49)
 
 
 @pytest.mark.parametrize("d, dv", [(20, 12), (64, 40), (64, 64)])

@@ -5,9 +5,10 @@
 Builds ``csrc/flash_attention_fwd.cu`` alone and prints ptxas's report
 (registers, shared memory, spills of each instantiation), then runs the
 flash part of ``chip_smoke.py``'s kernel phase: every case against the plain
-version at its tolerance, with the path that served it, the determinism
-check of the bfloat16 path, and the timed rows (kernel, plain version, SDPA,
-bound) at the demo's and recurrentgemma-9b's shapes. About a minute; the
+version at its tolerance and the share of it used, with the path that served
+it, the determinism checks of both paths (bfloat16 on wgmma, float32 in
+3xTF32), and the timed rows (kernel, plain version, SDPA, bound) at the
+demo's and recurrentgemma-9b's shapes. About a minute; the
 quickest check after an edit to the flash kernel. It needs a card and a
 checkout of the repository, and fails as ``chip_smoke.py`` does.
 """
