@@ -35,7 +35,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and decode shapes and the edges of its two kernels (chunk and stream),
    each case logging the path that served it; each WKV6 path gives the
    same bits on two launches and for a batch row alone as within a batch
-   of 4; the wrapper's host cost a decode call. Each timed case prints the
+   of 4; the wrapper's host cost a decode call. The flash backward (float32,
+   3xTF32) against its plain version on the float32 cases of FLASH_CASES,
+   edge cases (MLA head dims, a window with Sq < Sk, Sq > Sk without a mask,
+   head dim 128, window 1) and the demo's train shape (4, 12, 4096, 64) at
+   BWD_TOL, each case logging the share of it used and checking the
+   forward's output and logsumexp against their plain versions (the output's
+   bits unchanged by asking for the logsumexp); its
+   bits equal on two launches and for B = 1 against row 0 of B = 4; at the
+   train shape the forward with and without the logsumexp timed, and the
+   backward against its plain version, SDPA's memory-efficient backward and
+   its bound. Each timed case prints the
    kernel's time, its plain version's, one PyTorch library call's where one
    computes the same function, and the least time the card could take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
@@ -43,7 +53,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    sequential greedy decoding, the flash kernel ran in every prefill
    layer and the decode-attention kernel in every layer of every decode
    step, and prefill logits agree with the port's CPU path within 1e-4;
-5. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
+5. train, in a process of its own (this file run with ``--train``, which
+   sets ``CUBLAS_WORKSPACE_CONFIG`` before importing torch; the other phases
+   run without it): the same model at full width and depth takes 3 AdamW
+   steps (``make_train_step``: forward, loss, backward, clip, AdamW as
+   ``examples/train_lm.py`` sets it) on ``TokenSource(seed=0)`` batches of
+   4 x 4096 tokens under ``torch.use_deterministic_algorithms(True)``; every layer
+   ran the flash forward and backward kernels (24 launches each); step 0 run
+   again from the same state gives the same ``payload_digest`` of metrics,
+   params and AdamW state; step 0 with ``attn_impl="ref"`` (plain attention
+   and autograd) agrees in loss, grad norm and every gradient leaf within
+   TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL and TRAIN_GRAD_TOL; step ms, tokens/s,
+   peak memory, and a profiled step's device time by kind and busy share;
+6. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
    10.4B params, bfloat16) serves 8 requests of prompts on both sides of
    its 2048 window through ``ContinuousBatcher(slots=4, max_len=3072)``;
    the flash kernel ran in the 12 attention layers of every prefill, the
@@ -55,13 +77,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    one prompt gives the device time by kind of kernel (flash, RG-LRU,
    GEMMs, elementwise), a profiled window of decode steps the device's busy
    share;
-6. exactness: a float32 copy of recurrentgemma-9b at full width and depth
+7. exactness: a float32 copy of recurrentgemma-9b at full width and depth
    3 (rec, rec, attn) serves the same requests: tokens equal sequential
    greedy decoding, the float32 flash and decode-attention kernels counted
    in that run; decode across the window equals a fresh prefill within
    1e-4; one rec and one attn layer on the card equal the port's CPU path
    on a (1, 2100, 4096) input within 1e-4;
-7. rwkv: ``rwkv6-7b`` at full width and depth (32 layers, 7.66B params,
+8. rwkv: ``rwkv6-7b`` at full width and depth (32 layers, 7.66B params,
    bfloat16) serves 8 requests (prompts up to 3000 tokens, one shorter than
    a WKV chunk) through ``ContinuousBatcher(slots=4, max_len=3072)``; the
    WKV6 kernel ran in the 32 layers of every prefill and decode step and no
@@ -69,12 +91,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    batcher's width bit for bit and agree with it at batch 1 within
    LOGIT_TOL_RWKV; a profiled prefill of one prompt gives the device time by
    kind of kernel, a profiled window of decode steps the device's busy share;
-8. rwkv exactness: a float32 copy of rwkv6-7b at full width and depth 2
+9. rwkv exactness: a float32 copy of rwkv6-7b at full width and depth 2
    serves the same requests: tokens equal sequential greedy decoding; 32
    decode steps after a prompt equal a fresh prefill within 1e-4; one layer
    on the card equals the port's CPU path on a (1, 333, 4096) input within
    1e-4;
-9. the JSON line of kernels, the card's name and power limit, and last the
+10. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
 Every model is freed before the next is built. It imports the port
@@ -87,6 +109,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -94,11 +117,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# The train phase runs in a process of its own, this file run as ``chip_smoke.py --train``:
+# cuBLAS sums in a fixed order only with a fixed workspace, set before its first handle, and
+# torch.use_deterministic_algorithms(True) raises without it. The serving phases run in the
+# first process without it, as a server does.
+TRAIN_ARG = "--train"
+if sys.argv[1:] == [TRAIN_ARG]:
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import DataConfig, TokenSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -110,9 +141,18 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.models.layers import apply_norm, softcap  # noqa: E402
 from repro_torch.models.model import unembed_logits  # noqa: E402
 from repro_torch.models.transformer import apply_layer, run_stack  # noqa: E402
+from repro_torch.optim.adamw import (  # noqa: E402
+    AdamWConfig,
+    adamw_update,
+    tree_leaves,
+    tree_map,
+)
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.serve.batcher import _splice_cache  # noqa: E402
+from repro_torch.train import make_opt_init, make_train_step  # noqa: E402
+from repro_torch.train.steps import value_and_grad  # noqa: E402
+from repro_torch.wire import payload_digest  # noqa: E402
 
 DEV = "cuda"
 
@@ -256,6 +296,36 @@ WKV_TIMED = (WKV_JSON, WKV_CASES[6], WKV_CASES[7])
 # the same bits twice, and for batch row 0 alone as within a batch of 4, on each path
 WKV_DETERMINISM = ((4, 64, 777, 64, 64, "bfloat16", True), (4, 64, 1, 64, 64, "bfloat16", True))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, tests/test_kernels.py:47
+# the flash backward against its plain version: rtol = atol = 1e-4, ten times tighter than
+# the 1e-3 of tests/test_kernels.py:63: a backward with one TF32 pass a product, or with dK and
+# dV summed over a whole walk in the tensor cores, exceeds it (tests/test_torch_flash_bwd.py)
+BWD_TOL = 1e-4
+# the demo's train shape: a batch of 4 sequences of train_4k's 4096 tokens (its global batch
+# of 256 cut to one card's step), 12 query heads on 4 KV heads of 64, causal
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 3
+FLASH_BWD_TRAIN = (TRAIN_BATCH, 12, 4, TRAIN_SEQ, TRAIN_SEQ, 64, True, None, "float32", 64)
+# float32 cases of FLASH_CASES, then edges: MLA head dims, a window with Sq < Sk and GQA,
+# no mask with Sq > Sk, head dim 128 (the kernels' widest), window 1 with Sq < Sk, ragged
+FLASH_BWD_CASES = [c + (c[5],) for c in FLASH_CASES if c[8] == "float32"] + [
+    (1, 2, 2, 64, 64, 48, True, None, "float32", 32),
+    (2, 6, 2, 50, 130, 32, True, 20, "float32", 32),
+    (1, 4, 1, 90, 40, 16, False, None, "float32", 24),
+    (1, 4, 2, 300, 300, 128, True, None, "float32", 128),
+    (1, 2, 2, 150, 400, 24, True, 1, "float32", 16),
+    FLASH_BWD_TRAIN,
+]
+# AdamW as examples/train_lm.py sets it (its default 300 steps)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=300)
+# Step 0 through the kernels against step 0 with attn_impl="ref" (plain attention under
+# autograd, the same float32 GEMMs): the attention outputs differ by ~1e-6 of their size
+# (3xTF32 against float32 products, other orders of summation), which 8 layers carry into
+# the loss (~10.4) and the gradients at about that relative size. Loss within 1e-4
+# absolute, grad norm within 1e-3 relative, every gradient leaf within 1e-3 of its largest
+# entry: a missing or misplaced term of the attention's gradient moves a leaf by its own
+# size.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GNORM_RTOL = 1e-3
+TRAIN_GRAD_TOL = 1e-3
 DEMO_SEQ = (128, 777, 2048)
 JSON_SEQ = 777  # the demo prefill length whose times go into the kernels line
 N_REQUESTS, SLOTS, MAX_LEN, NEW_TOKENS = 8, 4, 1536, 32
@@ -308,6 +378,9 @@ PORT_KERNEL_SYMBOLS = (
     "flash_fwd_wgmma_kernel",
     "flash_fwd_tf32_kernel",
     "flash_merge_kernel",
+    "flash_bwd_delta_kernel",
+    "flash_bwd_dkdv_kernel",
+    "flash_bwd_dq_kernel",
     "decode_attention_kernel",
     "rglru_ring_kernel",
     "rglru_step_kernel",
@@ -374,6 +447,23 @@ def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize, form
     }[form]
     t_bytes = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window):
+    """Least time for one float32 attention backward: max(3 x FLOPs / the TF32 peak, bytes /
+    bandwidth). FLOPs: the five products of the FlashAttention-2 form over the (query, key)
+    pairs the masks keep (S and dQ, dK over D; dP and dV over Dv), 2 pairs (3D + 2Dv) a
+    head, each in 3xTF32; bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once.
+    Returns (ms, what bounds it, the bytes' time alone in ms)."""
+    qpos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    flops = 2.0 * b * hq * pairs * (3 * d + 2 * dv)
+    nbytes = 4 * (2 * b * hq * sq * (d + dv) + 2 * b * hkv * sk * (d + dv) + b * hq * sq)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), bound_by, 1e3 * t_bytes
 
 
 def rglru_bound_ms(b, t, w, itemsize, with_h0):
@@ -611,6 +701,154 @@ def _flash_determinism(gen) -> None:
             f"[kernels] {label}: two launches equal bit for bit; B=1 equals row 0 of B={b} "
             "bit for bit"
         )
+
+
+def _flash_bwd_inputs(gen, case):
+    """q, k, v, dO on the card, and the plain forward's output and logsumexp on them."""
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+    q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.float32)
+    dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV)
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    return q, k, v, dout, out, lse
+
+
+def _flash_bwd_rows(gen):
+    """The flash backward against its plain version on every case, on the same inputs (the
+    plain forward's output and logsumexp); each case also holds the forward's logsumexp
+    against the plain one, and its output with the logsumexp equal bit for bit to its
+    output without. At the train shape: the times. Returns the rows of the kernels line."""
+    rows = {}
+    for case in FLASH_BWD_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+        q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
+        masks = dict(causal=causal, window=window)
+        got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+        same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
+        torch.cuda.synchronize()
+        label = f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} " + (
+            f"float32 causal={causal} window={window}"
+        )
+        if not same:
+            raise AssertionError(f"[kernels] {label}: the forward's output moved with lse")
+        out_err = _check(f"{label} out", got_out, out, TOL["float32"])
+        lse_err = _check(f"{label} lse", got_lse, lse, TOL["float32"])
+        errs = [_check(f"{label} {n}", g, w, BWD_TOL) for n, g, w in zip("qkv", grads, want)]
+        used = max(_tol_used(g, w, BWD_TOL) for g, w in zip(grads, want))
+        log(
+            f"[kernels] {label} (3xtf32 path): max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+            f"dv {errs[2]:.3e} (tol {BWD_TOL}), {100 * used:.2f}% used; forward out max |err| "
+            f"{out_err:.3e}, lse {lse_err:.3e} (tol {TOL['float32']}), output with lse equal "
+            "bit for bit"
+        )
+        if case == FLASH_BWD_TRAIN:
+            rows = _flash_bwd_timed(case, q, k, v, dout, out, lse, want, max(errs), out_err)
+    _flash_bwd_determinism(gen)
+    return rows
+
+
+def _flash_bwd_timed(case, q, k, v, dout, out, lse, want, err, out_err):
+    """Times at the train shape: the forward with and without its logsumexp, the backward
+    against its plain version, SDPA's memory-efficient backward and the bound. ``err`` and
+    ``out_err`` are the backward's and the forward's checked max |err|."""
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+    masks = dict(causal=causal, window=window)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+
+    lib_ms, lib_err = _efficient_sdpa_bwd_ms(q, k, v, dout, want)
+    bound, bound_by, bytes_ms = attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window)
+    bwd = {
+        "ms": time_ms(kernel, iters=10),
+        "device_us": device_us(kernel, launches=10),
+        **{f"{n}_us": device_us(kernel, f"flash_bwd_{n}", launches=10) for n in KERNEL_PARTS},
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks), iters=3,
+            warmup=1,
+        ),
+        "library_ms": lib_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "max_abs_err": err,
+    }
+    fwd_bound, fwd_bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, 4)
+    fwd = {
+        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **masks), iters=10),
+        "ms_without_lse": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **masks), iters=10),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **masks), iters=3, warmup=1),
+        "library_ms": _efficient_sdpa_ms(q, k, v, None, out)[0],
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_bound_by,
+        "max_abs_err": out_err,
+    }
+    parts = ", ".join(f"{n} {bwd[n + '_us']:.2f}" for n in KERNEL_PARTS)
+    log(
+        f"[kernels]   train shape q{tuple(q.shape)}: backward kernel_ms {bwd['ms']:.4f} "
+        f"(device {bwd['device_us']:.2f} us a call: {parts}), plain_ms "
+        f"{bwd['plain_ms']:.4f}, library_ms (SDPA memory-efficient backward alone, K/V "
+        f"expanded to {hq} heads, |err| {lib_err:.1e}) {bwd['library_ms']:.4f} (kernel "
+        f"{'faster' if bwd['ms'] < bwd['library_ms'] else 'NOT faster'}), bound_ms "
+        f"{bound:.5f} ({bound_by}, 3xTF32: 3 x FLOPs at 495 TFLOP/s; bytes alone "
+        f"{bytes_ms:.5f}), kernel/bound {bwd['ms'] / bound:.1f}"
+    )
+    log(
+        f"[kernels]   train shape forward: with lse {fwd['ms']:.4f} ms, without "
+        f"{fwd['ms_without_lse']:.4f} ms; plain_ms {fwd['plain_ms']:.4f}, library_ms (SDPA "
+        f"memory-efficient) {fwd['library_ms']:.4f}, bound_ms {fwd_bound:.5f} ({fwd_bound_by})"
+    )
+    return {"bwd": bwd, "fwd": fwd}
+
+
+KERNEL_PARTS = ("delta", "dkdv", "dq")  # flash_bwd_<part>_kernel: the backward's launches
+
+
+def _efficient_sdpa_bwd_ms(q, k, v, dout, want):
+    """SDPA's memory-efficient backward alone (its forward run once, not timed), K and V
+    expanded to q's heads beforehand: ms by CUDA events, and its max |err| against ``want``
+    (dk and dv summed over each group)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    qx = q.detach().clone().requires_grad_(True)
+    kx = k.repeat_interleave(g, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(g, dim=1).requires_grad_(True)
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qx, kx, vx, is_causal=True, scale=q.shape[-1] ** -0.5
+        )
+
+    def backward():
+        return torch.autograd.grad(o, (qx, kx, vx), dout, retain_graph=True)
+
+    dq, dk, dv = backward()
+    b, hkv = k.shape[:2]
+    dk = dk.reshape(b, hkv, g, *dk.shape[2:]).sum(2)
+    dv = dv.reshape(b, hkv, g, *dv.shape[2:]).sum(2)
+    err = max((x - w).abs().max().item() for x, w in zip((dq, dk, dv), want))
+    return time_ms(backward, iters=10), err
+
+
+def _flash_bwd_determinism(gen) -> None:
+    """The backward's bits: equal on two launches, and batch row 0 alone (B = 1) equal to
+    row 0 of B = 4, at the train shape."""
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = FLASH_BWD_TRAIN
+    q, k, v, dout, out, lse = _flash_bwd_inputs(gen, FLASH_BWD_TRAIN)
+    masks = dict(causal=causal, window=window)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    alone = fa.flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1], dout[:1], **masks)
+    torch.cuda.synchronize()
+    relaunch = sum((x != y).sum().item() for x, y in zip(first, again))
+    batch = sum((x[:1] != y).sum().item() for x, y in zip(first, alone))
+    label = f"flash_attention_bwd q{tuple(q.shape)} float32 causal={causal} (3xtf32 path)"
+    if relaunch or batch:
+        raise AssertionError(
+            f"[kernels] {label} not deterministic: {relaunch} gradient elements differ between "
+            f"two launches, {batch} between B=1 and row 0 of B={b}"
+        )
+    log(f"[kernels] {label}: two launches equal bit for bit; B=1 equals row 0 of B={b} bit for bit")
 
 
 def _rglru_inputs(gen, b, t, w, dtype, with_h0):
@@ -912,7 +1150,9 @@ def _wkv6_host_cost(gen, calls: int = 200) -> None:
 def phase_kernels():
     gen = _gen(7)
     flash_rows, demo_err = _flash_rows(gen)
-    return flash_rows, demo_err, _decode_attention_rows(gen), _rglru_rows(gen), _wkv6_rows(gen)
+    bwd_rows = _flash_bwd_rows(gen)
+    decode_rows, rglru_rows = _decode_attention_rows(gen), _rglru_rows(gen)
+    return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, _wkv6_rows(gen)
 
 
 def _sequential(model, params, prompt, n, max_len):
@@ -931,6 +1171,7 @@ def _sequential(model, params, prompt, n, max_len):
 def _reset_launches() -> None:
     """Set every kernel's launch count to 0 just before a serving run."""
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
     da.decode_attention.launches = 0
     rg.rglru_scan.launches = 0
     wk.wkv6_chunked.launches = 0
@@ -996,6 +1237,192 @@ def phase_demo() -> dict:
         f"ms/step over {res['steps']} steps; max_memory_allocated {peak} bytes"
     )
     return {"flash": launches, "decode_attention": decode_launches}
+
+
+def _host_tree(tree):
+    """The tree's tensors as numpy arrays on the host, for ``payload_digest``."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def _step_digest(params, state, metrics) -> str:
+    tree = {"metrics": metrics, "params": params, "m": state["m"], "v": state["v"]}
+    return payload_digest(_host_tree(tree))
+
+
+def _train_batches(cfg):
+    source = TokenSource(
+        DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0
+        )
+    )
+    return [
+        {"tokens": torch.from_numpy(source.batch_at(s)["tokens"]).long().to(DEV)}
+        for s in range(TRAIN_STEPS)
+    ]
+
+
+TRAIN_RESULT = "[train] launches "  # the train process's line that gives its launch counts
+
+
+def phase_train() -> dict:
+    """Run the train phase in a process of its own (this file with ``--train``), its log
+    passed on line by line; returns the launch counts that its log gives."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), TRAIN_ARG]
+    launches = None
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
+        for line in proc.stdout:
+            log(line.rstrip("\n"))
+            if line.startswith(TRAIN_RESULT):
+                launches = json.loads(line[len(TRAIN_RESULT) :])
+    if proc.returncode != 0 or launches is None:
+        raise AssertionError(f"[train] the train process exited with code {proc.returncode}")
+    return launches
+
+
+def train_main() -> int:
+    """The train process: check the card, then train and log the launch counts."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
+    log(TRAIN_RESULT + json.dumps(_train()))
+    return 0
+
+
+def _train() -> dict:
+    """Train the full-width demo 3 steps through the flash kernels, deterministically;
+    returns the flash forward and backward launch counts of those steps."""
+    cfg = get_config("serpytor-demo-100m")
+    model = build(cfg, DEV)
+    params0 = init_params(cfg, _gen(0), DEV)
+    opt = AdamWConfig(**TRAIN_OPT)
+    state0 = make_opt_init(model, opt)(params0)
+    train_step = make_train_step(model, opt)
+    batches = _train_batches(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(
+        f"[train] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, remat={cfg.remat}; "
+        f"batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens from TokenSource(seed=0); {opt}"
+    )
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    params, state, step_ms, first = params0, state0, [], None
+    for step in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        params, state, metrics = train_step(params, state, batches[step])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.monotonic() - t0))
+        vals = {key: float(x) for key, x in metrics.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"[train] step {step}: metrics {vals}")
+        if step == 0:
+            first = (params, state, metrics)
+        log(
+            f"[train] step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
+            f"{vals['z_loss']:.4f} grad_norm {vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
+            f"{step_ms[-1]:.3f} ms, {tokens / step_ms[-1] * 1e3:.1f} tokens/s (host clock "
+            f"after a sync)"
+        )
+    launches = {
+        "flash": fa.flash_attention_fwd.launches,
+        "flash_bwd": fa.flash_attention_bwd.launches,
+    }
+    peak = torch.cuda.max_memory_allocated()
+    expected = cfg.num_layers * TRAIN_STEPS
+    others = (da.decode_attention.launches, rg.rglru_scan.launches, wk.wkv6_chunked.launches)
+    if (launches["flash"], launches["flash_bwd"]) != (expected, expected) or any(others):
+        raise AssertionError(
+            f"[train] flash launches {launches}, expected {expected} each; decode, rglru, "
+            f"wkv6 launches {others}, expected 0"
+        )
+    steady = sum(step_ms[1:]) / (TRAIN_STEPS - 1)
+    log(
+        f"[train] flash_attention_fwd launches {launches['flash']}, flash_attention_bwd "
+        f"launches {launches['flash_bwd']} = {cfg.num_layers} layers x {TRAIN_STEPS} steps; "
+        f"step ms {', '.join(f'{x:.3f}' for x in step_ms)} (steps 1-{TRAIN_STEPS - 1}: "
+        f"{steady:.3f} ms, {tokens / steady * 1e3:.1f} tokens/s); max_memory_allocated "
+        f"{peak} bytes ({peak - held} above the {held} held before the steps)"
+    )
+
+    # replay: step 0 again from the same state, equal bits
+    again = train_step(params0, state0, batches[0])
+    want_digest, got_digest = _step_digest(*first), _step_digest(*again)
+    if want_digest != got_digest:
+        trees = [tree_leaves({"p": x[0], "m": x[1]["m"], "v": x[1]["v"]}) for x in (first, again)]
+        diff = sum(int((a != b).sum()) for a, b in zip(*trees))
+        raise AssertionError(
+            f"[train] step 0 replayed: digest {got_digest} != {want_digest}, {diff} elements "
+            "of params and AdamW state differ"
+        )
+    log(
+        f"[train] step 0 run again from the same state: payload_digest of metrics, params, m "
+        f"and v {got_digest} both times (equal bits)"
+    )
+    del again
+    _check_train_against_plain(cfg, model, params0, state0, batches[0], first[2], opt)
+    _train_profile(model, params0, state0, batches[0], opt)
+    return launches
+
+
+def _check_train_against_plain(cfg, model, params, state, batch, metrics, opt) -> None:
+    """Step 0 with attn_impl="ref" (plain attention, autograd through it; remat="full" so
+    that one layer's plain graph is held at a time): its loss and grad norm, and every
+    gradient leaf, against the kernel path's."""
+    plain = build(dataclasses.replace(cfg, attn_impl="ref", remat="full"), DEV)
+    _, _, plain_metrics = make_train_step(plain, opt)(params, state, batch)
+    dloss = abs(float(plain_metrics["loss"]) - float(metrics["loss"]))
+    gn, plain_gn = float(metrics["grad_norm"]), float(plain_metrics["grad_norm"])
+    dgn = abs(gn - plain_gn) / plain_gn
+    _, grads = value_and_grad(model.loss_fn, params, batch)
+    _, plain_grads = value_and_grad(plain.loss_fn, params, batch)
+    worst = max(
+        ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        for g, w in zip(tree_leaves(grads), tree_leaves(plain_grads))
+    )
+    msg = (
+        f"step 0 kernel path vs attn_impl='ref': |loss diff| {dloss:.3e} (tol {TRAIN_LOSS_TOL}), "
+        f"grad_norm {gn:.6f} vs {plain_gn:.6f}, relative diff {dgn:.3e} (tol "
+        f"{TRAIN_GNORM_RTOL}); every gradient leaf within {worst:.3e} of its largest entry "
+        f"(tol {TRAIN_GRAD_TOL})"
+    )
+    if dloss > TRAIN_LOSS_TOL or dgn > TRAIN_GNORM_RTOL or worst > TRAIN_GRAD_TOL:
+        raise AssertionError(f"[train] {msg}")
+    log(f"[train] {msg}")
+
+
+def _train_profile(model, params, state, batch, opt) -> None:
+    """One step under torch.profiler, in two windows with a sync between: the gradient
+    (forward, loss, backward) and the optimizer (clip and AdamW); device time by kind and
+    the device's busy share of the two windows' host wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof_grad:
+        t0 = time.monotonic()
+        _, grads = value_and_grad(model.loss_fn, params, batch)
+        torch.cuda.synchronize()
+        grad_ms = 1e3 * (time.monotonic() - t0)
+    with torch.profiler.profile(activities=acts) as prof_opt:
+        t0 = time.monotonic()
+        adamw_update(params, grads, state, opt)
+        torch.cuda.synchronize()
+        opt_ms = 1e3 * (time.monotonic() - t0)
+    kinds, n_grad = _device_kinds(_device_rows(prof_grad))
+    opt_kinds, n_opt = _device_kinds(_device_rows(prof_opt))
+    if not kinds or not opt_kinds:
+        log("[train] step profile: no device time recorded (not measured)")
+        return
+    kinds["optimizer"] = sum(opt_kinds.values())
+    busy = sum(kinds.values())
+    by_kind = "; ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / busy:.1f}%)"
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
+    )
+    log(
+        f"[train] profiled step: gradient {grad_ms:.3f} ms + optimizer {opt_ms:.3f} ms host "
+        f"wall, device busy {busy:.3f} ms ({100 * busy / (grad_ms + opt_ms):.1f}%), "
+        f"{sum(n_grad.values()) + sum(n_opt.values())} kernels; device time by kind: {by_kind}"
+    )
 
 
 def check_against_cpu(cfg, model, params, prompt) -> None:
@@ -1220,6 +1647,8 @@ def _kernel_kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in name or "flash_merge" in name:
         return "flash"
+    if "flash_bwd" in name:
+        return "flash_bwd"
     if "decode_attention" in name:
         return "decode_attention"
     if "rglru" in name:
@@ -1231,6 +1660,29 @@ def _kernel_kind(name: str) -> str:
     if "at::native" in name or "at_cuda_detail" in name:
         return "elementwise"  # PyTorch's elementwise, reduction, copy, index kernels
     return "other"
+
+
+def _device_rows(prof):
+    """(device us, launches, name) of each kernel a profiler saw run, the longest first:
+    device-side events only, since an aten op's row repeats its kernels' time."""
+    return sorted(
+        (
+            (e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        ),
+        reverse=True,
+    )
+
+
+def _device_kinds(rows):
+    """Device ms and launches by kind of kernel, from ``_device_rows``."""
+    kinds, launches = {}, {}
+    for us, n, name in rows:
+        kind = _kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
+        launches[kind] = launches.get(kind, 0) + n
+    return kinds, launches
 
 
 def _prefill_profile(model, params, tag: str, prompt, max_len: int) -> None:
@@ -1256,22 +1708,11 @@ def _prefill_profile(model, params, tag: str, prompt, max_len: int) -> None:
         prefill()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0)
-    rows = sorted(
-        (
-            (e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-        ),
-        reverse=True,
-    )
+    rows = _device_rows(prof)
     if not rows:
         log(f"{tag} prefill profile: no device time recorded (not measured)")
         return
-    kinds, launches = {}, {}
-    for us, n, name in rows:
-        kind = _kernel_kind(name)
-        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
-        launches[kind] = launches.get(kind, 0) + n
+    kinds, launches = _device_kinds(rows)
     device_ms = sum(kinds.values())
     by_kind = "; ".join(
         f"{k} {ms:.3f} ms ({100 * ms / device_ms:.1f}%, {launches[k]} launches)"
@@ -1310,12 +1751,7 @@ def _decode_profile(model, params, tag: str, max_len: int, steps: int = 5) -> No
             model.decode_step(params, cache, {"token": tok})
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.monotonic() - t0)
-    kernels = [  # device-side events only: an aten op's row repeats its kernels' time
-        (e.self_device_time_total, e.count, e.key)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    rows = sorted((r for r in kernels if r[0] > 0), reverse=True)
+    rows = _device_rows(prof)
     device_us = sum(r[0] for r in rows)
     if not rows:
         log(f"{tag} decode profile: no device time recorded (busy share not measured)")
@@ -1557,8 +1993,10 @@ def main() -> int:
     t_start = time.monotonic()
     smi = phase_device()
     _timed("build", phase_build)
-    flash_rows, demo_err, decode_rows, rglru_rows, wkv6_rows = _timed("kernels", phase_kernels)
+    kernel_rows = _timed("kernels", phase_kernels)
+    flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows = kernel_rows
     demo = _timed("demo", phase_demo)
+    train = _timed("train", phase_train)
     hybrid = _timed("hybrid", phase_hybrid)
     exact = _timed("exactness", phase_exactness)
     rwkv_launches = _timed("rwkv", phase_rwkv)
@@ -1575,6 +2013,22 @@ def main() -> int:
             demo["flash"],
             demo_row,
             f"q(1,12,{JSON_SEQ},64) k,v(1,4,{JSON_SEQ},64) float32 causal",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_train",
+            flash_src,
+            flash_tpu,
+            train["flash"],
+            bwd_rows["fwd"],
+            "q(4,12,4096,64) k,v(4,4,4096,64) float32 causal, with the logsumexp",
+        ),
+        _kernel_entry(
+            "flash_attention_bwd",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:139",
+            train["flash_bwd"],
+            bwd_rows["bwd"],
+            "q,dO(4,12,4096,64) k,v(4,4,4096,64) float32 causal",
         ),
         _kernel_entry(
             "flash_attention_fwd_hd256",
@@ -1635,4 +2089,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(train_main() if sys.argv[1:] == [TRAIN_ARG] else main())

@@ -80,6 +80,11 @@
 //     masks, D and Dv alone, never of B, the heads or the card). A piece writes its (m, l)
 //     and unnormalised O to a float32 workspace, and `flash_merge_kernel` merges a tile's
 //     pieces in piece order; no atomics, so a row's bits depend on its own q and keys.
+//   - For training, the caller may pass an lse pointer: each row's logsumexp m + log(l)
+//     (B, Hq, Sq) float32, written by the kernel that finishes the row (this one for a
+//     walk that is not cut, the merge kernel for one that is), which the backward
+//     (flash_attention_bwd.cu) recomputes the probabilities from. A null pointer writes
+//     nothing and leaves the output's bits as they were.
 //
 // Plain C interface, loaded with ctypes; every pointer and the stream are void*. The TMA
 // encoder is reached through the runtime's driver entry point, so the library needs no
@@ -285,8 +290,8 @@ template <int BK, int DVT, bool Q_REGS, bool VEC>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ part, int hq, int hkv, int d, int dv, Walk walk,
-                          float scale) {
+                          float* __restrict__ part, float* __restrict__ lse, int hq, int hkv,
+                          int d, int dv, Walk walk, float scale) {
   constexpr int NT = BK / 8;                // n-tiles of S, k-steps of P V
   constexpr int SETS = Q_REGS ? 1 : 2;      // sums of S taking alternate k-steps
   extern __shared__ __align__(16) float smem[];
@@ -548,6 +553,11 @@ __global__ void __launch_bounds__(THREADS)
         if (row1 < sq) ob[(size_t)row1 * dv + col] = acc[nt][2 + e] * inv1;
       }
     }
+    if (lse != nullptr && qd == 0) {
+      float* lb = lse + ((size_t)b * hq + h) * (size_t)sq;
+      if (row0 < sq) lb[row0] = m0 + logf(l0);
+      if (row1 < sq) lb[row1] = m1 + logf(l1);
+    }
     return;
   }
   // One piece of a split walk: its (m, l) and unnormalised O, for the merge kernel.
@@ -571,11 +581,11 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // Merges the pieces of each split query tile in piece order: M = max m, w = exp(m - M),
-// O = sum w O / max(sum w l, 1e-37). One block per (query tile, head, batch); a tile that
-// was walked whole has nothing to merge.
+// O = sum w O / max(sum w l, 1e-37), and with an lse pointer M + log(sum w l). One block
+// per (query tile, head, batch); a tile that was walked whole has nothing to merge.
 __global__ void __launch_bounds__(THREADS)
-    flash_merge_kernel(const float* __restrict__ part, float* __restrict__ o, int hq, int dv,
-                       Walk walk, int n_items) {
+    flash_merge_kernel(const float* __restrict__ part, float* __restrict__ o,
+                       float* __restrict__ lse, int hq, int dv, Walk walk, int n_items) {
   __shared__ float wgt[MAX_PIECES][BQ];
   __shared__ float den[BQ];
   const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
@@ -611,6 +621,8 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     den[tid] = fmaxf(l, 1e-37f);
+    if (lse != nullptr && qt * BQ + tid < walk.sq)
+      lse[((size_t)b * hq + h) * walk.sq + qt * BQ + tid] = mx + logf(l);
   }
   __syncthreads();
   // a thread 4 columns of a row; the pieces' values are loaded before they are summed
@@ -641,8 +653,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int BK, int DVT, bool Q_REGS, bool VEC>
-int launch(const void* q, const void* k, const void* v, void* o, void* part, int b, int hq,
-           int hkv, int d, int dv, const Walk& walk, int n_items, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, void* part, void* lse, int b,
+           int hq, int hkv, int d, int dv, const Walk& walk, int n_items, float scale,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * Smem(BK, d, dv, Q_REGS).total;
   auto kernel = flash_fwd_tf32_kernel<BK, DVT, Q_REGS, VEC>;
@@ -651,27 +663,28 @@ int launch(const void* q, const void* k, const void* v, void* o, void* part, int
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(n_items, hq, b), THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(part), hq, hkv, d, dv, walk, scale);
+      static_cast<float*>(o), static_cast<float*>(part), static_cast<float*>(lse), hq, hkv, d, dv,
+      walk, scale);
   return (int)cudaGetLastError();
 }
 
 template <int BK, int DVT, bool Q_REGS>
-int launch_vec(bool vec, const void* q, const void* k, const void* v, void* o, void* part, int b,
-               int hq, int hkv, int d, int dv, const Walk& walk, int n_items, float scale,
-               cudaStream_t stream) {
+int launch_vec(bool vec, const void* q, const void* k, const void* v, void* o, void* part,
+               void* lse, int b, int hq, int hkv, int d, int dv, const Walk& walk, int n_items,
+               float scale, cudaStream_t stream) {
   if (vec)
-    return launch<BK, DVT, Q_REGS, true>(q, k, v, o, part, b, hq, hkv, d, dv, walk, n_items,
-                                         scale, stream);
-  return launch<BK, DVT, Q_REGS, false>(q, k, v, o, part, b, hq, hkv, d, dv, walk, n_items,
-                                        scale, stream);
+    return launch<BK, DVT, Q_REGS, true>(q, k, v, o, part, lse, b, hq, hkv, d, dv, walk,
+                                         n_items, scale, stream);
+  return launch<BK, DVT, Q_REGS, false>(q, k, v, o, part, lse, b, hq, hkv, d, dv, walk,
+                                        n_items, scale, stream);
 }
 
 // Key tiles of 64 with Q in registers for head dims up to 64; tiles of 16 with Q in shared
 // memory above (flash_attention.f32_key_block). split_tiles and n_items are the wrapper's
 // plan; a plan that does not fit these shapes is refused.
-int run(const void* q, const void* k, const void* v, void* o, void* part, int b, int hq, int hkv,
-        int sq, int sk, int d, int dv, int causal, int window, float scale, int split_tiles,
-        int n_items, cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, void* o, void* part, void* lse, int b,
+        int hq, int hkv, int sq, int sk, int d, int dv, int causal, int window, float scale,
+        int split_tiles, int n_items, cudaStream_t stream) {
   const bool small = d <= 64 && dv <= 64;
   const Walk walk{sq, sk, causal, window > 0 ? window : 0, small ? 64 : 16, split_tiles};
   if (split_tiles < 1) return (int)cudaErrorInvalidValue;
@@ -688,14 +701,15 @@ int run(const void* q, const void* k, const void* v, void* o, void* part, int b,
                         reinterpret_cast<uintptr_t>(v);
   const bool vec = d % 4 == 0 && dv % 4 == 0 && any % 16 == 0;
 #define REPRO_LAUNCH(BK, DVT, Q_REGS)                                                         \
-  launch_vec<BK, DVT, Q_REGS>(vec, q, k, v, o, part, b, hq, hkv, d, dv, walk, n_items, scale, \
-                              stream)
+  launch_vec<BK, DVT, Q_REGS>(vec, q, k, v, o, part, lse, b, hq, hkv, d, dv, walk, n_items, \
+                              scale, stream)
   const int err = small ? REPRO_LAUNCH(64, 8, true)
                         : (dv <= 128 ? REPRO_LAUNCH(16, 16, false) : REPRO_LAUNCH(16, 32, false));
 #undef REPRO_LAUNCH
   if (err != 0 || most == 1) return err;
   flash_merge_kernel<<<dim3(walk.q_tiles(), hq, b), THREADS, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(o), hq, dv, walk, n_items);
+      static_cast<const float*>(part), static_cast<float*>(o), static_cast<float*>(lse), hq, dv,
+      walk, n_items);
   return (int)cudaGetLastError();
 }
 
@@ -1166,19 +1180,22 @@ extern "C" {
 // window. float32 only: split_tiles and n_items are the wrapper's split plan (key tiles a
 // piece of a query tile's walk, pieces of every query tile together; the call is refused
 // if they do not fit the shapes), and workspace is float32 scratch of at least
-// B*Hq*n_items*64*(round8(Dv) + 2) elements when some walk is split, else may be null.
-// The caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the grid limits. Returns the
-// cudaError_t of the launches (0 on success). Does not synchronise.
+// B*Hq*n_items*64*(round8(Dv) + 2) elements when some walk is split, else may be null; lse,
+// when not null, receives each row's logsumexp (B, Hq, Sq) float32 (float32 only: the call
+// is refused with is_bf16). The caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the
+// grid limits. Returns the cudaError_t of the launches (0 on success). Does not
+// synchronise.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                              void* workspace, int b, int hq, int hkv, int sq, int sk, int d,
-                              int dv, int causal, int window, float scale, int split_tiles,
+                              void* workspace, void* lse, int b, int hq, int hkv, int sq, int sk,
+                              int d, int dv, int causal, int window, float scale, int split_tiles,
                               int n_items, int is_bf16, void* stream) {
-  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0)
+  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0 ||
+      (is_bf16 && lse != nullptr))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return bf16::run(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
-  return f32::run(q, k, v, o, workspace, b, hq, hkv, sq, sk, d, dv, causal, window, scale,
+  return f32::run(q, k, v, o, workspace, lse, b, hq, hkv, sq, sk, d, dv, causal, window, scale,
                   split_tiles, n_items, s);
 }
 

@@ -1,23 +1,32 @@
-"""Flash-attention forward: the hand-written Hopper kernels and their wrapper.
+"""Flash attention, forward and backward: the hand-written Hopper kernels and their wrappers.
 
-Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas``.
-The kernels are in ``csrc/flash_attention_fwd.cu`` (CUDA C++ for
-``sm_90a``, built by :mod:`._build`); its source note says what they
-replace and what bounds them. Both dtypes run on the tensor cores, one
-kernel a dtype with no fallback between them: bfloat16 through ``wgmma``
-fed by TMA, float32 through ``mma.sync`` in 3xTF32 (each operand split
-into TF32 hi and lo halves, three products a step: float32 accuracy). The
-float32 kernel may cut a long key walk into pieces that run on separate
-blocks and are merged in a fixed order; :func:`f32_plan` chooses the cut
-from the shapes and masks alone, never from B or the card, so a row's bits
-do not depend on the batch it runs in. Forward only: serving has no
-backward, and the training slice adds one.
+Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas`` and
+its custom VJP. The kernels are in ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by
+:mod:`._build`); their source notes say what they replace and what bounds
+them.
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU
-tensor it runs the plain version, :func:`repro_torch.kernels.ref.
-flash_attention_ref`, and only because the tensor lies on the CPU. The
-same checks apply on both devices, so the CPU tests see what the kernel
-would refuse.
+Forward: both dtypes run on the tensor cores, one kernel a dtype with no
+fallback between them: bfloat16 through ``wgmma`` fed by TMA, float32
+through ``mma.sync`` in 3xTF32 (each operand split into TF32 hi and lo
+halves, three products a step: float32 accuracy). The float32 kernel may
+cut a long key walk into pieces that run on separate blocks and are merged
+in a fixed order; :func:`f32_plan` chooses the cut from the shapes and
+masks alone, never from B or the card, so a row's bits do not depend on
+the batch it runs in. Asked for it, the float32 path also writes each
+row's logsumexp, which the backward needs.
+
+Backward (:func:`flash_attention_bwd`, float32, head dims up to 128): the
+FlashAttention-2 form in 3xTF32, three launches (Δ = rowsum(dO∘O); dK and
+dV a block per key tile, summed over the GQA group in a fixed order; dQ a
+block per query tile), no atomics: a step replays bit for bit.
+:class:`FlashAttentionFunction` joins the two under autograd.
+
+On a CUDA tensor each wrapper launches its kernels or raises. On a CPU
+tensor it runs the plain version (:func:`repro_torch.kernels.ref.
+flash_attention_ref`, :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`),
+and only because the tensor lies on the CPU. The same checks apply on both
+devices, so the CPU tests see what the kernels would refuse.
 """
 
 from __future__ import annotations
@@ -30,9 +39,18 @@ import torch
 
 from . import ref as _ref
 
-__all__ = ["flash_attention_fwd", "f32_plan", "MAX_HEAD_DIM", "PATHS"]
+__all__ = [
+    "flash_attention_fwd",
+    "flash_attention_bwd",
+    "FlashAttentionFunction",
+    "f32_plan",
+    "MAX_HEAD_DIM",
+    "MAX_BWD_HEAD_DIM",
+    "PATHS",
+]
 
 MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
+MAX_BWD_HEAD_DIM = 128  # the C side's MAX_D in csrc/flash_attention_bwd.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 #: the kernel that serves each dtype, both on the tensor cores: wgmma (bfloat16) and
@@ -139,18 +157,26 @@ def _pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return pad(q), pad(k), pad(v)
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(name: str, n_ptr: int, n_int: int, n_after: int) -> ctypes.CDLL:
+    """Kernel library ``name``, its entry point ``repro_<name>`` declared as n_ptr pointers,
+    n_int ints, the float scale, n_after ints and the stream."""
     from . import _build
 
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.repro_flash_attention_fwd
+    lib = _build.load(name)
+    fn = getattr(lib, f"repro_{name}")
     if fn.argtypes is None:  # first use: declare the C signature
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ctypes.c_float] + [i32] * n_after + [ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, who: str) -> None:
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{who}: launch failed: CUDA error {err} ({msg})")
 
 
 def flash_attention_fwd(
@@ -161,32 +187,43 @@ def flash_attention_fwd(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention forward. q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv) -> (B,Hq,Sq,Dv).
 
-    ``flash_attention_fwd.launches`` counts kernel launches (never the CPU path);
-    :data:`PATHS` names the kernel that serves each dtype.
+    With ``return_lse`` (float32 only) it returns (out, lse), lse (B,Hq,Sq) float32 each
+    row's logsumexp, which :func:`flash_attention_bwd` takes; the output's bits are the
+    same either way. ``flash_attention_fwd.launches`` counts kernel launches (never the
+    CPU path); :data:`PATHS` names the kernel that serves each dtype.
     """
     _check(q, k, v, causal, window)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        return _ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse
+        )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
     tensor_cores = PATHS[q.dtype] == "wgmma"
+    if return_lse and tensor_cores:
+        raise NotImplementedError(
+            "flash_attention_fwd: no logsumexp output on the bfloat16 path (no bfloat16 "
+            "backward yet): ROADMAP Queue 1 item 7"
+        )
     dv_out = v.shape[-1]
     if tensor_cores:
         q, k, v = _pad_head_dims(q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     split_tiles, n_items, workspace = 0, 0, None
     if not tensor_cores and sq > 0 and b > 0:
         split_tiles, n_items = f32_plan(sq, sk, causal, window, d, dv)
         if n_items > -(-sq // F32_BLOCK_Q):  # some walk is cut: room for the pieces
             n = b * hq * n_items * F32_BLOCK_Q * (-(-dv // 8) * 8 + 2)
             workspace = torch.empty(n, dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _lib("flash_attention_fwd", 6, 9, 3)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_fwd(
@@ -195,6 +232,7 @@ def flash_attention_fwd(
             v.data_ptr(),
             out.data_ptr(),
             None if workspace is None else workspace.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b,
             hq,
             hkv,
@@ -210,11 +248,128 @@ def flash_attention_fwd(
             int(tensor_cores),
             stream,
         )
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention_fwd: launch failed: CUDA error {err} ({msg})")
+    _raise_on(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return out if dv == dv_out else out[..., :dv_out].contiguous()
+    out = out if dv == dv_out else out[..., :dv_out].contiguous()
+    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def _check_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Refuse what the backward kernels do not take, on every device alike."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if d > MAX_BWD_HEAD_DIM or dv > MAX_BWD_HEAD_DIM:
+        raise ValueError(
+            f"flash attention backward: head dims D={d}, Dv={dv} above {MAX_BWD_HEAD_DIM}; "
+            "wider heads wait for ROADMAP Queue 2 item 4"
+        )
+    if q.device.type != "cpu" and q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"flash attention backward: no {q.dtype} kernel on {q.device.type} (float32 only); "
+            "the bfloat16 backward is ROADMAP Queue 1 item 7"
+        )
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward: (dq, dk, dv) from the forward's inputs, output and logsumexp
+    and the output's gradient ``dout``, all contiguous; dk and dv summed over the GQA group.
+
+    ``flash_attention_bwd.launches`` counts calls that launched the kernels (Δ, dK/dV and
+    dQ: one count for the three); on a CPU tensor it runs
+    :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` and counts nothing.
+    """
+    _check(q, k, v, causal, window)
+    _check_grad(q, k, v)
+    b, hq, sq, d = q.shape
+    hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if out.shape != (b, hq, sq, dv) or dout.shape != out.shape or lse.shape != (b, hq, sq):
+        raise ValueError(
+            f"flash_attention_bwd: out{tuple(out.shape)} dout{tuple(dout.shape)} "
+            f"lse{tuple(lse.shape)} do not fit q{tuple(q.shape)} v{tuple(v.shape)}"
+        )
+    scale = float(scale) if scale is not None else d**-0.5
+    if q.device.type == "cpu":
+        return _ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=causal, window=window, scale=scale
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    for name, x in (("out", out), ("lse", lse), ("dout", dout)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(
+                f"flash_attention_bwd: {name} must be float32, contiguous, on {q.device}"
+            )
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or sq == 0:
+        return dq.zero_(), dk.zero_(), dvv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = _lib("flash_attention_bwd", 10, 9, 0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(),
+            k.data_ptr(),
+            v.data_ptr(),
+            out.data_ptr(),
+            lse.data_ptr(),
+            dout.data_ptr(),
+            delta.data_ptr(),
+            dq.data_ptr(),
+            dk.data_ptr(),
+            dvv.data_ptr(),
+            b,
+            hq,
+            hkv,
+            sq,
+            sk,
+            d,
+            dv,
+            int(bool(causal)),
+            int(window) if window is not None else 0,
+            scale,
+            stream,
+        )
+    _raise_on(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dvv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with its gradient: the forward kernel with the logsumexp saved beside
+    (q, k, v, out), the backward kernels on them. The counterpart of the reference's
+    ``jax.custom_vjp`` around ``flash_attention_pallas``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        _check_grad(q, k, v)
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, window=window, scale=scale, return_lse=True
+        )
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.masks
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=causal, window=window, scale=scale
+        )
+        return dq, dk, dv, None, None, None

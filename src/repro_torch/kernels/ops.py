@@ -7,10 +7,15 @@ Counterpart of ``repro.kernels.ops``. Models import only from this module.
                             ``ref.decode_attention_ref``,
                             ``ref.wkv6_chunked_ref``, ``ref.rglru_ref``) on a
                             CPU tensor; "pallas" is accepted so that the
-                            reference's ``cfg.attn_impl`` values carry over
+                            reference's ``cfg.attn_impl`` values carry over.
+                            Attention whose inputs need a gradient goes
+                            through ``FlashAttentionFunction``: the forward
+                            kernel saves the logsumexp and the backward
+                            kernels (plain versions on the CPU) give the
+                            gradient
   impl="ref"              : the blocked attention / cached decode / chunked
                             WKV6 / associative-scan RG-LRU plain version on
-                            any device
+                            any device (its gradient by plain autograd)
   impl="dense"            : the O(S²) dense attention oracle (small test
                             shapes only) / the cached decode's plain version
                             (it has one) / the sequential WKV6 / the
@@ -25,7 +30,7 @@ import torch
 
 from . import ref as _ref
 from .decode_attention import decode_attention as _decode_attention_kernel
-from .flash_attention import flash_attention_fwd
+from .flash_attention import FlashAttentionFunction, flash_attention_fwd
 from .rglru import rglru_scan
 from .wkv6 import CHUNK as _WKV_CHUNK
 from .wkv6 import wkv6_chunked
@@ -45,6 +50,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Causal/local GQA attention. q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D|Dv) -> (B,Hq,Sq,Dv)."""
     if impl in ("auto", "pallas"):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttentionFunction.apply(q, k, v, causal, window, scale)
         return flash_attention_fwd(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)

@@ -7,6 +7,9 @@ card. The math is that of ``repro.kernels.ref``.
 Attention: float32 logits, masked logits set to -1e30, query positions
 right-aligned to the keys (``qpos = i + Sk - Sq``), GQA through the KV head
 ``h // g``, and a value head dim that may differ from the key head dim (MLA).
+The forward can also return each row's logsumexp, the one value its
+backward keeps besides the inputs and the output; the backward is the
+FlashAttention-2 form, recomputing the probabilities from it.
 
 Cached decode: one query token a slot against its cache (B, Sc, KV, D), the
 logits and the softmax in float32, keys masked to -1e30 past the slot's
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "flash_attention_ref",
+    "flash_attention_bwd_ref",
     "flash_attention_dense_ref",
     "decode_attention_ref",
     "rglru_ref",
@@ -93,12 +97,16 @@ def flash_attention_ref(
     window: Optional[int] = None,
     scale: Optional[float] = None,
     block_k: int = 512,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Blocked online-softmax attention: the Hopper kernel's plain version.
 
     Keys are visited ``block_k`` at a time with a running max, sum and
     float32 accumulator, as the kernel does; memory is O(Sq·D + block_k·D)
-    per head. Padded keys (past Sk) are masked like any other.
+    per head. Padded keys (past Sk) are masked like any other. With
+    ``return_lse`` it returns (out, lse): lse (B, Hq, Sq) float32 is each
+    row's ``m + log(l)``, the logsumexp of its scaled, masked logits; the
+    output is the same either way.
     """
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -129,7 +137,62 @@ def flash_attention_ref(
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vq)
         m = m_new
     out = acc / torch.clamp(l_sum[..., None], min=1e-37)
+    if return_lse:
+        return out.to(q.dtype), m + torch.log(l_sum)
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_k: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward, FlashAttention-2 form: the Hopper kernels' plain version.
+
+    From the forward's output ``out`` and logsumexp ``lse`` (B, Hq, Sq) float32:
+    Δ = rowsum(dO∘O); then, ``block_k`` keys at a time as the forward walks them,
+    P = exp(S·scale − lse) (0 where masked), dV = Pᵀ·dO, dS = P∘(dP − Δ) with
+    dP = dO·Vᵀ, dQ = dS·K·scale and dK = dSᵀ·Q·scale. dK and dV are summed over
+    the g query heads of each KV head. All in float32; returns (dq, dk, dv) in the
+    dtypes of q, k and v. It is the function the reference's custom VJP computes
+    (``jax.vjp`` of the blocked forward), by another route.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    scale = scale if scale is not None else d**-0.5
+    qf, dof = q.float(), dout.float()
+    delta = (dof * out.float()).sum(dim=-1)  # (B, Hq, Sq)
+    lse_f = lse.float()[..., None]
+    dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=q.device)
+    dvv = torch.zeros((b, hkv, sk, dv), dtype=torch.float32, device=q.device)
+    for start in range(0, sk, block_k):
+        stop = min(start + block_k, sk)
+        kpos = torch.arange(start, stop, device=q.device)
+        kq = k[:, :, start:stop].float().repeat_interleave(g, dim=1)
+        vq = v[:, :, start:stop].float().repeat_interleave(g, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kq) * scale
+        valid = _mask(sq, kpos, sk, causal, window)
+        p = torch.where(valid, torch.exp(s - lse_f), torch.zeros_like(s))
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vq)
+        ds = p * (dp - delta[..., None])
+        dq += torch.einsum("bhqk,bhkd->bhqd", ds, kq) * scale
+        n = stop - start
+        dk_h = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+        dv_h = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        dk[:, :, start:stop] = dk_h.reshape(b, hkv, g, n, d).sum(dim=2)
+        dvv[:, :, start:stop] = dv_h.reshape(b, hkv, g, n, dv).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
 
 
 def decode_attention_ref(

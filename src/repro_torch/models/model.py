@@ -1,11 +1,15 @@
-"""Public model API: build(cfg, device) -> Model with prefill / decode_step / init_cache.
+"""Public model API: build(cfg, device) -> Model with loss_fn / prefill / decode_step /
+init_cache.
 
 Counterpart of ``repro.models.model`` for decoder LMs. Batch conventions
-(int tokens): prefill ``{"tokens": (B, S)}``, decode ``{"token": (B,)}`` plus
-the cache. ``prefill`` returns (last-position logits, cache);
-``decode_step`` consumes one token per sequence against the cache, which
-it updates in place and returns. ``loss_fn``, MTP, encoder-decoder and VLM
-inputs come with later slices.
+(int tokens): train and prefill ``{"tokens": (B, S)}``, decode
+``{"token": (B,)}`` plus the cache. ``loss_fn`` returns (loss, metrics): the
+next-token cross-entropy in float32 over the padded vocab plus
+``z_loss_coef``·mean(lse²), differentiable by autograd (the attention's
+gradient through the flash backward kernel on the card). ``prefill``
+returns (last-position logits, cache); ``decode_step`` consumes one token
+per sequence against the cache, which it updates in place and returns.
+MTP, encoder-decoder and VLM inputs come with later slices.
 """
 
 from __future__ import annotations
@@ -54,10 +58,21 @@ def unembed_logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits
 
 
+def _ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean next-token cross-entropy, mean lse²) in float32. The gold logit is taken by
+    ``torch.gather``, whose gradient on the card is deterministic (a scatter with no two
+    writes to one place)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(lse - gold), torch.mean(torch.square(lse))
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
     device: torch.device
+    loss_fn: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     prefill: Callable[..., Tuple[torch.Tensor, Dict]]
     decode_step: Callable[..., Tuple[torch.Tensor, Dict]]
     init_cache: Callable[..., Dict]
@@ -80,6 +95,19 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
 
     def unembed(params, h):
         return unembed_logits(params, h, cfg)
+
+    def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if cfg.mtp:
+            raise NotImplementedError("the MTP loss is not ported yet: ROADMAP Queue 1 item 9")
+        tokens = batch["tokens"]
+        h = embed_tokens(params, tokens)
+        positions = torch.arange(h.shape[1], device=h.device)
+        h, _ = run_stack(h, params, cfg, segments, positions=positions, mode="train")
+        logits = unembed(params, h)  # (B, S, padded vocab) float32
+        ce, z = _ce_loss(logits[:, :-1], tokens[:, 1:])
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)  # no MoE layers yet
+        loss = ce + cfg.z_loss_coef * z + aux
+        return loss, {"ce": ce, "z_loss": z, "aux_loss": aux, "loss": loss}
 
     def prefill(params, batch, pad_to: int = 0) -> Tuple[torch.Tensor, Dict]:
         tokens = batch["tokens"]
@@ -107,6 +135,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     return Model(
         cfg=cfg,
         device=dev,
+        loss_fn=loss_fn,
         prefill=prefill,
         decode_step=decode_step,
         init_cache=init_cache,

@@ -1,4 +1,4 @@
-"""Transformer assembly: layer pattern, segments, the stack's prefill and decode.
+"""Transformer assembly: layer pattern, segments, the stack's train, prefill and decode.
 
 Counterpart of ``repro.models.transformer``. The layer stack is split into
 the reference's SEGMENTS, (unit kinds, repeats), with params and caches
@@ -8,7 +8,12 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 repeat in a Python loop: both layouts run the same way.
 
 This port runs four kinds, in the modes ``prefill`` (build the cache) and
-``decode`` (one token against the cache, updated in place):
+``decode`` (one token against the cache, updated in place); ``dense`` and
+``attn`` also in ``train`` (the whole sequence, no cache, under autograd;
+``cfg.remat`` "full" recomputes each repeat of a segment unit in the
+backward through ``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` around its unit body; "dots", which keeps the matmul
+outputs, raises and names its ROADMAP item):
 
   dense : GQA self-attention + GLU MLP
   rec   : Griffin recurrent block (conv1d + RG-LRU) + GLU MLP
@@ -17,7 +22,9 @@ This port runs four kinds, in the modes ``prefill`` (build the cache) and
   rwkv  : RWKV6 time mix (WKV6) + channel mix; its cache is the O(1) state
           ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
 
-Every other kind raises ``NotImplementedError`` naming its ROADMAP item.
+Every other kind raises ``NotImplementedError`` naming its ROADMAP item,
+and so do ``rec`` and ``rwkv`` in train mode (their kernels have no
+backward yet).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .attention import _project_qkv, gqa_attention, init_gqa, init_gqa_cache
 from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
@@ -47,6 +55,7 @@ _NOT_PORTED = {
     "enc": "ROADMAP Queue 1, encoder-decoder and VLM",
     "xattn": "ROADMAP Queue 1, encoder-decoder and VLM",
 }
+_MODES = ("train", "prefill", "decode")
 
 
 def _require_ported(cfg, kind: str) -> None:
@@ -165,10 +174,14 @@ def apply_layer(
     cache: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One layer. Returns (h, cache): the new cache in prefill, ``cache``
-    itself (updated in place) in decode."""
+    itself (updated in place) in decode, None in train."""
     _require_ported(cfg, kind)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r}: this port runs prefill and decode")
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r}: this port runs {', '.join(_MODES)}")
+    if mode == "train" and kind in ("rec", "rwkv"):
+        raise NotImplementedError(
+            f"training a {kind!r} layer: its kernel has no backward yet: ROADMAP Queue 1 item 7"
+        )
     if kind == "rwkv":
         return _apply_rwkv(h, lp, cfg, mode=mode, cache=cache)
     x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
@@ -195,6 +208,8 @@ def apply_layer(
         h = h + attn_out
         if mode == "prefill":
             new_cache = _prefill_cache_from_full(x1, lp, cfg, kind, positions, h.shape[1])
+        elif mode == "train":
+            new_cache = None
     x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
     h = h + glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
     return h, new_cache
@@ -265,6 +280,27 @@ def init_stack_cache(
     return cache
 
 
+def _train_unit(h, unit, unit_params, cfg, positions):
+    """One repeat of a segment unit in train mode, checkpointed as ``cfg.remat`` says."""
+
+    def body(x):
+        for uj, kind in enumerate(unit):
+            x, _ = apply_layer(
+                x, unit_params[f"u{uj}"], cfg, kind, positions=positions, mode="train"
+            )
+        return x
+
+    if cfg.remat == "none":
+        return body(h)
+    if cfg.remat == "full":
+        return _ckpt.checkpoint(body, h, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" (keep the matmul outputs) is not ported: ROADMAP Queue 1 item 13'
+        )
+    raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
+
+
 def run_stack(
     h: torch.Tensor,
     params: Dict[str, Any],
@@ -277,7 +313,7 @@ def run_stack(
     prefix: str = "seg",
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run all segments in order. Returns (h, cache): a fresh stacked cache in
-    prefill, the given ``cache`` (updated in place) in decode."""
+    prefill, the given ``cache`` (updated in place) in decode, None in train."""
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
     new_cache: Dict[str, Any] = {} if mode == "prefill" else cache
@@ -285,6 +321,10 @@ def run_stack(
         seg_params = params[f"{prefix}{si}"]
         outs: Dict[str, list] = {f"u{uj}": [] for uj in range(len(unit))}
         for r in range(repeats):
+            if mode == "train":
+                unit_params = {key: _index(p, r) for key, p in seg_params.items()}
+                h = _train_unit(h, unit, unit_params, cfg, positions)
+                continue
             for uj, kind in enumerate(unit):
                 key = f"u{uj}"
                 layer_cache = None if mode == "prefill" else _index(cache[f"{prefix}{si}"][key], r)

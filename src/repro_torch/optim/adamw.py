@@ -1,0 +1,128 @@
+"""AdamW, global-norm clipping and LR schedules: the reference's own, not ``torch.optim``.
+
+Counterpart of ``repro.optim.adamw``, the same arithmetic in the same order
+on the same state layout ``{"m": tree, "v": tree, "step": int32}``, so a
+state carries over between the two packages
+(``repro_torch.params.from_numpy_opt_state``). Trees are nested dicts of
+tensors; their leaves are walked in the reference's order (``jax.tree``
+flattens dicts by sorted key), so the global norm sums its leaves in the
+same order. Every function is out of place: the inputs are left as they are,
+so a step can be run again from the same state. ``state_dtype="bfloat16"``
+keeps m and v in bfloat16 (a plain cast, as the reference does).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "global_norm",
+    "clip_by_global_norm",
+    "cosine_schedule",
+    "linear_warmup_cosine",
+    "tree_leaves",
+    "tree_map",
+]
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: str = "float32"  # or "bfloat16" for the 671B memory mode
+    schedule: str = "cosine"  # cosine | constant
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of a nested dict in ``jax.tree.leaves`` order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees in ``rest``, which share its keys."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in tree}
+    return fn(tree, *rest)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum, leaf by leaf in the reference's order, of each leaf's sum of squares."""
+    total = None
+    for x in tree_leaves(tree):
+        sq = torch.sum(torch.square(x.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+
+
+def cosine_schedule(step, base_lr: float, warmup: int, total: int) -> torch.Tensor:
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp((step + 1) / max(warmup, 1), max=1.0)
+    progress = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+    return base_lr * warm * 0.5 * (1.0 + torch.cos(math.pi * progress))
+
+
+def linear_warmup_cosine(cfg: AdamWConfig) -> Callable[[Any], torch.Tensor]:
+    if cfg.schedule == "constant":
+        return lambda step: torch.tensor(
+            cfg.lr, dtype=torch.float32, device=torch.as_tensor(step).device
+        )
+    return lambda step: cosine_schedule(step, cfg.lr, cfg.warmup_steps, cfg.total_steps)
+
+
+def adamw_init(params, cfg: AdamWConfig) -> Dict[str, Any]:
+    dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
+    device = tree_leaves(params)[0].device
+    return {
+        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params),
+        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=dt, device=p.device), params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def adamw_update(
+    params, grads, state, cfg: AdamWConfig
+) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+    """Returns (new_params, new_state, metrics ``grad_norm`` and ``lr``); inputs untouched."""
+    step = state["step"]
+    lr = linear_warmup_cosine(cfg)(step)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    b1, b2 = cfg.b1, cfg.b2
+    t = (step + 1).float()
+    bc1 = 1.0 - torch.pow(b1, t)
+    bc2 = 1.0 - torch.pow(b2, t)
+
+    def upd(p, g, m, v):
+        gf = g.float()
+        m_new = b1 * m.float() + (1 - b1) * gf
+        v_new = b2 * v.float() + (1 - b2) * gf * gf
+        mhat = m_new / bc1
+        vhat = v_new / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        p_new = p.float() - lr * delta
+        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+    out = tree_map(upd, params, grads, state["m"], state["v"])  # leaves: (p, m, v)
+    new_params, new_m, new_v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
+    new_state = {"m": new_m, "v": new_v, "step": step + 1}
+    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}

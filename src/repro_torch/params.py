@@ -4,7 +4,8 @@ The tree has the reference's names and layouts (``embed/table``,
 ``seg{i}/u{j}/attn/wq`` or ``seg{i}/u{j}/rwkv/time_mix/wr`` stacked on
 axis 0, ``final_norm/scale``, ``unembed``), so a tree of numpy arrays taken from ``repro``'s
 ``model.init`` loads with :func:`from_numpy_tree` as it is, without
-renaming or transposing anything.
+renaming or transposing anything, and the reference's AdamW state (``m``,
+``v``, ``step``) with :func:`from_numpy_opt_state`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.models.layers import DTYPES, ParamStore, norm_param
 from repro_torch.models.model import padded_vocab
 from repro_torch.models.transformer import init_stack, layer_pattern
 
-__all__ = ["init_params", "from_numpy_tree", "count_params"]
+__all__ = ["init_params", "from_numpy_tree", "from_numpy_opt_state", "count_params"]
 
 
 def _draw(cfg: ModelConfig, generator: Optional[torch.Generator], device: torch.device):
@@ -86,3 +87,24 @@ def from_numpy_tree(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[
         return _tensor(t).to(dev)
 
     return walk(tree)
+
+
+def from_numpy_opt_state(state: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's AdamW state ``{"m": tree, "v": tree, "step": int32 scalar}`` (arrays,
+    e.g. through ``np.asarray``) as the port's (``repro_torch.optim.adamw_init``'s layout) on
+    ``device``: m and v keep their dtype (float32, or bfloat16 moved by its bits), step
+    stays an int32 scalar."""
+    missing = {"m", "v", "step"} - set(state)
+    if missing:
+        raise ValueError(f"from_numpy_opt_state: no {sorted(missing)} in the state")
+    dev = resolve_device(device)
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(
+            f"from_numpy_opt_state: step must be an int32 scalar, got {step.dtype}{step.shape}"
+        )
+    return {
+        "m": from_numpy_tree(state["m"], dev),
+        "v": from_numpy_tree(state["v"], dev),
+        "step": _tensor(step).to(dev),
+    }

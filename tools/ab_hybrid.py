@@ -7,8 +7,8 @@ unpacked with ``git archive`` into a directory that ``.gitignore`` lists
 (``build/``). The script runs ``chip_smoke.py``'s device, build and serving
 phases of the other tree and of this one in turns (other, this, this, other),
 each in a process of its own, so that both sides see the same card and host.
-The serving phase is recurrentgemma-9b's (``--phase hybrid``, the default) or
-rwkv6-7b's (``--phase rwkv``).
+The serving phase is recurrentgemma-9b's (``--phase hybrid``, the default),
+rwkv6-7b's (``--phase rwkv``) or serpytor-demo-100m's (``--phase demo``).
 Each run prints its own lines (serving numbers, checks, profiles); at the end
 the script prints every run's mean prefill, decode ms/step and tokens/s side
 by side. A run that fails stops the script with its exit code.
@@ -54,7 +54,7 @@ def run(tree: Path, label: str, phase: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path, help="another checkout of this repository")
-    parser.add_argument("--phase", choices=("hybrid", "rwkv"), default="hybrid")
+    parser.add_argument("--phase", choices=("hybrid", "rwkv", "demo"), default="hybrid")
     args = parser.parse_args()
     other = args.other.resolve()
     if not (other / "chip_smoke.py").exists():
