@@ -38,14 +38,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    of 4; the wrapper's host cost a decode call. The flash backward (float32,
    3xTF32) against its plain version on the float32 cases of FLASH_CASES,
    edge cases (MLA head dims, a window with Sq < Sk, Sq > Sk without a mask,
-   head dim 128, window 1) and the demo's train shape (4, 12, 4096, 64) at
-   BWD_TOL, each case logging the share of it used and checking the
+   head dim 128, window 1, Sq and Sk no multiples of the wgmma path's 128-row
+   blocks, a walk of one tile, head dims no multiple of 4) and the demo's
+   train shape (4, 12, 4096, 64) at BWD_TOL, each case logging the path that
+   served it (wgmma or mma.sync) and the share of BWD_TOL used and checking the
    forward's output and logsumexp against their plain versions (the output's
    bits unchanged by asking for the logsumexp); its
    bits equal on two launches and for B = 1 against row 0 of B = 4; at the
    train shape the forward with and without the logsumexp timed, and the
-   backward against its plain version, SDPA's memory-efficient backward and
-   its bound. Each timed case prints the
+   backward (each launch's device time) against its plain version, SDPA's
+   memory-efficient backward, its bound and the tensor-core floor of the seven
+   products it runs at the probed TF32 rates. Each timed case prints the
    kernel's time, its plain version's, one PyTorch library call's where one
    computes the same function, and the least time the card could take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
@@ -163,6 +166,11 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# TF32 rates measured by tools/mma_probe.py on an NVIDIA H100 80GB HBM3 at 700 W, for the
+# float32 backward's products over the head dim (S, dP) and over the walk (dV, dK, dQ):
+# mma.sync m16n8k8 at 8-16 warps an SM (both); wgmma m64n32k8 with both operands in shared
+# memory and m64n64k8 with A in registers, at 2 warpgroups an SM
+PROBED_TF32_FLOPS = {"mma.sync": (311e12, 311e12), "wgmma": (318e12, 485e12)}
 
 # (B, Hq, Hkv, Sq, Sk, D, causal, window, dtype): FLASH_CASES of tests/test_kernels.py
 FLASH_CASES = [
@@ -305,13 +313,19 @@ BWD_TOL = 1e-4
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 3
 FLASH_BWD_TRAIN = (TRAIN_BATCH, 12, 4, TRAIN_SEQ, TRAIN_SEQ, 64, True, None, "float32", 64)
 # float32 cases of FLASH_CASES, then edges: MLA head dims, a window with Sq < Sk and GQA,
-# no mask with Sq > Sk, head dim 128 (the kernels' widest), window 1 with Sq < Sk, ragged
+# no mask with Sq > Sk, head dim 128 (the kernels' widest: the mma.sync path's largest shared
+# memory), window 1 with Sq < Sk, ragged; edges of the wgmma path's 128-row blocks and 32-row
+# walk tiles: Sq and Sk no multiples of 128 with a window and GQA, a walk of one tile, head
+# dims no multiples of 4 (the mma.sync path at head dims below 64)
 FLASH_BWD_CASES = [c + (c[5],) for c in FLASH_CASES if c[8] == "float32"] + [
     (1, 2, 2, 64, 64, 48, True, None, "float32", 32),
     (2, 6, 2, 50, 130, 32, True, 20, "float32", 32),
     (1, 4, 1, 90, 40, 16, False, None, "float32", 24),
     (1, 4, 2, 300, 300, 128, True, None, "float32", 128),
     (1, 2, 2, 150, 400, 24, True, 1, "float32", 16),
+    (1, 6, 2, 200, 333, 64, True, 100, "float32", 64),
+    (2, 3, 1, 20, 20, 64, True, None, "float32", 64),
+    (1, 2, 1, 70, 70, 30, True, None, "float32", 18),
     FLASH_BWD_TRAIN,
 ]
 # AdamW as examples/train_lm.py sets it (its default 300 steps)
@@ -379,6 +393,8 @@ PORT_KERNEL_SYMBOLS = (
     "flash_fwd_tf32_kernel",
     "flash_merge_kernel",
     "flash_bwd_delta_kernel",
+    "flash_bwd_dkdv_wgmma_kernel",
+    "flash_bwd_dq_wgmma_kernel",
     "flash_bwd_dkdv_kernel",
     "flash_bwd_dq_kernel",
     "decode_attention_kernel",
@@ -426,6 +442,14 @@ def device_us(fn, name=None, launches: int = 50) -> float:
     return us / launches
 
 
+def _kept_pairs(sq, sk, causal, window) -> int:
+    """The (query, key) pairs of one head that the masks keep."""
+    qpos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
 def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize, form=None):
     """Least time for one attention forward: max(FLOPs / peak, bytes / bandwidth).
 
@@ -433,11 +457,7 @@ def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize, form
     tensor-core products a float32 one (the form the float32 kernel runs: 3 x FLOPs at
     the TF32 rate); "cuda_core" float32 on the CUDA cores. By default the input's type:
     bfloat16 or 3xTF32."""
-    qpos = np.arange(sq) + (sk - sq)
-    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
-    pairs = int(np.maximum(hi - lo, 0).sum())  # (query, key) pairs the masks keep
-    flops = 2.0 * b * hq * pairs * (d + dv)
+    flops = 2.0 * b * hq * _kept_pairs(sq, sk, causal, window) * (d + dv)
     nbytes = itemsize * (b * hq * sq * d + b * hkv * sk * (d + dv) + b * hq * sq * dv)
     form = form or ("bf16" if itemsize == 2 else "3xtf32")
     t_ops = {
@@ -449,17 +469,22 @@ def attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize, form
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_bwd_floor_ms(b, hq, sq, sk, d, dv, causal, window, rates):
+    """The tensor-core floor of the deterministic backward: the seven products it runs over
+    the kept pairs, each three TF32 products; S and dP (in the dK/dV kernel and again in the
+    dQ kernel) at ``rates[0]`` FLOP/s, dV, dK and dQ at ``rates[1]``. Above
+    attention_bwd_bound_ms, which counts the five products of the function at the peak."""
+    pairs = 2.0 * b * hq * _kept_pairs(sq, sk, causal, window)
+    return 1e3 * 3 * pairs * (2 * (d + dv) / rates[0] + (2 * d + dv) / rates[1])
+
+
 def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window):
     """Least time for one float32 attention backward: max(3 x FLOPs / the TF32 peak, bytes /
     bandwidth). FLOPs: the five products of the FlashAttention-2 form over the (query, key)
     pairs the masks keep (S and dQ, dK over D; dP and dV over Dv), 2 pairs (3D + 2Dv) a
     head, each in 3xTF32; bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once.
     Returns (ms, what bounds it, the bytes' time alone in ms)."""
-    qpos = np.arange(sq) + (sk - sq)
-    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
-    pairs = int(np.maximum(hi - lo, 0).sum())
-    flops = 2.0 * b * hq * pairs * (3 * d + 2 * dv)
+    flops = 2.0 * b * hq * _kept_pairs(sq, sk, causal, window) * (3 * d + 2 * dv)
     nbytes = 4 * (2 * b * hq * sq * (d + dv) + 2 * b * hkv * sk * (d + dv) + b * hq * sq)
     t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -728,7 +753,7 @@ def _flash_bwd_rows(gen):
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
         torch.cuda.synchronize()
         label = f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} " + (
-            f"float32 causal={causal} window={window}"
+            f"float32 causal={causal} window={window} ({fa.bwd_path(d, dv)} path)"
         )
         if not same:
             raise AssertionError(f"[kernels] {label}: the forward's output moved with lse")
@@ -737,7 +762,7 @@ def _flash_bwd_rows(gen):
         errs = [_check(f"{label} {n}", g, w, BWD_TOL) for n, g, w in zip("qkv", grads, want)]
         used = max(_tol_used(g, w, BWD_TOL) for g, w in zip(grads, want))
         log(
-            f"[kernels] {label} (3xtf32 path): max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+            f"[kernels] {label}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} "
             f"dv {errs[2]:.3e} (tol {BWD_TOL}), {100 * used:.2f}% used; forward out max |err| "
             f"{out_err:.3e}, lse {lse_err:.3e} (tol {TOL['float32']}), output with lse equal "
             "bit for bit"
@@ -773,6 +798,10 @@ def _flash_bwd_timed(case, q, k, v, dout, out, lse, want, err, out_err):
         "bound_by": bound_by,
         "max_abs_err": err,
     }
+    floors = {
+        name: attention_bwd_floor_ms(b, hq, sq, sk, d, dv, causal, window, rates)
+        for name, rates in PROBED_TF32_FLOPS.items()
+    }
     fwd_bound, fwd_bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, 4)
     fwd = {
         "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **masks), iters=10),
@@ -791,7 +820,14 @@ def _flash_bwd_timed(case, q, k, v, dout, out, lse, want, err, out_err):
         f"expanded to {hq} heads, |err| {lib_err:.1e}) {bwd['library_ms']:.4f} (kernel "
         f"{'faster' if bwd['ms'] < bwd['library_ms'] else 'NOT faster'}), bound_ms "
         f"{bound:.5f} ({bound_by}, 3xTF32: 3 x FLOPs at 495 TFLOP/s; bytes alone "
-        f"{bytes_ms:.5f}), kernel/bound {bwd['ms'] / bound:.1f}"
+        f"{bytes_ms:.5f}), kernel/bound {bwd['ms'] / bound:.1f}; the seven products' tensor "
+        "floor at the probed TF32 rates (head-dim / walk products): "
+        + ", ".join(
+            f"{n} {floors[n]:.5f} ms ({PROBED_TF32_FLOPS[n][0] / 1e12:.0f} / "
+            f"{PROBED_TF32_FLOPS[n][1] / 1e12:.0f} TFLOP/s)"
+            for n in floors
+        )
+        + f" ({fa.bwd_path(d, dv)} path)"
     )
     log(
         f"[kernels]   train shape forward: with lse {fwd['ms']:.4f} ms, without "
@@ -801,7 +837,8 @@ def _flash_bwd_timed(case, q, k, v, dout, out, lse, want, err, out_err):
     return {"bwd": bwd, "fwd": fwd}
 
 
-KERNEL_PARTS = ("delta", "dkdv", "dq")  # flash_bwd_<part>_kernel: the backward's launches
+# flash_bwd_<part>_kernel: the backward's launches at the train shape (the wgmma path)
+KERNEL_PARTS = ("delta", "dkdv_wgmma", "dq_wgmma")
 
 
 def _efficient_sdpa_bwd_ms(q, k, v, dout, want):
@@ -842,7 +879,10 @@ def _flash_bwd_determinism(gen) -> None:
     torch.cuda.synchronize()
     relaunch = sum((x != y).sum().item() for x, y in zip(first, again))
     batch = sum((x[:1] != y).sum().item() for x, y in zip(first, alone))
-    label = f"flash_attention_bwd q{tuple(q.shape)} float32 causal={causal} (3xtf32 path)"
+    label = (
+        f"flash_attention_bwd q{tuple(q.shape)} float32 causal={causal} "
+        f"({fa.bwd_path(d, dv)} path)"
+    )
     if relaunch or batch:
         raise AssertionError(
             f"[kernels] {label} not deterministic: {relaunch} gradient elements differ between "

@@ -2,7 +2,8 @@
 //
 // x = hi + lo, both TF32, and a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi (the
 // dropped a_lo b_lo is ~2^-22 of a b). Each product is an m16n8k8 `mma.sync` with float32
-// sums. Included by wkv6.cu, flash_attention_fwd.cu and decode_attention.cu.
+// sums. Included by wkv6.cu, flash_attention_fwd.cu, flash_attention_bwd.cu and
+// decode_attention.cu.
 
 #pragma once
 

@@ -19,8 +19,11 @@ row's logsumexp, which the backward needs.
 Backward (:func:`flash_attention_bwd`, float32, head dims up to 128): the
 FlashAttention-2 form in 3xTF32, three launches (Δ = rowsum(dO∘O); dK and
 dV a block per key tile, summed over the GQA group in a fixed order; dQ a
-block per query tile), no atomics: a step replays bit for bit.
-:class:`FlashAttentionFunction` joins the two under autograd.
+block per query tile), no atomics: a step replays bit for bit. Head dims up
+to 64 that are multiples of 4 (the demo's training) run on ``wgmma`` fed by
+a TMA ring, every other one on ``mma.sync`` (:func:`bwd_path`, a function of
+the head dims alone). :class:`FlashAttentionFunction` joins the two under
+autograd.
 
 On a CUDA tensor each wrapper launches its kernels or raises. On a CPU
 tensor it runs the plain version (:func:`repro_torch.kernels.ref.
@@ -47,6 +50,7 @@ __all__ = [
     "MAX_HEAD_DIM",
     "MAX_BWD_HEAD_DIM",
     "PATHS",
+    "bwd_path",
 ]
 
 MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
@@ -64,6 +68,20 @@ F32_BLOCK_Q = 64  # query rows a block
 F32_SPLIT_TARGET = 80
 F32_MIN_PIECE_TILES = 2  # key tiles a piece, at least
 F32_MAX_PIECES = 16  # pieces a query tile, at most (the merge kernel's weights)
+
+# The backward's wgmma path (``wg`` in csrc/flash_attention_bwd.cu).
+BWD_WGMMA_MAX_HEAD_DIM = 64  # its tiles' head-dim columns
+#: rows of a walk tile: query rows (dK/dV) or keys (dQ), on both paths; each is summed
+#: from zero in the tensor cores before a float32 add into the walk's total
+BWD_WALK = 32
+
+
+def bwd_path(d: int, dv: int) -> str:
+    """The backward kernels that serve head dims ``d`` and ``dv``: "wgmma" (TMA ring,
+    warpgroup products) for both up to 64 and multiples of 4 (a TMA row stride is a
+    multiple of 16 bytes), else "mma.sync"."""
+    small = d <= BWD_WGMMA_MAX_HEAD_DIM and dv <= BWD_WGMMA_MAX_HEAD_DIM
+    return "wgmma" if small and d % 4 == 0 and dv % 4 == 0 else "mma.sync"
 
 
 def f32_key_block(d: int, dv: int) -> int:
@@ -290,6 +308,7 @@ def flash_attention_bwd(
     ``flash_attention_bwd.launches`` counts calls that launched the kernels (Δ, dK/dV and
     dQ: one count for the three); on a CPU tensor it runs
     :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` and counts nothing.
+    :func:`bwd_path` names the kernels that serve the head dims.
     """
     _check(q, k, v, causal, window)
     _check_grad(q, k, v)
@@ -315,6 +334,8 @@ def flash_attention_bwd(
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or sq == 0:
         return dq.zero_(), dk.zero_(), dvv.zero_()
+    if bwd_path(d, dv) == "wgmma":  # TMA reads from 16-byte-aligned bases
+        q, k, v, dout = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, dout))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     lib = _lib("flash_attention_bwd", 10, 9, 0)
     with torch.cuda.device(q.device):

@@ -127,10 +127,10 @@ def test_forward_lse_is_the_logsumexp_and_leaves_the_output_as_it_was(i):
     np.testing.assert_allclose(lse.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
-def _bwd_model(q, k, v, out, lse, dout, *, causal, window, block_k=32, mm=mm_3xtf32):
+def _bwd_model(q, k, v, out, lse, dout, *, causal, window, block_k=tfa.BWD_WALK, mm=mm_3xtf32):
     """The backward kernels' arithmetic in float32 torch on the CPU: the five products by
     ``mm`` (3xTF32 as the kernels: hi/lo halves, lo*lo dropped), P = exp(S scale - lse) with
-    accurate exp."""
+    accurate exp, over key tiles of ``block_k`` (the kernels' walk tile)."""
     g = q.shape[1] // k.shape[1]
     kf, vf = (x.repeat_interleave(g, dim=1) for x in (k, v))
     sq, sk = q.shape[2], k.shape[2]
@@ -214,13 +214,14 @@ def _round_toward_zero(x: np.ndarray) -> np.ndarray:
 
 
 def _walk_sum_model(x, b, tile):
-    """x.T @ b summed over the rows of a walk as the dK/dV kernel sums them (its
-    ``product_pairs``): each mma.sync m16n8k8 adds the products of 8 rows to its float32
-    accumulator three times (lo hi, hi lo, hi hi); the model takes each mma's exact sum
-    of products added to the accumulator, rounded once toward zero (the tensor cores'
-    float32 sums do not round to nearest; this is kinder than truncating each addend).
-    ``tile``: the rows summed from zero in the tensor cores before a float32 add to
-    nearest into the running sum; None sums the whole walk in the tensor cores."""
+    """x.T @ b summed over the rows of a walk as the dK/dV kernels sum them: each
+    tensor-core product (a wgmma m64nNk8 on the wgmma path, an mma.sync m16n8k8 on the
+    mma.sync path) adds the products of 8 rows to its float32 accumulator three times (lo
+    hi, hi lo, hi hi); the model takes each product's exact sum of products added to the
+    accumulator, rounded once toward zero (the tensor cores' float32 sums do not round to
+    nearest; this is kinder than truncating each addend). ``tile``: the rows summed from
+    zero in the tensor cores before a float32 add to nearest into the running sum; None
+    sums the whole walk in the tensor cores."""
     xt, bt = torch.from_numpy(x), torch.from_numpy(b)
     xh, bh = tf32(xt), tf32(bt)
     xl, bl = tf32(xt - xh), tf32(bt - bh)
@@ -235,14 +236,16 @@ def _walk_sum_model(x, b, tile):
     return acc + t
 
 
-@pytest.mark.parametrize("tile, fits", [(32, True), (None, False)], ids=["tile", "whole_walk"])
+@pytest.mark.parametrize(
+    "tile, fits", [(tfa.BWD_WALK, True), (None, False)], ids=["tile", "whole_walk"]
+)
 def test_dv_summed_over_a_whole_walk_in_the_tensor_cores_exceeds_the_kernel_tolerance(
     tile, fits
 ):
     """dV of the first 64 keys at the demo's train shape (3 query heads a KV head, 4096
     rows each, causal: a walk of 12,288 rows) on seeded N(0, 1) inputs. Summed from zero
-    a walk tile of 32 rows (the kernel's BN) and then added in float32, it keeps within a
-    tenth of the tolerance; summed over the whole walk in the tensor cores, it fails it."""
+    a walk tile (the kernels' ``BWD_WALK`` rows) and then added in float32, it keeps within
+    a tenth of the tolerance; summed over the whole walk in the tensor cores, it fails it."""
     rng = np.random.default_rng(18)
     g, s, d = 3, 4096, 64
     q = torch.from_numpy(rng.normal(size=(g, s, d)).astype(np.float32))
@@ -278,6 +281,24 @@ def test_no_grad_takes_the_forward_alone():
     out = tops.flash_attention(q, k, v)
     assert out.grad_fn is None
     assert torch.equal(out, tref.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize(
+    "d, dv, path",
+    [
+        (64, 64, "wgmma"),  # the demo's training
+        (48, 32, "wgmma"),
+        (16, 24, "wgmma"),
+        (4, 4, "wgmma"),
+        (65, 64, "mma.sync"),  # above the wgmma tiles' 64 columns
+        (64, 128, "mma.sync"),
+        (128, 128, "mma.sync"),
+        (30, 18, "mma.sync"),  # no multiple of 4: a TMA row stride is a multiple of 16 bytes
+        (64, 62, "mma.sync"),
+    ],
+)
+def test_backward_path_is_a_function_of_the_head_dims(d, dv, path):
+    assert tfa.bwd_path(d, dv) == path
 
 
 def test_head_dims_above_128_are_refused_with_grad_on_every_device():

@@ -4,7 +4,8 @@
 
 Builds ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
 alone and prints ptxas's report (registers, shared memory, spills of each
-instantiation), then runs the flash part of ``chip_smoke.py``'s kernel
+instantiation) and the dynamic shared memory a block of the backward's wgmma
+kernels asks for, then runs the flash part of ``chip_smoke.py``'s kernel
 phase: the backward first (every case against its plain version at its
 tolerance and the share of it used, the forward's logsumexp, the
 determinism check, the timed rows at the demo's train shape), then the
@@ -71,6 +72,11 @@ def main() -> int:
     for name in names:
         cs.log(f"[build] {name} in {seconds[name]:.1f} s; ptxas:")
         cs.log((_build.build_dir() / f"{name}.log").read_text().strip())
+    shared = _build.load("flash_attention_bwd").repro_flash_attention_bwd_shared_bytes
+    cs.log(
+        f"[build] wgmma backward: dK/dV {shared(1)} bytes, dQ {shared(0)} bytes of dynamic "
+        "shared memory a block (232,448 at most)"
+    )
     cs._flash_bwd_rows(cs._gen(7))
     float64_yardstick()
     cs._flash_rows(cs._gen(7))

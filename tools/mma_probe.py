@@ -1,14 +1,19 @@
-"""Throughput of mma.sync on one NVIDIA card: TF32 m16n8k8 and bfloat16 m16n8k16.
+"""Throughput of the tensor cores on one NVIDIA card: ``mma.sync`` TF32 m16n8k8 and
+bfloat16 m16n8k16, and ``wgmma`` TF32 m64nNk8.
 
     python3 tools/mma_probe.py
 
-Builds ``tools/mma_probe.cu`` with nvcc and runs one block on each SM, each warp
-issuing 8 independent accumulations in a loop, at 1, 2, 4, 8 and 16 warps an
-SM. Prints clock64 cycles a product for one warp, cycles a product for a
-sub-partition (4 an SM), and the card's rate by CUDA events in TFLOP/s. The
-numbers bound what the float32 flash and decode-attention kernels, which run
-their products in 3xTF32 with ``mma.sync``, can reach. About 20 s of command
-on the card; it needs a card, and fails without one.
+Builds ``tools/mma_probe.cu`` with nvcc and runs one block on each SM. For
+``mma.sync`` each warp issues 8 independent accumulations in a loop, at 1, 2,
+4, 8 and 16 warps an SM; it prints clock64 cycles a product for one warp, cycles
+a product for a sub-partition (4 an SM), and the card's rate by CUDA events in
+TFLOP/s. For ``wgmma`` (TF32 m64n64k8 and m64n32k8 with both operands in shared
+memory, m64n64k8 with A in registers: the forms the float32 flash backward
+runs) each warpgroup issues 16 instructions on two accumulators, commits and
+waits, in a loop, at 1, 2 and 3 warpgroups an SM; it prints cycles an
+instruction for one warpgroup and the card's rate. The numbers bound what the
+float32 kernels, which run their products in 3xTF32, can reach. About 20 s of
+command on the card; it needs a card, and fails without one.
 """
 
 from __future__ import annotations
@@ -63,6 +68,29 @@ def main() -> int:
             print(
                 f"[mma_probe] {name}: {warps} warps an SM: {per_warp:.2f} cycles a product a "
                 f"warp, {per_sp:.2f} a sub-partition; {tflops:.1f} TFLOP/s ({ms:.3f} ms)"
+            )
+    wgmma = ((2, "wgmma tf32 m64n64k8 SS", 64), (3, "wgmma tf32 m64n32k8 SS", 32))
+    for kind, name, n in wgmma + ((4, "wgmma tf32 m64n64k8 RS", 64),):
+        flops = 2 * 64 * n * 8
+        for groups in (1, 2, 3):
+            threads = 128 * groups
+            out = torch.empty(sms * threads, device="cuda")
+            cycles = torch.empty(sms, dtype=torch.int64, device="cuda")
+            stream = torch.cuda.current_stream().cuda_stream
+            args = (kind, sms, threads, iters, out.data_ptr(), cycles.data_ptr(), stream)
+            assert lib.repro_mma_probe(*args) == 0
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            assert lib.repro_mma_probe(*args) == 0
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            per_group = cycles.float().median().item() / (iters * 16)
+            tflops = sms * groups * iters * 16 * flops / (ms * 1e-3) / 1e12
+            print(
+                f"[mma_probe] {name}: {groups} warpgroups an SM: {per_group:.2f} cycles an "
+                f"instruction a warpgroup; {tflops:.1f} TFLOP/s ({ms:.3f} ms)"
             )
     return 0
 
