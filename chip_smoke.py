@@ -68,6 +68,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and autograd) agrees in loss, grad norm and every gradient leaf within
    TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL and TRAIN_GRAD_TOL; step ms, tokens/s,
    peak memory, and a profiled step's device time by kind and busy share;
+   the AdamW is the train CLI's for 3 steps (``repro_torch.launch.train.opt_config``);
+5b. durable train, through the train CLI in processes of their own (``python -m
+   repro_torch.launch.train --arch serpytor-demo-100m --full --batch 4 --seq 4096
+   --steps 3 --checkpoint-every 2``): run A journals rounds [0, 2) and [2, 3) with
+   checkpoints ``step00000002`` and ``step00000003``, its heartbeat polled once
+   while it runs; each step's journaled metrics digest equals the train phase's
+   direct step's, built the same way, and the process ran 24 flash forward and 24
+   backward launches. Then the crash between the two halves of the last
+   checkpoint (``step00000003-opt`` deleted), and run B, the same command: it
+   recovers from ``step00000002`` on the card, re-executes step 2 through the
+   out-of-place verify twin against the journal, re-saves ``step00000003`` with
+   A's content digests, reports 1 step and 8 + 8 flash launches. Logs the steps'
+   ms through the trainer against the direct steps', each checkpoint save's
+   seconds (params sync, ``-opt`` async), the restore's, the journal's size and
+   the heartbeat's report;
 6. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
    10.4B params, bfloat16) serves 8 requests of prompts on both sides of
    its 2048 window through ``ContinuousBatcher(slots=4, max_len=3072)``;
@@ -113,6 +128,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -132,6 +148,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import Journal, check_heartbeat  # noqa: E402
 from repro_torch.data import DataConfig, TokenSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -328,8 +345,9 @@ FLASH_BWD_CASES = [c + (c[5],) for c in FLASH_CASES if c[8] == "float32"] + [
     (1, 2, 1, 70, 70, 30, True, None, "float32", 18),
     FLASH_BWD_TRAIN,
 ]
-# AdamW as examples/train_lm.py sets it (its default 300 steps)
-TRAIN_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=300)
+# AdamW as the train CLI sets it for TRAIN_STEPS steps (repro_torch.launch.train.opt_config,
+# held equal in the train process): the durable phase's trainer steps take the same AdamW
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
 # Step 0 through the kernels against step 0 with attn_impl="ref" (plain attention under
 # autograd, the same float32 GEMMs): the attention outputs differ by ~1e-6 of their size
 # (3xTF32 against float32 products, other orders of summation), which 8 layers carry into
@@ -1290,23 +1308,31 @@ def _step_digest(params, state, metrics) -> str:
 
 
 def _train_batches(cfg):
+    """The train steps' batches on the card, and each batch's ``payload_digest`` (the
+    trainer's ``data@`` digest)."""
     source = TokenSource(
         DataConfig(
             vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0
         )
     )
-    return [
-        {"tokens": torch.from_numpy(source.batch_at(s)["tokens"]).long().to(DEV)}
-        for s in range(TRAIN_STEPS)
-    ]
+    host = [source.batch_at(s) for s in range(TRAIN_STEPS)]
+    batches = [{"tokens": torch.from_numpy(b["tokens"]).long().to(DEV)} for b in host]
+    return batches, [payload_digest(b) for b in host]
 
 
-TRAIN_RESULT = "[train] launches "  # the train process's line that gives its launch counts
+def _metrics_digest(metrics, step, data_digest) -> str:
+    """The digest the trainer journals for a step: its metrics as floats, the step and
+    the batch's digest (``repro_torch.train.trainer``, ``run_step``)."""
+    out = {key: float(x) for key, x in metrics.items()}
+    return payload_digest({**out, "step": step, "data_digest": data_digest})
+
+
+TRAIN_RESULT = "[train] launches "  # the train process's line of launch counts, ms and digests
 
 
 def phase_train() -> dict:
     """Run the train phase in a process of its own (this file with ``--train``), its log
-    passed on line by line; returns the launch counts that its log gives."""
+    passed on line by line; returns the launch counts, step ms and digests its log gives."""
     cmd = [sys.executable, str(Path(__file__).resolve()), TRAIN_ARG]
     launches = None
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
@@ -1329,14 +1355,19 @@ def train_main() -> int:
 
 def _train() -> dict:
     """Train the full-width demo 3 steps through the flash kernels, deterministically;
-    returns the flash forward and backward launch counts of those steps."""
+    returns the flash forward and backward launch counts of those steps, and each step's
+    ms and metrics digest as the trainer journals it."""
+    from repro_torch.launch.train import opt_config
+
     cfg = get_config("serpytor-demo-100m")
     model = build(cfg, DEV)
     params0 = init_params(cfg, _gen(0), DEV)
     opt = AdamWConfig(**TRAIN_OPT)
+    if opt != opt_config(TRAIN_STEPS):
+        raise AssertionError(f"[train] {opt} is not the train CLI's {opt_config(TRAIN_STEPS)}")
     state0 = make_opt_init(model, opt)(params0)
     train_step = make_train_step(model, opt)
-    batches = _train_batches(cfg)
+    batches, data_digests = _train_batches(cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(
         f"[train] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, remat={cfg.remat}; "
@@ -1347,12 +1378,13 @@ def _train() -> dict:
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    params, state, step_ms, first = params0, state0, [], None
+    params, state, step_ms, first, digests = params0, state0, [], None, []
     for step in range(TRAIN_STEPS):
         t0 = time.monotonic()
         params, state, metrics = train_step(params, state, batches[step])
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.monotonic() - t0))
+        digests.append(_metrics_digest(metrics, step, data_digests[step]))
         vals = {key: float(x) for key, x in metrics.items()}
         if not all(np.isfinite(list(vals.values()))):
             raise AssertionError(f"[train] step {step}: metrics {vals}")
@@ -1402,7 +1434,8 @@ def _train() -> dict:
     del again
     _check_train_against_plain(cfg, model, params0, state0, batches[0], first[2], opt)
     _train_profile(model, params0, state0, batches[0], opt)
-    return launches
+    log(f"[train] metrics digests as the trainer journals them: {digests}")
+    return {**launches, "step_digests": digests, "step_ms": step_ms}
 
 
 def _check_train_against_plain(cfg, model, params, state, batch, metrics, opt) -> None:
@@ -1463,6 +1496,160 @@ def _train_profile(model, params, state, batch, opt) -> None:
         f"wall, device busy {busy:.3f} ms ({100 * busy / (grad_ms + opt_ms):.1f}%), "
         f"{sum(n_grad.values()) + sum(n_opt.values())} kernels; device time by kind: {by_kind}"
     )
+
+
+DURABLE_DIR = ROOT / "build" / "durable_train"  # the runs' directory; build/ is not committed
+DURABLE_CMD = [
+    "-m", "repro_torch.launch.train", "--arch", "serpytor-demo-100m", "--full",
+    "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+    "--checkpoint-every", "2",
+]  # fmt: skip
+LAUNCHES_LINE = "kernel launches "  # the train CLI's last line
+
+
+def _run_trainer(tag: str, run_dir: Path) -> dict:
+    """One run of the train CLI in a process of its own, its output logged line by line;
+    its heartbeat is polled once, when the first round's step line comes. Returns the
+    launches the CLI reports, the heartbeat's report, the process's wall seconds and the
+    run's ``summary.json``."""
+    cmd = [sys.executable, *DURABLE_CMD, "--run-dir", str(run_dir)]
+    path = [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in path if p))
+    launches, address, beat = None, None, None
+    t0 = time.monotonic()
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=ROOT, env=env) as proc:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            log(f"[durable {tag}] {line}")
+            if line.startswith("heartbeat at "):
+                address = line[len("heartbeat at ") :]
+            elif line.startswith("step ") and address and beat is None:
+                beat = check_heartbeat(address, timeout=30.0)
+                if beat is None:
+                    raise AssertionError(f"[durable {tag}] the heartbeat at {address} is down")
+            elif line.startswith(LAUNCHES_LINE):
+                launches = json.loads(line[len(LAUNCHES_LINE) :])
+    wall = time.monotonic() - t0
+    if proc.returncode != 0 or launches is None:
+        raise AssertionError(f"[durable {tag}] the train CLI exited with code {proc.returncode}")
+    summary = json.loads((run_dir / "summary.json").read_text())
+    return {"launches": launches, "heartbeat": beat, "wall_s": wall, "summary": summary}
+
+
+def _journal(run_dir: Path) -> list:
+    return list(Journal(str(run_dir / "journal.wal"), sync="never").records())
+
+
+def _log_saves(tag: str, run_dir: Path, seconds: dict) -> None:
+    """Each checkpoint save's seconds beside its bytes, raw and on disk."""
+    for name, sec in sorted(seconds.items()):
+        man = json.loads((run_dir / "ckpt" / name / "manifest.json").read_text())
+        entries = man["entries"].values()
+        raw = sum(np.dtype(e["dtype"]).itemsize * int(np.prod(e["shape"])) for e in entries)
+        disk = (run_dir / "ckpt" / name / "shard-0.npz.zst").stat().st_size
+        kind = "async" if name.endswith("-opt") else "sync"
+        log(
+            f"[durable {tag}] save {name} ({kind}): {sec:.3f} s for {raw} bytes raw, {disk} on "
+            f"disk (ratio {disk / raw:.4f}), {raw / sec / 1e6:.1f} MB/s of raw bytes"
+        )
+
+
+def _log_steps(tag: str, recs: list, direct_ms: list) -> None:
+    """Each step's ms through the trainer (its NODE_START to its NODE_COMMIT, on the host's
+    wall clock) beside the direct step's, and each round's wall."""
+    start = {}
+    for r in recs:
+        if r.kind in ("NODE_START", "RUN_START"):
+            start[r.node_id] = r.wall_time
+        elif r.kind == "NODE_COMMIT" and r.node_id.startswith("step@"):
+            s = int(r.node_id[5:])
+            ms = 1e3 * (r.wall_time - start[r.node_id])
+            log(
+                f"[durable {tag}] {r.node_id}: {ms:.3f} ms through the trainer (NODE_START to "
+                f"NODE_COMMIT), direct step {direct_ms[s]:.3f} ms: {ms - direct_ms[s]:+.3f} ms"
+            )
+        elif r.kind == "RUN_END":
+            log(f"[durable {tag}] {r.node_id}: {r.wall_time - start[r.node_id]:.3f} s of round")
+
+
+def phase_durable(direct: dict) -> None:
+    """Train through the durable trainer, crash between the halves of its last checkpoint,
+    restart and verify (run A, then run B); ``direct`` is the train phase's result."""
+    cfg = get_config("serpytor-demo-100m")
+    per_step = cfg.num_layers
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    run_dir = DURABLE_DIR
+    try:
+        a = _run_trainer("A", run_dir)
+        recs = _journal(run_dir)
+        wal_a = (run_dir / "journal.wal").stat().st_size
+        kinds = [r.kind for r in recs]
+        commits = {r.node_id: r for r in recs if r.kind == "NODE_COMMIT"}
+        want_nodes = {f"{k}@{s}" for k in ("data", "step") for s in range(TRAIN_STEPS)}
+        want_nodes |= {"ckpt@2", f"ckpt@{TRAIN_STEPS}"}
+        if (kinds.count("RUN_START"), kinds.count("RUN_END"), kinds.count("CKPT")) != (2, 2, 2):
+            raise AssertionError(f"[durable A] journal kinds {sorted(set(kinds))}: {kinds}")
+        if set(commits) != want_nodes:
+            raise AssertionError(f"[durable A] commits {sorted(commits)}, want {want_nodes}")
+        got = [commits[f"step@{s}"].output_digest for s in range(TRAIN_STEPS)]
+        if got != direct["step_digests"]:
+            raise AssertionError(
+                f"[durable A] journaled step digests {got} != the direct steps' "
+                f"{direct['step_digests']}"
+            )
+        want_launches = {"flash_attention_fwd": per_step * 3, "flash_attention_bwd": per_step * 3}
+        if a["launches"] != want_launches or a["summary"]["steps"] != TRAIN_STEPS:
+            raise AssertionError(f"[durable A] launches {a['launches']}, summary {a['summary']}")
+        beat = a["heartbeat"]
+        if beat is None or beat["devices"] != {"backend": "cuda", "count": 1}:
+            raise AssertionError(f"[durable A] heartbeat {beat}")
+        log(
+            f"[durable A] journaled step digests {got} equal the direct steps'; flash launches "
+            f"{a['launches']}; journal {wal_a} bytes, {len(recs)} records; CLI process "
+            f"{a['wall_s']:.1f} s, trainer wall {a['summary']['wall_s']:.3f} s"
+        )
+        log(
+            f"[durable A] heartbeat: devices {beat['devices']}, worker {beat['worker']}, pid "
+            f"{beat['pid']}, cpu load1 {beat['cpu']['load1']} of {beat['cpu']['ncpu']}, memory "
+            f"used {beat['memory']['used_frac']:.4f}, uptime {beat['uptime_s']:.3f} s, probe "
+            f"{1e3 * beat['probe_latency_s']:.3f} ms"
+        )
+        _log_steps("A", recs, direct["step_ms"])
+        _log_saves("A", run_dir, a["summary"]["checkpoint_s"])
+        ckpt_refs = [r.ref for r in recs if r.kind == "CKPT"]
+
+        # the crash between the two halves of the last checkpoint
+        last = f"step{TRAIN_STEPS:08d}"
+        shutil.rmtree(run_dir / "ckpt" / f"{last}-opt")
+        log(f"[durable] deleted {last}-opt: the newest complete pair is step00000002")
+
+        b = _run_trainer("B", run_dir)
+        new = _journal(run_dir)[len(recs) :]
+        wal_b = (run_dir / "journal.wal").stat().st_size
+        starts = [r.node_id for r in new if r.kind == "RUN_START"]
+        ran = [r.node_id for r in new if r.kind == "NODE_START"]
+        step2 = [r.output_digest for r in new if r.kind == "NODE_COMMIT" and r.node_id == "step@2"]
+        refs = [r.ref for r in new if r.kind == "CKPT"]
+        want_launches = {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step}
+        if starts != ["round2"] or ran != ["step@2", f"ckpt@{TRAIN_STEPS}"]:
+            raise AssertionError(f"[durable B] rounds {starts}, nodes run {ran}")
+        if step2 != [got[2]] or refs != [ckpt_refs[-1]]:
+            raise AssertionError(
+                f"[durable B] step@2 {step2} (A: {got[2]}), CKPT {refs} (A: {ckpt_refs[-1]})"
+            )
+        if b["launches"] != want_launches or b["summary"]["steps"] != 1:
+            raise AssertionError(f"[durable B] launches {b['launches']}, summary {b['summary']}")
+        log(
+            f"[durable B] recovered from step00000002 in {b['summary']['restore_s']:.3f} s "
+            f"(resolve with its content check, both shards, onto the card); step@2 re-executed "
+            f"through the verify twin: digest {step2[0]} equals the journal's; {last} re-saved as "
+            f"{refs[0]}, A's content digests; 1 step; flash launches {b['launches']}; journal "
+            f"{wal_b} bytes; CLI process {b['wall_s']:.1f} s"
+        )
+        _log_steps("B", new, direct["step_ms"])
+        _log_saves("B", run_dir, b["summary"]["checkpoint_s"])
+    finally:
+        shutil.rmtree(DURABLE_DIR, ignore_errors=True)
 
 
 def check_against_cpu(cfg, model, params, prompt) -> None:
@@ -2037,6 +2224,7 @@ def main() -> int:
     flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows = kernel_rows
     demo = _timed("demo", phase_demo)
     train = _timed("train", phase_train)
+    _timed("durable", lambda: phase_durable(train))
     hybrid = _timed("hybrid", phase_hybrid)
     exact = _timed("exactness", phase_exactness)
     rwkv_launches = _timed("rwkv", phase_rwkv)

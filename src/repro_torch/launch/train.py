@@ -1,0 +1,109 @@
+"""Training CLI, the counterpart of ``python -m repro.launch.train``:
+
+    python -m repro_torch.launch.train --arch serpytor-demo-100m --full --batch 4 \\
+        --seq 4096 --steps 3 --checkpoint-every 2 --run-dir runs/demo
+    python -m repro_torch.launch.train --arch serpytor-demo-100m --device cpu --steps 2
+
+Selects an architecture config (``--reduced``, the default, takes its smoke
+variant; ``--full`` the published one) and runs the durable ``Trainer``:
+journaled rounds, checkpoints, a heartbeat, replay verification. Run the
+same command again on the same ``--run-dir`` and it recovers from the newest
+complete checkpoint and re-executes, and verifies against the journal, every
+step after it. Runs on ``cuda`` unless ``--device cpu``, with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless it is set. Only the dense
+family trains; the others raise where train mode refuses them (ROADMAP
+Queue 1 items 7–10).
+
+Prints the heartbeat's address, a line per ``--log-every`` steps (as the
+reference), and at the end the summary and the flash kernels' launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import List, Optional
+
+from repro_torch.configs import SHAPES, get_config, list_archs, smoke_variant
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+__all__ = ["main", "opt_config"]
+
+
+def opt_config(steps: int) -> AdamWConfig:
+    """The AdamW this CLI trains with for ``steps`` steps (the reference CLI's)."""
+    return AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=steps)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(list_archs()))
+    ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=25)
+    ap.add_argument(
+        "--reduced",
+        action="store_true",
+        default=True,
+        help="use the reduced same-family config (the default)",
+    )
+    ap.add_argument(
+        "--full", dest="reduced", action="store_false", help="use the full published config"
+    )
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--seq", type=int, default=0)
+    ap.add_argument("--journal-sync", default="batch", choices=["always", "batch", "never"])
+    ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    # cuBLAS sums in a fixed order only with a fixed workspace, which it reads when its
+    # first handle is made (nothing has touched the card yet); the trainer refuses to
+    # run on the card without it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+    cfg = get_config(args.arch)
+    shape = SHAPES[args.shape]
+    if args.reduced:
+        cfg = smoke_variant(cfg)
+        batch = args.batch or 2
+        seq = args.seq or 64
+    else:
+        batch = args.batch or shape.global_batch
+        seq = args.seq or shape.seq_len
+
+    run_dir = args.run_dir or f"runs/{cfg.name}"
+    print(
+        f"training {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
+        f"{args.steps} steps, batch {batch}×{seq} → {run_dir} on {args.device}",
+        flush=True,
+    )
+    tc = TrainConfig(
+        run_dir=run_dir,
+        num_steps=args.steps,
+        checkpoint_every=args.checkpoint_every,
+        global_batch=batch,
+        seq_len=seq,
+        journal_sync=args.journal_sync,
+        opt=opt_config(args.steps),
+    )
+    trainer = Trainer(cfg, tc, device=args.device)
+    if trainer.heartbeat is not None:
+        print(f"heartbeat at {trainer.heartbeat.address}", flush=True)
+    out = trainer.train()
+    print(
+        f"done: {out['steps']} steps, {out['steps_per_s']:.2f} steps/s, "
+        f"final loss {out['final_loss']}",
+        flush=True,
+    )
+    launches = {
+        "flash_attention_fwd": fa.flash_attention_fwd.launches,
+        "flash_attention_bwd": fa.flash_attention_bwd.launches,
+    }
+    print(f"kernel launches {json.dumps(launches)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,6 +4,7 @@ from .adamw import (
     AdamWConfig,
     adamw_init,
     adamw_update,
+    adamw_update_,
     clip_by_global_norm,
     cosine_schedule,
     global_norm,
@@ -14,6 +15,7 @@ __all__ = [
     "AdamWConfig",
     "adamw_init",
     "adamw_update",
+    "adamw_update_",
     "global_norm",
     "clip_by_global_norm",
     "cosine_schedule",

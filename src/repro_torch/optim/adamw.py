@@ -6,9 +6,13 @@ state carries over between the two packages
 (``repro_torch.params.from_numpy_opt_state``). Trees are nested dicts of
 tensors; their leaves are walked in the reference's order (``jax.tree``
 flattens dicts by sorted key), so the global norm sums its leaves in the
-same order. Every function is out of place: the inputs are left as they are,
-so a step can be run again from the same state. ``state_dtype="bfloat16"``
-keeps m and v in bfloat16 (a plain cast, as the reference does).
+same order. Every function but :func:`adamw_update_` is out of place: the
+inputs are left as they are, so a step can be run again from the same state.
+:func:`adamw_update_` is the in-place twin (the reference's donated buffers):
+it runs the same per-element operations in the same order, leaf by leaf, and
+writes params, m and v into their own buffers, so both give the same bits.
+``state_dtype="bfloat16"`` keeps m and v in bfloat16 (a plain cast, as the
+reference does).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ __all__ = [
     "AdamWConfig",
     "adamw_init",
     "adamw_update",
+    "adamw_update_",
     "global_norm",
     "clip_by_global_norm",
     "cosine_schedule",
@@ -69,10 +74,18 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+def _clip(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (x.float() * scale).to(x.dtype)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+    scale = _clip_scale(norm, max_norm)
+    return tree_map(lambda x: _clip(x, scale), tree), norm
 
 
 def cosine_schedule(step, base_lr: float, warmup: int, total: int) -> torch.Tensor:
@@ -100,29 +113,62 @@ def adamw_init(params, cfg: AdamWConfig) -> Dict[str, Any]:
     }
 
 
+def _schedule(step: torch.Tensor, cfg: AdamWConfig):
+    """(lr, bc1, bc2) of the step about to be taken."""
+    lr = linear_warmup_cosine(cfg)(step)
+    t = (step + 1).float()
+    return lr, 1.0 - torch.pow(cfg.b1, t), 1.0 - torch.pow(cfg.b2, t)
+
+
+def _leaf_update(p, g, m, v, lr, bc1, bc2, cfg: AdamWConfig):
+    """One leaf's (p, m, v) after the step, out of place; ``g`` already clipped."""
+    b1, b2 = cfg.b1, cfg.b2
+    gf = g.float()
+    m_new = b1 * m.float() + (1 - b1) * gf
+    v_new = b2 * v.float() + (1 - b2) * gf * gf
+    mhat = m_new / bc1
+    vhat = v_new / bc2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+    p_new = p.float() - lr * delta
+    return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+
 def adamw_update(
     params, grads, state, cfg: AdamWConfig
 ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
     """Returns (new_params, new_state, metrics ``grad_norm`` and ``lr``); inputs untouched."""
     step = state["step"]
-    lr = linear_warmup_cosine(cfg)(step)
+    lr, bc1, bc2 = _schedule(step, cfg)
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    b1, b2 = cfg.b1, cfg.b2
-    t = (step + 1).float()
-    bc1 = 1.0 - torch.pow(b1, t)
-    bc2 = 1.0 - torch.pow(b2, t)
 
     def upd(p, g, m, v):
-        gf = g.float()
-        m_new = b1 * m.float() + (1 - b1) * gf
-        v_new = b2 * v.float() + (1 - b2) * gf * gf
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        p_new = p.float() - lr * delta
-        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+        return _leaf_update(p, g, m, v, lr, bc1, bc2, cfg)
 
     out = tree_map(upd, params, grads, state["m"], state["v"])  # leaves: (p, m, v)
     new_params, new_m, new_v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
     new_state = {"m": new_m, "v": new_v, "step": step + 1}
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def adamw_update_(params, grads, state, cfg: AdamWConfig) -> Dict[str, torch.Tensor]:
+    """:func:`adamw_update` in place: params, m, v and step are updated in their own
+    buffers, which the caller must not need afterwards; returns the metrics.
+
+    Each leaf is clipped and updated by the same operations as in
+    :func:`adamw_update` and copied into its buffers before the next leaf is
+    touched, so the bits are the out-of-place update's and the step holds
+    one leaf's temporaries at a time instead of a second copy of params, m
+    and v. ``grads`` is left as it is.
+    """
+    step = state["step"]
+    lr, bc1, bc2 = _schedule(step, cfg)
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
+    leaves = (tree_leaves(t) for t in (params, grads, state["m"], state["v"]))
+    for p, g, m, v in zip(*leaves, strict=True):
+        p_new, m_new, v_new = _leaf_update(p, _clip(g, scale), m, v, lr, bc1, bc2, cfg)
+        p.copy_(p_new)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    step.add_(1)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -1,9 +1,12 @@
 """Step functions: the units a trainer runs and a replay must reproduce bit for bit.
 
 Counterpart of ``repro.train.steps``. ``make_train_step``: forward, loss,
-backward, global-norm clip and AdamW, out of place (the reference donates
-its inputs; here they are left as they were, so the same step can be run
-again from the same state and its digest compared). On the card the step's
+backward, global-norm clip and AdamW, out of place (its inputs are left as
+they were, so the same step can be run again from the same state and its
+digest compared: the trainer's verify twin). ``make_donating_train_step``:
+the same step updating params and AdamW state in their own buffers
+(``adamw_update_``), the counterpart of the reference's step jitted with
+``donate_argnums=(0, 1)``; it gives the out-of-place step's bits. On the card the step's
 attention runs through the flash forward and backward kernels, whose sums
 have a fixed order; run it under ``torch.use_deterministic_algorithms(True)``
 with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before the first cuBLAS handle
@@ -18,10 +21,18 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.models import Model
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_leaves, tree_map
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    adamw_update_,
+    tree_leaves,
+    tree_map,
+)
 
 __all__ = [
     "make_train_step",
+    "make_donating_train_step",
     "make_prefill_step",
     "make_decode_step",
     "make_opt_init",
@@ -66,6 +77,21 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return new_params, new_state, metrics
+
+    return train_step
+
+
+def make_donating_train_step(model: Model, opt_cfg: AdamWConfig):
+    """``make_train_step`` in place: the returned params and state are the ones passed
+    in, updated; the caller must not need their values from before the step."""
+
+    def train_step(params, opt_state, batch) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+        (_, metrics), grads = value_and_grad(model.loss_fn, params, batch)
+        with torch.no_grad():
+            opt_metrics = adamw_update_(params, grads, opt_state, opt_cfg)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
 
     return train_step
 

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in it, its own config copy,
-and no silent fall back to the CPU."""
+"""The port stands alone: no JAX and nothing of ``repro`` in it, no ``msgpack`` or
+``orjson`` (the card's machine has neither) and ``zstandard`` only optionally, its own
+config copy, and no silent fall back to the CPU."""
 
 import ast
 import dataclasses
@@ -17,6 +18,8 @@ import repro_torch.configs as tconfigs
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
+NOT_ON_THE_CARD = {"msgpack", "orjson"}  # the port keeps its own encoder
+OPTIONAL = {"zstandard"}  # only inside try/except ImportError
 
 
 def _port_modules():
@@ -34,6 +37,19 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.models.rglru",
         "repro_torch.kernels.wkv6",
         "repro_torch.models.rwkv",
+        "repro_torch.wire.packer",
+        "repro_torch.wire.payload",
+        "repro_torch.core.context",
+        "repro_torch.core.graph",
+        "repro_torch.core.durable",
+        "repro_torch.core.executor",
+        "repro_torch.core.failure",
+        "repro_torch.core.heartbeat",
+        "repro_torch.checkpoint.store",
+        "repro_torch.obs.metrics",
+        "repro_torch.train.host",
+        "repro_torch.train.trainer",
+        "repro_torch.launch.train",
     ):
         assert new in mods
     code = (
@@ -41,7 +57,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'repro',\n"
+        "                                     'msgpack', 'orjson'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -68,6 +85,40 @@ def test_no_jax_or_repro_import_in_the_source(path):
         assert not FORBIDDEN.intersection(roots), f"{path}:{node.lineno} imports {roots}"
 
 
+def _optional_imports(tree):
+    """Ids of the import nodes that sit in a ``try`` whose handlers catch ImportError."""
+    ok = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        names = set()
+        for handler in node.handlers:
+            kinds = handler.type.elts if isinstance(handler.type, ast.Tuple) else [handler.type]
+            names |= {k.id for k in kinds if isinstance(k, ast.Name)}
+        if names & {"ImportError", "ModuleNotFoundError"}:
+            ok |= {id(n) for stmt in node.body for n in ast.walk(stmt)}
+    return ok
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_msgpack_or_orjson_and_zstandard_only_optional(path):
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    optional = _optional_imports(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots = {(node.module or "").split(".")[0]}
+        else:
+            continue
+        assert not NOT_ON_THE_CARD & roots, f"{path}:{node.lineno} imports {roots}"
+        if OPTIONAL & roots:
+            assert id(node) in optional, f"{path}:{node.lineno} imports {roots} unguarded"
+
+
 def test_config_mirror_equals_the_reference_for_every_arch():
     assert tconfigs.list_archs() == jconfigs.list_archs()
     for name in jconfigs.list_archs():
@@ -84,9 +135,10 @@ def test_config_mirror_equals_the_reference_for_every_arch():
 
 
 def _entry_points():
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import build
     from repro_torch.params import from_numpy_tree, init_params
+    from repro_torch.train import TrainConfig, Trainer
 
     cfg = tconfigs.smoke_variant(tconfigs.get_config("serpytor-demo-100m"))
     return {
@@ -94,15 +146,23 @@ def _entry_points():
         "init_params": lambda: init_params(cfg),
         "from_numpy_tree": lambda: from_numpy_tree({}),
         "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
+        "Trainer": lambda run_dir: Trainer(cfg, TrainConfig(run_dir)),
+        "launch.train": lambda run_dir: train.main(
+            ["--arch", "serpytor-demo-100m", "--steps", "1", "--run-dir", run_dir]
+        ),
     }
 
 
-@pytest.mark.parametrize("name", ["build", "init_params", "from_numpy_tree", "launch.serve"])
-def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
+@pytest.mark.parametrize(
+    "name",
+    ["build", "init_params", "from_numpy_tree", "launch.serve", "Trainer", "launch.train"],
+)
+def test_entry_point_without_device_raises_without_cuda(name, monkeypatch, tmp_path):
     """No device given means cuda; with no card that raises instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    entry = _entry_points()[name]
     with pytest.raises(RuntimeError, match="CUDA"):
-        _entry_points()[name]()
+        entry(str(tmp_path / "run")) if name in ("Trainer", "launch.train") else entry()
 
 
 def test_launch_serve_runs_on_the_cpu_when_asked(capsys):
