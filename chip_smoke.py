@@ -56,6 +56,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    sequential greedy decoding, the flash kernel ran in every prefill
    layer and the decode-attention kernel in every layer of every decode
    step, and prefill logits agree with the port's CPU path within 1e-4;
+4b. gateway: the same model, params and prompts through the Gateway / HTTP
+   worker route (``repro_torch.launch.gateway_serve``: two ``WorkerServer``s
+   on 127.0.0.1 sharing the one param tree, their ``WorkerClient``s, a
+   ``Gateway`` with context-affinity allocation; each request a batch-1
+   greedy ``generate`` task): round 1 submits all 8 requests at once, their
+   tokens equal the demo phase's sequential ones, the flash kernel launched
+   8 layers x 8 prefills times and the decode-attention kernel 8 x 8 x 32,
+   both workers served; then r0 alone through the same route (the cost of
+   one generation with nothing beside it); both heartbeats report the card;
+   the HTTP bodies of one ``generate`` through w0's ``run_task``; a trace
+   of round 1 (8 at once and r0 alone at 8 new tokens: a sampler of where
+   the handler threads stand, and under torch.profiler recording every
+   thread the device's busy share and the threads' time in ATen ops, in
+   ``.item()`` syncs and outside ops); every round logs the process's cores
+   busy;
+   round 2 crashes w1's application (its heartbeat answers, its app does
+   not) and w0 serves 4 more requests with the same tokens. Logs tok/s
+   beside the batcher's, each request's latency, the gateway's allocation
+   µs and per-worker stats and the heartbeat probe;
 5. train, in a process of its own (this file run with ``--train``, which
    sets ``CUBLAS_WORKSPACE_CONFIG`` before importing torch; the other phases
    run without it): the same model at full width and depth takes 3 AdamW
@@ -124,6 +143,7 @@ or outside a checkout of the repository, it fails before printing any result.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -131,8 +151,11 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -148,7 +171,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import Journal, check_heartbeat  # noqa: E402
+from repro_torch.core import Context, Gateway, Journal, check_heartbeat  # noqa: E402
 from repro_torch.data import DataConfig, TokenSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -156,6 +179,11 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rglru as rg  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
+from repro_torch.launch.gateway_serve import (  # noqa: E402
+    build_registry,
+    generate_all,
+    http_workers,
+)
 from repro_torch.launch.serve import drain, make_prompts, serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.layers import apply_norm, softcap  # noqa: E402
@@ -1294,7 +1322,301 @@ def phase_demo() -> dict:
         f"prefill {res['prefill_ms_mean']:.3f} ms mean; decode {res['decode_ms_per_step']:.3f} "
         f"ms/step over {res['steps']} steps; max_memory_allocated {peak} bytes"
     )
-    return {"flash": launches, "decode_attention": decode_launches}
+    serving = dict(
+        cfg=cfg, model=model, params=params, prompts=prompts, want=want, tok_per_s=res["tok_per_s"]
+    )
+    return {"flash": launches, "decode_attention": decode_launches, "serving": serving}
+
+
+GATEWAY_CRASH_REQUESTS = 4  # round 2: prompts 0-3 after w1's application is crashed
+
+
+def _gateway_round(tag, gw, cfg, prompts, want, new_tokens=NEW_TOKENS):
+    """One round through the gateway: every prompt's tokens equal the first ``new_tokens`` of
+    ``want``'s, the flash and decode-attention kernels ran in every layer of every prefill and
+    decode step and nothing else ran; logs the process's CPU seconds (user + system, every
+    thread) over the round's wall, the cores busy on average. Returns the round's wall
+    seconds, latencies and tokens."""
+    _reset_launches()
+    cpu = time.process_time()
+    outs, wall, latency = generate_all(gw, [p.tolist() for p in prompts], new_tokens)
+    cpu = time.process_time() - cpu
+    counts = (
+        fa.flash_attention_fwd.launches,
+        da.decode_attention.launches,
+        rg.rglru_scan.launches,
+        wk.wkv6_chunked.launches,
+    )
+    for i, out in enumerate(outs):
+        if out["tokens"] != want[f"r{i}"][:new_tokens]:
+            raise AssertionError(
+                f"[gateway] {tag} r{i}: through the gateway {out['tokens']} != sequential "
+                f"{want[f'r{i}'][:new_tokens]}"
+            )
+    expected = (cfg.num_layers * len(prompts), cfg.num_layers * len(prompts) * new_tokens, 0, 0)
+    if counts != expected:
+        raise AssertionError(
+            f"[gateway] {tag} launches flash, decode_attention, rglru, wkv6 {counts}, expected "
+            f"{expected}"
+        )
+    log(
+        f"[gateway] {tag}: tokens of all {len(outs)} requests equal sequential greedy decoding;"
+        f" flash_attention_fwd launches {counts[0]} = {cfg.num_layers} layers x {len(prompts)} "
+        f"prefills, decode_attention launches {counts[1]} = {cfg.num_layers} layers x "
+        f"{len(prompts)} requests x {new_tokens} decode steps, rglru 0, wkv6 0; process CPU "
+        f"{cpu:.4f} s over {wall:.4f} s wall = {cpu / wall:.3f} cores busy"
+    )
+    return wall, latency, sum(len(o["tokens"]) for o in outs)
+
+
+def _log_latency(tag, wall, latency, tokens):
+    lat = sorted(1e3 * t for t in latency)
+    log(
+        f"[gateway] {tag}: {tokens} tokens in {wall:.4f} s: {tokens / wall:.2f} tok/s; request "
+        f"latency (submit to result) mean {sum(lat) / len(lat):.3f} ms, p50 "
+        f"{float(np.median(lat)):.3f} ms, max {lat[-1]:.3f} ms"
+    )
+
+
+GATEWAY_TRACE_TOKENS = 8  # new tokens a request in the rounds that trace round 1's host time
+GATEWAY_SAMPLE_S = 0.002  # the stack sampler's period
+SYNC_OP = "aten::_local_scalar_dense"  # the copy and stream sync under int(tok[0])
+
+
+def _stack_site(frame):
+    """Where a thread inside a ``generate`` task stands: its innermost frame and the innermost
+    frame of the port's own code, or None for a thread outside a task."""
+    port, f = None, frame
+    while f is not None:
+        code = f.f_code
+        if port is None and "repro_torch" in code.co_filename:
+            port = f"{Path(code.co_filename).name}:{f.f_lineno} {code.co_name}"
+        if code.co_name == "generate" and code.co_filename.endswith("gateway_serve.py"):
+            inner = frame.f_code
+            site = f"{Path(inner.co_filename).name}:{frame.f_lineno} {inner.co_name}"
+            return site if site == port else f"{site} <- {port}"
+        f = f.f_back
+    return None
+
+
+def _sampled_round(tag, gw, cfg, prompts, want) -> None:
+    """A round with a thread that takes every handler thread's stack each
+    ``GATEWAY_SAMPLE_S``. A sample is taken with the interpreter lock held, so every handler
+    thread stands where it last gave the lock up: inside a call that releases it (a sync, a
+    ctypes launch, a lock) or at a forced switch in its Python."""
+    sites, stop = collections.Counter(), threading.Event()
+
+    def sample():
+        while not stop.wait(GATEWAY_SAMPLE_S):
+            for tid, frame in sys._current_frames().items():
+                site = _stack_site(frame) if tid != threading.get_ident() else None
+                if site is not None:
+                    sites[site] += 1
+
+    sampler = threading.Thread(target=sample, name="stack-sampler")
+    sampler.start()
+    try:
+        _gateway_round(tag, gw, cfg, prompts, want, GATEWAY_TRACE_TOKENS)
+    finally:
+        stop.set()
+        sampler.join()
+    total = sum(sites.values())
+    top = "; ".join(
+        f"{site} {n} ({100 * n / total:.1f}%)" for site, n in sites.most_common(10)
+    )
+    log(f"[gateway] {tag}: {total} thread samples in generate tasks; where they stood: {top}")
+
+
+def _thread_breakdown(prof):
+    """For each thread that ran ``.item()`` syncs (the handler threads): (its span from its
+    first CPU event to its last, the time inside CPU events (the union of ATen ops and runtime
+    calls), the time inside the syncs (``aten::_local_scalar_dense``), the syncs), in us."""
+    by_thread = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            by_thread[e.thread].append(e)
+    rows = []
+    for events in by_thread.values():
+        syncs = [e.time_range.elapsed_us() for e in events if e.name == SYNC_OP]
+        if not syncs:
+            continue
+        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+        inside, (lo, hi) = 0.0, spans[0]
+        for start, end in spans[1:]:
+            if start > hi:
+                inside, lo = inside + hi - lo, start
+            hi = max(hi, end)
+        inside += hi - lo
+        span = max(end for _, end in spans) - spans[0][0]
+        rows.append((span, inside, sum(syncs), len(syncs)))
+    return rows
+
+
+def _profiled_round(tag, gw, cfg, prompts, want) -> None:
+    """A round under torch.profiler, every thread's CPU ops recorded: the device's busy share
+    of the round's wall, and how the handler threads' spans split into ATen ops, ``.item()``
+    syncs and the rest (Python, and waiting for the interpreter lock), a step (a prefill or a
+    decode step) at a time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=acts, experimental_config=config) as prof:
+        t0 = time.monotonic()
+        _, _, tokens = _gateway_round(tag, gw, cfg, prompts, want, GATEWAY_TRACE_TOKENS)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0)
+    rows = _device_rows(prof)
+    if not rows:
+        log(f"[gateway] {tag}: no device time recorded (busy share not measured)")
+    else:
+        kinds, launches = _device_kinds(rows)
+        busy = sum(kinds.values())
+        by_kind = "; ".join(
+            f"{k} {ms:.3f} ms ({launches[k]} launches)"
+            for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
+        )
+        log(
+            f"[gateway] {tag} profiled: {tokens} tokens in {wall_ms:.3f} ms wall, device busy "
+            f"{busy:.3f} ms ({100 * busy / wall_ms:.2f}%), {sum(launches.values())} kernels: "
+            f"{by_kind}"
+        )
+    threads = _thread_breakdown(prof)
+    if not threads:
+        log(f"[gateway] {tag}: no handler thread's ops recorded (host time not measured)")
+        return
+    span, inside, sync, n_sync = (sum(col) for col in zip(*threads))
+    steps = len(prompts) * (GATEWAY_TRACE_TOKENS + 1)
+    ops = inside - sync
+    log(
+        f"[gateway] {tag} profiled: {len(threads)} handler threads, spans {span / 1e3:.3f} ms "
+        f"in all: ATen ops and runtime calls {ops / 1e3:.3f} ms ({100 * ops / span:.1f}%), "
+        f".item() syncs {sync / 1e3:.3f} ms ({100 * sync / span:.1f}%, {n_sync} syncs), "
+        f"outside ops (Python, waiting for the interpreter lock) {(span - inside) / 1e3:.3f} ms "
+        f"({100 * (span - inside) / span:.1f}%); a step (prefill or decode, {steps} steps): "
+        f"ops {ops / steps / 1e3:.3f} ms, syncs {sync / steps / 1e3:.3f} ms, outside "
+        f"{(span - inside) / steps / 1e3:.3f} ms"
+    )
+
+
+def _trace_round_1(gw, cfg, prompts, want) -> None:
+    """Where round 1's time goes: its 8 requests at ``GATEWAY_TRACE_TOKENS`` new tokens with
+    the stack sampler, then profiled; then r0 alone profiled."""
+    n, t0 = len(prompts), time.monotonic()
+    _sampled_round(f"trace, {n} at once, sampled", gw, cfg, prompts, want)
+    _profiled_round(f"trace, {n} at once", gw, cfg, prompts, want)
+    _profiled_round("trace, r0 alone", gw, cfg, prompts[:1], want)
+    log(f"[gateway] the trace's rounds and their profiles: {time.monotonic() - t0:.1f} s")
+
+
+def _wire_bytes(client, ctx, inputs, want_tokens):
+    """The HTTP bodies of one ``generate`` through ``client.run_task``, as ``urlopen`` sends
+    and reads them (the gateway idle, so no other task is in flight): (request, response)."""
+    sizes = {"request": 0, "response": 0}
+    urlopen = urllib.request.urlopen
+
+    def recording(req, *args, **kwargs):
+        resp = urlopen(req, *args, **kwargs)
+        if isinstance(req, urllib.request.Request) and req.full_url.endswith("/task"):
+            sizes["request"] += len(req.data)
+            read = resp.read
+
+            def counted_read(*a):
+                raw = read(*a)
+                sizes["response"] += len(raw)
+                return raw
+
+            resp.read = counted_read
+        return resp
+
+    with mock.patch.object(urllib.request, "urlopen", recording):
+        out = client.run_task("generate", ctx, inputs)
+    if out.get("status") != "ok" or out["output"]["tokens"] != want_tokens:
+        raise AssertionError(f"[gateway] {client.name} run_task: {out}")
+    return sizes["request"], sizes["response"]
+
+
+def phase_gateway(serving: dict) -> None:
+    """Serve the demo phase's model and prompts through a Gateway and two HTTP workers
+    (``launch.gateway_serve``: batch-1 greedy ``generate`` tasks, prefill padded to S + 32)
+    sharing its one param tree. Round 1: 8 requests, tokens equal the demo phase's sequential
+    ones, 64 flash and 2,048 decode-attention launches, both workers served; then r0 alone
+    (the cost of one generation with nothing beside it); both heartbeats report the card;
+    one request's HTTP bodies; the trace of round 1 (``_trace_round_1``). Round 2: w1's
+    application crashed (its heartbeat answers, its app does not), 4 more requests all served
+    by w0 with the same tokens."""
+    cfg, model, params = serving["cfg"], serving["model"], serving["params"]
+    prompts, want = serving["prompts"], serving["want"]
+    registries = [build_registry(cfg, model, params) for _ in range(2)]
+    with http_workers(registries) as (servers, clients):
+        with Gateway(clients, allocation=("context_affinity", "least_loaded")) as gw:
+            torch.cuda.synchronize()
+            wall, latency, tokens = _gateway_round("round 1", gw, cfg, prompts, want)
+            stats = gw.stats()
+            done = {name: w["completed"] for name, w in stats["workers"].items()}
+            if min(done.values()) < 1:
+                raise AssertionError(f"[gateway] round 1: a worker served nothing: {done}")
+            _log_latency("round 1", wall, latency, tokens)
+            log(
+                f"[gateway] batcher (demo phase, ContinuousBatcher slots {SLOTS}, same prompts): "
+                f"{serving['tok_per_s']:.2f} tok/s; the gateway's "
+                f"{tokens / wall / serving['tok_per_s']:.3f}x of it"
+            )
+            log(
+                f"[gateway] mean allocation {gw.mean_alloc_us():.3f} us over "
+                f"{stats['metrics']['alloc_calls']} decisions; per worker "
+                + ", ".join(
+                    f"{n}: completed {w['completed']}, ewma_latency_s {w['ewma_latency_s']:.4f}"
+                    for n, w in stats["workers"].items()
+                )
+            )
+            # the same route with one request in flight: the cost of a generation alone,
+            # against round 1's 8 at once on the workers' handler threads
+            wall1, _, tokens1 = _gateway_round("r0 alone", gw, cfg, prompts[:1], want)
+            log(
+                f"[gateway] r0 alone: {tokens1} tokens in {wall1:.4f} s: {tokens1 / wall1:.2f} "
+                f"tok/s, {1e3 * wall1 / (NEW_TOKENS + 1):.3f} ms a step (prefill + {NEW_TOKENS} "
+                f"decode steps); round 1's 8 at once: {tokens / wall:.2f} tok/s"
+            )
+            for client in clients:
+                t0 = time.monotonic()
+                hb = client.heartbeat()
+                probe_ms = 1e3 * (time.monotonic() - t0)
+                if hb is None or hb["devices"] != {"backend": "cuda", "count": 1}:
+                    raise AssertionError(f"[gateway] {client.name} heartbeat {hb}")
+                log(
+                    f"[gateway] {client.name} heartbeat: devices {hb['devices']}, probe "
+                    f"{probe_ms:.3f} ms"
+                )
+            ctx = Context.origin({"session": "s0"})
+            inputs = {"prompt": prompts[0].tolist(), "new_tokens": NEW_TOKENS}
+            request, response = _wire_bytes(clients[0], ctx, inputs, want["r0"])
+            log(
+                f"[gateway] one generate on the wire (r0, {len(prompts[0])} prompt tokens, "
+                f"w0's run_task): HTTP request body {request} bytes, response body {response} "
+                f"bytes"
+            )
+            _trace_round_1(gw, cfg, prompts, want)
+
+            servers[1].crash_application()
+            if clients[1].heartbeat() is None:
+                raise AssertionError("[gateway] w1's heartbeat went down with its application")
+            try:
+                clients[1].run_task("health", Context(), {})
+            except TimeoutError:
+                pass
+            else:
+                raise AssertionError("[gateway] w1's application still answers after the crash")
+            log("[gateway] w1's application crashed: its heartbeat answers, its app does not")
+            before = {n: w["completed"] for n, w in gw.stats()["workers"].items()}
+            n2 = GATEWAY_CRASH_REQUESTS
+            wall2, latency2, tokens2 = _gateway_round("round 2", gw, cfg, prompts[:n2], want)
+            after = {n: w["completed"] for n, w in gw.stats()["workers"].items()}
+            if (after["w0"] - before["w0"], after["w1"] - before["w1"]) != (n2, 0):
+                raise AssertionError(f"[gateway] round 2 completions {before} -> {after}")
+            _log_latency("round 2", wall2, latency2, tokens2)
+            log(
+                f"[gateway] round 2: all {n2} requests served by w0; gateway metrics "
+                f"{gw.stats()['metrics']}"
+            )
 
 
 def _host_tree(tree):
@@ -2223,6 +2545,7 @@ def main() -> int:
     kernel_rows = _timed("kernels", phase_kernels)
     flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows = kernel_rows
     demo = _timed("demo", phase_demo)
+    _timed("gateway", lambda: phase_gateway(demo.pop("serving")))
     train = _timed("train", phase_train)
     _timed("durable", lambda: phase_durable(train))
     hybrid = _timed("hybrid", phase_hybrid)

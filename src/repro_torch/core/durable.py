@@ -19,8 +19,11 @@ tails (a crash mid-append) are detected and truncated on open.
 
 Not copied: journal compaction (a ``SNAPSHOT`` record) and the stream-chunk
 records (``CHUNK_COMMIT``, ``STREAM_EOS``), which wait for ROADMAP Queue 1
-item 14: a journal holding one raises when it is read. Nor are interrupts,
-lineage headers and the fork bookkeeping of durable workflows.
+item 14: a journal holding one raises when it is read. Nor are the
+``interrupt()`` points, lineage headers and the fork bookkeeping of durable
+workflows: only the ``Interrupted`` exception is here, which the worker and
+the gateway (``core/server.py``, ``core/gateway.py``) carry across as a
+status.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 from repro_torch.wire import decode_payload, encode_payload
 
-__all__ = ["Journal", "JournalRecord", "ReplayCache", "KNOWN_KINDS"]
+__all__ = ["Interrupted", "Journal", "JournalRecord", "ReplayCache", "KNOWN_KINDS"]
 
 _HEADER = struct.Struct("<II")  # (length, crc32)
 
@@ -68,6 +71,21 @@ KNOWN_KINDS = frozenset(
 
 #: Known kinds whose meaning the port does not carry yet: reading one raises.
 NOT_PORTED_KINDS = frozenset({"SNAPSHOT", "CHUNK_COMMIT", "STREAM_EOS"})
+
+
+class Interrupted(Exception):
+    """A task reached a named interrupt point without an answer in its ξ.
+
+    Executors treat it as a *suspension request*, not a failure; a worker
+    reports it as ``status: interrupt`` and the gateway fails the request's
+    future with it, never retrying it. The ``interrupt()`` points that raise
+    it and the executor's suspension wait for ROADMAP Queue 1 item 14.
+    """
+
+    def __init__(self, name: str, payload: Any = None):
+        super().__init__(name)
+        self.name = name
+        self.payload = payload
 
 
 @dataclass

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "build_dir"]
+__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "build_dir", "count_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -51,6 +51,7 @@ NVCC_FLAGS = (
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _repo_root() -> Path:
@@ -132,3 +133,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LOADED[name] = lib
         return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches.
+
+    The wrappers are called from several threads at once (a worker server's
+    handler threads), and ``+= 1`` on an attribute is a read-modify-write the
+    interpreter may switch threads inside; the lock keeps every launch
+    counted. Callers read and reset ``wrapper.launches`` directly.
+    """
+    with _COUNT_LOCK:
+        wrapper.launches += 1

@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref as _ref
+from ._build import count_launch
 
 __all__ = ["decode_attention", "split_plan", "MAX_SPLITS", "MAX_GROUP", "MAX_HEAD_DIM", "MAX_CACHE"]
 
@@ -101,11 +102,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     fn = lib.repro_decode_attention
     if fn.argtypes is None:  # first use: declare the C signature
+        # argtypes last: it is the flag another thread tests above
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, i32, ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [ptr] * 5 + [i32] * 7 + [ctypes.c_float, i32, ptr]
     return lib
 
 
@@ -155,7 +157,7 @@ def decode_attention(
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"decode_attention: launch failed: CUDA error {err} ({msg})")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref as _ref
+from ._build import count_launch
 
 __all__ = [
     "flash_attention_fwd",
@@ -183,11 +184,12 @@ def _lib(name: str, n_ptr: int, n_int: int, n_after: int) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, f"repro_{name}")
     if fn.argtypes is None:  # first use: declare the C signature
+        # argtypes last: it is the flag another thread tests above
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ctypes.c_float] + [i32] * n_after + [ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ctypes.c_float] + [i32] * n_after + [ptr]
     return lib
 
 
@@ -267,7 +269,7 @@ def flash_attention_fwd(
             stream,
         )
     _raise_on(lib, err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     out = out if dv == dv_out else out[..., :dv_out].contiguous()
     return (out, lse) if return_lse else out
 
@@ -364,7 +366,7 @@ def flash_attention_bwd(
             stream,
         )
     _raise_on(lib, err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    count_launch(flash_attention_bwd)
     return dq, dk, dvv
 
 

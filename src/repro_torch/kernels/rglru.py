@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref as _ref
+from ._build import count_launch
 
 __all__ = ["rglru_scan", "path_for", "RING_CHANNELS", "STEP_MAX_T"]
 
@@ -79,11 +80,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rglru_scan")
     fn = lib.repro_rglru_scan
     if fn.argtypes is None:  # first use: declare the C signature
+        # argtypes last: it is the flag another thread tests above
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     return lib
 
 
@@ -145,7 +147,7 @@ def rglru_scan(
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"rglru_scan: launch failed: CUDA error {err} ({msg})")
-    rglru_scan.launches += 1
+    count_launch(rglru_scan)
     if wp != w:
         return h[..., :w].contiguous(), h_last[:, :w].contiguous()
     return h, h_last

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import ref as _ref
+from ._build import count_launch
 
 __all__ = ["wkv6_chunked", "path_for", "CHUNK", "MAX_HEAD_SIZE", "STREAM_MAX_T"]
 
@@ -114,14 +115,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv6")
     fn = lib.repro_wkv6
     if fn.argtypes is None:  # first use: declare the C signature
+        # argtypes last: it is the flag another thread tests above
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         i64 = ctypes.c_longlong
-        fn.argtypes = [ptr] * 8 + [ctypes.POINTER(i64), i32, i32, i64] + [i32] * 4 + [ptr]
         lib.repro_wkv6_shared_bytes.restype = ctypes.c_int
         lib.repro_wkv6_shared_bytes.argtypes = [i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [ptr] * 8 + [ctypes.POINTER(i64), i32, i32, i64] + [i32] * 4 + [ptr]
     return lib
 
 
@@ -191,7 +193,7 @@ def wkv6_chunked(
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"wkv6: launch failed: CUDA error {err} ({msg})")
-    wkv6_chunked.launches += 1
+    count_launch(wkv6_chunked)
     return out, s_out
 
 

@@ -11,8 +11,7 @@ Builds the architecture at its full registered size (``--smoke`` for the
 reduced variant), draws params from ``--seed``, submits ``--requests``
 prompts of seeded random lengths and drains the batcher. Prints tok/s, the
 mean prefill time and the decode time per step. The Gateway / HTTP worker
-route of ``repro.launch.serve`` needs the port's own copy of ``core/`` and
-comes with a later slice.
+route of ``repro.launch.serve`` is ``repro_torch.launch.gateway_serve``.
 """
 
 from __future__ import annotations

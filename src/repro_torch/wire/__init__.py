@@ -4,8 +4,10 @@
     hashing form, stdlib JSON, the same bytes the reference hashes under any
     of its codecs (``base``);
   - ``encode_payload`` / ``decode_payload`` / ``payload_digest``: the
-    compressed msgpack pytree codec of the journal (``payload``), msgpack by
-    the port's own encoder (``packer``);
+    compressed msgpack pytree codec of the journal and the worker RPC
+    (``payload``), msgpack by the port's own encoder (``packer``);
+    ``Digested`` / ``unwrap_digested``, the precomputed-digest hint;
+    ``encode_frame`` / ``read_frames``, the crc-checked frames of a stream;
   - ``compress`` / ``decompress``: tagged-frame compression, zstd when the
     optional ``zstandard`` is installed, else zlib (``compress``).
 
@@ -27,10 +29,22 @@ from .base import (
     stdlib_canonical,
 )
 from .compress import compress, decompress, zstd_available
-from .payload import PayloadDecodeError, decode_payload, encode_payload, payload_digest
+from .payload import (
+    FRAME_HEADER,
+    Digested,
+    PayloadDecodeError,
+    decode_payload,
+    encode_frame,
+    encode_payload,
+    payload_digest,
+    read_frames,
+    unwrap_digested,
+)
 
 __all__ = [
     "DIGEST_HEX_LEN",
+    "Digested",
+    "FRAME_HEADER",
     "JsonCodec",
     "PayloadDecodeError",
     "canonical_bytes",
@@ -38,11 +52,14 @@ __all__ = [
     "compress",
     "decode_payload",
     "decompress",
+    "encode_frame",
     "encode_payload",
     "from_canonical",
     "host_array",
     "normalize",
     "payload_digest",
+    "read_frames",
     "stdlib_canonical",
+    "unwrap_digested",
     "zstd_available",
 ]

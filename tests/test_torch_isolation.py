@@ -45,6 +45,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.core.executor",
         "repro_torch.core.failure",
         "repro_torch.core.heartbeat",
+        "repro_torch.core.server",
+        "repro_torch.core.gateway",
+        "repro_torch.obs.trace",
+        "repro_torch.launch.gateway_serve",
         "repro_torch.checkpoint.store",
         "repro_torch.obs.metrics",
         "repro_torch.train.host",
@@ -135,7 +139,7 @@ def test_config_mirror_equals_the_reference_for_every_arch():
 
 
 def _entry_points():
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import gateway_serve, serve, train
     from repro_torch.models import build
     from repro_torch.params import from_numpy_tree, init_params
     from repro_torch.train import TrainConfig, Trainer
@@ -146,6 +150,7 @@ def _entry_points():
         "init_params": lambda: init_params(cfg),
         "from_numpy_tree": lambda: from_numpy_tree({}),
         "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
+        "launch.gateway_serve": lambda: gateway_serve.main(["--smoke", "--requests", "1"]),
         "Trainer": lambda run_dir: Trainer(cfg, TrainConfig(run_dir)),
         "launch.train": lambda run_dir: train.main(
             ["--arch", "serpytor-demo-100m", "--steps", "1", "--run-dir", run_dir]
@@ -155,7 +160,15 @@ def _entry_points():
 
 @pytest.mark.parametrize(
     "name",
-    ["build", "init_params", "from_numpy_tree", "launch.serve", "Trainer", "launch.train"],
+    [
+        "build",
+        "init_params",
+        "from_numpy_tree",
+        "launch.serve",
+        "launch.gateway_serve",
+        "Trainer",
+        "launch.train",
+    ],
 )
 def test_entry_point_without_device_raises_without_cuda(name, monkeypatch, tmp_path):
     """No device given means cuda; with no card that raises instead of running on the CPU."""
