@@ -102,6 +102,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ms through the trainer against the direct steps', each checkpoint save's
    seconds (params sync, ``-opt`` async), the restore's, the journal's size and
    the heartbeat's report;
+5c. distributed train, in a process of its own (this file run with
+   ``--distributed``, set up as ``--train``): ``DistributedTrainer`` trains the
+   same model data-parallel through a ``ClusterExecutor`` over a ``Gateway`` of 2
+   in-process workers of capacity 1, 4 ``grad_shard`` tasks of 2 x 4096 tokens a
+   step, 2 steps and one checkpoint pair (run A); then the same with w0 a
+   ``FlakyWorker`` that dies at its second task start (run B). B ends at A's
+   checkpoint digest with every ``grad@s#k`` and ``apply@s`` digest equal and a
+   ``NODE_REQUEUE`` journaled; each run launched the flash forward and backward
+   8 layers x its ``grad_shard`` runs times (8 a step, one more for each shard w0
+   had started when it was evicted); no journal record holds an array; torch's CPU
+   and CUDA RNG states are unchanged by a run. Step 0 computed directly on one
+   thread (each shard's task in order, the mean, AdamW) gives A's ``grad@0#k``
+   and ``apply@0`` digests. Three one-step graphs follow (warm, host timers,
+   ``torch.profiler``). Logs each step's seconds through the trainer beside the
+   train phase's direct step (tokens/s), peak memory, the host's seconds in
+   ``payload_digest``, in copies between the card and the host and in the fold
+   (timers the phase puts around those calls), the device's busy share and
+   each save's seconds;
 6. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
    10.4B params, bfloat16) serves 8 requests of prompts on both sides of
    its 2048 window through ``ContinuousBatcher(slots=4, max_len=3072)``;
@@ -144,6 +162,7 @@ or outside a checkout of the repository, it fails before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -164,14 +183,26 @@ sys.path.insert(0, str(ROOT / "src"))
 # torch.use_deterministic_algorithms(True) raises without it. The serving phases run in the
 # first process without it, as a server does.
 TRAIN_ARG = "--train"
-if sys.argv[1:] == [TRAIN_ARG]:
+DIST_ARG = "--distributed"  # the distributed phase's process, set up as the train phase's
+if sys.argv[1:] in ([TRAIN_ARG], [DIST_ARG]):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import Context, Gateway, Journal, check_heartbeat  # noqa: E402
+import repro_torch.core.executor as executor_mod  # noqa: E402
+import repro_torch.train.distributed as dist_mod  # noqa: E402
+import repro_torch.wire.payload as payload_mod  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ClusterExecutor,
+    Context,
+    FlakyWorker,
+    Gateway,
+    InProcWorker,
+    Journal,
+    check_heartbeat,
+)
 from repro_torch.data import DataConfig, TokenSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -198,7 +229,12 @@ from repro_torch.optim.adamw import (  # noqa: E402
 from repro_torch.params import init_params  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.serve.batcher import _splice_cache  # noqa: E402
-from repro_torch.train import make_opt_init, make_train_step  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    DistributedTrainer,
+    DistTrainConfig,
+    make_opt_init,
+    make_train_step,
+)
 from repro_torch.train.steps import value_and_grad  # noqa: E402
 from repro_torch.wire import payload_digest  # noqa: E402
 
@@ -1974,6 +2010,374 @@ def phase_durable(direct: dict) -> None:
         shutil.rmtree(DURABLE_DIR, ignore_errors=True)
 
 
+DIST_DIR = ROOT / "build" / "distributed_train"  # the runs' directories; build/ is not committed
+# the data-parallel round at the train phase's sequence length: 4 shards of 2 sequences of
+# 4096 tokens (a global batch of 8, train_4k's 256 cut to one card), 2 in-process workers of
+# capacity 1 (at most 2 shards on the card at once), 2 steps, one checkpoint pair
+DIST_SHARDS, DIST_WORKERS, DIST_STEPS = 4, 2, 2
+DIST_BATCH = 2 * DIST_SHARDS
+DIST_RESULT = "[distributed] result "  # the distributed process's line of launches and times
+
+
+def phase_distributed(direct: dict) -> dict:
+    """Run the distributed phase in a process of its own (this file with ``--distributed``),
+    its log passed on line by line; log its step beside the train phase's direct step (in
+    this call) and return what its result line gives."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), DIST_ARG]
+    result = None
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
+        for line in proc.stdout:
+            log(line.rstrip("\n"))
+            if line.startswith(DIST_RESULT):
+                result = json.loads(line[len(DIST_RESULT) :])
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(
+            f"[distributed] the distributed process exited with code {proc.returncode}"
+        )
+    steady = sum(direct["step_ms"][1:]) / (len(direct["step_ms"]) - 1)
+    direct_tps = TRAIN_BATCH * TRAIN_SEQ / steady * 1e3
+    for tag in ("A", "B"):
+        steps = result[f"step_s_{tag}"]
+        tps = DIST_BATCH * TRAIN_SEQ / steps[-1]
+        log(
+            f"[distributed] run {tag}: {', '.join(f'{x:.3f}' for x in steps)} s a step through "
+            f"the DistributedTrainer (sync@s NODE_START to apply@s NODE_COMMIT), step "
+            f"{len(steps) - 1}: {tps:.1f} tokens/s of {DIST_BATCH} x {TRAIN_SEQ}; the train "
+            f"phase's direct step in this call {steady:.3f} ms, {direct_tps:.1f} tokens/s of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: {tps / direct_tps:.4f}x its tokens/s "
+            f"({result['smi']})"
+        )
+    return result
+
+
+class _HostTimers:
+    """Host seconds in the calls the distributed phase wraps, summed over the threads that
+    make them, by kind: hashing (``payload_digest``, in the executor, the ``Digested``
+    wrapper and the trainer), the copies between the card and the host (each timed after a
+    device sync, whose wait is counted apart), and the fold (the shards' mean). The package
+    is not changed: the phase replaces module attributes while it runs."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.sec = collections.Counter()
+        self.calls = collections.Counter()
+
+    def reset(self) -> None:
+        with self.lock:
+            self.sec.clear()
+            self.calls.clear()
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            return {k: (self.sec[k], self.calls[k]) for k in sorted(self.sec)}
+
+    def _add(self, kind: str, sec: float) -> None:
+        with self.lock:
+            self.sec[kind] += sec
+            self.calls[kind] += 1
+
+    def _timed(self, kind: str, fn, sync: bool = False):
+        def timed(*args, **kwargs):
+            if sync:
+                t = time.monotonic()
+                torch.cuda.synchronize()
+                self._add("device sync before a copy", time.monotonic() - t)
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            self._add(kind, time.monotonic() - t0)
+            return out
+
+        return timed
+
+    def installed(self):
+        stack = contextlib.ExitStack()
+        for mod, name, kind, sync in (
+            (executor_mod, "payload_digest", "hashing", False),
+            (payload_mod, "payload_digest", "hashing", False),
+            (dist_mod, "payload_digest", "hashing", False),
+            (dist_mod, "to_host", "device to host", True),
+            (dist_mod, "from_numpy_tree", "host to device", True),
+            (dist_mod, "_mean_pytrees", "fold", False),
+        ):
+            wrapped = self._timed(kind, getattr(mod, name), sync)
+            stack.enter_context(mock.patch.object(mod, name, wrapped))
+        return stack
+
+
+def _dist_config(run_dir: Path) -> DistTrainConfig:
+    from repro_torch.launch.train import opt_config
+
+    return DistTrainConfig(
+        run_dir=str(run_dir),
+        num_steps=DIST_STEPS,
+        checkpoint_every=DIST_STEPS,
+        log_every=1,
+        global_batch=DIST_BATCH,
+        seq_len=TRAIN_SEQ,
+        journal_sync="batch",
+        heartbeat=False,
+        num_shards=DIST_SHARDS,
+        num_workers=DIST_WORKERS,
+        opt=opt_config(DIST_STEPS),
+    )
+
+
+def _tensor_payloads(payload) -> int:
+    """How many arrays a journal payload holds."""
+    if isinstance(payload, dict):
+        return sum(_tensor_payloads(v) for v in payload.values())
+    if isinstance(payload, (list, tuple)):
+        return sum(_tensor_payloads(v) for v in payload)
+    return int(hasattr(payload, "__array__") and np.ndim(payload) > 0)
+
+
+def _dist_run(tag: str, cfg, run_dir: Path, smi: str, timers: _HostTimers, flaky=False) -> dict:
+    """One ``DistributedTrainer.train()`` of DIST_STEPS steps in a fresh run dir, its
+    ``grad_shard`` calls counted; w0 a ``FlakyWorker`` that dies at its second task start
+    when ``flaky``. Checks the journal's nodes, that no commit holds a tensor, the launches
+    and that torch's RNGs are untouched; returns what the checks across runs need."""
+    per_step = cfg.num_layers
+    tr = DistributedTrainer(cfg, _dist_config(run_dir), device=DEV)
+    task, calls, lock = tr.registry.get("grad_shard"), [0], threading.Lock()
+
+    def counted(ctx, sync):
+        with lock:
+            calls[0] += 1
+        return task(ctx, sync)
+
+    tr.registry.register("grad_shard", counted)
+    if flaky:
+        tr.workers = [FlakyWorker("w0", tr.registry, kill_after_starts=2, max_concurrency=1)]
+        tr.workers += [
+            InProcWorker(f"w{i}", tr.registry, max_concurrency=1) for i in range(1, DIST_WORKERS)
+        ]
+    rng = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timers.reset()
+    _reset_launches()
+    t0 = time.monotonic()
+    out = tr.train()
+    wall = time.monotonic() - t0
+    launches = [fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches]
+    peak = torch.cuda.max_memory_allocated()
+    host = timers.snapshot()
+    if not (
+        torch.equal(rng[0], torch.random.get_rng_state())
+        and torch.equal(rng[1], torch.cuda.get_rng_state())
+    ):
+        raise AssertionError(f"[distributed {tag}] a task drew from torch's global RNG")
+    recs = _journal(run_dir)
+    commits = {r.node_id: r for r in recs if r.kind == "NODE_COMMIT"}
+    want = {f"{k}@{s}" for k in ("sync", "reduce", "apply") for s in range(DIST_STEPS)}
+    want |= {f"grad@{s}#{k}" for s in range(DIST_STEPS) for k in range(DIST_SHARDS)}
+    want |= {f"ckpt@{DIST_STEPS}"}
+    if set(commits) != want or out["steps"] != DIST_STEPS:
+        raise AssertionError(f"[distributed {tag}] commits {sorted(commits)}, want {sorted(want)}")
+    volatile = [n for n in want if n.startswith(("sync@", "grad@", "reduce@"))]
+    bad = [n for n in volatile if commits[n].payload is not None or not commits[n].meta["volatile"]]
+    arrays = sum(_tensor_payloads(r.payload) for r in recs)
+    if bad or arrays:
+        raise AssertionError(f"[distributed {tag}] payloads in volatile commits {bad}, {arrays}")
+    kinds = collections.Counter(r.kind for r in recs)
+    requeues = [(r.node_id, r.meta.get("reason")) for r in recs if r.kind == "NODE_REQUEUE"]
+    # every shard of every step ran once, and again for each requeue of a shard that w0
+    # had started before the gateway evicted it
+    shard_runs = DIST_STEPS * DIST_SHARDS
+    if launches != [per_step * calls[0]] * 2 or not (
+        shard_runs <= calls[0] <= shard_runs + len(requeues)
+    ):
+        raise AssertionError(
+            f"[distributed {tag}] flash launches {launches}, grad_shard calls {calls[0]}, "
+            f"requeues {len(requeues)}"
+        )
+    if flaky != bool(requeues):
+        raise AssertionError(f"[distributed {tag}] NODE_REQUEUE records {requeues}")
+    starts = {r.node_id: r.wall_time for r in recs if r.kind == "NODE_START"}
+    step_s = [
+        commits[f"apply@{s}"].wall_time - starts[f"sync@{s}"] for s in range(DIST_STEPS)
+    ]
+    digest = tr.store.manifest(tr.store.latest())["digest"]
+    wal = (run_dir / "journal.wal").stat().st_size
+    killed = " (w0 dies at its 2nd task start)" if flaky else ""
+    log(
+        f"[distributed {tag}] {DIST_STEPS} steps of {DIST_SHARDS} shards x 2 x {TRAIN_SEQ} "
+        f"tokens on {DIST_WORKERS} in-process workers{killed}: "
+        f"train() {wall:.3f} s, steps {', '.join(f'{x:.3f}' for x in step_s)} s; grad_shard "
+        f"calls {calls[0]}; flash_attention_fwd launches {launches[0]}, flash_attention_bwd "
+        f"launches {launches[1]} = {per_step} layers x {calls[0]} shard runs; journal "
+        f"{dict(sorted(kinds.items()))}, {wal} bytes, no array in any record; checkpoint "
+        f"digest {digest}; max_memory_allocated {peak} bytes ({peak - held} above the {held} "
+        f"held before); torch's CPU and CUDA RNG states unchanged ({smi})"
+    )
+    if requeues:
+        log(f"[distributed {tag}] NODE_REQUEUE {requeues}")
+    for kind, (sec, n) in host.items():
+        log(
+            f"[distributed {tag}] host {kind}: {sec:.3f} s in {n} calls over the run, "
+            f"{sec / DIST_STEPS:.3f} s a step ({smi})"
+        )
+    for name, sec in sorted(out["checkpoint_s"].items()):
+        log(f"[distributed {tag}] save {name}: {sec:.3f} s ({smi})")
+    result = {
+        "digest": digest,
+        "step_s": step_s,
+        "launches": launches,
+        "calls": calls[0],
+        "requeues": len(requeues),
+        "peak": peak,
+        "grads": {n: commits[n].output_digest for n in want if n.startswith("grad@")},
+        "applies": {n: commits[n].output_digest for n in want if n.startswith("apply@")},
+    }
+    del tr
+    _release()
+    return result
+
+
+def _direct_step0(cfg, smi: str) -> dict:
+    """Step 0 of the distributed round computed directly, on this thread, from the
+    trainer's seed init: each shard's ``grad_shard`` in shard order, the mean, AdamW;
+    returns each shard's output digest, the apply's metrics digest and the state after."""
+    from repro_torch.train.host import to_host
+
+    dev = torch.device(DEV)
+    model = build(cfg, dev)
+    opt = _dist_config(DIST_DIR / "direct").opt
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    state = make_opt_init(model, opt)(params)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DIST_BATCH)
+    task = dist_mod.build_grad_registry(model, data).get("grad_shard")
+    sync = {"step": 0, "params": to_host(params)}
+    _reset_launches()
+    shards = [
+        task(Context.origin({"shard": k, "num_shards": DIST_SHARDS}), sync)
+        for k in range(DIST_SHARDS)
+    ]
+    launches = [fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches]
+    if launches != [cfg.num_layers * DIST_SHARDS] * 2:
+        raise AssertionError(f"[distributed] direct step 0: flash launches {launches}")
+    mean = dist_mod._mean_pytrees([sh["grads"] for sh in shards])
+    with torch.no_grad():
+        grads = tree_map(lambda x: torch.from_numpy(x).to(dev), mean)
+        new_params, new_state, metrics = adamw_update(params, grads, state, opt)
+    out = {
+        "step": 0,
+        "loss": float(sum(sh["loss"] for sh in shards) / len(shards)),
+        "grad_norm": float(metrics["grad_norm"]),
+        "lr": float(metrics["lr"]),
+    }
+    log(
+        f"[distributed] step 0 directly (this thread, shards in order): loss {out['loss']:.6f}, "
+        f"grad_norm {out['grad_norm']:.6f}, lr {out['lr']:.4e}; flash launches {launches} ({smi})"
+    )
+    return {
+        "grads": {f"grad@0#{k}": payload_digest(sh) for k, sh in enumerate(shards)},
+        "apply": payload_digest(out),
+        "state": {"params": new_params, "opt": new_state},
+    }
+
+
+def _dist_profile(cfg, state: dict, smi: str, timers: _HostTimers) -> None:
+    """Steps 1-3 of the round from the direct step 0's state, each a one-step graph of
+    the trainer's (its checkpoint node dropped) on a ClusterExecutor over a Gateway and
+    DIST_WORKERS in-process workers, with no journal: step 1 warms the new worker threads,
+    step 2 gives the host's seconds by kind, step 3 runs under torch.profiler for the
+    device's busy share."""
+    tr = DistributedTrainer(cfg, _dist_config(DIST_DIR / "profile"), device=DEV)
+    with Gateway(tr.workers, heartbeat_interval_s=0.1, name="profile-gateway") as gw:
+        ex = ClusterExecutor(gw, speculative=False)
+
+        def step(s):
+            g = tr._round_graph(s, s + 1, state, {})
+            del g.nodes[f"ckpt@{s + 1}"]
+            t0 = time.monotonic()
+            ex.run(g)
+            torch.cuda.synchronize()
+            return time.monotonic() - t0
+
+        step(1)
+        timers.reset()
+        wall = step(2)
+        for kind, (sec, n) in timers.snapshot().items():
+            log(
+                f"[distributed] step 2 host {kind}: {sec:.3f} s in {n} calls, "
+                f"{100 * sec / wall:.1f}% of the step's {wall:.3f} s wall ({smi})"
+            )
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = step(3)
+    rows = _device_rows(prof)
+    if not rows:
+        log("[distributed] step 3 profiled: no device time recorded (busy share not measured)")
+    else:
+        kinds, launches = _device_kinds(rows)
+        busy = sum(kinds.values())
+        by_kind = "; ".join(
+            f"{k} {ms:.3f} ms ({launches[k]} launches)"
+            for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
+        )
+        log(
+            f"[distributed] step 3 profiled: {1e3 * wall:.3f} ms wall, device busy {busy:.3f} ms "
+            f"({100 * busy / (1e3 * wall):.2f}%), {sum(launches.values())} kernels and copies: "
+            f"{by_kind} ({smi})"
+        )
+    del tr
+    _release()
+
+
+def dist_main() -> int:
+    """The distributed process: run A, run B with a worker killed, step 0 directly, the
+    profiled steps; checks A against B and against the direct step."""
+    smi = phase_device()
+    cfg = get_config("serpytor-demo-100m")
+    torch.use_deterministic_algorithms(True)
+    timers = _HostTimers()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    try:
+        with timers.installed():
+            a = _dist_run("A", cfg, DIST_DIR / "A", smi, timers)
+            b = _dist_run("B", cfg, DIST_DIR / "B", smi, timers, flaky=True)
+            same = b["grads"] == a["grads"] and b["applies"] == a["applies"]
+            if b["digest"] != a["digest"] or not same:
+                raise AssertionError(
+                    f"[distributed] run B (a worker killed) ends at {b['digest']}, run A at "
+                    f"{a['digest']}; grad digests equal: {b['grads'] == a['grads']}, apply "
+                    f"digests equal: {b['applies'] == a['applies']}"
+                )
+            log(
+                f"[distributed] run B's checkpoint digest {b['digest']} equals run A's, and "
+                f"every grad@s#k and apply@s output digest equals A's; B requeued "
+                f"{b['requeues']} shard(s), ran {b['calls']} grad_shard calls"
+            )
+            direct = _direct_step0(cfg, smi)
+            want0 = {n: d for n, d in a["grads"].items() if n.startswith("grad@0#")}
+            if direct["grads"] != want0 or direct["apply"] != a["applies"]["apply@0"]:
+                raise AssertionError(
+                    f"[distributed] step 0 directly: grads {direct['grads']} apply "
+                    f"{direct['apply']}; run A: {want0} {a['applies']['apply@0']}"
+                )
+            log(
+                f"[distributed] step 0 directly gives run A's grad@0#k digests and its apply@0 "
+                f"metrics digest {direct['apply']}"
+            )
+            _dist_profile(cfg, direct.pop("state"), smi, timers)
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    result = {
+        "smi": smi,
+        "step_s_A": a["step_s"],
+        "step_s_B": b["step_s"],
+        "launches_A": a["launches"],
+        "launches_B": b["launches"],
+        "peak_A": a["peak"],
+    }
+    log(DIST_RESULT + json.dumps(result))
+    return 0
+
+
 def check_against_cpu(cfg, model, params, prompt) -> None:
     """Prefill logits on the card (kernel path) vs the port's CPU path (plain
     versions), same params, on the shortest prompt: finite, same shape, within
@@ -2194,6 +2598,8 @@ def _log_serving(tag, res, peak) -> None:
 def _kernel_kind(name: str) -> str:
     """The kind of a device kernel, by its name as the profiler reports it."""
     low = name.lower()
+    if name.startswith(("Memcpy", "Memset")):
+        return "memcpy"
     if "flash_fwd" in name or "flash_merge" in name:
         return "flash"
     if "flash_bwd" in name:
@@ -2548,6 +2954,7 @@ def main() -> int:
     _timed("gateway", lambda: phase_gateway(demo.pop("serving")))
     train = _timed("train", phase_train)
     _timed("durable", lambda: phase_durable(train))
+    _timed("distributed", lambda: phase_distributed(train))
     hybrid = _timed("hybrid", phase_hybrid)
     exact = _timed("exactness", phase_exactness)
     rwkv_launches = _timed("rwkv", phase_rwkv)
@@ -2640,4 +3047,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(train_main() if sys.argv[1:] == [TRAIN_ARG] else main())
+    if sys.argv[1:] == [TRAIN_ARG]:
+        sys.exit(train_main())
+    sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

@@ -3,21 +3,20 @@ runs on, and the gateway and workers that serve.
 
 Copies of the JAX-free modules of ``repro.core`` (the port imports nothing of
 ``repro``): ``context``, ``graph``, ``durable`` (journal and replay oracle,
-``Interrupted``), ``executor`` (``LocalExecutor``), ``failure``
+``Interrupted``), ``executor`` (``LocalExecutor``, ``ClusterExecutor``), ``failure``
 (``RetryPolicy``, ``StragglerWatch``), ``heartbeat``, ``server``
 (``TaskRegistry``, the in-process and HTTP workers) and ``gateway``
 (``Gateway`` and its allocators). Their journals, digests, wire frames and
 replay semantics are the reference's, so each package reads and replays the
 other's journals and each package's client runs tasks on the other's
-workers. What was left out is named in each module and in ROADMAP.md:
-``ClusterExecutor`` (Queue 1 item 4), the replay-safety lint (item 12),
-streams, caches, compaction and interrupt points (item 14), and the asyncio
-runtime ``core/aio`` (item 15).
+workers. What was left out is named in each module and in ROADMAP.md: the
+replay-safety lint (Queue 1 item 12), streams, caches, compaction and
+interrupt points (item 14), and the asyncio runtime ``core/aio`` (item 15).
 """
 
 from .context import EMPTY_CONTEXT, Context, ContextEntry
 from .durable import KNOWN_KINDS, Interrupted, Journal, JournalRecord, ReplayCache
-from .executor import ExecutionReport, LocalExecutor, WithContext
+from .executor import ClusterExecutor, ExecutionReport, LocalExecutor, WithContext
 from .failure import FailureKind, RetryPolicy, StragglerWatch
 from .gateway import (
     AllocationError,
@@ -50,6 +49,7 @@ __all__ = [
     "KNOWN_KINDS",
     "ReplayCache",
     "LocalExecutor",
+    "ClusterExecutor",
     "ExecutionReport",
     "WithContext",
     "FailureKind",

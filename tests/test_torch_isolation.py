@@ -54,6 +54,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.train.host",
         "repro_torch.train.trainer",
         "repro_torch.launch.train",
+        "repro_torch.train.distributed",
+        "repro_torch.launch.train_distributed",
+        "repro_torch.optim.compression",
     ):
         assert new in mods
     code = (
