@@ -48,9 +48,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    train shape the forward with and without the logsumexp timed, and the
    backward (each launch's device time) against its plain version, SDPA's
    memory-efficient backward, its bound and the tensor-core floor of the seven
-   products it runs at the probed TF32 rates. Each timed case prints the
-   kernel's time, its plain version's, one PyTorch library call's where one
-   computes the same function, and the least time the card could take;
+   products it runs at the probed TF32 rates. The bfloat16 backward
+   (``csrc/flash_attention_bwd_bf16.cu``) against its plain version on the
+   cases of ``tests/test_torch_flash_bwd_bf16.py``, edges and qwen3-1.7b's
+   train shape (2, 16, 4096, 128) at BWD_BF16_TOL of each gradient's largest
+   entry, each case holding the bfloat16 forward's logsumexp against the plain
+   one and its output bits unchanged by asking for it; its bits equal on two
+   launches and for B = 1 against row 0 of B = 4; at the train shape its time
+   against its plain version, SDPA's flash-backend backward and its bound, and
+   its error against float64 at most twice SDPA's; the float32 backward at
+   head dim 128 timed at that shape. The dense family's prefill and decode
+   shapes are among the flash and decode-attention cases. Each timed case
+   prints the kernel's time, its plain version's, one PyTorch library call's
+   where one computes the same function, and the least time the card could
+   take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
    through ``ContinuousBatcher(slots=4, max_len=1536)``; tokens equal
    sequential greedy decoding, the flash kernel ran in every prefill
@@ -151,7 +162,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    decode steps after a prompt equal a fresh prefill within 1e-4; one layer
    on the card equals the port's CPU path on a (1, 333, 4096) input within
    1e-4;
-10. the JSON line of kernels, the card's name and power limit, and last the
+10. dense: the dense family at full width in bfloat16 (``qwen3-1.7b``,
+   ``stablelm-1.6b``, ``yi-6b`` at full depth; ``qwen1.5-110b`` at 8 of its 80
+   layers, as 222.4 GB of weights do not fit the card), one after the other,
+   each serving 8 requests of 32 new tokens (prompts 64-1000 tokens, seed 0)
+   through ``ContinuousBatcher(slots=4, max_len=1536)``: the flash kernel
+   launched once per layer per prefill and the decode kernel once per layer
+   per decode step; each request's logits equal a teacher-forced run at the
+   batcher's width bit for bit and agree at batch 1 within LOGIT_TOL_BF16;
+   tok/s, prefill and decode times, peak memory and a profiled decode window's
+   busy share; then one full-width layer of a float32 copy on the card against
+   the port's CPU path within 1e-4 on a (1, 777, d) input (with the tied
+   unembed for qwen3-1.7b);
+11. dense train, in a process of its own (this file run with
+   ``--dense-train``, set up as ``--train``): ``qwen3-1.7b`` at full width and
+   depth in bfloat16 with remat "full" takes 3 AdamW steps (the train CLI's)
+   on ``TokenSource(seed=0)`` batches of 2 x 4096; step 0 is run again from
+   the same state with equal bits (torch.equal on the card over params, m, v,
+   step and metrics; step 0's result waits on the host meanwhile); every step
+   launches the bfloat16 backward once per layer and the forward twice (remat
+   runs it again in each layer's recompute); step ms, tokens/s, peak memory
+   and a profiled step; step 0 with ``attn_impl="ref"`` agrees in loss, grad
+   norm and every gradient leaf within DENSE_TRAIN_GAPS times the plain path's
+   own bfloat16-against-float32 gap;
+12. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
 Every model is freed before the next is built. It imports the port
@@ -184,7 +218,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # first process without it, as a server does.
 TRAIN_ARG = "--train"
 DIST_ARG = "--distributed"  # the distributed phase's process, set up as the train phase's
-if sys.argv[1:] in ([TRAIN_ARG], [DIST_ARG]):
+DENSE_TRAIN_ARG = "--dense-train"  # the dense train phase's process, set up the same way
+if sys.argv[1:] in ([TRAIN_ARG], [DIST_ARG], [DENSE_TRAIN_ARG]):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
 
 import numpy as np  # noqa: E402
@@ -282,6 +317,8 @@ BF16_CASES = [
     (1, 4, 1, 130, 130, 256, True, 1, "bfloat16", 256),
     (1, 2, 2, 100, 100, 256, False, None, "bfloat16", 64),
     (1, 2, 1, 77, 77, 20, True, None, "bfloat16", 12),
+    (1, 16, 8, 777, 777, 128, True, None, "bfloat16", 128),  # qwen3-1.7b's prefill
+    (1, 32, 32, 777, 777, 64, True, None, "bfloat16", 64),  # stablelm-1.6b's
 ]
 # float32 on the 3xTF32 path: head dims 16 to 200 that are no power of 2, one that is no
 # multiple of 4 (4-byte copies), walks cut into pieces (Sq < Sk with a window, no mask)
@@ -349,6 +386,13 @@ DECODE_CASES = [
     (2, 6, 3, 130, 40, None, "bfloat16", (129, 64)),
     (1, 2, 2, 50, 8, 50, "float32", (77,)),
     (2, 16, 1, 300, 128, None, "float32", (0, 299)),
+    # the dense family's cached decode in bfloat16 at max_len 1536: qwen3-1.7b (16 on 8 KV
+    # heads of 128), stablelm-1.6b (32 heads of 64, no grouping), yi-6b (32 on 4),
+    # qwen1.5-110b (64 on 8)
+    (4, 16, 8, 1536, 128, None, "bfloat16", (1031, 5, 1535, 1600)),
+    (4, 32, 32, 1536, 64, None, "bfloat16", (1031, 5, 1535, 1600)),
+    (4, 32, 4, 1536, 128, None, "bfloat16", (1031, 5, 1535, 1600)),
+    (4, 64, 8, 1536, 128, None, "bfloat16", (1031, 5, 1535, 1600)),
 ]
 DECODE_DEMO_JSON, DECODE_JSON = DECODE_CASES[0], DECODE_CASES[1]
 DECODE_TIMED = (DECODE_DEMO_JSON, DECODE_JSON)
@@ -409,6 +453,42 @@ FLASH_BWD_CASES = [c + (c[5],) for c in FLASH_CASES if c[8] == "float32"] + [
     (1, 2, 1, 70, 70, 30, True, None, "float32", 18),
     FLASH_BWD_TRAIN,
 ]
+# The float32 backward at head dim 128 (the mma.sync path), timed at qwen3-1.7b's train shape
+FLASH_BWD_F32_HD128 = (2, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "float32", 128)
+# The bfloat16 backward: qwen3-1.7b's train shape (batch 2 of 4096 tokens, 16 query heads on 8
+# KV heads of 128, causal), then the cases of tests/test_torch_flash_bwd_bf16.py (head dims 64
+# and 128, GQA groups 1, 2 and 8, a window with Sq < Sk, head dims no multiple of 8 that the
+# wrapper pads, D != Dv with no mask and Sq > Sk) and edges of the kernels' 64-row blocks and
+# 32/64-row walk tiles: stablelm-1.6b's heads, a group of 16, window 1, one query row.
+DENSE_TRAIN_BATCH = 2
+FLASH_BWD_BF16_TRAIN = (
+    DENSE_TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "bfloat16", 128
+)
+FLASH_BWD_BF16_CASES = [
+    (1, 2, 2, 64, 64, 64, True, None, "bfloat16", 64),
+    (2, 4, 2, 70, 70, 128, True, None, "bfloat16", 128),
+    (1, 8, 1, 40, 96, 128, True, 24, "bfloat16", 128),
+    (1, 4, 2, 33, 50, 60, True, None, "bfloat16", 60),
+    (1, 2, 1, 48, 40, 36, False, None, "bfloat16", 20),
+    (1, 32, 32, 777, 777, 64, True, None, "bfloat16", 64),
+    (1, 16, 1, 300, 300, 128, True, None, "bfloat16", 128),
+    (1, 4, 2, 150, 400, 24, True, 1, "bfloat16", 16),
+    (2, 6, 2, 1, 130, 128, True, None, "bfloat16", 128),
+    (1, 4, 2, 200, 333, 128, True, 100, "bfloat16", 128),
+    FLASH_BWD_BF16_TRAIN,
+]
+# The bfloat16 backward against its plain version (float32 throughout, the gradients rounded
+# once): the kernels round P and dS to bfloat16 where they enter a product, and the CPU model
+# of that rounding in tests/test_torch_flash_bwd_bf16.py stays within 41% of 2^-6 of each
+# gradient's largest entry. Held at 2^-6 of each gradient's largest entry, as there.
+BWD_BF16_TOL = 2.0**-6
+# The bfloat16 forward's logsumexp against the plain one: both float32 over the same
+# bfloat16 products (sums in other orders, exp2 against exp): 1e-4, rtol = atol.
+LSE_BF16_TOL = 1e-4
+# the bfloat16 backward's same bits on two launches and for B = 1 against row 0 of B = 4
+FLASH_BWD_BF16_DETERMINISM = (4, 16, 8, 1024, 1024, 128, True, None, "bfloat16", 128)
+# flash_bwd_bf16_<part>_kernel: the bfloat16 backward's launches
+BF16_KERNEL_PARTS = ("delta", "dkdv", "dq")
 # AdamW as the train CLI sets it for TRAIN_STEPS steps (repro_torch.launch.train.opt_config,
 # held equal in the train process): the durable phase's trainer steps take the same AdamW
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
@@ -479,6 +559,9 @@ PORT_KERNEL_SYMBOLS = (
     "flash_bwd_dq_wgmma_kernel",
     "flash_bwd_dkdv_kernel",
     "flash_bwd_dq_kernel",
+    "flash_bwd_bf16_delta_kernel",
+    "flash_bwd_bf16_dkdv_kernel",
+    "flash_bwd_bf16_dq_kernel",
     "decode_attention_kernel",
     "rglru_ring_kernel",
     "rglru_step_kernel",
@@ -560,15 +643,19 @@ def attention_bwd_floor_ms(b, hq, sq, sk, d, dv, causal, window, rates):
     return 1e3 * 3 * pairs * (2 * (d + dv) / rates[0] + (2 * d + dv) / rates[1])
 
 
-def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window):
-    """Least time for one float32 attention backward: max(3 x FLOPs / the TF32 peak, bytes /
-    bandwidth). FLOPs: the five products of the FlashAttention-2 form over the (query, key)
-    pairs the masks keep (S and dQ, dK over D; dP and dV over Dv), 2 pairs (3D + 2Dv) a
-    head, each in 3xTF32; bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once.
-    Returns (ms, what bounds it, the bytes' time alone in ms)."""
+def attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, itemsize=4):
+    """Least time for one attention backward: max(FLOPs / peak, bytes / bandwidth).
+    FLOPs: the five products of the FlashAttention-2 form over the (query, key) pairs the
+    masks keep (S and dQ, dK over D; dP and dV over Dv), 2 pairs (3D + 2Dv) a head, at the
+    bfloat16 peak for bfloat16 inputs (``itemsize`` 2) and three times over at the TF32
+    peak for float32 ones (3xTF32); bytes: q, k, v, o, dO read once and dq, dk, dv written
+    once in the input type, lse read in float32. Returns (ms, what bounds it, the bytes'
+    time alone in ms)."""
     flops = 2.0 * b * hq * _kept_pairs(sq, sk, causal, window) * (3 * d + 2 * dv)
-    nbytes = 4 * (2 * b * hq * sq * (d + dv) + 2 * b * hkv * sk * (d + dv) + b * hq * sq)
-    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    nbytes = itemsize * (2 * b * hq * sq * (d + dv) + 2 * b * hkv * sk * (d + dv))
+    nbytes += 4 * b * hq * sq
+    t_ops = flops / PEAK_BF16_FLOPS if itemsize == 2 else 3 * flops / PEAK_TF32_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     return 1e3 * max(t_ops, t_bytes), bound_by, 1e3 * t_bytes
 
@@ -811,10 +898,12 @@ def _flash_determinism(gen) -> None:
 
 
 def _flash_bwd_inputs(gen, case):
-    """q, k, v, dO on the card, and the plain forward's output and logsumexp on them."""
-    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
-    q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.float32)
-    dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV)
+    """q, k, v, dO on the card in the case's dtype, and the plain forward's output and
+    logsumexp on them."""
+    b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+    dtype = getattr(torch, dt)
+    q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, dtype)
+    dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV).to(dtype)
     out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
     return q, k, v, dout, out, lse
 
@@ -927,33 +1016,18 @@ def _efficient_sdpa_bwd_ms(q, k, v, dout, want):
     """SDPA's memory-efficient backward alone (its forward run once, not timed), K and V
     expanded to q's heads beforehand: ms by CUDA events, and its max |err| against ``want``
     (dk and dv summed over each group)."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import SDPBackend
 
-    g = q.shape[1] // k.shape[1]
-    qx = q.detach().clone().requires_grad_(True)
-    kx = k.repeat_interleave(g, dim=1).requires_grad_(True)
-    vx = v.repeat_interleave(g, dim=1).requires_grad_(True)
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        o = torch.nn.functional.scaled_dot_product_attention(
-            qx, kx, vx, is_causal=True, scale=q.shape[-1] ** -0.5
-        )
-
-    def backward():
-        return torch.autograd.grad(o, (qx, kx, vx), dout, retain_graph=True)
-
-    dq, dk, dv = backward()
-    b, hkv = k.shape[:2]
-    dk = dk.reshape(b, hkv, g, *dk.shape[2:]).sum(2)
-    dv = dv.reshape(b, hkv, g, *dv.shape[2:]).sum(2)
-    err = max((x - w).abs().max().item() for x, w in zip((dq, dk, dv), want))
-    return time_ms(backward, iters=10), err
+    sdpa = _sdpa_bwd(q, k, v, dout, SDPBackend.EFFICIENT_ATTENTION)
+    err = max((x - w).abs().max().item() for x, w in zip(sdpa["grads"](), want))
+    return time_ms(sdpa["backward"], iters=10), err
 
 
-def _flash_bwd_determinism(gen) -> None:
+def _flash_bwd_determinism(gen, case=FLASH_BWD_TRAIN) -> None:
     """The backward's bits: equal on two launches, and batch row 0 alone (B = 1) equal to
-    row 0 of B = 4, at the train shape."""
-    b, hq, hkv, sq, sk, d, causal, window, _, dv = FLASH_BWD_TRAIN
-    q, k, v, dout, out, lse = _flash_bwd_inputs(gen, FLASH_BWD_TRAIN)
+    row 0 of B = 4 (the float32 train shape by default)."""
+    b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+    q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
     masks = dict(causal=causal, window=window)
     first = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
     again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
@@ -962,8 +1036,8 @@ def _flash_bwd_determinism(gen) -> None:
     relaunch = sum((x != y).sum().item() for x, y in zip(first, again))
     batch = sum((x[:1] != y).sum().item() for x, y in zip(first, alone))
     label = (
-        f"flash_attention_bwd q{tuple(q.shape)} float32 causal={causal} "
-        f"({fa.bwd_path(d, dv)} path)"
+        f"flash_attention_bwd q{tuple(q.shape)} {dt} causal={causal} "
+        f"({fa.bwd_path(d, dv, q.dtype)} path)"
     )
     if relaunch or batch:
         raise AssertionError(
@@ -971,6 +1045,230 @@ def _flash_bwd_determinism(gen) -> None:
             f"two launches, {batch} between B=1 and row 0 of B={b}"
         )
     log(f"[kernels] {label}: two launches equal bit for bit; B=1 equals row 0 of B={b} bit for bit")
+
+
+def _share_of_largest(got, want, tol) -> float:
+    """max |got - want| as a share of ``tol`` times want's largest entry (tests/
+    test_torch_flash_bwd_bf16.py's measure), or times 1 where that entry is smaller, as
+    ``_check``'s ``tol (1 + |want|)``: a gradient that is zero up to roundoff (window 1,
+    where each row sees its own key alone and dS = 0) is held absolutely. 1 is at the
+    tolerance."""
+    diff = (got.float() - want.float()).abs().max().item()
+    return diff / (tol * max(want.float().abs().max().item(), 1.0))
+
+
+def _flash_bwd_bf16_rows(gen):
+    """The bfloat16 backward against its plain version on every case (the plain forward's
+    output and logsumexp as inputs), at BWD_BF16_TOL of each gradient's largest entry; each
+    case also holds the bfloat16 forward's logsumexp against the plain one and its output
+    with the logsumexp equal bit for bit to its output without. At qwen3-1.7b's train shape:
+    the times and the float64 yardstick. Returns the rows of the kernels line."""
+    rows = {}
+    for case in FLASH_BWD_BF16_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+        q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
+        masks = dict(causal=causal, window=window)
+        got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+        same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
+        torch.cuda.synchronize()
+        label = f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} " + (
+            f"bfloat16 causal={causal} window={window} ({fa.bwd_path(d, dv, q.dtype)} path)"
+        )
+        if not same:
+            raise AssertionError(f"[kernels] {label}: the bfloat16 forward's output moved with lse")
+        if any(g.dtype != torch.bfloat16 for g in grads):
+            raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
+        out_err = _check(f"{label} out", got_out, out, TOL["bfloat16"])
+        lse_err = _check(f"{label} lse", got_lse, lse, LSE_BF16_TOL)
+        lse_used = _tol_used(got_lse, lse, LSE_BF16_TOL)
+        shares = [_share_of_largest(g, w, BWD_BF16_TOL) for g, w in zip(grads, want)]
+        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+        finite = all(torch.isfinite(g.float()).all() for g in grads)
+        if not finite or max(shares) > 1.0:
+            raise AssertionError(
+                f"[kernels] {label}: max |err| {errs}, {[f'{100 * x:.1f}%' for x in shares]} "
+                f"of {BWD_BF16_TOL} x each gradient's largest entry"
+            )
+        log(
+            f"[kernels] {label}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
+            f"{100 * max(shares):.1f}% of the tolerance ({BWD_BF16_TOL:.4g} x each gradient's "
+            f"largest entry); forward out max |err| {out_err:.3e} (tol {TOL['bfloat16']}), lse "
+            f"{lse_err:.3e} (tol {LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse "
+            "equal bit for bit"
+        )
+        if case == FLASH_BWD_BF16_TRAIN:
+            rows = _flash_bwd_bf16_timed(case, q, k, v, dout, max(errs), out_err)
+    _flash_bwd_determinism(gen, FLASH_BWD_BF16_DETERMINISM)
+    rows["f32_hd128"] = _flash_bwd_f32_hd128(gen)
+    return rows
+
+
+def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err):
+    """qwen3-1.7b's train shape: the bfloat16 forward with and without its logsumexp; the
+    backward (on the kernel forward's output and logsumexp, as training runs it) against its
+    plain version, SDPA's flash-backend backward and the bound; then the float64 yardstick:
+    the kernel's and SDPA's errors against float64 autograd of the dense oracle on batch row
+    0's first KV group, the kernel held to twice SDPA's."""
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+    masks = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+
+    from torch.nn.attention import SDPBackend
+
+    sdpa = _sdpa_bwd(q, k, v, dout, SDPBackend.FLASH_ATTENTION)
+    bound, bound_by, _ = attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, 2)
+    bwd = {
+        "ms": time_ms(kernel, iters=10),
+        "device_us": device_us(kernel, launches=10),
+        **{
+            f"{n}_us": device_us(kernel, f"flash_bwd_bf16_{n}", launches=10)
+            for n in BF16_KERNEL_PARTS
+        },
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks),
+            iters=3,
+            warmup=1,
+        ),
+        "library_ms": time_ms(sdpa["backward"], iters=10),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "max_abs_err": err,
+    }
+    fwd_bound, fwd_bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, 2)
+    fwd = {
+        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **masks), iters=10),
+        "ms_without_lse": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **masks), iters=10),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **masks), iters=3, warmup=1),
+        "library_ms": time_ms(sdpa["forward"], iters=10),
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_bound_by,
+        "max_abs_err": out_err,
+    }
+    parts = ", ".join(f"{n} {bwd[n + '_us']:.2f}" for n in BF16_KERNEL_PARTS)
+    log(
+        f"[kernels]   qwen3-1.7b train shape q{tuple(q.shape)} bfloat16: backward kernel_ms "
+        f"{bwd['ms']:.4f} (device {bwd['device_us']:.2f} us a call: {parts}), plain_ms "
+        f"{bwd['plain_ms']:.4f}, library_ms (SDPA flash backend backward alone, K/V expanded "
+        f"to {hq} heads) {bwd['library_ms']:.4f} (kernel "
+        f"{'faster' if bwd['ms'] < bwd['library_ms'] else 'NOT faster'}), bound_ms "
+        f"{bound:.5f} ({bound_by}, bf16 tensor cores: 5 products at 989 TFLOP/s), "
+        f"kernel/bound {bwd['ms'] / bound:.1f}"
+    )
+    log(
+        f"[kernels]   qwen3-1.7b train shape forward (bfloat16, wgmma): with lse "
+        f"{fwd['ms']:.4f} ms, without {fwd['ms_without_lse']:.4f} ms; plain_ms "
+        f"{fwd['plain_ms']:.4f}, library_ms (SDPA flash backend, K/V expanded) "
+        f"{fwd['library_ms']:.4f}, bound_ms {fwd_bound:.5f} ({fwd_bound_by})"
+    )
+    _flash_bwd_bf16_yardstick(q, k, v, dout, out, lse, sdpa, masks)
+    return {"bwd": bwd, "fwd": fwd}
+
+
+def _sdpa_bwd(q, k, v, dout, backend):
+    """SDPA on ``backend`` (causal, K and V expanded to q's heads beforehand): its forward,
+    its backward alone (the forward run once, not timed), and the backward's (dq, dk, dv),
+    dk and dv summed over each group in float32 and rounded once to the inputs' dtype."""
+    from torch.nn.attention import sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    qx = q.detach().clone().requires_grad_(True)
+    kx = k.repeat_interleave(g, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(g, dim=1).requires_grad_(True)
+    scale = q.shape[-1] ** -0.5
+
+    def forward():
+        with sdpa_kernel(backend):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qx, kx, vx, is_causal=True, scale=scale
+            )
+
+    o = forward()
+
+    def backward():
+        return torch.autograd.grad(o, (qx, kx, vx), dout, retain_graph=True)
+
+    def grads():
+        dq, dk, dv = backward()
+        b, hkv = k.shape[:2]
+        dk = dk.float().reshape(b, hkv, g, *dk.shape[2:]).sum(2).to(k.dtype)
+        dv = dv.float().reshape(b, hkv, g, *dv.shape[2:]).sum(2).to(v.dtype)
+        return dq, dk, dv
+
+    return {"forward": forward, "backward": backward, "grads": grads}
+
+
+def _flash_bwd_bf16_yardstick(q, k, v, dout, out, lse, sdpa, masks) -> None:
+    """Kernel and SDPA backward against float64 autograd through the dense oracle on batch
+    row 0's first KV group (the same bfloat16 inputs): the kernel's error in each gradient
+    may be at most twice SDPA's."""
+    g = q.shape[1] // k.shape[1]
+    kernel = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    lib = sdpa["grads"]()
+    sl_q = (slice(0, 1), slice(0, g))
+    sl_k = (slice(0, 1), slice(0, 1))
+    x64 = [x[sl].double().requires_grad_(True) for x, sl in ((q, sl_q), (k, sl_k), (v, sl_k))]
+    o64 = ref.flash_attention_dense_ref(*x64, **masks)
+    want = torch.autograd.grad(o64, x64, dout[sl_q].double())
+    parts = []
+    for n, a, c, w, sl in zip("qkv", kernel, lib, want, (sl_q, sl_k, sl_k)):
+        ka = (a[sl].double() - w).abs().max().item()
+        la = (c[sl].double() - w).abs().max().item()
+        parts.append(f"d{n} kernel {ka:.3e} SDPA {la:.3e} ({ka / la:.2f}x)")
+        if ka > 2 * la:
+            raise AssertionError(
+                f"[kernels] bfloat16 backward vs float64: d{n} kernel {ka:.3e} > 2 x SDPA {la:.3e}"
+            )
+    del o64, want, x64
+    log(
+        f"[kernels]   float64 yardstick (batch row 0, KV head 0's {g} query heads, the dense "
+        f"oracle's autograd): max |err| {'; '.join(parts)}; the kernel within 2x SDPA's"
+    )
+
+
+def _flash_bwd_f32_hd128(gen) -> dict:
+    """The float32 backward at head dim 128 (the mma.sync path) at qwen3-1.7b's train shape:
+    against its plain version at BWD_TOL, then timed beside its bound and SDPA's
+    memory-efficient backward."""
+    case = FLASH_BWD_F32_HD128
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+    q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
+    masks = dict(causal=causal, window=window)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
+    label = f"flash_attention_bwd q{tuple(q.shape)} float32 ({fa.bwd_path(d, dv)} path)"
+    errs = [_check(f"{label} d{n}", g, w, BWD_TOL) for n, g, w in zip("qkv", kernel(), want)]
+    lib_ms, lib_err = _efficient_sdpa_bwd_ms(q, k, v, dout, want)
+    bound, bound_by, bytes_ms = attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window)
+    row = {
+        "ms": time_ms(kernel, iters=5),
+        "device_us": device_us(kernel, launches=5),
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks),
+            iters=2,
+            warmup=1,
+        ),
+        "library_ms": lib_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "max_abs_err": max(errs),
+    }
+    log(
+        f"[kernels] {label}: max |err| {max(errs):.3e} (tol {BWD_TOL}); kernel_ms "
+        f"{row['ms']:.4f} (device {row['device_us']:.2f} us a call), plain_ms "
+        f"{row['plain_ms']:.4f}, library_ms (SDPA memory-efficient backward alone, K/V "
+        f"expanded, |err| {lib_err:.1e}) {lib_ms:.4f} (kernel "
+        f"{'faster' if row['ms'] < lib_ms else 'NOT faster'}), bound_ms {bound:.5f} "
+        f"({bound_by}, 3xTF32; bytes alone {bytes_ms:.5f}), kernel/bound {row['ms'] / bound:.1f}"
+    )
+    return row
 
 
 def _rglru_inputs(gen, b, t, w, dtype, with_h0):
@@ -1273,6 +1571,7 @@ def phase_kernels():
     gen = _gen(7)
     flash_rows, demo_err = _flash_rows(gen)
     bwd_rows = _flash_bwd_rows(gen)
+    bwd_rows["bf16"] = _flash_bwd_bf16_rows(gen)
     decode_rows, rglru_rows = _decode_attention_rows(gen), _rglru_rows(gen)
     return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, _wkv6_rows(gen)
 
@@ -1688,27 +1987,33 @@ def _metrics_digest(metrics, step, data_digest) -> str:
 TRAIN_RESULT = "[train] launches "  # the train process's line of launch counts, ms and digests
 
 
-def phase_train() -> dict:
-    """Run the train phase in a process of its own (this file with ``--train``), its log
-    passed on line by line; returns the launch counts, step ms and digests its log gives."""
-    cmd = [sys.executable, str(Path(__file__).resolve()), TRAIN_ARG]
-    launches = None
+def _in_process(arg: str, prefix: str, tag: str) -> dict:
+    """Run this file with ``arg`` in a process of its own, its log passed on line by line;
+    returns the JSON of its line that starts with ``prefix``."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), arg]
+    result = None
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
         for line in proc.stdout:
             log(line.rstrip("\n"))
-            if line.startswith(TRAIN_RESULT):
-                launches = json.loads(line[len(TRAIN_RESULT) :])
-    if proc.returncode != 0 or launches is None:
-        raise AssertionError(f"[train] the train process exited with code {proc.returncode}")
-    return launches
+            if line.startswith(prefix):
+                result = json.loads(line[len(prefix) :])
+    if proc.returncode != 0 or result is None:
+        raise AssertionError(f"{tag} the phase's process exited with code {proc.returncode}")
+    return result
 
 
-def train_main() -> int:
-    """The train process: check the card, then train and log the launch counts."""
+def _process_main(prefix: str, phase) -> int:
+    """A phase's own process: check the card, run ``phase`` and log its result line."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
-    log(TRAIN_RESULT + json.dumps(_train()))
+    log(prefix + json.dumps(phase()))
     return 0
+
+
+def phase_train() -> dict:
+    """Run the train phase in a process of its own (this file with ``--train``); returns the
+    launch counts, step ms and digests its log gives."""
+    return _in_process(TRAIN_ARG, TRAIN_RESULT, "[train]")
 
 
 def _train() -> dict:
@@ -1822,7 +2127,7 @@ def _check_train_against_plain(cfg, model, params, state, batch, metrics, opt) -
     log(f"[train] {msg}")
 
 
-def _train_profile(model, params, state, batch, opt) -> None:
+def _train_profile(model, params, state, batch, opt, tag="[train]") -> None:
     """One step under torch.profiler, in two windows with a sync between: the gradient
     (forward, loss, backward) and the optimizer (clip and AdamW); device time by kind and
     the device's busy share of the two windows' host wall."""
@@ -1838,10 +2143,11 @@ def _train_profile(model, params, state, batch, opt) -> None:
         adamw_update(params, grads, state, opt)
         torch.cuda.synchronize()
         opt_ms = 1e3 * (time.monotonic() - t0)
-    kinds, n_grad = _device_kinds(_device_rows(prof_grad))
+    grad_rows = _device_rows(prof_grad)
+    kinds, n_grad = _device_kinds(grad_rows)
     opt_kinds, n_opt = _device_kinds(_device_rows(prof_opt))
     if not kinds or not opt_kinds:
-        log("[train] step profile: no device time recorded (not measured)")
+        log(f"{tag} step profile: no device time recorded (not measured)")
         return
     kinds["optimizer"] = sum(opt_kinds.values())
     busy = sum(kinds.values())
@@ -1850,10 +2156,12 @@ def _train_profile(model, params, state, batch, opt) -> None:
         for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
     )
     log(
-        f"[train] profiled step: gradient {grad_ms:.3f} ms + optimizer {opt_ms:.3f} ms host "
+        f"{tag} profiled step: gradient {grad_ms:.3f} ms + optimizer {opt_ms:.3f} ms host "
         f"wall, device busy {busy:.3f} ms ({100 * busy / (grad_ms + opt_ms):.1f}%), "
         f"{sum(n_grad.values()) + sum(n_opt.values())} kernels; device time by kind: {by_kind}"
     )
+    top = "; ".join(f"{k[:70]} {us / 1e3:.3f} ms x{n}" for us, n, k in grad_rows[:8])
+    log(f"{tag} profiled step: the gradient window's top kernels by device time: {top}")
 
 
 DURABLE_DIR = ROOT / "build" / "durable_train"  # the runs' directory; build/ is not committed
@@ -2023,17 +2331,7 @@ def phase_distributed(direct: dict) -> dict:
     """Run the distributed phase in a process of its own (this file with ``--distributed``),
     its log passed on line by line; log its step beside the train phase's direct step (in
     this call) and return what its result line gives."""
-    cmd = [sys.executable, str(Path(__file__).resolve()), DIST_ARG]
-    result = None
-    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True) as proc:
-        for line in proc.stdout:
-            log(line.rstrip("\n"))
-            if line.startswith(DIST_RESULT):
-                result = json.loads(line[len(DIST_RESULT) :])
-    if proc.returncode != 0 or result is None:
-        raise AssertionError(
-            f"[distributed] the distributed process exited with code {proc.returncode}"
-        )
+    result = _in_process(DIST_ARG, DIST_RESULT, "[distributed]")
     steady = sum(direct["step_ms"][1:]) / (len(direct["step_ms"]) - 1)
     direct_tps = TRAIN_BATCH * TRAIN_SEQ / steady * 1e3
     for tag in ("A", "B"):
@@ -2916,6 +3214,346 @@ def phase_rwkv_exactness() -> None:
     )
 
 
+# The dense family at full width (src/repro_torch/configs/archs.py), served in bfloat16.
+# qwen1.5-110b runs 8 of its 80 layers: at full depth its 111.2B bfloat16 parameters
+# (222.4 GB) do not fit on one 80 GB card; the cut keeps every width.
+DENSE_ARCHS = ("qwen3-1.7b", "stablelm-1.6b", "yi-6b", "qwen1.5-110b")
+DENSE_DEPTH = {"qwen1.5-110b": 8}
+DENSE_LAYER_CHECK = 777  # rows of the float32 layer check's (1, S, d) input
+
+
+def _dense_config(arch):
+    cfg = get_config(arch)
+    if arch in DENSE_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=DENSE_DEPTH[arch])
+    return cfg
+
+
+def phase_dense() -> dict:
+    """Serve each dense model at full width, one after the other; returns each model's
+    flash and decode-attention launch counts."""
+    return {arch: _serve_dense(arch) for arch in DENSE_ARCHS}
+
+
+def _serve_dense(arch) -> dict:
+    """One dense model in bfloat16: 8 requests of NEW_TOKENS through the 4-slot batcher at
+    MAX_LEN; the launch gates, teacher-forced logits, a float32 layer on the card against
+    the CPU path, serving numbers and a profiled decode window. Frees the model after."""
+    tag = f"[dense {arch}]"
+    cfg = _dense_config(arch)
+    t0 = time.monotonic()
+    params = init_params(cfg, _gen(0), DEV)
+    model = build(cfg, DEV)
+    torch.cuda.synchronize()
+    depth = f"{cfg.num_layers} of {get_config(arch).num_layers}" if arch in DENSE_DEPTH else (
+        f"{cfg.num_layers}"
+    )
+    log(
+        f"{tag} {depth} layers, d={cfg.d_model}, {cfg.num_heads} heads on {cfg.num_kv_heads} "
+        f"KV heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.param_count()} params {cfg.param_dtype} ({torch.cuda.memory_allocated()} bytes "
+        f"on the card); drawn in {time.monotonic() - t0:.1f} s"
+    )
+    prompts = make_prompts(N_REQUESTS, cfg.vocab_size, 64, 1000, seed=0)
+    log(f"{tag} prompt lengths {[len(p) for p in prompts]}, {NEW_TOKENS} new tokens each")
+    res, seen, peak = _serve_recorded(model, params, prompts, MAX_LEN)
+    launches = {
+        "flash": fa.flash_attention_fwd.launches,
+        "decode_attention": da.decode_attention.launches,
+    }
+    others = (
+        fa.flash_attention_bwd.launches,
+        rg.rglru_scan.launches,
+        wk.wkv6_chunked.launches,
+    )
+    want = {
+        "flash": cfg.num_layers * len(prompts),
+        "decode_attention": cfg.num_layers * res["steps"],
+    }
+    if launches != want or any(others):
+        raise AssertionError(
+            f"{tag} launches {launches}, expected {want}; flash backward, rglru, wkv6 "
+            f"launches {others}, expected 0"
+        )
+    log(
+        f"{tag} flash_attention_fwd launches {launches['flash']} = {cfg.num_layers} layers x "
+        f"{len(prompts)} prefills ({fa.PATHS[torch.bfloat16]} path); decode_attention "
+        f"launches {launches['decode_attention']} = {cfg.num_layers} layers x {res['steps']} "
+        "decode steps"
+    )
+    _check_teacher_forced(tag, model, params, prompts, res, seen, LOGIT_TOL_BF16, MAX_LEN)
+    _log_serving(tag, res, peak)
+    _decode_profile(model, params, tag, MAX_LEN)
+    del model, params, res, seen
+    _release()
+    _dense_layer_check(tag, cfg)
+    _release()
+    return launches
+
+
+def _dense_layer_check(tag, cfg) -> None:
+    """One full-width layer of a float32 copy on the card (the flash kernel's float32 path)
+    against the port's CPU path on a (1, DENSE_LAYER_CHECK, d) input, within EXACT_TOL; with
+    tied embeddings the unembed of its output too."""
+    cfg32 = dataclasses.replace(
+        cfg, num_layers=1, param_dtype="float32", compute_dtype="float32"
+    )
+    params = init_params(cfg32, _gen(1), DEV)
+    lp = _index(params["seg0"]["u0"], 0)
+    x = np.random.default_rng(3).normal(size=(1, DENSE_LAYER_CHECK, cfg.d_model))
+    x = torch.from_numpy(x.astype(np.float32))
+    positions = torch.arange(DENSE_LAYER_CHECK)
+    _reset_launches()
+    got, got_cache = apply_layer(
+        x.to(DEV), lp, cfg32, "dense", positions=positions.to(DEV), mode="prefill"
+    )
+    if fa.flash_attention_fwd.launches != 1:
+        raise AssertionError(f"{tag} float32 layer: {fa.flash_attention_fwd.launches} flash")
+    want, want_cache = apply_layer(
+        x, _to_cpu(lp), cfg32, "dense", positions=positions, mode="prefill"
+    )
+    errs = {"h": (got.cpu() - want).abs().max().item()}
+    for key, leaf in want_cache.items():
+        errs[key] = (got_cache[key].cpu().float() - leaf.float()).abs().max().item()
+    if cfg.tie_embeddings:
+        cpu = {"embed": _to_cpu(params["embed"]), "final_norm": _to_cpu(params["final_norm"])}
+        logits = unembed_logits(params, got, cfg32).cpu()
+        errs["tied unembed"] = (logits - unembed_logits(cpu, want, cfg32)).abs().max().item()
+    if not torch.isfinite(got).all() or max(errs.values()) > EXACT_TOL:
+        raise AssertionError(f"{tag} float32 layer card vs CPU path: {errs}")
+    log(
+        f"{tag} one float32 layer on x(1, {DENSE_LAYER_CHECK}, {cfg.d_model}): card (kernel, "
+        f"{fa.PATHS[torch.float32]} path) vs CPU path (plain) max |err| "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {EXACT_TOL})"
+    )
+
+
+DENSE_TRAIN_ARCH = "qwen3-1.7b"
+DENSE_TRAIN_RESULT = "[dense train] launches "  # the process's line of launch counts and times
+
+
+def phase_dense_train() -> dict:
+    """Run the dense train phase in a process of its own (this file with
+    ``--dense-train``); returns its launch counts, step ms and peak memory."""
+    return _in_process(DENSE_TRAIN_ARG, DENSE_TRAIN_RESULT, "[dense train]")
+
+
+def _replay_differs(host, tree) -> dict:
+    """Elements that differ between a tree kept on the host and one on the card, compared
+    with torch.equal on the card leaf by leaf (each host leaf brought back in turn)."""
+
+    def count(a, b):
+        return sum(
+            0 if torch.equal(x.to(DEV), y) else int((x.to(DEV) != y).sum())
+            for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True)
+        )
+
+    params, state, metrics = tree
+    return {
+        "params": count(host[0], params),
+        "m": count(host[1]["m"], state["m"]),
+        "v": count(host[1]["v"], state["v"]),
+        "step": count(host[1]["step"], state["step"]),
+        "metrics": count(host[2], metrics),
+    }
+
+
+def _dense_train() -> dict:
+    """qwen3-1.7b at full width and depth in bfloat16 (remat "full"), 3 AdamW steps on
+    TokenSource batches of DENSE_TRAIN_BATCH x TRAIN_SEQ, deterministically: the launch
+    gates, step 0 replayed with equal bits, a profiled step, step 0 against
+    attn_impl="ref". Step 0's result waits on the host while its replay runs (params,
+    m and v of two states and the replay's own take 52 GB of the card's 80), and
+    training goes on from the replay's."""
+    from repro_torch.launch.train import opt_config
+
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    if (cfg.param_dtype, cfg.compute_dtype, cfg.remat) != ("bfloat16", "bfloat16", "full"):
+        raise AssertionError(f"[dense train] {cfg.name}: {cfg.param_dtype}, {cfg.remat}")
+    model = build(cfg, DEV)
+    params0 = init_params(cfg, _gen(0), DEV)
+    opt = AdamWConfig(**TRAIN_OPT)
+    if opt != opt_config(TRAIN_STEPS):
+        raise AssertionError(f"[dense train] {opt} is not the CLI's {opt_config(TRAIN_STEPS)}")
+    state0 = make_opt_init(model, opt)(params0)
+    train_step = make_train_step(model, opt)
+    source = TokenSource(
+        DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DENSE_TRAIN_BATCH, seed=0
+        )
+    )
+    batches = [
+        {"tokens": torch.from_numpy(source.batch_at(s)["tokens"]).long().to(DEV)}
+        for s in range(TRAIN_STEPS)
+    ]
+    tokens = DENSE_TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.synchronize()
+    log(
+        f"[dense train] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} "
+        f"heads on {cfg.num_kv_heads} KV heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
+        f"tied embeddings, {cfg.param_count()} params {cfg.param_dtype}, remat={cfg.remat}; "
+        f"batches of {DENSE_TRAIN_BATCH} x {TRAIN_SEQ} tokens from TokenSource(seed=0); {opt}; "
+        f"{torch.cuda.memory_allocated()} bytes held (params, AdamW m and v)"
+    )
+    torch.use_deterministic_algorithms(True)
+    _reset_launches()
+
+    def run(step, params, state):
+        t0 = time.monotonic()
+        params, state, metrics = train_step(params, state, batches[step])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.monotonic() - t0)
+        vals = {key: float(x) for key, x in metrics.items()}
+        if not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"[dense train] step {step}: metrics {vals}")
+        log(
+            f"[dense train] step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
+            f"{vals['z_loss']:.4f} grad_norm {vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
+            f"{ms:.3f} ms, {tokens / ms * 1e3:.1f} tokens/s (host clock after a sync)"
+        )
+        return (params, state, metrics), ms
+
+    first, ms0 = run(0, params0, state0)
+    host = tuple(tree_map(lambda x: x.cpu(), tree) for tree in first)
+    del first
+    _release()
+    # replay: step 0 again from the same state, equal bits (to_host refuses bfloat16: the
+    # trees are compared with torch.equal on the card)
+    (params, state, metrics), ms_replay = run(0, params0, state0)
+    diff = _replay_differs(host, (params, state, metrics))
+    if any(diff.values()):
+        raise AssertionError(f"[dense train] step 0 replayed: elements that differ {diff}")
+    n = sum(x.numel() for x in tree_leaves(params))
+    log(
+        f"[dense train] step 0 run again from the same state: params ({n} elements), AdamW m, "
+        "v and step, and metrics equal bit for bit (torch.equal on the card)"
+    )
+    del host, state0, metrics
+    _release()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = [ms0, ms_replay]
+    for step in range(1, TRAIN_STEPS):
+        (params, state, _), ms = run(step, params, state)
+        step_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {
+        "flash": fa.flash_attention_fwd.launches,
+        "flash_bwd": fa.flash_attention_bwd.launches,
+    }
+    # remat "full" runs each layer's forward again in its backward: two forward launches a
+    # layer a step, one backward; the steps are 0, its replay, 1 and 2
+    steps = TRAIN_STEPS + 1
+    want = {"flash": 2 * cfg.num_layers * steps, "flash_bwd": cfg.num_layers * steps}
+    others = (da.decode_attention.launches, rg.rglru_scan.launches, wk.wkv6_chunked.launches)
+    if launches != want or any(others):
+        raise AssertionError(
+            f"[dense train] launches {launches}, expected {want}; decode, rglru, wkv6 "
+            f"launches {others}, expected 0"
+        )
+    steady = sum(step_ms[1:]) / (len(step_ms) - 1)
+    path = fa.bwd_path(cfg.head_dim, cfg.head_dim, torch.bfloat16)
+    log(
+        f"[dense train] flash_attention_fwd launches {launches['flash']} = 2 x {cfg.num_layers} "
+        f"layers x {steps} steps (0, its replay, 1, 2; remat full runs the forward again in "
+        f"each layer's recompute), flash_attention_bwd launches {launches['flash_bwd']} = "
+        f"{cfg.num_layers} layers x {steps} steps ({path} path); step ms (0, replay, 1, 2) "
+        f"{', '.join(f'{x:.3f}' for x in step_ms)} (all but the first: {steady:.3f} ms, "
+        f"{tokens / steady * 1e3:.1f} tokens/s); max_memory_allocated over steps 1-2 {peak} "
+        f"bytes ({peak - held} above the {held} held before them)"
+    )
+    _train_profile(model, params, state, batches[0], opt, tag="[dense train]")
+    del params, state
+    _release()
+    _check_dense_train_against_plain(cfg, model, params0, batches[0])
+    return {**launches, "step_ms": step_ms, "peak": peak}
+
+
+def _grad_run(model, params, batch):
+    (loss, _), grads = value_and_grad(model.loss_fn, params, batch)
+    return float(loss), grads
+
+
+# Step 0 through the kernels against attn_impl="ref" in bfloat16, each quantity within
+# DENSE_TRAIN_GAPS times the plain path's own gap between its bfloat16 run and a float32 run
+# of the same params: the loss and the grad norm by their difference, each gradient leaf by
+# the relative L2 norm of its difference (a max over a leaf is one element's rounding, and in
+# bfloat16 the leaves' largest differences reach a quarter of their largest entries). The two
+# attention paths round at different places (the kernels round P and dS where they enter a
+# product and take Δ from the saved bfloat16 output; the plain path's autograd takes the
+# unrounded output), a rounding of the kind and size of the whole model's bfloat16 rounding
+# that the gap measures. A missing or misplaced term of the attention's gradient moves a
+# leaf by its own norm: the log gives the largest gap, so that the margin can be read.
+DENSE_TRAIN_GAPS = 4.0
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix.lstrip("/"), tree)]
+
+
+def _check_dense_train_against_plain(cfg, model, params, batch) -> None:
+    """Step 0's gradient through the kernels against attn_impl="ref" (plain attention under
+    autograd, the same bfloat16 GEMMs), within DENSE_TRAIN_GAPS times the plain path's gap
+    between this bfloat16 run and a float32 run of the same params (upcast) on the same
+    batch: the loss, the global grad norm and every gradient leaf."""
+    plain = build(dataclasses.replace(cfg, attn_impl="ref"), DEV)
+    loss, grads = _grad_run(model, params, batch)
+    plain_loss, plain_grads = _grad_run(plain, params, batch)
+    del plain
+    _release()
+    cfg32 = dataclasses.replace(
+        cfg, attn_impl="ref", param_dtype="float32", compute_dtype="float32"
+    )
+    params32 = tree_map(lambda x: x.float(), params)
+    loss32, grads32 = _grad_run(build(cfg32, DEV), params32, batch)
+    del params32
+    _release()
+
+    def gnorm(tree):
+        return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree))).item()
+
+    def rel_l2(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+    gn, plain_gn, gn32 = gnorm(grads), gnorm(plain_grads), gnorm(grads32)
+    rows = [("loss", abs(loss - plain_loss), abs(plain_loss - loss32))]
+    rows.append(("grad_norm", abs(gn - plain_gn), abs(plain_gn - gn32)))
+    named = zip(
+        _named_leaves(grads), tree_leaves(plain_grads), tree_leaves(grads32), strict=True
+    )
+    widest, widest_abs = ("", 0.0), ("", 0.0)  # the largest relative L2 gap; max-abs gap
+    for (name, g), p, w in named:
+        rows.append((name, rel_l2(g, p), rel_l2(p, w)))
+        if rows[-1][2] > widest[1]:
+            widest = (name, rows[-1][2])
+        share = ((p.float() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        if share > widest_abs[1]:
+            widest_abs = (name, share)
+    worst, worst_ratio = "", 0.0
+    for name, err, gap in rows:
+        ratio = err / gap if gap > 0 else float("inf")
+        if ratio > worst_ratio:
+            worst, worst_ratio = name, ratio
+        if err > DENSE_TRAIN_GAPS * gap:
+            raise AssertionError(
+                f"[dense train] step 0 kernel path vs attn_impl='ref': {name} {err:.3e} > "
+                f"{DENSE_TRAIN_GAPS} x the bfloat16-vs-float32 gap {gap:.3e}"
+            )
+    log(
+        f"[dense train] step 0 kernel path vs attn_impl='ref' (both bfloat16), each within "
+        f"{DENSE_TRAIN_GAPS} x the plain path's bfloat16-vs-float32 gap: loss {loss:.6f} vs "
+        f"{plain_loss:.6f} (|diff| {rows[0][1]:.3e}, gap {rows[0][2]:.3e}; float32 "
+        f"{loss32:.6f}), grad_norm {gn:.6f} vs {plain_gn:.6f} (|diff| {rows[1][1]:.3e}, gap "
+        f"{rows[1][2]:.3e}), {len(rows) - 2} gradient leaves by relative L2 norm; the largest "
+        f"diff/gap {worst_ratio:.3f} ({worst}); the largest gap {widest[1]:.3e} ({widest[0]}); "
+        f"by max |.| the largest gap is {widest_abs[1]:.3e} of its leaf's largest entry "
+        f"({widest_abs[0]})"
+    )
+
+
 def _index(tree, i):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
@@ -2959,6 +3597,8 @@ def main() -> int:
     exact = _timed("exactness", phase_exactness)
     rwkv_launches = _timed("rwkv", phase_rwkv)
     _timed("rwkv exactness", phase_rwkv_exactness)
+    _timed("dense", phase_dense)
+    dense_train = _timed("dense train", phase_dense_train)
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
@@ -2987,6 +3627,22 @@ def main() -> int:
             train["flash_bwd"],
             bwd_rows["bwd"],
             "q,dO(4,12,4096,64) k,v(4,4,4096,64) float32 causal",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_bf16_train",
+            flash_src,
+            flash_tpu,
+            dense_train["flash"],
+            bwd_rows["bf16"]["fwd"],
+            "q(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal, with the logsumexp",
+        ),
+        _kernel_entry(
+            "flash_attention_bwd_bf16",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+            "src/repro/kernels/flash_attention.py:139",
+            dense_train["flash_bwd"],
+            bwd_rows["bf16"]["bwd"],
+            "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal",
         ),
         _kernel_entry(
             "flash_attention_fwd_hd256",
@@ -3048,5 +3704,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:] == [TRAIN_ARG]:
-        sys.exit(train_main())
+        sys.exit(_process_main(TRAIN_RESULT, _train))
+    if sys.argv[1:] == [DENSE_TRAIN_ARG]:
+        sys.exit(_process_main(DENSE_TRAIN_RESULT, _dense_train))
     sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

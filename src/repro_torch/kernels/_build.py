@@ -32,6 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 KERNEL_SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_bwd_bf16": "flash_attention_bwd_bf16.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "rglru_scan": "rglru_scan.cu",
     "wkv6": "wkv6.cu",

@@ -43,7 +43,10 @@
 //     A-operand layout of `wgmma`, and V is the B operand straight from its row-major tile
 //     (MN-major, transposed by the instruction): no copy of P or V through shared memory.
 //   - The running sum is per thread and is reduced across the quad once; O is divided by
-//     the clamped denominator once and stored as bfloat16.
+//     the clamped denominator once and stored as bfloat16. Asked for it (an lse pointer),
+//     the block also writes each row's logsumexp in float32, m ln 2 + log(l) with m the
+//     log2-domain max, for the bfloat16 backward (flash_attention_bwd_bf16.cu); the
+//     output's bits are the same either way.
 //   Shared memory at D = Dv = 256: Q 64 KB + 2 stages x (K 32 KB + V 32 KB) = 192 KB, one
 //   block an SM. There is no split over keys and no atomic: a row's bits depend on its own
 //   q and the keys it sees, not on B or on the other rows of its block.
@@ -729,6 +732,7 @@ constexpr uint32_t Q_CHUNK = BQ * ROW_BYTES;            // 16 KB: 128 rows x 64 
 constexpr uint32_t KV_CHUNK = BK * ROW_BYTES;           // 8 KB: 64 keys x 64 columns
 constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;         // 8 rows: one swizzle atom
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // K-major (Q, K: the reduced dim contiguous). A k-step of 16 columns inside the 128-byte
 // row advances the start address by 32 bytes; the leading offset is unused.
@@ -789,8 +793,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
-                           __nv_bfloat16* __restrict__ o, int hq, int hkv, int sq, int sk, int dv,
-                           int causal, int window, float scale_log2) {
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int hq,
+                           int hkv, int sq, int sk, int dv, int causal, int window,
+                           float scale_log2) {
   constexpr uint32_t K_BYTES = DC * KV_CHUNK;
   constexpr uint32_t V_BYTES = DVC * KV_CHUNK;
   extern __shared__ uint8_t smem_raw[];
@@ -989,8 +994,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     if (rows_live) {
-      const float den0 = fmaxf(quad_sum(l0), 1e-37f);
-      const float den1 = fmaxf(quad_sum(l1), 1e-37f);
+      const float sum0 = quad_sum(l0), sum1 = quad_sum(l1);
+      const float den0 = fmaxf(sum0, 1e-37f);
+      const float den1 = fmaxf(sum1, 1e-37f);
       __nv_bfloat16* ob = o + ((size_t)b * hq + h) * (size_t)sq * dv;
 #pragma unroll
       for (int c = 0; c < DVC; ++c) {
@@ -1005,6 +1011,13 @@ __global__ void __launch_bounds__(THREADS, 1)
             *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * dv + col) =
                 __floats2bfloat162_rn(acc[c][4 * i + 2] / den1, acc[c][4 * i + 3] / den1);
         }
+      }
+      // each row's logsumexp in natural units, as the float32 path writes it: the running max
+      // back from the log2 domain, plus the log of the row's sum
+      if (lse != nullptr && lane % 4 == 0) {
+        float* lb = lse + ((size_t)b * hq + h) * (size_t)sq;
+        if (row0 < sq) lb[row0] = m0 * LN2 + logf(sum0);
+        if (row1 < sq) lb[row1] = m1 * LN2 + logf(sum1);
       }
     }
   }
@@ -1027,9 +1040,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int co
 }
 
 template <int DC, int DVC>
-int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o, int b,
-           int hq, int hkv, int sq, int sk, int dv, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+           void* lse, int b, int hq, int hkv, int sq, int sk, int dv, int causal, int window,
+           float scale, cudaStream_t stream) {
   const size_t smem =
       1024 + DC * Q_CHUNK + STAGES * (DC + DVC) * KV_CHUNK + 8 * (1 + 3 * STAGES);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DC, DVC>,
@@ -1037,25 +1050,25 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   flash_fwd_wgmma_kernel<DC, DVC><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), hq, hkv, sq, sk, dv, causal, window,
-      scale * LOG2E);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), hq, hkv, sq, sk, dv,
+      causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int DC>
-int launch_dv(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o, int b,
-              int hq, int hkv, int sq, int sk, int dv, int causal, int window, float scale,
-              cudaStream_t stream) {
+int launch_dv(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
+              void* lse, int b, int hq, int hkv, int sq, int sk, int dv, int causal, int window,
+              float scale, cudaStream_t stream) {
 #define REPRO_LAUNCH(DVC) \
-  launch<DC, DVC>(qm, km, vm, o, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
+  launch<DC, DVC>(qm, km, vm, o, lse, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
   if (dv <= 64) return REPRO_LAUNCH(1);
   if (dv <= 128) return REPRO_LAUNCH(2);
   return REPRO_LAUNCH(4);
 #undef REPRO_LAUNCH
 }
 
-int run(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int sq,
-        int sk, int d, int dv, int causal, int window, float scale, cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq, int hkv,
+        int sq, int sk, int d, int dv, int causal, int window, float scale, cudaStream_t stream) {
   if (d % 8 != 0 || dv % 8 != 0) return (int)cudaErrorInvalidValue;  // TMA strides: 16 bytes
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -1066,7 +1079,7 @@ int run(const void* q, const void* k, const void* v, void* o, int b, int hq, int
   if (err == cudaSuccess) err = make_map(&vm, v, b * hkv, sk, dv, BK);
   if (err != cudaSuccess) return (int)err;
 #define REPRO_LAUNCH(DC) \
-  launch_dv<DC>(qm, km, vm, o, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
+  launch_dv<DC>(qm, km, vm, o, lse, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
   if (d <= 64) return REPRO_LAUNCH(1);
   if (d <= 128) return REPRO_LAUNCH(2);
   return REPRO_LAUNCH(4);
@@ -1085,21 +1098,20 @@ extern "C" {
 // window. float32 only: split_tiles and n_items are the wrapper's split plan (key tiles a
 // piece of a query tile's walk, pieces of every query tile together; the call is refused
 // if they do not fit the shapes), and workspace is float32 scratch of at least
-// B*Hq*n_items*64*(round8(Dv) + 2) elements when some walk is split, else may be null; lse,
-// when not null, receives each row's logsumexp (B, Hq, Sq) float32 (float32 only: the call
-// is refused with is_bf16). The caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the
-// grid limits. Returns the cudaError_t of the launches (0 on success). Does not
-// synchronise.
+// B*Hq*n_items*64*(round8(Dv) + 2) elements when some walk is split, else may be null. lse,
+// when not null, receives each row's logsumexp (B, Hq, Sq) float32, in both dtypes. The
+// caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the grid limits. Returns the
+// cudaError_t of the launches (0 on success). Does not synchronise.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                               void* workspace, void* lse, int b, int hq, int hkv, int sq, int sk,
                               int d, int dv, int causal, int window, float scale, int split_tiles,
                               int n_items, int is_bf16, void* stream) {
-  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0 ||
-      (is_bf16 && lse != nullptr))
+  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return bf16::run(q, k, v, o, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
+  if (is_bf16)
+    return bf16::run(q, k, v, o, lse, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
   return f32::run(q, k, v, o, workspace, lse, b, hq, hkv, sq, sk, d, dv, causal, window, scale,
                   split_tiles, n_items, s);
 }

@@ -1,10 +1,10 @@
 """Flash attention, forward and backward: the hand-written Hopper kernels and their wrappers.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas`` and
-its custom VJP. The kernels are in ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu`` (CUDA C++ for ``sm_90a``, built by
-:mod:`._build`); their source notes say what they replace and what bounds
-them.
+its custom VJP. The kernels are in ``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu`` (float32) and ``csrc/flash_attention_bwd_bf16.cu``
+(CUDA C++ for ``sm_90a``, built by :mod:`._build`); their source notes say what
+they replace and what bounds them.
 
 Forward: both dtypes run on the tensor cores, one kernel a dtype with no
 fallback between them: bfloat16 through ``wgmma`` fed by TMA, float32
@@ -13,17 +13,20 @@ halves, three products a step: float32 accuracy). The float32 kernel may
 cut a long key walk into pieces that run on separate blocks and are merged
 in a fixed order; :func:`f32_plan` chooses the cut from the shapes and
 masks alone, never from B or the card, so a row's bits do not depend on
-the batch it runs in. Asked for it, the float32 path also writes each
-row's logsumexp, which the backward needs.
+the batch it runs in. Asked for it, both paths also write each row's
+logsumexp in float32, which the backward needs.
 
-Backward (:func:`flash_attention_bwd`, float32, head dims up to 128): the
-FlashAttention-2 form in 3xTF32, three launches (Δ = rowsum(dO∘O); dK and
-dV a block per key tile, summed over the GQA group in a fixed order; dQ a
-block per query tile), no atomics: a step replays bit for bit. Head dims up
-to 64 that are multiples of 4 (the demo's training) run on ``wgmma`` fed by
-a TMA ring, every other one on ``mma.sync`` (:func:`bwd_path`, a function of
-the head dims alone). :class:`FlashAttentionFunction` joins the two under
-autograd.
+Backward (:func:`flash_attention_bwd`, head dims up to 128): the
+FlashAttention-2 form, three launches (Δ = rowsum(dO∘O); dK and dV a block
+per key tile, summed over the GQA group in a fixed order in float32; dQ a
+block per query tile), no atomics: a step replays bit for bit. float32 runs
+in 3xTF32: head dims up to 64 that are multiples of 4 (the demo's training)
+on ``wgmma`` fed by a TMA ring, every other one on ``mma.sync``. bfloat16
+runs its own kernels, ``mma.sync`` m16n8k16 with float32 sums, P and dS
+rounded to bfloat16 only where they enter a product, dq, dk and dv returned
+in bfloat16 (:func:`bwd_path` names the kernels from the dtype and head
+dims). :class:`FlashAttentionFunction` joins forward and backward under
+autograd in either dtype.
 
 On a CUDA tensor each wrapper launches its kernels or raises. On a CPU
 tensor it runs the plain version (:func:`repro_torch.kernels.ref.
@@ -55,13 +58,13 @@ __all__ = [
 ]
 
 MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
-MAX_BWD_HEAD_DIM = 128  # the C side's MAX_D in csrc/flash_attention_bwd.cu
+MAX_BWD_HEAD_DIM = 128  # the C side's MAX_D in csrc/flash_attention_bwd*.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 #: the kernel that serves each dtype, both on the tensor cores: wgmma (bfloat16) and
 #: mma.sync in 3xTF32 (float32)
 PATHS = {torch.bfloat16: "wgmma", torch.float32: "3xtf32"}
-_TMA_ALIGN = 8  # head dims of the wgmma path: a TMA row stride is a multiple of 16 bytes
+_TMA_ALIGN = 8  # bfloat16 head dims: a TMA or cp.async row stride is a multiple of 16 bytes
 
 # The float32 kernel's tiles and split plan (``f32`` in csrc/flash_attention_fwd.cu).
 F32_BLOCK_Q = 64  # query rows a block
@@ -77,10 +80,13 @@ BWD_WGMMA_MAX_HEAD_DIM = 64  # its tiles' head-dim columns
 BWD_WALK = 32
 
 
-def bwd_path(d: int, dv: int) -> str:
-    """The backward kernels that serve head dims ``d`` and ``dv``: "wgmma" (TMA ring,
+def bwd_path(d: int, dv: int, dtype: torch.dtype = torch.float32) -> str:
+    """The backward kernels that serve head dims ``d`` and ``dv`` in ``dtype``: "bf16"
+    (``csrc/flash_attention_bwd_bf16.cu``) for bfloat16; in float32 "wgmma" (TMA ring,
     warpgroup products) for both up to 64 and multiples of 4 (a TMA row stride is a
     multiple of 16 bytes), else "mma.sync"."""
+    if dtype == torch.bfloat16:
+        return "bf16"
     small = d <= BWD_WGMMA_MAX_HEAD_DIM and dv <= BWD_WGMMA_MAX_HEAD_DIM
     return "wgmma" if small and d % 4 == 0 and dv % 4 == 0 else "mma.sync"
 
@@ -159,12 +165,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
         raise ValueError(f"flash_attention_fwd: B={b}, Hq={hq} exceed the grid limit")
 
 
-def _pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """q, k, v with D and Dv padded with zeros to multiples of 8, for the wgmma path.
+def _pad_head_dims(*xs: torch.Tensor):
+    """The tensors with their last dim padded with zeros to a multiple of 8, for the
+    bfloat16 kernels (q, k, v; in the backward also out and dout).
 
     Zero q and k columns leave every score as it was; zero v columns give output
-    columns that the caller cuts off. Tensors that need no pad come back as they
-    are (a copy only where a base address is not 16-byte aligned, as TMA needs).
+    columns that the caller cuts off, and zero out and dout columns add nothing to Δ
+    or dP. Tensors that need no pad come back as they are (a copy only where a base
+    address is not 16-byte aligned, as TMA and cp.async need).
     """
 
     def pad(x: torch.Tensor) -> torch.Tensor:
@@ -173,7 +181,7 @@ def _pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
             return torch.nn.functional.pad(x, (0, extra))
         return x if x.data_ptr() % 16 == 0 else x.clone()
 
-    return pad(q), pad(k), pad(v)
+    return tuple(pad(x) for x in xs)
 
 
 def _lib(name: str, n_ptr: int, n_int: int, n_after: int) -> ctypes.CDLL:
@@ -211,9 +219,9 @@ def flash_attention_fwd(
 ):
     """Attention forward. q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv) -> (B,Hq,Sq,Dv).
 
-    With ``return_lse`` (float32 only) it returns (out, lse), lse (B,Hq,Sq) float32 each
-    row's logsumexp, which :func:`flash_attention_bwd` takes; the output's bits are the
-    same either way. ``flash_attention_fwd.launches`` counts kernel launches (never the
+    With ``return_lse`` it returns (out, lse), lse (B,Hq,Sq) float32 each row's
+    logsumexp, which :func:`flash_attention_bwd` takes; the output's bits are the same
+    either way. ``flash_attention_fwd.launches`` counts kernel launches (never the
     CPU path); :data:`PATHS` names the kernel that serves each dtype.
     """
     _check(q, k, v, causal, window)
@@ -225,11 +233,6 @@ def flash_attention_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
     tensor_cores = PATHS[q.dtype] == "wgmma"
-    if return_lse and tensor_cores:
-        raise NotImplementedError(
-            "flash_attention_fwd: no logsumexp output on the bfloat16 path (no bfloat16 "
-            "backward yet): ROADMAP Queue 1 item 7"
-        )
     dv_out = v.shape[-1]
     if tensor_cores:
         q, k, v = _pad_head_dims(q, k, v)
@@ -285,11 +288,6 @@ def _check_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             f"flash attention backward: head dims D={d}, Dv={dv} above {MAX_BWD_HEAD_DIM}; "
             "wider heads wait for ROADMAP Queue 2 item 4"
         )
-    if q.device.type != "cpu" and q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"flash attention backward: no {q.dtype} kernel on {q.device.type} (float32 only); "
-            "the bfloat16 backward is ROADMAP Queue 1 item 7"
-        )
 
 
 def flash_attention_bwd(
@@ -306,11 +304,13 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward: (dq, dk, dv) from the forward's inputs, output and logsumexp
     and the output's gradient ``dout``, all contiguous; dk and dv summed over the GQA group.
+    ``out`` and ``dout`` are in q's dtype (float32 or bfloat16), lse in float32; the
+    gradients come back in the inputs' dtype.
 
     ``flash_attention_bwd.launches`` counts calls that launched the kernels (Δ, dK/dV and
     dQ: one count for the three); on a CPU tensor it runs
     :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` and counts nothing.
-    :func:`bwd_path` names the kernels that serve the head dims.
+    :func:`bwd_path` names the kernels that serve the dtype and head dims.
     """
     _check(q, k, v, causal, window)
     _check_grad(q, k, v)
@@ -322,27 +322,34 @@ def flash_attention_bwd(
             f"lse{tuple(lse.shape)} do not fit q{tuple(q.shape)} v{tuple(v.shape)}"
         )
     scale = float(scale) if scale is not None else d**-0.5
+    d_in, dv_in = d, dv
     if q.device.type == "cpu":
         return _ref.flash_attention_bwd_ref(
             q, k, v, out, lse, dout, causal=causal, window=window, scale=scale
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
-    for name, x in (("out", out), ("lse", lse), ("dout", dout)):
-        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
+    saved = (("out", out, q.dtype), ("lse", lse, torch.float32), ("dout", dout, q.dtype))
+    for name, x, dtype in saved:
+        if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
             raise ValueError(
-                f"flash_attention_bwd: {name} must be float32, contiguous, on {q.device}"
+                f"flash_attention_bwd: {name} must be {dtype}, contiguous, on {q.device}"
             )
-    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or sq == 0:
-        return dq.zero_(), dk.zero_(), dvv.zero_()
-    if bwd_path(d, dv) == "wgmma":  # TMA reads from 16-byte-aligned bases
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    path = bwd_path(d, dv, q.dtype)
+    if path == "bf16":  # cp.async rows of 16 bytes: head dims padded to multiples of 8
+        q, k, v, out, dout = _pad_head_dims(q, k, v, out, dout)
+        d, dv = q.shape[-1], v.shape[-1]
+    elif path == "wgmma":  # TMA reads from 16-byte-aligned bases
         q, k, v, dout = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, dout))
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    lib = _lib("flash_attention_bwd", 10, 9, 0)
+    name = "flash_attention_bwd_bf16" if path == "bf16" else "flash_attention_bwd"
+    lib = _lib(name, 10, 9, 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_bwd(
+        err = getattr(lib, f"repro_{name}")(
             q.data_ptr(),
             k.data_ptr(),
             v.data_ptr(),
@@ -367,6 +374,9 @@ def flash_attention_bwd(
         )
     _raise_on(lib, err, "flash_attention_bwd")
     count_launch(flash_attention_bwd)
+    if path == "bf16" and (d, dv) != (d_in, dv_in):
+        dq, dk = dq[..., :d_in].contiguous(), dk[..., :d_in].contiguous()
+        dvv = dvv[..., :dv_in].contiguous()
     return dq, dk, dvv
 
 
@@ -375,7 +385,8 @@ flash_attention_bwd.launches = 0
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention with its gradient: the forward kernel with the logsumexp saved beside
-    (q, k, v, out), the backward kernels on them. The counterpart of the reference's
+    (q, k, v, out), the backward kernels on them, float32 or bfloat16 (the saved ``out``
+    and the incoming gradient in that dtype). The counterpart of the reference's
     ``jax.custom_vjp`` around ``flash_attention_pallas``."""
 
     @staticmethod

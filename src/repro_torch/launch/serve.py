@@ -6,6 +6,11 @@
         --slots 4 --max-len 3072 --max-prompt 3000
     python -m repro_torch.launch.serve --arch rwkv6-7b --requests 8 \\
         --slots 4 --max-len 3072 --max-prompt 3000
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --requests 8 \\
+        --slots 4 --max-len 1536
+
+(``qwen3-1.7b``, ``stablelm-1.6b`` and ``yi-6b`` fit one 80 GB card at full
+depth; ``qwen1.5-110b``'s 222.4 GB of bfloat16 weights do not.)
 
 Builds the architecture at its full registered size (``--smoke`` for the
 reduced variant), draws params from ``--seed``, submits ``--requests``

@@ -35,20 +35,44 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return ((cfg.vocab_size + 511) // 512) * 512
 
 
+class _Bf16Unembed(torch.autograd.Function):
+    """bf16 (N, d) x bf16 (d, vocab) -> float32 logits in one product, and its gradient.
+
+    ``torch.mm(..., out_dtype=torch.float32)`` has no derivative in PyTorch. The backward
+    takes the float32 logits' gradient to bfloat16 once for the tensor cores and returns
+    dh and dw in bfloat16, the dtype of the operands, each from one product with float32
+    sums; no float32 copy of the vocabulary matrix is made here either.
+    """
+
+    @staticmethod
+    def forward(ctx, h2d, w):
+        ctx.save_for_backward(h2d, w)
+        return torch.mm(h2d, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h2d, w = ctx.saved_tensors
+        g = grad.to(torch.bfloat16)
+        dh = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(h2d.t(), g) if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
 def unembed_logits(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final norm, then float32 logits over the padded vocab; pad slots at -1e30.
 
     On the card, bf16 ``h`` and a bf16 vocabulary matrix (``unembed``, or the tied
     ``embed/table`` transposed) go into one product with float32 accumulation and
     output, the reference's ``preferred_element_type=jnp.float32`` einsum: no float32
-    copy of the (d, vocab) matrix is made (4.19 GB for recurrentgemma-9b). Elsewhere
-    (float32 models, the CPU) both operands are taken in float32.
+    copy of the (d, vocab) matrix is made (4.19 GB for recurrentgemma-9b); in training
+    its gradient is :class:`_Bf16Unembed`'s. Elsewhere (float32 models, the CPU) both
+    operands are taken in float32.
     """
     h = apply_norm(h, params["final_norm"], cfg.norm, cfg.norm_eps)
     w = params["embed"]["table"].t() if cfg.tie_embeddings else params["unembed"]
     if h.is_cuda and h.dtype == w.dtype == torch.bfloat16:
         h2d = h.reshape(-1, h.shape[-1])
-        logits = torch.mm(h2d, w, out_dtype=torch.float32).reshape(*h.shape[:-1], -1)
+        logits = _Bf16Unembed.apply(h2d, w).reshape(*h.shape[:-1], -1)
     else:
         logits = torch.matmul(h.float(), w.float())
     logits = softcap(logits, cfg.logit_softcap)

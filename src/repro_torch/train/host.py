@@ -20,7 +20,10 @@ def to_host(tree: Any) -> Any:
 
     Always a copy, also for a tensor already on the CPU, so that a save on a
     writer thread never sees the buffers a later in-place step writes. A
-    bfloat16 tensor raises: no bfloat16 model trains in the port yet.
+    bfloat16 tensor raises: numpy has no bfloat16, and the durable host boundary
+    for bfloat16 waits for ROADMAP Queue 1 item 7. The reference cannot be held
+    there yet: its bfloat16 checkpoints read back through ``np.load`` as ``|V2``,
+    so a restored one does not digest as it was written.
     """
     if isinstance(tree, Mapping):
         return {k: to_host(v) for k, v in tree.items()}
@@ -29,8 +32,9 @@ def to_host(tree: Any) -> Any:
     if isinstance(tree, torch.Tensor):
         if tree.dtype == torch.bfloat16:
             raise NotImplementedError(
-                "to_host: a bfloat16 tensor has no numpy dtype, and no bfloat16 model trains "
-                "in the port yet: ROADMAP Queue 1 item 7"
+                "to_host: a bfloat16 tensor has no numpy dtype; the durable host boundary for "
+                "bfloat16 waits for ROADMAP Queue 1 item 7 (the reference's bfloat16 "
+                "checkpoints read back as |V2 and do not digest as they were written)"
             )
         return tree.detach().to("cpu", copy=True).numpy()
     return tree

@@ -59,7 +59,9 @@ def host_array(value: Any) -> np.ndarray:
         )
     if str(getattr(value, "dtype", "")) == "torch.bfloat16":
         raise TypeError(
-            "a bfloat16 tensor cannot be digested or encoded (numpy has no bfloat16); "
+            "a bfloat16 tensor cannot be digested or encoded (numpy has no bfloat16); the "
+            "durable host boundary for bfloat16 waits for ROADMAP Queue 1 item 7, as the "
+            "reference's bfloat16 checkpoints read back as |V2; "
             "repro_torch.train.host.to_host refuses it too"
         )
     return np.asarray(value)

@@ -284,21 +284,29 @@ def test_no_grad_takes_the_forward_alone():
 
 
 @pytest.mark.parametrize(
-    "d, dv, path",
+    "d, dv, dtype, path",
     [
-        (64, 64, "wgmma"),  # the demo's training
-        (48, 32, "wgmma"),
-        (16, 24, "wgmma"),
-        (4, 4, "wgmma"),
-        (65, 64, "mma.sync"),  # above the wgmma tiles' 64 columns
-        (64, 128, "mma.sync"),
-        (128, 128, "mma.sync"),
-        (30, 18, "mma.sync"),  # no multiple of 4: a TMA row stride is a multiple of 16 bytes
-        (64, 62, "mma.sync"),
+        (64, 64, torch.float32, "wgmma"),  # the demo's training
+        (48, 32, torch.float32, "wgmma"),
+        (16, 24, torch.float32, "wgmma"),
+        (4, 4, torch.float32, "wgmma"),
+        (65, 64, torch.float32, "mma.sync"),  # above the wgmma tiles' 64 columns
+        (64, 128, torch.float32, "mma.sync"),
+        (128, 128, torch.float32, "mma.sync"),
+        # no multiple of 4: a TMA row stride is a multiple of 16 bytes
+        (30, 18, torch.float32, "mma.sync"),
+        (64, 62, torch.float32, "mma.sync"),
+        # bfloat16: one pair of kernels at every head dim up to 128 (the wrapper pads those
+        # that are no multiple of 8)
+        (128, 128, torch.bfloat16, "bf16"),  # qwen3-1.7b's training
+        (64, 64, torch.bfloat16, "bf16"),
+        (60, 36, torch.bfloat16, "bf16"),
     ],
 )
-def test_backward_path_is_a_function_of_the_head_dims(d, dv, path):
-    assert tfa.bwd_path(d, dv) == path
+def test_backward_path_is_a_function_of_the_head_dims(d, dv, dtype, path):
+    assert tfa.bwd_path(d, dv, dtype) == path
+    if dtype == torch.float32:
+        assert tfa.bwd_path(d, dv) == path  # float32 is the default
 
 
 def test_head_dims_above_128_are_refused_with_grad_on_every_device():
@@ -310,15 +318,20 @@ def test_head_dims_above_128_are_refused_with_grad_on_every_device():
 
 
 def test_bfloat16_with_grad_is_refused_off_the_cpu():
-    """On a device with kernels (the ``meta`` device stands in for the card here) a
-    bfloat16 input that needs a gradient raises before anything runs: no quiet fall back
-    to the plain backward."""
+    """Off the CPU a bfloat16 input that needs a gradient goes to the kernels, as float32
+    does: on the ``meta`` device, which has none, the forward of ``FlashAttentionFunction``
+    raises "no kernel for device" before anything runs, with no quiet fall back to the
+    plain versions. The backward wrapper does the same."""
     q, k, v = (
         torch.empty(1, 2, 8, 64, dtype=torch.bfloat16, device="meta", requires_grad=True)
         for _ in range(3)
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         tops.flash_attention(q, k, v)
+    out, dout = torch.empty_like(q), torch.empty_like(q)
+    lse = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tfa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), out, lse, dout)
 
 
 def test_backward_wrapper_refuses_mismatched_saved_tensors():

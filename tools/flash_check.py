@@ -2,13 +2,16 @@
 
     python3 tools/flash_check.py
 
-Builds ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
-alone and prints ptxas's report (registers, shared memory, spills of each
-instantiation) and the dynamic shared memory a block of the backward's wgmma
-kernels asks for, then runs the flash part of ``chip_smoke.py``'s kernel
-phase: the backward first (every case against its plain version at its
-tolerance and the share of it used, the forward's logsumexp, the
-determinism check, the timed rows at the demo's train shape), then the
+Builds ``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bwd_bf16.cu`` alone and prints ptxas's report
+(registers, shared memory, spills of each instantiation) and the dynamic
+shared memory a block of the backward's wgmma kernels asks for, then runs the
+flash part of ``chip_smoke.py``'s kernel phase: the backward first (every case
+against its plain version at its tolerance and the share of it used, the
+forward's logsumexp, the determinism check, the timed rows at the demo's train
+shape; then the same for the bfloat16 backward, timed at qwen3-1.7b's train
+shape beside SDPA's flash backward with its float64 yardstick, and the float32
+backward timed at head dim 128), then the
 forward (every case, with the path that served it, the determinism checks
 of both paths, bfloat16 on wgmma and float32 in 3xTF32, and the timed rows
 at the demo's and recurrentgemma-9b's shapes). About a minute and a half;
@@ -67,7 +70,7 @@ def float64_yardstick() -> None:
 def main() -> int:
     t0 = time.monotonic()
     cs.phase_device()
-    names = ["flash_attention_bwd", "flash_attention_fwd"]
+    names = ["flash_attention_bwd", "flash_attention_bwd_bf16", "flash_attention_fwd"]
     seconds = _build.build(names)
     for name in names:
         cs.log(f"[build] {name} in {seconds[name]:.1f} s; ptxas:")
@@ -78,6 +81,7 @@ def main() -> int:
         "shared memory a block (232,448 at most)"
     )
     cs._flash_bwd_rows(cs._gen(7))
+    cs._flash_bwd_bf16_rows(cs._gen(7))
     float64_yardstick()
     cs._flash_rows(cs._gen(7))
     cs.log(f"[done] {time.monotonic() - t0:.1f} s")
