@@ -49,7 +49,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    backward (each launch's device time) against its plain version, SDPA's
    memory-efficient backward, its bound and the tensor-core floor of the seven
    products it runs at the probed TF32 rates. The bfloat16 backward
-   (``csrc/flash_attention_bwd_bf16.cu``) against its plain version on the
+   (``csrc/flash_attention_bwd_bf16.cu``: wgmma fed by a TMA ring, whose two
+   walk kernels the build phase holds to no spills and no wgmma serialized in
+   ptxas's report) against its plain version on the
    cases of ``tests/test_torch_flash_bwd_bf16.py``, edges and qwen3-1.7b's
    train shape (2, 16, 4096, 128) at BWD_BF16_TOL of each gradient's largest
    entry, each case holding the bfloat16 forward's logsumexp against the plain
@@ -201,6 +203,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -458,8 +461,11 @@ FLASH_BWD_F32_HD128 = (2, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "float32
 # The bfloat16 backward: qwen3-1.7b's train shape (batch 2 of 4096 tokens, 16 query heads on 8
 # KV heads of 128, causal), then the cases of tests/test_torch_flash_bwd_bf16.py (head dims 64
 # and 128, GQA groups 1, 2 and 8, a window with Sq < Sk, head dims no multiple of 8 that the
-# wrapper pads, D != Dv with no mask and Sq > Sk) and edges of the kernels' 64-row blocks and
-# 32/64-row walk tiles: stablelm-1.6b's heads, a group of 16, window 1, one query row.
+# wrapper pads, D != Dv with no mask and Sq > Sk; the edges of the kernels' 128-row blocks and
+# 64-row walk tiles: ragged Sq and Sk with GQA and a window crossing tile edges, walks of one
+# tile, Sq = 1, D != Dv at head dims up to 64 and on either side of 64: the kernels built for
+# 1 or 2 chunks of 64 columns of each) and more edges: stablelm-1.6b's heads, a group of 16,
+# window 1, one query row.
 DENSE_TRAIN_BATCH = 2
 FLASH_BWD_BF16_TRAIN = (
     DENSE_TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "bfloat16", 128
@@ -470,6 +476,12 @@ FLASH_BWD_BF16_CASES = [
     (1, 8, 1, 40, 96, 128, True, 24, "bfloat16", 128),
     (1, 4, 2, 33, 50, 60, True, None, "bfloat16", 60),
     (1, 2, 1, 48, 40, 36, False, None, "bfloat16", 20),
+    (1, 4, 2, 150, 200, 128, True, 70, "bfloat16", 128),
+    (1, 2, 2, 64, 64, 128, False, None, "bfloat16", 128),
+    (1, 4, 1, 1, 70, 128, True, None, "bfloat16", 128),
+    (1, 4, 2, 90, 90, 48, True, None, "bfloat16", 64),
+    (1, 4, 2, 100, 130, 128, True, None, "bfloat16", 64),
+    (1, 2, 1, 70, 70, 64, True, 30, "bfloat16", 96),
     (1, 32, 32, 777, 777, 64, True, None, "bfloat16", 64),
     (1, 16, 1, 300, 300, 128, True, None, "bfloat16", 128),
     (1, 4, 2, 150, 400, 24, True, 1, "bfloat16", 16),
@@ -488,7 +500,13 @@ LSE_BF16_TOL = 1e-4
 # the bfloat16 backward's same bits on two launches and for B = 1 against row 0 of B = 4
 FLASH_BWD_BF16_DETERMINISM = (4, 16, 8, 1024, 1024, 128, True, None, "bfloat16", 128)
 # flash_bwd_bf16_<part>_kernel: the bfloat16 backward's launches
-BF16_KERNEL_PARTS = ("delta", "dkdv", "dq")
+BF16_KERNEL_PARTS = ("delta", "dkdv_wgmma", "dq_wgmma")
+# its wgmma kernels, which ptxas must build with no spills and no wgmma serialized (its notes
+# C7514, C7515, C7518)
+BF16_WGMMA_KERNELS = ("flash_bwd_bf16_dkdv_wgmma_kernel", "flash_bwd_bf16_dq_wgmma_kernel")
+# the mma.sync bfloat16 backward that the wgmma kernels replaced, at qwen3-1.7b's train shape,
+# for the record beside their time (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
+BWD_BF16_MMA_SYNC_MS = 3.6506
 # AdamW as the train CLI sets it for TRAIN_STEPS steps (repro_torch.launch.train.opt_config,
 # held equal in the train process): the durable phase's trainer steps take the same AdamW
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
@@ -560,8 +578,7 @@ PORT_KERNEL_SYMBOLS = (
     "flash_bwd_dkdv_kernel",
     "flash_bwd_dq_kernel",
     "flash_bwd_bf16_delta_kernel",
-    "flash_bwd_bf16_dkdv_kernel",
-    "flash_bwd_bf16_dq_kernel",
+    *BF16_WGMMA_KERNELS,
     "decode_attention_kernel",
     "rglru_ring_kernel",
     "rglru_step_kernel",
@@ -725,6 +742,31 @@ def phase_build() -> None:
     for name in per_kernel:
         report = (_build.build_dir() / f"{name}.log").read_text().strip()
         log(f"[build] {name} ptxas:\n{report}")
+    report = (_build.build_dir() / "flash_attention_bwd_bf16.log").read_text()
+    faults = _ptxas_faults(report, BF16_WGMMA_KERNELS)
+    if faults:
+        raise AssertionError("[build] the bfloat16 backward's wgmma kernels: " + "; ".join(faults))
+    log(f"[build] {', '.join(BF16_WGMMA_KERNELS)}: no spills, no wgmma serialized")
+
+
+def _ptxas_faults(report: str, names) -> list:
+    """What ptxas's ``-v`` report holds against the kernels whose mangled names contain one
+    of ``names``: spill bytes, its notes that it serialized wgmma anywhere in the report
+    (C7514, C7515, C7518, ...), and a name that no function of the report carries."""
+    faults, seen, current = [], set(), None
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            current = next((n for n in names if n in line), None)
+            seen.add(current)
+        elif current is not None and "spill" in line:
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            if any(spills):
+                faults.append(f"{current}: {line.strip()}")
+            current = None
+        if "(C75" in line and "serialized" in line:
+            faults.append(line.strip())
+    faults += [f"{n}: not in ptxas's report" for n in names if n not in seen]
+    return faults
 
 
 def _gen(seed):
@@ -1157,7 +1199,8 @@ def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err):
         f"to {hq} heads) {bwd['library_ms']:.4f} (kernel "
         f"{'faster' if bwd['ms'] < bwd['library_ms'] else 'NOT faster'}), bound_ms "
         f"{bound:.5f} ({bound_by}, bf16 tensor cores: 5 products at 989 TFLOP/s), "
-        f"kernel/bound {bwd['ms'] / bound:.1f}"
+        f"kernel/bound {bwd['ms'] / bound:.1f}; the mma.sync kernel it replaced "
+        f"{BWD_BF16_MMA_SYNC_MS} ms, {BWD_BF16_MMA_SYNC_MS / bwd['ms']:.2f}x this one's"
     )
     log(
         f"[kernels]   qwen3-1.7b train shape forward (bfloat16, wgmma): with lse "
@@ -3642,7 +3685,8 @@ def main() -> int:
             "src/repro/kernels/flash_attention.py:139",
             dense_train["flash_bwd"],
             bwd_rows["bf16"]["bwd"],
-            "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal",
+            "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal; flash_bwd_bf16_delta_kernel, "
+            + ", ".join(BF16_WGMMA_KERNELS),
         ),
         _kernel_entry(
             "flash_attention_fwd_hd256",

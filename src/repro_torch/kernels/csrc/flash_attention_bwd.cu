@@ -561,18 +561,6 @@ __device__ __forceinline__ uint32_t sw128(int r, int e) {
 // the start address by 32 bytes inside the 128-byte row; the leading offset is unused.
 __device__ __forceinline__ uint64_t kdesc(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
 
-// The consumer warpgroup (0 or 1) of this thread, broadcast from lane 0 so that the compiler
-// sees a warp-uniform value: wgmma behind a branch it cannot prove uniform is serialized.
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128 - 1, 0);
-}
-
-// Waits until at most N of this warpgroup's committed wgmma groups are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
@@ -813,7 +801,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // ---- consumer warpgroups: 64 keys each ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-  const int ctid = threadIdx.x - 128, wgi = warpgroup(), tid = ctid % 128;
+  const int ctid = threadIdx.x - 128, wgi = consumer_warpgroup(), tid = ctid % 128;
   const int lane = tid % 32, g = lane / 4, qd = lane % 4;
   const size_t kv_head = (size_t)b * hkv + hk;
   uint8_t* kh = sm + L.own_s;
@@ -883,7 +871,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_commit();
       product_s(dpt, a_v, a_v + OWN_BYTES, b_or, b_or + ROWS_BYTES);
       wgmma_commit();
-      wgmma_wait<1>();
+      wgmma_wait_pending<1>();
       pin(st);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -899,7 +887,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
       product_walk(tv, ph, pl, b_ow, b_ow + WALK_BYTES);  // P^T dO
       wgmma_commit();
-      wgmma_wait<0>();  // dP^T and P^T dO
+      wgmma_wait_pending<0>();  // dP^T and P^T dO
       pin(dpt);
       pin(tv);
       pin_fragments(ph);
@@ -925,7 +913,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       split_tile_rows(it + 1);
     }
     if (!skip) {
-      wgmma_wait<0>();
+      wgmma_wait_pending<0>();
       pin(tk);
       pin_fragments(sh);
       pin_fragments(sl);
@@ -994,7 +982,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // ---- consumer warpgroups: 64 query rows each ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-  const int ctid = threadIdx.x - 128, wgi = warpgroup(), tid = ctid % 128;
+  const int ctid = threadIdx.x - 128, wgi = consumer_warpgroup(), tid = ctid % 128;
   const int lane = tid % 32, g = lane / 4, qd = lane % 4;
   const size_t head = (size_t)b * hq + h;
   uint8_t* qh = sm + L.own_s;
@@ -1057,7 +1045,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_commit();
       product_s(dp, a_o, a_o + OWN_BYTES, b_vr, b_vr + ROWS_BYTES);
       wgmma_commit();
-      wgmma_wait<1>();
+      wgmma_wait_pending<1>();
       pin(s);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -1069,7 +1057,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               : 0.f;  // P
         }
       }
-      wgmma_wait<0>();
+      wgmma_wait_pending<0>();
       pin(dp);
 #pragma unroll
       for (int e = 0; e < 16; ++e) s[e] *= dp[e] - ((e & 2) ? dl1 : dl0);  // dS
@@ -1084,7 +1072,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       split_tile_rows(it + 1);
     }
     if (!skip) {
-      wgmma_wait<0>();
+      wgmma_wait_pending<0>();
       pin(tq);
       pin_fragments(xh);
       pin_fragments(xl);

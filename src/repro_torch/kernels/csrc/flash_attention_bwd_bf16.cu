@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), bfloat16: operands on the tensor cores by
-// mma.sync m16n8k16 with float32 sums.
+// Flash-attention backward for Hopper (sm_90a), bfloat16: wgmma fed by a TMA ring,
+// warp-specialised, float32 sums.
 //
 // Replaces the backward of the TPU kernel for bfloat16 inputs: `_vjp_bwd` in
 // src/repro/kernels/flash_attention.py, the custom VJP of `flash_attention_pallas` (jax.vjp of
@@ -13,63 +13,100 @@
 // logsumexp lse (which flash_fwd_wgmma_kernel writes when asked):
 //   D = rowsum(dO o O);  P = exp(S scale - lse);  dV = P^T dO;  dP = dO V^T;
 //   dS = P o (dP - D);   dQ = dS K scale;         dK = dS^T Q scale.
-// Three launches, as the float32 backward. Each output element is summed in a fixed order
-// and written once: no atomics, so two launches give the same bits and a batch row's
-// gradients do not depend on the batch it is in.
+// P and dS are rounded to bfloat16 only where they enter a product; P stays float32 in dS.
+// Three launches. Each output element is summed in a fixed order in float32 and written once:
+// no atomics, so two launches give the same bits and a batch row's gradients do not depend on
+// the batch it is in.
 //   - flash_bwd_bf16_delta_kernel: D in float32, one warp a row.
-//   - flash_bwd_bf16_dkdv_kernel: one block per (tile of 64 keys, KV head, batch), 4 warps of
-//     16 keys. It walks the g = Hq / Hkv query heads of its group in order and, for each, the
-//     tiles of 32 query rows that some of its keys are visible to, recomputing S^T = K Q^T and
+//   - flash_bwd_bf16_dkdv_wgmma_kernel: one block per (tile of 128 keys, KV head, batch). It
+//     walks the g = Hq / Hkv query heads of its group in order and, for each, the tiles of 64
+//     query rows that some of its keys are visible to, recomputing S^T = K Q^T and
 //     dP^T = V dO^T. dK and dV stay in float32 registers over the whole walk (the sum over the
 //     GQA group, in a fixed order) and are rounded to bfloat16 once; a key tile no query sees
-//     writes zeros. Key tile 0 (the longest causal walk) is block 0.
-//   - flash_bwd_bf16_dq_kernel: one block per (tile of 64 query rows, query head, batch), 4
-//     warps of 16 rows, walking the tiles of 64 keys its rows see and recomputing S and dP; dQ
-//     stays in float32 registers and is rounded once. The last query tile (the longest causal
-//     walk) is block 0.
+//     writes zeros.
+//   - flash_bwd_bf16_dq_wgmma_kernel: one block per (tile of 128 query rows, query head,
+//     batch), walking the tiles of 64 keys its rows see and recomputing S and dP; dQ stays in
+//     float32 registers and is rounded once.
 //
 // What bounds it. Five products over the (query, key) pairs the masks keep, 2 pairs (3D + 2Dv)
 // FLOPs a head, against one read of q, k, v, o, dO, lse and one write of dq, dk, dv: at
 // qwen3-1.7b's train shape (B 2, Hq 16, Hkv 8, S 4096, D = Dv = 128, causal) about S FLOPs a
 // byte, far above the card's ridge (295 FLOP/byte in bfloat16), so the tensor cores bound it:
-// 3.44e11 FLOPs at 989 TFLOP/s. Recomputing S and dP in the dQ kernel adds two products (seven
-// in all), the price of writing dQ without atomics.
+// 3.437e11 FLOPs at 989 TFLOP/s, 0.3475 ms. Recomputing S and dP in the dQ kernel adds two
+// products, the price of writing dQ without atomics: the seven products as run take
+// 0.487 ms at that rate.
 //
-// Design. Every product is mma.sync m16n8k16 with bfloat16 operands and float32 sums: the
-// owned rows (K and V, or Q and dO) as A fragments by ldmatrix from shared memory, the walk
-// tile's rows as B fragments by ldmatrix (S, dP: reduced over the head dim) or ldmatrix.trans
-// (dV, dK, dQ: reduced over the walk). P and dS go from the accumulators of S and dP straight
-// into the A fragments of the walk products (the accumulator of two n-tiles of 8 is the A
-// fragment of one k-step of 16), rounded to bfloat16 there and only there: P stays float32
-// in dS = P o (dP - D). The walk tile is double-buffered by 16-byte cp.async copies that
-// zero-fill rows past Sq or Sk and head-dim columns past D up to the next multiple of 16; the
-// next tile lands while this one is used. Shared-memory rows are padded by 16 bytes, so the
-// eight rows an ldmatrix reads start in eight different bank groups.
-//   Shared memory at D = Dv = 128: dK/dV 70,144 bytes (K, V 2 x 17 KB; 2 stages of Q, dO 34 KB;
-//   lse, D), dQ 104,960 (Q, dO 34 KB; 2 stages of K, V 68 KB; lse, D).
+// Design (both walk kernels; the float32 backward's wgmma path and the bfloat16 forward are
+// the models):
+//   - Warp specialisation: 384 threads, warpgroup 0 the producer, warpgroups 1 and 2 the
+//     consumers of 64 owned rows each (keys in dK/dV, query rows in dQ); `setmaxnreg` moves
+//     registers from the producer (24) to the consumers (240).
+//   - TMA: 3-D tensor maps over (B*H, S, D), bfloat16, boxes of 64 rows by 64 columns with
+//     the 128-byte swizzle, zeros past S and D from the copy itself. The producer's first warp
+//     loads the owned rows once (K and V, or Q and dO) and then each walk tile (Q and dO, or
+//     K and V) into a ring of STAGES stages, a full and an empty mbarrier a stage; in dK/dV
+//     its lanes also copy the tile's lse (times log2 e) and D beside it. Boxes wholly past S
+//     or D are never loaded and never read: a warpgroup whose rows all lie past S has nothing
+//     to do, and a chunk of 64 columns wholly past D or Dv is not part of the kernel built for
+//     those head dims. The walk loop has no __syncthreads().
+//   - Products, each a wgmma m64n64k16: S (S^T) and dP (dP^T) with both operands in shared
+//     memory, K-major, reduced over the head dim; dV += P^T dO, dK += dS^T Q and dQ += dS K
+//     with A in registers, straight from the S and dP accumulators (the accumulator of 16
+//     columns is the A fragment of one k-step: no shuffle, no trip through shared memory),
+//     and B the walk tile in shared memory read MN-major through the descriptor's transpose
+//     bit. One TMA copy of each tile serves both of its products.
+//   - Masks by tile: each (warpgroup, walk tile) is classified once by warp-uniform tests:
+//     skipped, fully visible, or cut by an edge (the causal diagonal, the window's edge, a
+//     ragged end); only a cut tile runs the code that tests its elements (a select on every
+//     element of every tile cost a fifth of the kernels' time: tools/bwd_bf16_probe.py). The
+//     warpgroup's index is broadcast by a shuffle, so ptxas sees the tests as uniform: it
+//     serializes every wgmma of a kernel behind a branch it cannot prove warp-uniform (notes
+//     C7514, C7518).
+//   - Overlap: P is computed while dP runs; in dK/dV, dS while P^T dO runs. The two consumer
+//     warpgroups take turns on the tensor cores.
+//   - Order: 1-D grids, tiles slowest, so that the longest causal walks of every head and
+//     batch start first: dK/dV from key tile 0, dQ from the last query tile.
+//   Registers at D = Dv = 128 (a consumer thread of dK/dV): dK and dV 64 + 64 float32, S^T
+//   and dP^T 32 + 32, P and dS as bfloat16 fragments 16 + 16. Shared memory there: owned rows
+//   64 KB, 4 stages of 32 KB, lse and D; 199,752 bytes a block, one block an SM. The kernels
+//   are built for 1 or 2 chunks of 64 columns of D and of Dv, so that every loop over k-steps
+//   and chunks has a fixed count: a branch between the wgmmas of a product makes the compiler
+//   copy their accumulators, and ptxas then serializes every wgmma (its note C7515).
 //
-// Plain C interface, loaded with ctypes; every pointer and the stream are void*.
+// Plain C interface, loaded with ctypes; every pointer and the stream are void*. The TMA
+// encoder comes from cudaGetDriverEntryPoint (hopper.cuh), so the library needs no -lcuda.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int MAX_D = 128;
-constexpr int THREADS = 128;  // 4 warps of 16 owned rows
-constexpr int OWN = 64;       // the rows a block owns: keys (dK/dV) or query rows (dQ)
-constexpr int WALK_KV = 32;   // query rows of a dK/dV walk tile
-constexpr int WALK_Q = 64;    // keys of a dQ walk tile
+constexpr int OWN = 128;     // owned rows a block: two consumer warpgroups of 64
+constexpr int BOX = 64;      // rows of a TMA box: an owned half, or a walk tile
+constexpr int WALK = 64;     // rows of a walk tile: query rows (dK/dV) or keys (dQ)
+constexpr int STAGES = 4;    // walk tiles in flight
+constexpr int COLS = 64;     // head-dim columns of a box: 128 bytes, the swizzle span
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;  // 24 * 128 + 240 * 256 = 65536 - 1024
+constexpr uint32_t ROW_BYTES = COLS * 2;
+constexpr uint32_t BOX_BYTES = BOX * ROW_BYTES;    // 8 KB
+constexpr uint32_t WALK_CHUNK = WALK * ROW_BYTES;  // 8 KB: a walk tile's 64 columns
+constexpr uint32_t KSTEP_ROWS_BYTES = 2 * 8 * ROW_BYTES;  // 16 rows: an MN-major k-step
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 
 struct Masks {
   int sq, sk, causal, window;  // window <= 0: none
@@ -81,149 +118,15 @@ struct Masks {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zeros when !fill (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(fill ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// d += a b: m16n8k16, bfloat16 operands, float32 sums. Fragments (g = lane / 4, t = lane % 4):
-// a0 (row g, k 2t, 2t + 1), a1 (row g + 8), a2 (k + 8), a3 (row g + 8, k + 8); b0 (k 2t, 2t + 1,
-// column g), b1 (k + 8); d0 (row g, columns 2t), d1 (2t + 1), d2 (row g + 8, 2t), d3.
-__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                      uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+__device__ __forceinline__ void zero(float (&acc)[N]) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  }
-}
-
-// Rows [row0, row0 + rows) of a row-major (n, cols) bfloat16 matrix (cols a multiple of 8)
-// into shared rows of ld elements, columns [0, c16); rows past n and columns past cols are
-// zeros. Issued as cp.async copies: the caller commits and waits.
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* __restrict__ src,
-                                          int row0, int rows, int n, int cols, int c16) {
-  const int chunks = c16 / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
-    const int r = i / chunks, c = 8 * (i - r * chunks), row = row0 + r;
-    const bool in = row < n && c < cols;
-    cp_async16(dst + r * ld + c, in ? src + (size_t)row * cols + c : src, in);
-  }
-}
-
-// acc (16 owned rows x NT n-tiles of the walk) = A B^T over the head dim: A this warp's 16
-// rows of an owned tile (ldmatrix), B the walk tile's rows (ldmatrix, not transposed), ks
-// k-steps of 16 columns (at most KS).
-template <int NT, int KS>
-__device__ __forceinline__ void product_rows(float (&acc)[NT][4], const bf16* own, const bf16* walk,
-                                             int ld, int ks, int lane) {
-  zero(acc);
-  const bf16* a_row = own + (lane % 16) * ld + 8 * (lane / 16);
-  const bf16* b_row = walk + ((lane % 8) + 8 * (lane / 16)) * ld + 8 * ((lane / 8) % 2);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    if (kk >= ks) break;
-    uint32_t a[4];
-    ldsm_x4(a, a_row + 16 * kk);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, b_row + 16 * np * ld + 16 * kk);
-      mma16(acc[2 * np], a, b[0], b[1]);
-      mma16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// The accumulator of S-like products (NT n-tiles of 8 walk rows) as bfloat16 A fragments of
-// NT / 2 k-steps of 16 walk rows.
-template <int NT>
-__device__ __forceinline__ void fragments(uint32_t (&x)[NT / 2][4], const float (&s)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    x[j][0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-    x[j][1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-    x[j][2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-    x[j][3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-  }
-}
-
-// acc (16 owned rows x head-dim columns) += X B over the walk: X the fragments of this warp's
-// 16 rows by the walk's KW rows, B the walk tile (rows = walk, columns = head dim) by
-// ldmatrix.trans; the n-tiles below c16 columns (at most 8 NP).
-template <int NP, int KW>
-__device__ __forceinline__ void product_walk(float (&acc)[2 * NP][4], const uint32_t (&x)[KW][4],
-                                             const bf16* walk, int ld, int c16, int lane) {
-  const bf16* b_row = walk + ((lane % 8) + 8 * ((lane / 8) % 2)) * ld + 8 * (lane / 16);
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-    if (16 * np >= c16) break;
-#pragma unroll
-    for (int j = 0; j < KW; ++j) {
-      uint32_t b[4];
-      ldsm_x4_t(b, b_row + 16 * j * ld + 16 * np);
-      mma16(acc[2 * np], x[j], b[0], b[1]);
-      mma16(acc[2 * np + 1], x[j], b[2], b[3]);
-    }
-  }
-}
-
-// Rows r0 and r1 (< n) of this warp's accumulator, times mul, as bfloat16 into a row-major
-// (n, cols) matrix: columns below cols (a multiple of 8).
-template <int N>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[N][4], int r0, int r1,
-                                           int n, int cols, float mul, int qd) {
-#pragma unroll
-  for (int nt = 0; nt < N; ++nt) {
-    const int col = 8 * nt + 2 * qd;
-    if (col >= cols) continue;
-    if (r0 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r0 * cols + col) =
-          __floats2bfloat162_rn(acc[nt][0] * mul, acc[nt][1] * mul);
-    if (r1 < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r1 * cols + col) =
-          __floats2bfloat162_rn(acc[nt][2] * mul, acc[nt][3] * mul);
-  }
+  for (int n = 0; n < N; ++n) acc[n] = 0.f;
 }
 
 // D = rowsum(dO o O) in float32: one warp a row, lanes over pairs of columns, then a fixed
@@ -246,239 +149,463 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) delta[row] = s;
 }
 
-// Shared-memory row stride in elements for head dims up to DMAX: 16 bytes of pad a row.
-template <int DMAX>
-__host__ __device__ constexpr int row_ld() {
-  return DMAX + 8;
+// Shared memory of a block, byte offsets from a 1024-byte-aligned base: the owned rows (the
+// operand behind S in DC chunks of OWN rows x 64 columns, then the one behind dP in DVC), the
+// ring (STAGES x [the walked tensor behind S in DC chunks of WALK rows, then the one behind dP
+// in DVC]), dK/dV's ring of lse and D (STAGES x 2 x WALK floats), then the barriers (own, full,
+// empty).
+template <int DC, int DVC>
+struct Smem {
+  static constexpr uint32_t OWN_CHUNK = OWN * ROW_BYTES;  // 16 KB
+  static constexpr uint32_t STAGE_BYTES = (DC + DVC) * WALK_CHUNK;
+  static constexpr uint32_t own_s = 0;
+  static constexpr uint32_t own_p = own_s + DC * OWN_CHUNK;
+  static constexpr uint32_t ring = own_p + DVC * OWN_CHUNK;
+  static constexpr uint32_t lse = ring + STAGES * STAGE_BYTES;
+  static constexpr uint32_t bars = lse + STAGES * 2 * WALK * 4;
+  static constexpr uint32_t total = bars + 8 * (1 + 2 * STAGES);
+};
+
+__device__ __forceinline__ uint32_t aligned_base(const uint8_t* p) {
+  return (smem_u32(p) + 1023u) & ~1023u;
 }
 
-template <int DMAX>
-__host__ __device__ constexpr size_t dkdv_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * OWN + 4 * WALK_KV) * row_ld<DMAX>() +
-         sizeof(float) * 4 * WALK_KV;
+// Initialises the barriers (full: `full_count` arrivals plus the TMA bytes; empty: every
+// consumer thread) and makes them visible to the whole block.
+__device__ __forceinline__ void init_barriers(uint32_t bars, uint32_t full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8u * (1 + s), full_count);
+      mbar_init(bars + 8u * (1 + STAGES + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
-template <int DMAX>
-__host__ __device__ constexpr size_t dq_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * OWN + 4 * WALK_Q) * row_ld<DMAX>() +
-         sizeof(float) * 2 * OWN;
+// The producer's loads of the owned rows: rows [row0, row0 + OWN) of two (B*H, n, cols)
+// tensors (DC and DVC chunks of 64 columns) at head bh, in boxes of BOX rows; boxes wholly
+// past n are not loaded (their warpgroup has no live row and never reads them).
+template <int DC, int DVC>
+__device__ __forceinline__ void load_owned(uint32_t dst_s, uint32_t dst_p,
+                                           const CUtensorMap* map_s, const CUtensorMap* map_p,
+                                           uint32_t bar, int row0, int n, int bh) {
+  constexpr uint32_t chunk = Smem<DC, DVC>::OWN_CHUNK;
+  const int halves = row0 + BOX < n ? 2 : 1;
+  mbar_expect_tx(bar, halves * (DC + DVC) * BOX_BYTES);
+  for (int h = 0; h < halves; ++h) {
+    for (int c = 0; c < DC; ++c)
+      tma_load(dst_s + c * chunk + h * BOX_BYTES, map_s, bar, c * COLS, row0 + h * BOX, bh);
+    for (int c = 0; c < DVC; ++c)
+      tma_load(dst_p + c * chunk + h * BOX_BYTES, map_p, bar, c * COLS, row0 + h * BOX, bh);
+  }
 }
 
-// DMAX: 64 or 128, the widest head dim the accumulators hold (D16, Dv16 <= DMAX).
-template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_bf16_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                               const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                               const float* __restrict__ lse, const float* __restrict__ delta,
-                               bf16* __restrict__ dk, bf16* __restrict__ dv_out, int hq, int hkv,
-                               int d, int dv, Masks mk, float scale) {
-  constexpr int LD = row_ld<DMAX>();
-  constexpr int NT = WALK_KV / 8;  // n-tiles of S^T over a walk tile
-  constexpr int DT = DMAX / 8;     // n-tiles of the dK and dV accumulators
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + OWN * LD;
-  bf16* qs = vs + OWN * LD;         // 2 stages of WALK_KV rows
-  bf16* os = qs + 2 * WALK_KV * LD;  // 2 stages
-  float* ls = reinterpret_cast<float*>(os + 2 * WALK_KV * LD);  // 2 stages: lse * log2(e)
-  float* dls = ls + 2 * WALK_KV;                                 // 2 stages: D
+// c (64 x 64) = A B^T over the head dim: A this warpgroup's 64 owned rows, B a walk tile's 64
+// rows, both K-major in NC chunks of 64 columns (a_chunk and WALK_CHUNK bytes apart): 4 NC
+// k-steps of 16 columns, every one run (columns past the head dim are zeros), so that no
+// branch splits the wgmmas of a product.
+template <int NC>
+__device__ __forceinline__ void product_s(float (&c)[32], uint32_t a, uint32_t a_chunk,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < NC * 4; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_bf16_ss(c, kmajor_bf16_desc(a + (kk >> 2) * a_chunk + col),
+                  kmajor_bf16_desc(b + (kk >> 2) * WALK_CHUNK + col), kk != 0);
+  }
+}
 
-  const int d16 = round16(d), dv16 = round16(dv);
-  const int hk = blockIdx.y, b = blockIdx.z, grp = hq / hkv;
-  const int sq = mk.sq, sk = mk.sk, k0 = blockIdx.x * OWN, off = sk - sq;
-  const size_t kv_head = (size_t)b * hkv + hk;
-  load_tile(ks, LD, k + kv_head * sk * d, k0, OWN, sk, d, d16);
-  load_tile(vs, LD, v + kv_head * sk * dv, k0, OWN, sk, dv, dv16);
-  cp_async_commit();
+// acc (64 x 64 columns, one chunk of the head dim) += X B over the walk tile: X from the
+// fragments x of an S-like accumulator, B the walk tile's chunk read MN-major.
+__device__ __forceinline__ void product_walk(float (&acc)[32], const uint32_t (&x)[4][4],
+                                             uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < WALK / 16; ++j)
+    wgmma_bf16_rs_mn(acc, x[j], mnmajor_bf16_desc(b + j * KSTEP_ROWS_BYTES));
+}
 
-  // The query rows that some key of this tile is visible to, [i_begin, i_end), as tiles.
+// Rows r0 and r1 (< n) of a warpgroup accumulator (NC chunks of 64 columns), times mul, as
+// bfloat16 into a row-major (n, cols) matrix: columns below cols (a multiple of 8).
+template <int NC>
+__device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[NC][32], int r0, int r1,
+                                          int n, int cols, float mul, int qd) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; ++nt) {
+      const int col = c * COLS + 8 * nt + 2 * qd;
+      if (col >= cols) continue;
+      if (r0 < n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r0 * cols + col) =
+            __floats2bfloat162_rn(acc[c][4 * nt] * mul, acc[c][4 * nt + 1] * mul);
+      if (r1 < n)
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r1 * cols + col) =
+            __floats2bfloat162_rn(acc[c][4 * nt + 2] * mul, acc[c][4 * nt + 3] * mul);
+    }
+  }
+}
+
+// P^T of a dK/dV walk tile in place of S^T (this thread's keys key0 and key1 by the tile's
+// rows i0 + column): exp2(S^T scale log2(e) - lse log2(e)), lt the tile's lse log2(e); with
+// MASKED (a tile an edge cuts) zero where the masks hide the pair.
+template <bool MASKED>
+__device__ __forceinline__ void probs_kv(float (&st)[32], const float* lt, float scale_log2,
+                                         const Masks& mk, int i0, int key0, int key1, int qd) {
+#pragma unroll
+  for (int nt = 0; nt < WALK / 8; ++nt) {
+    const float2 l = *reinterpret_cast<const float2*>(lt + 8 * nt + 2 * qd);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(st[4 * nt + e] * scale_log2 - ((e & 1) ? l.y : l.x));
+      const int col = 8 * nt + 2 * qd + (e & 1);
+      st[4 * nt + e] = !MASKED || mk.visible(i0 + col, e < 2 ? key0 : key1) ? p : 0.f;
+    }
+  }
+}
+
+// P of a dQ walk tile in place of S (this thread's rows row0 and row1, their lse log2(e)
+// lse0 and lse1, by the tile's keys kt + column); with MASKED zero where the masks hide the
+// pair.
+template <bool MASKED>
+__device__ __forceinline__ void probs_q(float (&sc)[32], float lse0, float lse1,
+                                        float scale_log2, const Masks& mk, int kt, int row0,
+                                        int row1, int qd) {
+#pragma unroll
+  for (int nt = 0; nt < WALK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(sc[4 * nt + e] * scale_log2 - (e < 2 ? lse0 : lse1));
+      const int key = kt + 8 * nt + 2 * qd + (e & 1);
+      sc[4 * nt + e] = !MASKED || mk.visible(e < 2 ? row0 : row1, key) ? p : 0.f;
+    }
+  }
+}
+
+// dK and dV of OWN keys of one KV head, summed over the query heads of its group. DC, DVC: the
+// chunks of 64 columns of D and Dv (1 or 2).
+template <int DC, int DVC>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_bf16_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap o_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const float* __restrict__ lse, const float* __restrict__ delta,
+                                     bf16* __restrict__ dk, bf16* __restrict__ dv_out, int batch,
+                                     int hq, int hkv, int d, int dv, Masks mk, float scale) {
+  using L = Smem<DC, DVC>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = aligned_base(smem_raw);
+  float* lse_ring = reinterpret_cast<float*>(smem_raw + (s0 - smem_u32(smem_raw)) + L::lse);
+  const uint32_t own_full = s0 + L::bars;
+  auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
+  auto stage = [&](int s) { return s0 + L::ring + s * L::STAGE_BYTES; };
+
+  // Blocks in the order of their key tiles across every (KV head, batch): the longest causal
+  // walks, the first key tiles', start first on the card.
+  const int heads = hkv * batch;
+  const int hk = blockIdx.x % heads % hkv, b = blockIdx.x % heads / hkv, grp = hq / hkv;
+  const int sq = mk.sq, sk = mk.sk, k0 = (blockIdx.x / heads) * OWN, off = sk - sq;
+  // The query rows that some key of this block is visible to, as tiles [t_begin, ...).
   const int k_last = imin(k0 + OWN, sk) - 1;
   const int i_begin = mk.causal ? imax(0, k0 - off) : 0;
   const int i_end = mk.window > 0 ? imin(sq, k_last + mk.window - off) : sq;
-  const int t_begin = i_begin / WALK_KV;
-  const int n_t = i_end > i_begin ? (i_end + WALK_KV - 1) / WALK_KV - t_begin : 0;
-  const int n_walk = grp * n_t;  // (query head, tile) in head order, then tile order
+  const int t_begin = i_begin / WALK;
+  const int per_head = i_end > i_begin ? (i_end + WALK - 1) / WALK - t_begin : 0;
+  const int n_tiles = grp * per_head;  // the group's heads in order, each its tiles in order
 
-  auto load_walk = [&](int w, int stage) {
-    const int hh = w / n_t, i0 = (t_begin + w % n_t) * WALK_KV;
-    const size_t head = (size_t)b * hq + hk * grp + hh;
-    load_tile(qs + stage * WALK_KV * LD, LD, q + head * sq * d, i0, WALK_KV, sq, d, d16);
-    load_tile(os + stage * WALK_KV * LD, LD, dout + head * sq * dv, i0, WALK_KV, sq, dv, dv16);
-    if (threadIdx.x < WALK_KV) {
-      const int i = i0 + threadIdx.x;
-      ls[stage * WALK_KV + threadIdx.x] = i < sq ? lse[head * sq + i] * LOG2E : 0.f;
-      dls[stage * WALK_KV + threadIdx.x] = i < sq ? delta[head * sq + i] : 0.f;
+  init_barriers(s0 + L::bars, 32);  // full: the producer warp's lanes, one with the TMA bytes
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: its first warp loads the owned rows, then the walk ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0)
+        load_owned<DC, DVC>(s0 + L::own_s, s0 + L::own_p, &k_map, &v_map, own_full, k0, sk,
+                            b * hkv + hk);
+      int hh = 0, t = t_begin;  // the walk tile's query head in the group, and its tile
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, i0 = t * WALK;
+        if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+        const int head = b * hq + hk * grp + hh;
+        for (int r = lane; r < WALK; r += 32) {
+          const int i = i0 + r;
+          lse_ring[(2 * s) * WALK + r] = i < sq ? lse[(size_t)head * sq + i] * LOG2E : 0.f;
+          lse_ring[(2 * s + 1) * WALK + r] = i < sq ? delta[(size_t)head * sq + i] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), L::STAGE_BYTES);
+          for (int c = 0; c < DC; ++c)
+            tma_load(stage(s) + c * WALK_CHUNK, &q_map, full(s), c * COLS, i0, head);
+          for (int c = 0; c < DVC; ++c)
+            tma_load(stage(s) + (DC + c) * WALK_CHUNK, &o_map, full(s), c * COLS, i0, head);
+        } else {
+          mbar_arrive(full(s));
+        }
+        if (++t == t_begin + per_head) {
+          t = t_begin;
+          ++hh;
+        }
+      }
     }
-  };
+    return;
+  }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, qd = lane % 4;
-  const int key0 = k0 + 16 * warp + g, key1 = key0 + 8;
-  const int kw_lo = k0 + 16 * warp, kw_hi = imin(kw_lo + 15, sk - 1);  // the warp's keys
+  // ---- consumer warpgroups: 64 keys each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
+  const int lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const int key0 = k0 + 64 * wgi + 16 * (tid / 32) + g, key1 = key0 + 8;
+  const int kw_lo = k0 + 64 * wgi, kw_hi = imin(kw_lo + 63, sk - 1);  // the warpgroup's keys
+  const uint32_t a_k = s0 + L::own_s + wgi * BOX_BYTES, a_v = s0 + L::own_p + wgi * BOX_BYTES;
   const float scale_log2 = scale * LOG2E;
-  float dka[DT][4], dva[DT][4];
-  zero(dka);
-  zero(dva);
+  float dka[DC][32], dva[DVC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) zero(dka[c]);
+#pragma unroll
+  for (int c = 0; c < DVC; ++c) zero(dva[c]);
+  mbar_wait(own_full, 0);
 
-  if (n_walk > 0) load_walk(0, 0);
-  cp_async_commit();
-  for (int w = 0; w < n_walk; ++w) {
-    const int st = w & 1;
-    if (w + 1 < n_walk) load_walk(w + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // K, V and tile w have landed
-    __syncthreads();
-    const int i0 = (t_begin + w % n_t) * WALK_KV;
-    const bf16* qt = qs + st * WALK_KV * LD;
-    const bf16* ot = os + st * WALK_KV * LD;
-    const float* lt = ls + st * WALK_KV;
-    const float* dt = dls + st * WALK_KV;
-    // a warp none of whose keys a row of the tile sees has nothing to add
-    const int qpos_lo = i0 + off, qpos_hi = imin(i0 + WALK_KV, sq) - 1 + off;
+  int t = t_begin;  // the walk tile's index in its query head's walk
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, i0 = t * WALK;
+    const int qpos_lo = i0 + off, qpos_hi = imin(i0 + WALK, sq) - 1 + off;
+    // a warpgroup none of whose keys a row of the tile sees has nothing to add; one whose
+    // keys every row sees masks nothing
     const bool skip = kw_lo >= sk || (mk.causal && kw_lo > qpos_hi) ||
                       (mk.window > 0 && kw_hi <= qpos_lo - mk.window);
+    const bool edge = i0 + WALK > sq || kw_lo + 64 > sk || (mk.causal && kw_lo + 63 > qpos_lo) ||
+                      (mk.window > 0 && kw_lo <= qpos_hi - mk.window);
+    const uint32_t qt = stage(s), ot = stage(s) + DC * WALK_CHUNK;
+    const float* lt = lse_ring + 2 * s * WALK;  // lse * log2(e), then D
+    mbar_wait(full(s), (it / STAGES) & 1);
     if (!skip) {
-      float pt[NT][4], dpt[NT][4];  // P^T and dP^T: this warp's keys by the tile's rows
-      uint32_t x[NT / 2][4];
-      product_rows<NT, DMAX / 16>(pt, ks + 16 * warp * LD, qt, LD, d16 / 16, lane);
+      float st[32], dpt[32];  // S^T and dP^T: this warpgroup's keys by the tile's rows
+      uint32_t pf[WALK / 16][4], sf[WALK / 16][4];
+      wgmma_fence();
+      product_s<DC>(st, a_k, L::OWN_CHUNK, qt);
+      wgmma_commit();
+      product_s<DVC>(dpt, a_v, L::OWN_CHUNK, ot);
+      wgmma_commit();
+      wgmma_wait_pending<1>();  // S^T
+      pin(st);
+      if (edge)  // P^T
+        probs_kv<true>(st, lt, scale_log2, mk, i0, key0, key1, qd);
+      else
+        probs_kv<false>(st, lt, scale_log2, mk, i0, key0, key1, qd);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int j = 0; j < WALK / 16; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * nt + 2 * qd + (e & 1);
-          pt[nt][e] = mk.visible(i0 + col, e < 2 ? key0 : key1)
-                          ? exp2f(pt[nt][e] * scale_log2 - lt[col])
-                          : 0.f;
-        }
+        for (int r = 0; r < 4; ++r) pf[j][r] = pack_bf16(st[8 * j + 2 * r], st[8 * j + 2 * r + 1]);
       }
-      fragments<NT>(x, pt);
-      product_walk<DMAX / 16, NT / 2>(dva, x, ot, LD, dv16, lane);  // dV += P^T dO
-      product_rows<NT, DMAX / 16>(dpt, vs + 16 * warp * LD, ot, LD, dv16 / 16, lane);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int c = 0; c < DVC; ++c) pin(dva[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < DVC; ++c) product_walk(dva[c], pf, ot + c * WALK_CHUNK);  // dV += P^T dO
+      wgmma_commit();
+      wgmma_wait_pending<1>();  // dP^T (P^T dO may still run)
+      pin(dpt);
+#pragma unroll
+      for (int nt = 0; nt < WALK / 8; ++nt) {
+        const float2 dl = *reinterpret_cast<const float2*>(lt + WALK + 8 * nt + 2 * qd);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          dpt[nt][e] = pt[nt][e] * (dpt[nt][e] - dt[8 * nt + 2 * qd + (e & 1)]);  // dS^T
+          dpt[4 * nt + e] = st[4 * nt + e] * (dpt[4 * nt + e] - ((e & 1) ? dl.y : dl.x));  // dS^T
       }
-      fragments<NT>(x, dpt);
-      product_walk<DMAX / 16, NT / 2>(dka, x, qt, LD, d16, lane);  // dK += dS^T Q
+#pragma unroll
+      for (int j = 0; j < WALK / 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sf[j][r] = pack_bf16(dpt[8 * j + 2 * r], dpt[8 * j + 2 * r + 1]);
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pin(dka[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) product_walk(dka[c], sf, qt + c * WALK_CHUNK);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait_pending<0>();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pin(dka[c]);
+#pragma unroll
+      for (int c = 0; c < DVC; ++c) pin(dva[c]);
+#pragma unroll
+      for (int j = 0; j < WALK / 16; ++j) {
+        pin(pf[j]);
+        pin(sf[j]);
+      }
     }
-    __syncthreads();  // every warp is done with stage st before tile w + 2 lands in it
+    mbar_arrive(empty(s));  // this thread is done with stage s
+    t = t + 1 == t_begin + per_head ? t_begin : t + 1;
   }
-  cp_async_wait<0>();
-  store_rows(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd);
-  store_rows(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd);
+  const size_t kv_head = (size_t)b * hkv + hk;
+  store_acc<DC>(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd);
+  store_acc<DVC>(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd);
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(THREADS)
-    flash_bwd_bf16_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             bf16* __restrict__ dq, int hq, int hkv, int d, int dv, Masks mk,
-                             float scale) {
-  constexpr int LD = row_ld<DMAX>();
-  constexpr int NT = WALK_Q / 8;  // n-tiles of S over a walk tile
-  constexpr int DT = DMAX / 8;
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* os = qs + OWN * LD;
-  bf16* kt_s = os + OWN * LD;       // 2 stages of WALK_Q keys
-  bf16* vt_s = kt_s + 2 * WALK_Q * LD;  // 2 stages
-  float* ls = reinterpret_cast<float*>(vt_s + 2 * WALK_Q * LD);  // the block's rows: lse * log2(e)
-  float* dls = ls + OWN;                                           // and D
+// dQ of OWN query rows of one head.
+template <int DC, int DVC>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_bf16_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                   const __grid_constant__ CUtensorMap o_map,
+                                   const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap v_map,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   bf16* __restrict__ dq, int batch, int hq, int hkv, int d,
+                                   int dv, Masks mk, float scale) {
+  using L = Smem<DC, DVC>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = aligned_base(smem_raw);
+  const uint32_t own_full = s0 + L::bars;
+  auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
+  auto stage = [&](int s) { return s0 + L::ring + s * L::STAGE_BYTES; };
 
-  const int d16 = round16(d), dv16 = round16(dv);
-  const int sq = mk.sq, sk = mk.sk, off = sk - sq;
-  const int qt = (sq + OWN - 1) / OWN - 1 - blockIdx.x;  // the longest causal walk first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (hq / hkv), q0 = qt * OWN;
-  const size_t head = (size_t)b * hq + h, kv_head = (size_t)b * hkv + hk;
-  const bf16* kb = k + kv_head * sk * d;
-  const bf16* vb = v + kv_head * sk * dv;
-  load_tile(qs, LD, q + head * sq * d, q0, OWN, sq, d, d16);
-  load_tile(os, LD, dout + head * sq * dv, q0, OWN, sq, dv, dv16);
-  cp_async_commit();
-  if (threadIdx.x < OWN) {
-    const int i = q0 + threadIdx.x;
-    ls[threadIdx.x] = i < sq ? lse[head * sq + i] * LOG2E : 0.f;
-    dls[threadIdx.x] = i < sq ? delta[head * sq + i] : 0.f;
-  }
-
-  // The key tiles some row of this tile sees (the forward's walk, in tiles of WALK_Q keys).
+  // Blocks from the last query tile (the longest causal walk) to the first, each tile across
+  // every (head, batch) before the next.
+  const int sq = mk.sq, sk = mk.sk, off = sk - sq, heads = hq * batch;
+  const int q0 = ((sq + OWN - 1) / OWN - 1 - (int)blockIdx.x / heads) * OWN;
+  const int h = blockIdx.x % heads % hq, b = blockIdx.x % heads / hq, hk = h / (hq / hkv);
+  // The key tiles some row of this block sees (the forward's walk, in tiles of WALK keys).
   const int k_end = mk.causal ? imin(sk, imin(q0 + OWN, sq) - 1 + off + 1) : sk;
-  const int k_begin = (mk.window > 0 ? imax(0, q0 + off - mk.window + 1) : 0) / WALK_Q * WALK_Q;
-  const int n_tiles = imax(0, (k_end - k_begin + WALK_Q - 1) / WALK_Q);
-  auto load_walk = [&](int t, int stage) {
-    const int kt0 = k_begin + t * WALK_Q;
-    load_tile(kt_s + stage * WALK_Q * LD, LD, kb, kt0, WALK_Q, sk, d, d16);
-    load_tile(vt_s + stage * WALK_Q * LD, LD, vb, kt0, WALK_Q, sk, dv, dv16);
-  };
+  const int k_begin = (mk.window > 0 ? imax(0, q0 + off - mk.window + 1) : 0) / WALK * WALK;
+  const int n_tiles = imax(0, (k_end - k_begin + WALK - 1) / WALK);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, qd = lane % 4;
-  const int lr0 = 16 * warp + g, lr1 = lr0 + 8;
-  const int r_lo = q0 + 16 * warp;  // the warp's rows, for the tile tests (warp-uniform)
-  const bool rows_live = r_lo < sq;
-  const int qpos_lo = r_lo + off, qpos_hi = imin(r_lo + 16, sq) - 1 + off;
-  const float scale_log2 = scale * LOG2E;
-  float dqa[DT][4];
-  zero(dqa);
+  init_barriers(s0 + L::bars, 1);
 
-  if (n_tiles > 0) load_walk(0, 0);
-  cp_async_commit();
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) load_walk(t + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // Q, dO and tile t have landed
-    __syncthreads();     // (the first time also the block's lse and D)
-    const int kt0 = k_begin + t * WALK_Q;
-    const bf16* kt = kt_s + st * WALK_Q * LD;
-    const bf16* vt = vt_s + st * WALK_Q * LD;
-    const bool skip = !rows_live || (mk.causal && kt0 > qpos_hi) ||
-                      (mk.window > 0 && kt0 + WALK_Q - 1 <= qpos_lo - mk.window);
-    if (!skip) {
-      float s[NT][4], dp[NT][4];  // S (then P) and dP: this warp's rows by the tile's keys
-      uint32_t x[NT / 2][4];
-      product_rows<NT, DMAX / 16>(s, qs + 16 * warp * LD, kt, LD, d16 / 16, lane);
-      product_rows<NT, DMAX / 16>(dp, os + 16 * warp * LD, vt, LD, dv16 / 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e < 2 ? lr0 : lr1;
-          const float p = mk.visible(q0 + r, kt0 + 8 * nt + 2 * qd + (e & 1))
-                              ? exp2f(s[nt][e] * scale_log2 - ls[r])
-                              : 0.f;
-          s[nt][e] = p * (dp[nt][e] - dls[r]);  // dS
-        }
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread loads the owned rows, then the walk ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      load_owned<DC, DVC>(s0 + L::own_s, s0 + L::own_p, &q_map, &o_map, own_full, q0, sq,
+                          b * hq + h);
+      const int kv_bh = b * hkv + hk;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, kt = k_begin + it * WALK;
+        if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+        mbar_expect_tx(full(s), L::STAGE_BYTES);
+        for (int c = 0; c < DC; ++c)
+          tma_load(stage(s) + c * WALK_CHUNK, &k_map, full(s), c * COLS, kt, kv_bh);
+        for (int c = 0; c < DVC; ++c)
+          tma_load(stage(s) + (DC + c) * WALK_CHUNK, &v_map, full(s), c * COLS, kt, kv_bh);
       }
-      fragments<NT>(x, s);
-      product_walk<DMAX / 16, NT / 2>(dqa, x, kt, LD, d16, lane);  // dQ += dS K
     }
-    __syncthreads();  // every warp is done with stage st before tile t + 2 lands in it
+    return;
   }
-  cp_async_wait<0>();
-  store_rows(dq + head * sq * d, dqa, q0 + lr0, q0 + lr1, sq, d, scale, qd);
+
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
+  const int lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const size_t head = (size_t)b * hq + h;
+  const int r_lo = q0 + 64 * wgi;  // the warpgroup's rows, for the tile tests
+  const int row0 = r_lo + 16 * (tid / 32) + g, row1 = row0 + 8;
+  const bool rows_live = r_lo < sq;
+  const int qpos_lo = r_lo + off, qpos_hi = imin(r_lo + 64, sq) - 1 + off;
+  const float lse0 = row0 < sq ? lse[head * sq + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < sq ? lse[head * sq + row1] * LOG2E : 0.f;
+  const float dl0 = row0 < sq ? delta[head * sq + row0] : 0.f;
+  const float dl1 = row1 < sq ? delta[head * sq + row1] : 0.f;
+  const uint32_t a_q = s0 + L::own_s + wgi * BOX_BYTES, a_o = s0 + L::own_p + wgi * BOX_BYTES;
+  const float scale_log2 = scale * LOG2E;
+  float dqa[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) zero(dqa[c]);
+  mbar_wait(own_full, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, kt = k_begin + it * WALK;
+    const bool skip = !rows_live || (mk.causal && kt > qpos_hi) ||
+                      (mk.window > 0 && kt + WALK - 1 <= qpos_lo - mk.window);
+    const bool edge = r_lo + 64 > sq || kt + WALK > sk || (mk.causal && kt + WALK - 1 > qpos_lo) ||
+                      (mk.window > 0 && kt <= qpos_hi - mk.window);
+    const uint32_t kt_s = stage(s), vt_s = stage(s) + DC * WALK_CHUNK;
+    mbar_wait(full(s), (it / STAGES) & 1);
+    if (!skip) {
+      float sc[32], dp[32];  // S and dP: this warpgroup's rows by the tile's keys
+      uint32_t sf[WALK / 16][4];
+      wgmma_fence();
+      product_s<DC>(sc, a_q, L::OWN_CHUNK, kt_s);
+      wgmma_commit();
+      product_s<DVC>(dp, a_o, L::OWN_CHUNK, vt_s);
+      wgmma_commit();
+      wgmma_wait_pending<1>();  // S
+      pin(sc);
+      if (edge)  // P
+        probs_q<true>(sc, lse0, lse1, scale_log2, mk, kt, row0, row1, qd);
+      else
+        probs_q<false>(sc, lse0, lse1, scale_log2, mk, kt, row0, row1, qd);
+      wgmma_wait_pending<0>();  // dP
+      pin(dp);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] *= dp[e] - ((e & 2) ? dl1 : dl0);  // dS
+#pragma unroll
+      for (int j = 0; j < WALK / 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sf[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pin(dqa[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) product_walk(dqa[c], sf, kt_s + c * WALK_CHUNK);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait_pending<0>();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pin(dqa[c]);
+#pragma unroll
+      for (int j = 0; j < WALK / 16; ++j) pin(sf[j]);
+    }
+    mbar_arrive(empty(s));  // this thread is done with stage s
+  }
+  store_acc<DC>(dq + head * sq * d, dqa, row0, row1, sq, d, scale, qd);
 }
 
-template <int DMAX>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
-           const float* delta, bf16* dq, bf16* dk, bf16* dv_out, int b, int hq, int hkv, int d,
-           int dv, const Masks& mk, float scale, cudaStream_t stream) {
-  const size_t smem_kv = dkdv_smem_bytes<DMAX>(), smem_q = dq_smem_bytes<DMAX>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16_dkdv_kernel<DMAX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+// A (B*H, rows, cols) bfloat16 tensor as a 3-D tensor map; boxes of (1, BOX, COLS), 128-byte
+// swizzle, zeros outside the tensor. cols must be a multiple of 8 (a 16-byte row stride).
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * 2 * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)COLS, (cuuint32_t)BOX, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DC, int DVC>
+size_t shared_bytes() {
+  return 1024 + Smem<DC, DVC>::total;
+}
+
+template <int DC, int DVC>
+int launch(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap& km,
+           const CUtensorMap& vm, const float* lse, const float* delta, bf16* dq, bf16* dk,
+           bf16* dv_out, int b, int hq, int hkv, int d, int dv, const Masks& mk, float scale,
+           cudaStream_t stream) {
+  const size_t smem = shared_bytes<DC, DVC>();
+  auto kv_kernel = flash_bwd_bf16_dkdv_wgmma_kernel<DC, DVC>;
+  auto q_kernel = flash_bwd_bf16_dq_wgmma_kernel<DC, DVC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_bf16_dq_kernel<DMAX>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_bf16_dkdv_kernel<DMAX><<<dim3((mk.sk + OWN - 1) / OWN, hkv, b), THREADS, smem_kv,
-                                     stream>>>(q, k, v, dout, lse, delta, dk, dv_out, hq, hkv, d,
-                                               dv, mk, scale);
+  // 1-D grids of (tile, head, batch), tiles slowest
+  kv_kernel<<<(mk.sk + OWN - 1) / OWN * hkv * b, THREADS, smem, stream>>>(
+      qm, om, km, vm, lse, delta, dk, dv_out, b, hq, hkv, d, dv, mk, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_bf16_dq_kernel<DMAX><<<dim3((mk.sq + OWN - 1) / OWN, hq, b), THREADS, smem_q,
-                                   stream>>>(q, k, v, dout, lse, delta, dq, hq, hkv, d, dv, mk,
-                                             scale);
+  q_kernel<<<(mk.sq + OWN - 1) / OWN * hq * b, THREADS, smem, stream>>>(
+      qm, om, km, vm, lse, delta, dq, b, hq, hkv, d, dv, mk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -487,12 +614,12 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const 
 extern "C" {
 
 // q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), o and dout (B,Hq,Sq,Dv): bfloat16,
-// contiguous, 16-byte aligned (cudaErrorMisalignedAddress otherwise), D and Dv multiples of 8
-// up to 128; lse (B,Hq,Sq) float32. Writes delta (B,Hq,Sq) float32 (scratch: D = rowsum(dO o
-// O)), dq, dk, dv in bfloat16 (shaped as q, k, v), every element. window <= 0 means no window.
-// The caller has checked Hq % Hkv == 0, B, Sq, Sk >= 1, causal/window only with Sq <= Sk, and
-// the grid limits. Returns the cudaError_t of the launches (0 on success). Does not
-// synchronise.
+// contiguous, 16-byte aligned (cudaErrorMisalignedAddress otherwise: TMA's base addresses),
+// D and Dv multiples of 8 up to 128 (TMA's 16-byte row strides); lse (B,Hq,Sq) float32.
+// Writes delta (B,Hq,Sq) float32 (scratch: D = rowsum(dO o O)), dq, dk, dv in bfloat16 (shaped
+// as q, k, v), every element. window <= 0 means no window. The caller has checked
+// Hq % Hkv == 0, B, Sq, Sk >= 1, causal/window only with Sq <= Sk, and the grid limits. Returns
+// the cudaError_t of the launches (0 on success). Does not synchronise.
 int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* delta, void* dq,
                                    void* dk, void* dv_out, int b, int hq, int hkv, int sq, int sk,
@@ -505,26 +632,38 @@ int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, 
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv_out);
-  if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;  // 16-byte cp.async copies
+  if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  CUtensorMap qm, om, km, vm;
+  cudaError_t err = make_map(&qm, q, b * hq, sq, d);
+  if (err == cudaSuccess) err = make_map(&om, dout, b * hq, sq, dv);
+  if (err == cudaSuccess) err = make_map(&km, k, b * hkv, sk, d);
+  if (err == cudaSuccess) err = make_map(&vm, v, b * hkv, sk, dv);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* bq = static_cast<const bf16*>(q);
-  const bf16* bk = static_cast<const bf16*>(k);
-  const bf16* bv = static_cast<const bf16*>(v);
   const bf16* bo = static_cast<const bf16*>(dout);
   const float* fl = static_cast<const float*>(lse);
   float* fd = static_cast<float*>(delta);
   const size_t rows = (size_t)b * hq * sq;
   flash_bwd_bf16_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
       static_cast<const bf16*>(o), bo, fd, rows, dv);
-  const cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Masks mk{sq, sk, causal, window > 0 ? window : 0};
   bf16* gq = static_cast<bf16*>(dq);
   bf16* gk = static_cast<bf16*>(dk);
   bf16* gv = static_cast<bf16*>(dv_out);
-  if (round16(d) <= 64 && round16(dv) <= 64)
-    return launch<64>(bq, bk, bv, bo, fl, fd, gq, gk, gv, b, hq, hkv, d, dv, mk, scale, s);
-  return launch<128>(bq, bk, bv, bo, fl, fd, gq, gk, gv, b, hq, hkv, d, dv, mk, scale, s);
+#define REPRO_LAUNCH(DC, DVC) \
+  launch<DC, DVC>(qm, om, km, vm, fl, fd, gq, gk, gv, b, hq, hkv, d, dv, mk, scale, s)
+  if (d <= 64) return dv <= 64 ? REPRO_LAUNCH(1, 1) : REPRO_LAUNCH(1, 2);
+  return dv <= 64 ? REPRO_LAUNCH(2, 1) : REPRO_LAUNCH(2, 2);
+#undef REPRO_LAUNCH
+}
+
+// Dynamic shared memory a block of the dK/dV or dQ kernel asks for (the two are equal) at
+// head dims D and Dv.
+int repro_flash_attention_bwd_bf16_shared_bytes(int d, int dv) {
+  if (d <= 64) return (int)(dv <= 64 ? shared_bytes<1, 1>() : shared_bytes<1, 2>());
+  return (int)(dv <= 64 ? shared_bytes<2, 1>() : shared_bytes<2, 2>());
 }
 
 const char* repro_cuda_error_string(int err) {

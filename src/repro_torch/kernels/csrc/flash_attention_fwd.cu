@@ -734,52 +734,6 @@ constexpr uint32_t GROUP_BYTES = 8 * ROW_BYTES;         // 8 rows: one swizzle a
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// K-major (Q, K: the reduced dim contiguous). A k-step of 16 columns inside the 128-byte
-// row advances the start address by 32 bytes; the leading offset is unused.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, GROUP_BYTES);
-}
-
-// MN-major (V as the B operand of P.V: the key dim is reduced, Dv is contiguous). One
-// instruction covers 64 columns, one swizzle atom wide, and 16 keys, two 8-row groups
-// GROUP_BYTES apart; both strides are set to that, so either reading of the fields holds.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, GROUP_BYTES, GROUP_BYTES);
-}
-
-// d (64 x 64, float32) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared, K-major).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64, float32) += A (64 x 16, bfloat16 in registers) * B (16 x 64, shared,
-// MN-major: transposed by the instruction).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -900,9 +854,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int c = 0; c < DC; ++c) {
 #pragma unroll
           for (int kk = 0; kk < COLS / 16; ++kk) {
-            const uint64_t da = kmajor_desc(q_wg + c * Q_CHUNK + kk * 32);
-            const uint64_t db = kmajor_desc(k_s + s * K_BYTES + c * KV_CHUNK + kk * 32);
-            wgmma_ss(sc, da, db, (c | kk) != 0);
+            const uint64_t da = kmajor_bf16_desc(q_wg + c * Q_CHUNK + kk * 32);
+            const uint64_t db = kmajor_bf16_desc(k_s + s * K_BYTES + c * KV_CHUNK + kk * 32);
+            wgmma_bf16_ss(sc, da, db, (c | kk) != 0);
           }
         }
         wgmma_commit();
@@ -980,8 +934,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int j = 0; j < 4; ++j) {
 #pragma unroll
           for (int c = 0; c < DVC; ++c)
-            wgmma_rs(acc[c], p[j],
-                     mnmajor_desc(v_s + s * V_BYTES + c * KV_CHUNK + j * 2 * GROUP_BYTES));
+            wgmma_bf16_rs_mn(
+                acc[c], p[j],
+                mnmajor_bf16_desc(v_s + s * V_BYTES + c * KV_CHUNK + j * 2 * GROUP_BYTES));
         }
         wgmma_commit();
         wgmma_wait_all();

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA-fed kernels: mbarriers, TMA tile
 // loads, wgmma's shared-memory descriptors and its fences, and the driver's tensor-map encoder.
-// Included by flash_attention_fwd.cu (the bfloat16 path) and flash_attention_bwd.cu (the
-// float32 backward on wgmma).
+// Included by flash_attention_fwd.cu (the bfloat16 path), flash_attention_bwd.cu (the
+// float32 backward on wgmma) and flash_attention_bwd_bf16.cu.
 
 #pragma once
 
@@ -70,6 +70,74 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed wgmma groups are still running (groups
+// complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bfloat16 wgmma on tiles as TMA writes them with the 128-byte swizzle: boxes of 64
+// columns, so 128-byte rows in 8-row groups of 1024 bytes: the bfloat16 forward and backward.
+
+// A K-major operand (the reduced dim runs along the row): a k-step of 16 columns advances the
+// start address by 32 bytes inside the 128-byte row; the leading offset is unused.
+__device__ __forceinline__ uint64_t kmajor_bf16_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// An MN-major operand (the reduced dim runs down the rows; the instruction transposes it):
+// one instruction covers the 64 columns of one swizzle atom and 16 rows, two 8-row groups
+// 1024 bytes apart, so a k-step advances the start address by 2048 bytes. With one atom
+// across, both offsets are 1024 bytes and either reading of the fields holds.
+__device__ __forceinline__ uint64_t mnmajor_bf16_desc(uint32_t addr) {
+  return sw128_desc(addr, 1024, 1024);
+}
+
+// d (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), bfloat16, both K-major in shared
+// memory; accumulate 0 starts d from zero.
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bfloat16 in registers) B (16 x 64, shared, MN-major).
+// A's fragment of k-step j is the float32 accumulator of a 64 x N product at its columns
+// 16j..16j+15 (elements 8j..8j+7 of each thread), packed in pairs.
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The consumer warpgroup (0 or 1) of a thread of a block whose warpgroup 0 is the producer,
+// broadcast from lane 0 so that the compiler sees a warp-uniform value: ptxas serializes
+// wgmma behind a branch it cannot prove warp-uniform.
+__device__ __forceinline__ int consumer_warpgroup() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / 128 - 1, 0);
 }
 
 // Keeps the compiler from moving reads or writes of registers that an asynchronous

@@ -22,11 +22,11 @@ per key tile, summed over the GQA group in a fixed order in float32; dQ a
 block per query tile), no atomics: a step replays bit for bit. float32 runs
 in 3xTF32: head dims up to 64 that are multiples of 4 (the demo's training)
 on ``wgmma`` fed by a TMA ring, every other one on ``mma.sync``. bfloat16
-runs its own kernels, ``mma.sync`` m16n8k16 with float32 sums, P and dS
-rounded to bfloat16 only where they enter a product, dq, dk and dv returned
-in bfloat16 (:func:`bwd_path` names the kernels from the dtype and head
-dims). :class:`FlashAttentionFunction` joins forward and backward under
-autograd in either dtype.
+runs its own kernels, also ``wgmma`` fed by a TMA ring and warp-specialised,
+bfloat16 operands with float32 sums, P and dS rounded to bfloat16 only where
+they enter a product, dq, dk and dv returned in bfloat16 (:func:`bwd_path`
+names the kernels from the dtype and head dims). :class:`FlashAttentionFunction`
+joins forward and backward under autograd in either dtype.
 
 On a CUDA tensor each wrapper launches its kernels or raises. On a CPU
 tensor it runs the plain version (:func:`repro_torch.kernels.ref.
@@ -64,7 +64,7 @@ _MAX_GRID_YZ = 65535
 #: the kernel that serves each dtype, both on the tensor cores: wgmma (bfloat16) and
 #: mma.sync in 3xTF32 (float32)
 PATHS = {torch.bfloat16: "wgmma", torch.float32: "3xtf32"}
-_TMA_ALIGN = 8  # bfloat16 head dims: a TMA or cp.async row stride is a multiple of 16 bytes
+_TMA_ALIGN = 8  # bfloat16 head dims: a TMA row stride is a multiple of 16 bytes
 
 # The float32 kernel's tiles and split plan (``f32`` in csrc/flash_attention_fwd.cu).
 F32_BLOCK_Q = 64  # query rows a block
@@ -82,9 +82,9 @@ BWD_WALK = 32
 
 def bwd_path(d: int, dv: int, dtype: torch.dtype = torch.float32) -> str:
     """The backward kernels that serve head dims ``d`` and ``dv`` in ``dtype``: "bf16"
-    (``csrc/flash_attention_bwd_bf16.cu``) for bfloat16; in float32 "wgmma" (TMA ring,
-    warpgroup products) for both up to 64 and multiples of 4 (a TMA row stride is a
-    multiple of 16 bytes), else "mma.sync"."""
+    (``csrc/flash_attention_bwd_bf16.cu``, ``wgmma`` fed by a TMA ring) for bfloat16; in
+    float32 "wgmma" (the same design in 3xTF32) for both up to 64 and multiples of 4 (a TMA
+    row stride is a multiple of 16 bytes), else "mma.sync"."""
     if dtype == torch.bfloat16:
         return "bf16"
     small = d <= BWD_WGMMA_MAX_HEAD_DIM and dv <= BWD_WGMMA_MAX_HEAD_DIM
@@ -172,7 +172,7 @@ def _pad_head_dims(*xs: torch.Tensor):
     Zero q and k columns leave every score as it was; zero v columns give output
     columns that the caller cuts off, and zero out and dout columns add nothing to Δ
     or dP. Tensors that need no pad come back as they are (a copy only where a base
-    address is not 16-byte aligned, as TMA and cp.async need).
+    address is not 16-byte aligned, as TMA needs).
     """
 
     def pad(x: torch.Tensor) -> torch.Tensor:
@@ -338,7 +338,7 @@ def flash_attention_bwd(
     if b == 0 or sq == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     path = bwd_path(d, dv, q.dtype)
-    if path == "bf16":  # cp.async rows of 16 bytes: head dims padded to multiples of 8
+    if path == "bf16":  # TMA rows of 16 bytes: head dims padded to multiples of 8
         q, k, v, out, dout = _pad_head_dims(q, k, v, out, dout)
         d, dv = q.shape[-1], v.shape[-1]
     elif path == "wgmma":  # TMA reads from 16-byte-aligned bases

@@ -9,7 +9,10 @@ path (``ref.flash_attention_bwd_ref`` on the bfloat16 forward's output and
 logsumexp) and ``ops.flash_attention`` under autograd
 (``FlashAttentionFunction``). Cases: head dims 64 and 128, one that is no
 multiple of 8 (the kernel's wrapper pads it), a key head dim other than the
-value's, GQA groups 1, 2 and 8, a window, Sq < Sk, no mask.
+value's, GQA groups 1, 2 and 8, a window, Sq < Sk, no mask; and the edges of
+the kernels' tiles (128 owned rows a block, walk tiles of 64 rows): ragged Sq
+and Sk with a window crossing tile edges, walks of one tile, Sq = 1, D != Dv
+at head dims up to 64 and on either side of 64.
 
 Where the two differ, and by how much. The port's Δ = rowsum(dO∘O) takes the
 bfloat16 output the forward saved; the reference's VJP differentiates the
@@ -39,6 +42,13 @@ CASES = [
     (1, 8, 1, 40, 96, 128, True, 24, 128),  # group 8, window, Sq < Sk
     (1, 4, 2, 33, 50, 60, True, None, 60),  # head dim no multiple of 8, Sq < Sk
     (1, 2, 1, 48, 40, 36, False, None, 20),  # no mask, Sq > Sk, D != Dv, neither a multiple of 8
+    # edges of the kernels' tiles: 128 owned rows a block, walk tiles of 64 rows
+    (1, 4, 2, 150, 200, 128, True, 70, 128),  # ragged Sq, Sk; GQA; a window crossing tile edges
+    (1, 2, 2, 64, 64, 128, False, None, 128),  # every walk exactly one tile
+    (1, 4, 1, 1, 70, 128, True, None, 128),  # Sq = 1
+    (1, 4, 2, 90, 90, 48, True, None, 64),  # D != Dv, both at most 64
+    (1, 4, 2, 100, 130, 128, True, None, 64),  # D above 64, Dv at most 64
+    (1, 2, 1, 70, 70, 64, True, 30, 96),  # D at most 64, Dv above 64, window
 ]
 IDS = [f"case{i}" for i in range(len(CASES))]
 # Both sides compute in float32 and round each gradient to bfloat16 once; they differ by

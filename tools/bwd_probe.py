@@ -54,7 +54,7 @@ DKDV_MARKS = [
     ("dV summed; dS^T", "      wgmma_fence();\n      product_walk(tk"),
     ("dS^T Q issued", "    consumers_sync();  // the split by rows and dO's by columns are free"),
     ("barrier", "    if (it + 1 < n_tiles) {  // while the tensor cores run dS^T Q"),
-    ("next tile's rows split", "    if (!skip) {\n      wgmma_wait<0>();\n      pin(tk);"),
+    ("next tile's rows split", "    if (!skip) {\n      wgmma_wait_pending<0>();\n      pin(tk);"),
     ("dS^T Q waited; dK summed", "    consumers_sync();  // Q's split by columns is free"),
     ("the walk's end", "  store_acc(dk + kv_head * sk * d, dka"),
 ]
@@ -65,7 +65,7 @@ DQ_MARKS = [
     ("dS", "      wgmma_fence();\n      product_walk(tq"),
     ("dS K issued", "    consumers_sync();  // the split by rows is free"),
     ("barrier", "    if (it + 1 < n_tiles) {\n      mbar_wait(full((it + 1) % STAGES)"),
-    ("next tile's rows split", "    if (!skip) {\n      wgmma_wait<0>();\n      pin(tq);"),
+    ("next tile's rows split", "    if (!skip) {\n      wgmma_wait_pending<0>();\n      pin(tq);"),
     ("dS K waited; dQ summed", "    consumers_sync();  // the split by columns is free"),
     ("the walk's end", "  store_acc(dq + head * sq * d, dqa"),
 ]
@@ -98,7 +98,7 @@ ABLATIONS = {
         (W3, "    wgmma_n64_rs(t, xh[j], kdesc(b_hi + 32 * j), j != 0);"),
     ],
     # the two choices that mattered most, undone
-    "warpgroup index not broadcast": [("wgi = warpgroup(),", "wgi = ctid / 128,")],
+    "warpgroup index not broadcast": [("wgi = consumer_warpgroup(),", "wgi = ctid / 128,")],
     "blocks with the tiles fastest": [
         ("""  const int heads = hkv * batch;
   const int hk = blockIdx.x % heads % hkv, b = blockIdx.x % heads / hkv, grp = hq / hkv;
@@ -165,15 +165,16 @@ def _phases_source(src: str) -> str:
     )
 
 
-def _build_copies(sources):
-    """Compile each copy with the port's flags, one nvcc each, in parallel."""
+def _build_copies(sources, filename="flash_attention_bwd.cu", out=OUT):
+    """Compile each copy (as ``filename`` in a directory of its own under ``out``) with the
+    port's flags, one nvcc each, in parallel."""
     procs = {}
     for i, (name, src) in enumerate(sources.items()):
-        d = OUT / f"copy{i}"
+        d = out / f"copy{i}"
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention_bwd.cu").write_text(src)
+        (d / filename).write_text(src)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{CSRC}", "-o", str(d / "lib.so"),
-               str(d / "flash_attention_bwd.cu")]
+               str(d / filename)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), d / "lib.so")
     libs = {}
@@ -182,7 +183,9 @@ def _build_copies(sources):
         if proc.returncode != 0:
             raise SystemExit(f"bwd_probe: {name} failed to build:\n{log}")
         notes = sorted({line.split(")")[0] + ")" for line in log.splitlines() if "(C75" in line})
-        cs.log(f"[bwd_probe] built {name}; ptxas notes: {', '.join(notes) or 'none'}")
+        spills = sorted({line.strip() for line in log.splitlines() if "bytes spill" in line})
+        cs.log(f"[bwd_probe] built {name}; ptxas notes: {', '.join(notes) or 'none'}; "
+               f"{' | '.join(spills)}")
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 

@@ -4,8 +4,10 @@
 
 Builds ``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu`` and
 ``csrc/flash_attention_bwd_bf16.cu`` alone and prints ptxas's report
-(registers, shared memory, spills of each instantiation) and the dynamic
-shared memory a block of the backward's wgmma kernels asks for, then runs the
+(registers, shared memory, spills of each instantiation), the dynamic
+shared memory a block of the backward's wgmma kernels asks for (float32 and
+bfloat16) and what ptxas holds against the bfloat16 ones (spills, wgmma
+serialized), then runs the
 flash part of ``chip_smoke.py``'s kernel phase: the backward first (every case
 against its plain version at its tolerance and the share of it used, the
 forward's logsumexp, the determinism check, the timed rows at the demo's train
@@ -80,6 +82,15 @@ def main() -> int:
         f"[build] wgmma backward: dK/dV {shared(1)} bytes, dQ {shared(0)} bytes of dynamic "
         "shared memory a block (232,448 at most)"
     )
+    shared = _build.load("flash_attention_bwd_bf16").repro_flash_attention_bwd_bf16_shared_bytes
+    cs.log(
+        f"[build] bfloat16 backward: {shared(64, 64)} bytes (head dims up to 64), "
+        f"{shared(128, 128)} (up to 128) of dynamic shared memory a block of either walk kernel"
+    )
+    report = (_build.build_dir() / "flash_attention_bwd_bf16.log").read_text()
+    faults = "; ".join(cs._ptxas_faults(report, cs.BF16_WGMMA_KERNELS))
+    faults = faults or "no spills, no wgmma serialized"
+    cs.log(f"[build] bfloat16 backward's wgmma kernels: {faults}")
     cs._flash_bwd_rows(cs._gen(7))
     cs._flash_bwd_bf16_rows(cs._gen(7))
     float64_yardstick()
