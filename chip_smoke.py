@@ -59,7 +59,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    launches and for B = 1 against row 0 of B = 4; at the train shape its time
    against its plain version, SDPA's flash-backend backward and its bound, and
    its error against float64 at most twice SDPA's; the float32 backward at
-   head dim 128 timed at that shape. The dense family's prefill and decode
+   head dim 128 timed at that shape. The bfloat16 backward at head dim 256 (the
+   split builds) on recurrentgemma-9b's train shape (1, 16, 4096, 256) with
+   MQA and window 2048 and on edges (Dv 256 and 128, ragged Sq and Sk, Sq <
+   Sk, a window crossing tile edges, groups 16 and 1, Sq = 1, chunks wholly
+   past D or Dv), with the forward's logsumexp at 256 held against the plain
+   one; its bits on two launches and for B = 1 against row 0 of B = 4; its time
+   beside its plain version's, SDPA's backward with the window as a mask and
+   the bound, and the float64 yardstick. The RG-LRU backward
+   (``csrc/rglru_bwd.cu``) against ``ref.rglru_bwd_ref`` bit for bit at the
+   hybrid's train shape (1, 4096, 4096) in bf16 and f32, with and without h0,
+   at T = 1 and 32, ragged W, and the a = 1 edge; its bits on two launches and
+   for a row alone as within a batch of 4; its time beside its bound. The
+   dense family's prefill and decode
    shapes are among the flash and decode-attention cases. Each timed case
    prints the kernel's time, its plain version's, one PyTorch library call's
    where one computes the same function, and the least time the card could
@@ -102,28 +114,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    peak memory, and a profiled step's device time by kind and busy share;
    the AdamW is the train CLI's for 3 steps (``repro_torch.launch.train.opt_config``);
 5b. durable train, through the train CLI in processes of their own (``python -m
-   repro_torch.launch.train --arch serpytor-demo-100m --full --batch 4 --seq 4096
-   --steps 3 --checkpoint-every 2``): run A journals rounds [0, 2) and [2, 3) with
+   repro_torch.launch.train --arch serpytor-demo-100m --full --layers 4 --batch 4
+   --seq 4096 --steps 3 --checkpoint-every 2``: the demo's full width at 4 of its 8
+   layers, DEMO_CUT_LAYERS): run A journals rounds [0, 2) and [2, 3) with
    checkpoints ``step00000002`` and ``step00000003``, its heartbeat polled once
-   while it runs; each step's journaled metrics digest equals the train phase's
-   direct step's, built the same way, and the process ran 24 flash forward and 24
-   backward launches. Then the crash between the two halves of the last
+   while it runs; each step's journaled metrics digest equals that of a direct step
+   at the same depth, which the train phase runs after its own, and the process ran
+   12 flash forward and 12 backward launches. Then the crash between the two halves of the last
    checkpoint (``step00000003-opt`` deleted), and run B, the same command: it
    recovers from ``step00000002`` on the card, re-executes step 2 through the
    out-of-place verify twin against the journal, re-saves ``step00000003`` with
-   A's content digests, reports 1 step and 8 + 8 flash launches. Logs the steps'
+   A's content digests, reports 1 step and 4 + 4 flash launches. Logs the steps'
    ms through the trainer against the direct steps', each checkpoint save's
    seconds (params sync, ``-opt`` async), the restore's, the journal's size and
    the heartbeat's report;
 5c. distributed train, in a process of its own (this file run with
    ``--distributed``, set up as ``--train``): ``DistributedTrainer`` trains the
-   same model data-parallel through a ``ClusterExecutor`` over a ``Gateway`` of 2
+   demo at 4 layers data-parallel through a ``ClusterExecutor`` over a ``Gateway`` of 2
    in-process workers of capacity 1, 4 ``grad_shard`` tasks of 2 x 4096 tokens a
    step, 2 steps and one checkpoint pair (run A); then the same with w0 a
    ``FlakyWorker`` that dies at its second task start (run B). B ends at A's
    checkpoint digest with every ``grad@s#k`` and ``apply@s`` digest equal and a
    ``NODE_REQUEUE`` journaled; each run launched the flash forward and backward
-   8 layers x its ``grad_shard`` runs times (8 a step, one more for each shard w0
+   4 layers x its ``grad_shard`` runs times (4 a step, one more for each shard w0
    had started when it was evicted); no journal record holds an array; torch's CPU
    and CUDA RNG states are unchanged by a run. Step 0 computed directly on one
    thread (each shard's task in order, the mean, AdamW) gives A's ``grad@0#k``
@@ -187,7 +200,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and a profiled step; step 0 with ``attn_impl="ref"`` agrees in loss, grad
    norm and every gradient leaf within DENSE_TRAIN_GAPS times the plain path's
    own bfloat16-against-float32 gap;
-12. the JSON line of kernels, the card's name and power limit, and last the
+12. hybrid train, in a process of its own (this file run with
+   ``--hybrid-train``, set up as ``--train``): ``recurrentgemma-9b`` at full
+   width, layers 0-5 (rec, rec, attn) x 2, in bfloat16 with remat "full", takes
+   the same 3 AdamW steps on batches of 1 x 4096, with the same gates: step 0
+   replayed with equal bits, every step launching the bf16 flash forward 2 x 2
+   times and its backward (head dim 256, the split builds) twice, the RG-LRU
+   forward 4 x 2 times and its backward kernel 4 times; step ms, tokens/s, peak
+   memory and a profiled step (flash forward and backward, RG-LRU forward and
+   backward, GEMMs, elementwise, optimizer); step 0 against attn_impl="ref"
+   within DENSE_TRAIN_GAPS times the plain path's bf16-vs-f32 gap;
+13. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
 Every model is freed before the next is built. It imports the port
@@ -222,8 +245,13 @@ sys.path.insert(0, str(ROOT / "src"))
 TRAIN_ARG = "--train"
 DIST_ARG = "--distributed"  # the distributed phase's process, set up as the train phase's
 DENSE_TRAIN_ARG = "--dense-train"  # the dense train phase's process, set up the same way
-if sys.argv[1:] in ([TRAIN_ARG], [DIST_ARG], [DENSE_TRAIN_ARG]):
+HYBRID_TRAIN_ARG = "--hybrid-train"  # the hybrid train phase's process, set up the same way
+if sys.argv[1:] in ([TRAIN_ARG], [DIST_ARG], [DENSE_TRAIN_ARG], [HYBRID_TRAIN_ARG]):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+if sys.argv[1:] == [HYBRID_TRAIN_ARG]:
+    # two copies of params, m and v (the out-of-place step) fill ~75 GB of the card: blocks
+    # that grow in place keep the allocator's free pieces from splitting it further
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -372,6 +400,24 @@ RGLRU_JSON = (1, 3000, 4096, "bfloat16", True)  # prefill passes the zero state 
 RGLRU_TIMED = (RGLRU_JSON, RGLRU_CASES[2])
 # the same bits twice, and for batch row 0 alone as within a batch of 4, on each path
 RGLRU_DETERMINISM = ((4, 777, 4096, "bfloat16", True), (4, 1, 4096, "bfloat16", True))
+# The RG-LRU backward (csrc/rglru_bwd.cu) against ref.rglru_bwd_ref, bit for bit: the hybrid's
+# train shape (1 x 4096 steps of 4096 channels, bfloat16 x, no initial state), then with an
+# initial state and in float32, T = 1 and T = 32, ragged W with T below and above the
+# kernel's 16-step batches
+RGLRU_BWD_JSON = (1, 4096, 4096, "bfloat16", False)
+RGLRU_BWD_CASES = [
+    RGLRU_BWD_JSON,
+    (1, 4096, 4096, "bfloat16", True),
+    (1, 4096, 4096, "float32", False),
+    (1, 4096, 4096, "float32", True),
+    (2, 1, 4096, "bfloat16", True),
+    (2, 32, 4096, "float32", True),
+    (3, 13, 100, "bfloat16", True),
+    (2, 45, 4100, "float32", False),
+]
+# a = 1 on every third step and x = 0 on every fifth channel: da is +-inf and NaN there
+RGLRU_BWD_EDGE = (2, 40, 64, "float32", True)
+RGLRU_BWD_DETERMINISM = (4, 777, 4096, "bfloat16", True)
 # (B, H, KV, Sc, D, window, dtype, each slot's position): the cached decode of
 # serpytor-demo-100m (12 query heads on 4 KV heads of 64, a linear float32 cache of
 # max_len 1536: slots at different positions, one on the last slot, one past it, where
@@ -504,6 +550,23 @@ BF16_KERNEL_PARTS = ("delta", "dkdv_wgmma", "dq_wgmma")
 # its wgmma kernels, which ptxas must build with no spills and no wgmma serialized (its notes
 # C7514, C7515, C7518)
 BF16_WGMMA_KERNELS = ("flash_bwd_bf16_dkdv_wgmma_kernel", "flash_bwd_bf16_dq_wgmma_kernel")
+# The bfloat16 backward at head dims above 128 (the split builds): recurrentgemma-9b's train
+# shape (1 x 4096 tokens, 16 query heads on one KV head of 256, causal, window 2048), then edges:
+# a group of 16 with ragged Sq = Sk, Sq < Sk with a window crossing the 64-row tiles and Dv 128,
+# a group of 1 with a window, Sq = 1, no mask with GQA at B = 2, and chunks of 64 columns wholly
+# past D or Dv, which the kernels zero instead of loading (D 64 with Dv 256, D 160).
+FLASH_BWD_HD256_TRAIN = (1, 16, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, 2048, "bfloat16", 256)
+FLASH_BWD_HD256_CASES = [
+    (1, 16, 1, 300, 300, 256, True, None, "bfloat16", 256),
+    (1, 16, 1, 150, 400, 256, True, 70, "bfloat16", 128),
+    (1, 2, 2, 130, 130, 256, True, 100, "bfloat16", 256),
+    (1, 4, 1, 1, 70, 256, True, None, "bfloat16", 256),
+    (2, 4, 2, 100, 130, 256, False, None, "bfloat16", 256),
+    (1, 2, 1, 70, 70, 64, True, 30, "bfloat16", 256),
+    (1, 4, 2, 64, 64, 160, True, None, "bfloat16", 160),
+    FLASH_BWD_HD256_TRAIN,
+]
+FLASH_BWD_HD256_DETERMINISM = (4, 16, 1, 1024, 1024, 256, True, 512, "bfloat16", 256)
 # the mma.sync bfloat16 backward that the wgmma kernels replaced, at qwen3-1.7b's train shape,
 # for the record beside their time (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
 BWD_BF16_MMA_SYNC_MS = 3.6506
@@ -520,6 +583,10 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GNORM_RTOL = 1e-3
 TRAIN_GRAD_TOL = 1e-3
+# The durable and distributed phases train the demo at its full width and 4 of its 8 layers,
+# to keep the script inside its 1200 s on a slow host (their checkpoints' zlib on one host
+# thread is most of their time); their direct-step comparisons run at that depth too.
+DEMO_CUT_LAYERS = 4
 DEMO_SEQ = (128, 777, 2048)
 JSON_SEQ = 777  # the demo prefill length whose times go into the kernels line
 N_REQUESTS, SLOTS, MAX_LEN, NEW_TOKENS = 8, 4, 1536, 32
@@ -681,6 +748,15 @@ def rglru_bound_ms(b, t, w, itemsize, with_h0):
     """Least time for one RG-LRU scan: bytes / bandwidth (x, a, h0 read; h, hT written).
     Its ~6 flops an element are far below the ridge of any type."""
     nbytes = b * t * w * (itemsize + 4 + itemsize) + b * w * 4 * (2 if with_h0 else 1)
+    return 1e3 * nbytes / PEAK_HBM_BYTES, "bytes"
+
+
+def rglru_bwd_bound_ms(b, t, w, itemsize, with_h0):
+    """Least time for one RG-LRU backward: bytes / bandwidth. x, a, dh read and dx, da
+    written (a and da in float32, the others in x's type), the final state's gradient and
+    h0 read and dh0 written in float32; the float32 states that the kernel recomputes into a
+    scratch are its own traffic, not the function's."""
+    nbytes = b * t * w * (3 * itemsize + 8) + b * w * 4 * (3 if with_h0 else 2)
     return 1e3 * nbytes / PEAK_HBM_BYTES, "bytes"
 
 
@@ -1107,44 +1183,117 @@ def _flash_bwd_bf16_rows(gen):
     the times and the float64 yardstick. Returns the rows of the kernels line."""
     rows = {}
     for case in FLASH_BWD_BF16_CASES:
-        b, hq, hkv, sq, sk, d, causal, window, _, dv = case
-        q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
-        masks = dict(causal=causal, window=window)
-        got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
-        same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
-        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
-        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
-        torch.cuda.synchronize()
-        label = f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} " + (
-            f"bfloat16 causal={causal} window={window} ({fa.bwd_path(d, dv, q.dtype)} path)"
-        )
-        if not same:
-            raise AssertionError(f"[kernels] {label}: the bfloat16 forward's output moved with lse")
-        if any(g.dtype != torch.bfloat16 for g in grads):
-            raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
-        out_err = _check(f"{label} out", got_out, out, TOL["bfloat16"])
-        lse_err = _check(f"{label} lse", got_lse, lse, LSE_BF16_TOL)
-        lse_used = _tol_used(got_lse, lse, LSE_BF16_TOL)
-        shares = [_share_of_largest(g, w, BWD_BF16_TOL) for g, w in zip(grads, want)]
-        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
-        finite = all(torch.isfinite(g.float()).all() for g in grads)
-        if not finite or max(shares) > 1.0:
-            raise AssertionError(
-                f"[kernels] {label}: max |err| {errs}, {[f'{100 * x:.1f}%' for x in shares]} "
-                f"of {BWD_BF16_TOL} x each gradient's largest entry"
-            )
-        log(
-            f"[kernels] {label}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
-            f"{100 * max(shares):.1f}% of the tolerance ({BWD_BF16_TOL:.4g} x each gradient's "
-            f"largest entry); forward out max |err| {out_err:.3e} (tol {TOL['bfloat16']}), lse "
-            f"{lse_err:.3e} (tol {LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse "
-            "equal bit for bit"
-        )
+        q, k, v, dout, err, out_err = _flash_bwd_bf16_case(gen, case)
         if case == FLASH_BWD_BF16_TRAIN:
-            rows = _flash_bwd_bf16_timed(case, q, k, v, dout, max(errs), out_err)
+            rows = _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err)
     _flash_bwd_determinism(gen, FLASH_BWD_BF16_DETERMINISM)
     rows["f32_hd128"] = _flash_bwd_f32_hd128(gen)
     return rows
+
+
+def _flash_bwd_bf16_case(gen, case):
+    """One bfloat16 backward case against its plain version at BWD_BF16_TOL, with the
+    forward's logsumexp against the plain one and its output unchanged by asking for it;
+    returns q, k, v, dout, the gradients' max |err| and the output's."""
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+    q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
+    masks = dict(causal=causal, window=window)
+    got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
+    torch.cuda.synchronize()
+    label = f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} " + (
+        f"bfloat16 causal={causal} window={window} ({fa.bwd_path(d, dv, q.dtype)} path)"
+    )
+    if not same:
+        raise AssertionError(f"[kernels] {label}: the bfloat16 forward's output moved with lse")
+    if any(g.dtype != torch.bfloat16 for g in grads):
+        raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
+    out_err = _check(f"{label} out", got_out, out, TOL["bfloat16"])
+    lse_err = _check(f"{label} lse", got_lse, lse, LSE_BF16_TOL)
+    lse_used = _tol_used(got_lse, lse, LSE_BF16_TOL)
+    shares = [_share_of_largest(g, w, BWD_BF16_TOL) for g, w in zip(grads, want)]
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+    finite = all(torch.isfinite(g.float()).all() for g in grads)
+    if not finite or max(shares) > 1.0:
+        raise AssertionError(
+            f"[kernels] {label}: max |err| {errs}, {[f'{100 * x:.1f}%' for x in shares]} "
+            f"of {BWD_BF16_TOL} x each gradient's largest entry"
+        )
+    log(
+        f"[kernels] {label}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
+        f"{100 * max(shares):.1f}% of the tolerance ({BWD_BF16_TOL:.4g} x each gradient's "
+        f"largest entry); forward out max |err| {out_err:.3e} (tol {TOL['bfloat16']}), lse "
+        f"{lse_err:.3e} (tol {LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse "
+        "equal bit for bit"
+    )
+    return q, k, v, dout, max(errs), out_err
+
+
+def _flash_bwd_hd256_rows(gen) -> dict:
+    """The bfloat16 backward at head dims above 128 (the split builds) on every case, then
+    its bits on two launches and for B = 1 against row 0 of B = 4; at the hybrid's train
+    shape its time beside its plain version's, SDPA's and the bound, and the float64
+    yardstick. Returns the row of the kernels line."""
+    row = None
+    for case in FLASH_BWD_HD256_CASES:
+        q, k, v, dout, err, _ = _flash_bwd_bf16_case(gen, case)
+        if case == FLASH_BWD_HD256_TRAIN:
+            row = _flash_bwd_hd256_timed(case, q, k, v, dout, err)
+    _flash_bwd_determinism(gen, FLASH_BWD_HD256_DETERMINISM)
+    return row
+
+
+def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
+    """recurrentgemma-9b's train shape: the backward (on the kernel forward's output and
+    logsumexp) against its plain version, SDPA's backward with the window as a boolean mask
+    (K and V expanded; the backend its dispatcher picks, named) and the bound; each launch's
+    device time; the float64 yardstick."""
+    b, hq, hkv, sq, sk, d, causal, window, _, dv = case
+    masks = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+
+    mask = _window_mask(sq, sk, window)
+    g = hq // hkv
+    backend = _sdpa_backend(
+        q, k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1), mask, False
+    )
+    sdpa = _sdpa_bwd(q, k, v, dout, None, mask=mask)
+    bound, bound_by, bytes_ms = attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, 2)
+    row = {
+        "ms": time_ms(kernel, iters=10),
+        "device_us": device_us(kernel, launches=10),
+        **{
+            f"{n}_us": device_us(kernel, f"flash_bwd_bf16_{n}", launches=10)
+            for n in BF16_KERNEL_PARTS
+        },
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks),
+            iters=2,
+            warmup=1,
+        ),
+        "library_ms": time_ms(sdpa["backward"], iters=5),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "max_abs_err": err,
+    }
+    parts = ", ".join(f"{n} {row[n + '_us']:.2f}" for n in BF16_KERNEL_PARTS)
+    log(
+        f"[kernels]   recurrentgemma-9b train shape q{tuple(q.shape)} k{tuple(k.shape)} "
+        f"bfloat16 window {window}: backward kernel_ms {row['ms']:.4f} (device "
+        f"{row['device_us']:.2f} us a call: {parts}), plain_ms {row['plain_ms']:.4f}, "
+        f"library_ms (SDPA backward alone, the window as a boolean mask, K/V expanded to {hq} "
+        f"heads, backend {backend}) {row['library_ms']:.4f} (kernel "
+        f"{'faster' if row['ms'] < row['library_ms'] else 'NOT faster'}), bound_ms "
+        f"{bound:.5f} ({bound_by}, bf16 tensor cores: 5 products at 989 TFLOP/s; bytes alone "
+        f"{bytes_ms:.5f}), kernel/bound {row['ms'] / bound:.1f}"
+    )
+    _flash_bwd_bf16_yardstick(q, k, v, dout, out, lse, sdpa, masks)
+    return row
 
 
 def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err):
@@ -1212,10 +1361,11 @@ def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err):
     return {"bwd": bwd, "fwd": fwd}
 
 
-def _sdpa_bwd(q, k, v, dout, backend):
-    """SDPA on ``backend`` (causal, K and V expanded to q's heads beforehand): its forward,
-    its backward alone (the forward run once, not timed), and the backward's (dq, dk, dv),
-    dk and dv summed over each group in float32 and rounded once to the inputs' dtype."""
+def _sdpa_bwd(q, k, v, dout, backend, mask=None):
+    """SDPA on ``backend`` (the dispatcher's choice for None; causal, or the boolean ``mask``;
+    K and V expanded to q's heads beforehand): its forward, its backward alone (the forward
+    run once, not timed), and the backward's (dq, dk, dv), dk and dv summed over each group
+    in float32 and rounded once to the inputs' dtype."""
     from torch.nn.attention import sdpa_kernel
 
     g = q.shape[1] // k.shape[1]
@@ -1225,9 +1375,9 @@ def _sdpa_bwd(q, k, v, dout, backend):
     scale = q.shape[-1] ** -0.5
 
     def forward():
-        with sdpa_kernel(backend):
+        with contextlib.nullcontext() if backend is None else sdpa_kernel(backend):
             return torch.nn.functional.scaled_dot_product_attention(
-                qx, kx, vx, is_causal=True, scale=scale
+                qx, kx, vx, attn_mask=mask, is_causal=mask is None, scale=scale
             )
 
     o = forward()
@@ -1389,6 +1539,93 @@ def _rglru_determinism(gen) -> None:
             f"[kernels] {label}: h and final state equal bit for bit on two launches and for "
             f"B=1 against row 0 of B={b}"
         )
+
+
+def _rglru_bwd_inputs(gen, case):
+    """x, a, h0 as the forward's cases draw them, the gradients of h (x's type) and of the
+    final state (float32)."""
+    b, t, w, dt, with_h0 = case
+    x, a, h0 = _rglru_inputs(gen, b, t, w, getattr(torch, dt), with_h0)
+    dh = torch.randn(b, t, w, generator=gen, device=DEV).to(x.dtype)
+    return x, a, h0, dh, torch.randn(b, w, generator=gen, device=DEV)
+
+
+def _rglru_bwd_rows(gen) -> dict:
+    """The RG-LRU backward against its plain version on every case, dx, da and dh0 bit for
+    bit; the a = 1 edge (+-inf and NaN where the plain version has them); its bits on two
+    launches and for a batch row alone as within a batch of 4; at the hybrid's train shape
+    its time beside its plain version's and the bound. Returns the row of the kernels line."""
+    row = None
+    for case in RGLRU_BWD_CASES + [RGLRU_BWD_EDGE]:
+        b, t, w, dt, with_h0 = case
+        x, a, h0, dh, dlast = _rglru_bwd_inputs(gen, case)
+        edge = case == RGLRU_BWD_EDGE
+        if edge:
+            a[:, ::3] = 1.0
+            x[:, :, ::5] = 0.0
+        got = rg.rglru_bwd(x, a, dh, initial_state=h0, dh_last=dlast)
+        want = ref.rglru_bwd_ref(x, a, dh, initial_state=h0, dh_last=dlast)
+        torch.cuda.synchronize()
+        label = f"rglru_bwd x{tuple(x.shape)} {dt} h0={with_h0}" + (" a=1 edge" if edge else "")
+        same = [bool(((p == q) | (p.isnan() & q.isnan())).all()) for p, q in zip(got, want)]
+        if not all(same):
+            errs = [(p.float() - q.float()).abs().max().item() for p, q in zip(got, want)]
+            raise AssertionError(f"[kernels] {label}: not the plain version's bits {same} {errs}")
+        msg = f"[kernels] {label}: dx, da and dh0 equal the plain version bit for bit"
+        if edge:
+            da, ones = got[1], a == 1.0
+            nonfinite = (~torch.isfinite(da)).sum().item()
+            if not (da[ones & (x != 0)].isinf().all() and da[ones & (x == 0)].isnan().all()):
+                raise AssertionError(f"[kernels] {label}: da at a = 1 is not +-inf / NaN")
+            if (got[0][ones] != 0).any() or nonfinite != int(ones.sum()):
+                raise AssertionError(f"[kernels] {label}: dx at a = 1 or the non-finite count")
+            msg += f" (NaN where NaN); da +-inf or NaN at the {nonfinite} steps with a = 1"
+        if case != RGLRU_BWD_JSON:
+            log(msg)
+            continue
+        bound, bound_by = rglru_bwd_bound_ms(b, t, w, x.element_size(), with_h0)
+
+        def kernel(x=x, a=a, h0=h0, dh=dh, dlast=dlast):
+            return rg.rglru_bwd(x, a, dh, initial_state=h0, dh_last=dlast)
+
+        row = {
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(
+                lambda: ref.rglru_bwd_ref(x, a, dh, initial_state=h0, dh_last=dlast),
+                iters=2,
+                warmup=1,
+            ),
+            "library_ms": None,  # no single PyTorch call computes a linear recurrence's gradient
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": 0.0,
+        }
+        scratch_ms = 1e3 * b * t * w * (8 + x.element_size() + 4) / PEAK_HBM_BYTES
+        log(
+            f"{msg}; kernel_ms {row['ms']:.4f} (device {device_us(kernel, 'rglru_bwd'):.2f} us "
+            f"a launch), plain_ms {row['plain_ms']:.4f}, library_ms none, bound_ms {bound:.5f} "
+            f"({bound_by}; the float32 states it recomputes into its scratch, written and read, "
+            f"and x and a read again add {scratch_ms:.5f}), kernel/bound {row['ms'] / bound:.1f}"
+        )
+    b, t, w, dt, with_h0 = RGLRU_BWD_DETERMINISM
+    x, a, h0, dh, dlast = _rglru_bwd_inputs(gen, RGLRU_BWD_DETERMINISM)
+    first = rg.rglru_bwd(x, a, dh, initial_state=h0, dh_last=dlast)
+    again = rg.rglru_bwd(x, a, dh, initial_state=h0, dh_last=dlast)
+    alone = rg.rglru_bwd(x[:1], a[:1], dh[:1], initial_state=h0[:1], dh_last=dlast[:1])
+    torch.cuda.synchronize()
+    relaunch = sum((p != q).sum().item() for p, q in zip(first, again))
+    batch = sum((p[:1] != q).sum().item() for p, q in zip(first, alone))
+    label = f"rglru_bwd x{tuple(x.shape)} {dt}"
+    if relaunch or batch:
+        raise AssertionError(
+            f"[kernels] {label} not deterministic: {relaunch} elements differ between two "
+            f"launches, {batch} between B=1 and row 0 of B={b}"
+        )
+    log(
+        f"[kernels] {label}: dx, da and dh0 equal bit for bit on two launches and for B=1 "
+        f"against row 0 of B={b}"
+    )
+    return row
 
 
 def _decode_inputs(gen, b, h, kv, sc, d, dtype, positions):
@@ -1615,7 +1852,9 @@ def phase_kernels():
     flash_rows, demo_err = _flash_rows(gen)
     bwd_rows = _flash_bwd_rows(gen)
     bwd_rows["bf16"] = _flash_bwd_bf16_rows(gen)
+    bwd_rows["bf16_hd256"] = _flash_bwd_hd256_rows(gen)
     decode_rows, rglru_rows = _decode_attention_rows(gen), _rglru_rows(gen)
+    rglru_rows["bwd"] = _rglru_bwd_rows(gen)
     return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, _wkv6_rows(gen)
 
 
@@ -1638,6 +1877,7 @@ def _reset_launches() -> None:
     fa.flash_attention_bwd.launches = 0
     da.decode_attention.launches = 0
     rg.rglru_scan.launches = 0
+    rg.rglru_bwd.launches = 0
     wk.wkv6_chunked.launches = 0
 
 
@@ -2141,7 +2381,38 @@ def _train() -> dict:
     _check_train_against_plain(cfg, model, params0, state0, batches[0], first[2], opt)
     _train_profile(model, params0, state0, batches[0], opt)
     log(f"[train] metrics digests as the trainer journals them: {digests}")
-    return {**launches, "step_digests": digests, "step_ms": step_ms}
+    del model, params0, state0, params, state, first
+    _release()
+    cut = _direct_steps(_demo_cut_config(), opt)
+    return {**launches, "step_digests": digests, "step_ms": step_ms, "cut": cut}
+
+
+def _demo_cut_config():
+    """The demo at full width and its first DEMO_CUT_LAYERS layers (the durable and
+    distributed phases' model)."""
+    return dataclasses.replace(get_config("serpytor-demo-100m"), num_layers=DEMO_CUT_LAYERS)
+
+
+def _direct_steps(cfg, opt) -> dict:
+    """TRAIN_STEPS direct steps of ``cfg`` from the train CLI's initial params on the train
+    phase's batches: each step's ms and metrics digest as the trainer journals it."""
+    model = build(cfg, DEV)
+    params = init_params(cfg, _gen(0), DEV)
+    state = make_opt_init(model, opt)(params)
+    train_step = make_train_step(model, opt)
+    batches, data_digests = _train_batches(cfg)
+    step_ms, digests = [], []
+    for step in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        params, state, metrics = train_step(params, state, batches[step])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.monotonic() - t0))
+        digests.append(_metrics_digest(metrics, step, data_digests[step]))
+    log(
+        f"[train] {cfg.num_layers} of the demo's layers (the durable and distributed phases' "
+        f"depth): step ms {', '.join(f'{x:.3f}' for x in step_ms)}; metrics digests {digests}"
+    )
+    return {"step_digests": digests, "step_ms": step_ms}
 
 
 def _check_train_against_plain(cfg, model, params, state, batch, metrics, opt) -> None:
@@ -2210,8 +2481,8 @@ def _train_profile(model, params, state, batch, opt, tag="[train]") -> None:
 DURABLE_DIR = ROOT / "build" / "durable_train"  # the runs' directory; build/ is not committed
 DURABLE_CMD = [
     "-m", "repro_torch.launch.train", "--arch", "serpytor-demo-100m", "--full",
-    "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
-    "--checkpoint-every", "2",
+    "--layers", str(DEMO_CUT_LAYERS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+    "--steps", str(TRAIN_STEPS), "--checkpoint-every", "2",
 ]  # fmt: skip
 LAUNCHES_LINE = "kernel launches "  # the train CLI's last line
 
@@ -2283,9 +2554,11 @@ def _log_steps(tag: str, recs: list, direct_ms: list) -> None:
 
 def phase_durable(direct: dict) -> None:
     """Train through the durable trainer, crash between the halves of its last checkpoint,
-    restart and verify (run A, then run B); ``direct`` is the train phase's result."""
-    cfg = get_config("serpytor-demo-100m")
+    restart and verify (run A, then run B), at the demo's first DEMO_CUT_LAYERS layers;
+    ``direct`` is the train phase's result, whose direct steps at that depth it checks."""
+    cfg = _demo_cut_config()
     per_step = cfg.num_layers
+    direct = direct["cut"]
     shutil.rmtree(DURABLE_DIR, ignore_errors=True)
     run_dir = DURABLE_DIR
     try:
@@ -2375,6 +2648,7 @@ def phase_distributed(direct: dict) -> dict:
     its log passed on line by line; log its step beside the train phase's direct step (in
     this call) and return what its result line gives."""
     result = _in_process(DIST_ARG, DIST_RESULT, "[distributed]")
+    direct = direct["cut"]  # the direct steps at the phase's depth
     steady = sum(direct["step_ms"][1:]) / (len(direct["step_ms"]) - 1)
     direct_tps = TRAIN_BATCH * TRAIN_SEQ / steady * 1e3
     for tag in ("A", "B"):
@@ -2384,7 +2658,8 @@ def phase_distributed(direct: dict) -> dict:
             f"[distributed] run {tag}: {', '.join(f'{x:.3f}' for x in steps)} s a step through "
             f"the DistributedTrainer (sync@s NODE_START to apply@s NODE_COMMIT), step "
             f"{len(steps) - 1}: {tps:.1f} tokens/s of {DIST_BATCH} x {TRAIN_SEQ}; the train "
-            f"phase's direct step in this call {steady:.3f} ms, {direct_tps:.1f} tokens/s of "
+            f"phase's direct step at {DEMO_CUT_LAYERS} layers in this call {steady:.3f} ms, "
+            f"{direct_tps:.1f} tokens/s of "
             f"{TRAIN_BATCH} x {TRAIN_SEQ}: {tps / direct_tps:.4f}x its tokens/s "
             f"({result['smi']})"
         )
@@ -2673,7 +2948,7 @@ def dist_main() -> int:
     """The distributed process: run A, run B with a worker killed, step 0 directly, the
     profiled steps; checks A against B and against the direct step."""
     smi = phase_device()
-    cfg = get_config("serpytor-demo-100m")
+    cfg = _demo_cut_config()
     torch.use_deterministic_algorithms(True)
     timers = _HostTimers()
     shutil.rmtree(DIST_DIR, ignore_errors=True)
@@ -2947,6 +3222,8 @@ def _kernel_kind(name: str) -> str:
         return "flash_bwd"
     if "decode_attention" in name:
         return "decode_attention"
+    if "rglru_bwd" in name:
+        return "rglru_bwd"
     if "rglru" in name:
         return "rglru"
     if "wkv6" in name:
@@ -3403,39 +3680,60 @@ def _replay_differs(host, tree) -> dict:
 
 def _dense_train() -> dict:
     """qwen3-1.7b at full width and depth in bfloat16 (remat "full"), 3 AdamW steps on
-    TokenSource batches of DENSE_TRAIN_BATCH x TRAIN_SEQ, deterministically: the launch
-    gates, step 0 replayed with equal bits, a profiled step, step 0 against
-    attn_impl="ref". Step 0's result waits on the host while its replay runs (params,
-    m and v of two states and the replay's own take 52 GB of the card's 80), and
-    training goes on from the replay's."""
+    TokenSource batches of DENSE_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`."""
+    return _bf16_train(get_config(DENSE_TRAIN_ARCH), DENSE_TRAIN_BATCH, "[dense train]")
+
+
+def _layer_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` train steps of ``cfg`` with remat "full", which runs
+    each layer's forward again in its backward: the flash forward twice and its backward
+    once an attention layer, the RG-LRU forward twice and its backward once a rec layer."""
+    kinds = cfg.block_pattern or ("dense",) * cfg.num_layers
+    attn = sum(kind in ("dense", "attn") for kind in kinds)
+    rec = sum(kind == "rec" for kind in kinds)
+    return {
+        "flash": 2 * attn * steps,
+        "flash_bwd": attn * steps,
+        "rglru": 2 * rec * steps,
+        "rglru_bwd": rec * steps,
+    }
+
+
+def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
+    """``cfg`` (bfloat16, remat "full") takes 3 AdamW steps (the train CLI's) on TokenSource
+    batches of batch_size x TRAIN_SEQ, deterministically: the launch gates, step 0 replayed
+    with equal bits, a profiled step, step 0 against attn_impl="ref". Step 0's result waits
+    on the host while its replay runs (params, m and v of two states take most of the card),
+    training goes on from the replay's, and the first params wait on the host over steps 1
+    and 2 for the check against the plain path at the end."""
     from repro_torch.launch.train import opt_config
 
-    cfg = get_config(DENSE_TRAIN_ARCH)
     if (cfg.param_dtype, cfg.compute_dtype, cfg.remat) != ("bfloat16", "bfloat16", "full"):
-        raise AssertionError(f"[dense train] {cfg.name}: {cfg.param_dtype}, {cfg.remat}")
+        raise AssertionError(f"{tag} {cfg.name}: {cfg.param_dtype}, {cfg.remat}")
     model = build(cfg, DEV)
     params0 = init_params(cfg, _gen(0), DEV)
     opt = AdamWConfig(**TRAIN_OPT)
     if opt != opt_config(TRAIN_STEPS):
-        raise AssertionError(f"[dense train] {opt} is not the CLI's {opt_config(TRAIN_STEPS)}")
+        raise AssertionError(f"{tag} {opt} is not the CLI's {opt_config(TRAIN_STEPS)}")
     state0 = make_opt_init(model, opt)(params0)
     train_step = make_train_step(model, opt)
     source = TokenSource(
-        DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DENSE_TRAIN_BATCH, seed=0
-        )
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch_size, seed=0)
     )
     batches = [
         {"tokens": torch.from_numpy(source.batch_at(s)["tokens"]).long().to(DEV)}
         for s in range(TRAIN_STEPS)
     ]
-    tokens = DENSE_TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * TRAIN_SEQ
     torch.cuda.synchronize()
+    pattern = ", ".join(cfg.block_pattern) if cfg.block_pattern else "dense"
     log(
-        f"[dense train] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} "
-        f"heads on {cfg.num_kv_heads} KV heads of {cfg.head_dim}, vocab {cfg.vocab_size}, "
-        f"tied embeddings, {cfg.param_count()} params {cfg.param_dtype}, remat={cfg.remat}; "
-        f"batches of {DENSE_TRAIN_BATCH} x {TRAIN_SEQ} tokens from TokenSource(seed=0); {opt}; "
+        f"{tag} {cfg.name}: {cfg.num_layers} layers ({pattern}), d={cfg.d_model}, "
+        f"{cfg.num_heads} heads on {cfg.num_kv_heads} KV heads of {cfg.head_dim}"
+        + (f", window {cfg.window}" if cfg.block_pattern else "")
+        + f", vocab {cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
+        f"{cfg.param_count()} params {cfg.param_dtype}, remat={cfg.remat}; batches of "
+        f"{batch_size} x {TRAIN_SEQ} tokens from TokenSource(seed=0); {opt}; "
         f"{torch.cuda.memory_allocated()} bytes held (params, AdamW m and v)"
     )
     torch.use_deterministic_algorithms(True)
@@ -3448,31 +3746,31 @@ def _dense_train() -> dict:
         ms = 1e3 * (time.monotonic() - t0)
         vals = {key: float(x) for key, x in metrics.items()}
         if not all(np.isfinite(list(vals.values()))):
-            raise AssertionError(f"[dense train] step {step}: metrics {vals}")
+            raise AssertionError(f"{tag} step {step}: metrics {vals}")
         log(
-            f"[dense train] step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
+            f"{tag} step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
             f"{vals['z_loss']:.4f} grad_norm {vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
-            f"{ms:.3f} ms, {tokens / ms * 1e3:.1f} tokens/s (host clock after a sync)"
+            f"{ms:.3f} ms, {tokens / ms * 1e3:.1f} tokens/s (host clock after a sync); "
+            f"max_memory_allocated so far {torch.cuda.max_memory_allocated()} bytes"
         )
         return (params, state, metrics), ms
 
     first, ms0 = run(0, params0, state0)
     host = tuple(tree_map(lambda x: x.cpu(), tree) for tree in first)
-    del first
-    _release()
+    del first  # its memory stays in the allocator's cache for the replay
     # replay: step 0 again from the same state, equal bits (to_host refuses bfloat16: the
     # trees are compared with torch.equal on the card)
     (params, state, metrics), ms_replay = run(0, params0, state0)
     diff = _replay_differs(host, (params, state, metrics))
     if any(diff.values()):
-        raise AssertionError(f"[dense train] step 0 replayed: elements that differ {diff}")
+        raise AssertionError(f"{tag} step 0 replayed: elements that differ {diff}")
     n = sum(x.numel() for x in tree_leaves(params))
     log(
-        f"[dense train] step 0 run again from the same state: params ({n} elements), AdamW m, "
+        f"{tag} step 0 run again from the same state: params ({n} elements), AdamW m, "
         "v and step, and metrics equal bit for bit (torch.equal on the card)"
     )
+    params0 = tree_map(lambda x: x.cpu(), params0)
     del host, state0, metrics
-    _release()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3484,33 +3782,59 @@ def _dense_train() -> dict:
     launches = {
         "flash": fa.flash_attention_fwd.launches,
         "flash_bwd": fa.flash_attention_bwd.launches,
+        "rglru": rg.rglru_scan.launches,
+        "rglru_bwd": rg.rglru_bwd.launches,
     }
-    # remat "full" runs each layer's forward again in its backward: two forward launches a
-    # layer a step, one backward; the steps are 0, its replay, 1 and 2
-    steps = TRAIN_STEPS + 1
-    want = {"flash": 2 * cfg.num_layers * steps, "flash_bwd": cfg.num_layers * steps}
-    others = (da.decode_attention.launches, rg.rglru_scan.launches, wk.wkv6_chunked.launches)
+    steps = TRAIN_STEPS + 1  # 0, its replay, 1 and 2
+    want = _layer_launches(cfg, steps)
+    others = (da.decode_attention.launches, wk.wkv6_chunked.launches)
     if launches != want or any(others):
         raise AssertionError(
-            f"[dense train] launches {launches}, expected {want}; decode, rglru, wkv6 "
-            f"launches {others}, expected 0"
+            f"{tag} launches {launches}, expected {want}; decode and wkv6 launches {others}, "
+            "expected 0"
         )
     steady = sum(step_ms[1:]) / (len(step_ms) - 1)
     path = fa.bwd_path(cfg.head_dim, cfg.head_dim, torch.bfloat16)
     log(
-        f"[dense train] flash_attention_fwd launches {launches['flash']} = 2 x {cfg.num_layers} "
-        f"layers x {steps} steps (0, its replay, 1, 2; remat full runs the forward again in "
-        f"each layer's recompute), flash_attention_bwd launches {launches['flash_bwd']} = "
-        f"{cfg.num_layers} layers x {steps} steps ({path} path); step ms (0, replay, 1, 2) "
-        f"{', '.join(f'{x:.3f}' for x in step_ms)} (all but the first: {steady:.3f} ms, "
-        f"{tokens / steady * 1e3:.1f} tokens/s); max_memory_allocated over steps 1-2 {peak} "
-        f"bytes ({peak - held} above the {held} held before them)"
+        f"{tag} kernels launched {launches} over {steps} steps (0, its replay, 1, 2; remat full "
+        f"runs each layer's forward again in its recompute: {want} expected; flash backward on the "
+        f"{path} path); step ms (0, replay, 1, 2) {', '.join(f'{x:.3f}' for x in step_ms)} "
+        f"(all but the first: {steady:.3f} ms, {tokens / steady * 1e3:.1f} tokens/s); "
+        f"max_memory_allocated over steps 1-2 {peak} bytes ({peak - held} above the {held} "
+        "held before them)"
     )
-    _train_profile(model, params, state, batches[0], opt, tag="[dense train]")
+    _train_profile(model, params, state, batches[0], opt, tag=tag)
     del params, state
     _release()
-    _check_dense_train_against_plain(cfg, model, params0, batches[0])
+    params0 = tree_map(lambda x: x.to(DEV), params0)
+    _check_bf16_train_against_plain(cfg, model, params0, batches[0], tag)
     return {**launches, "step_ms": step_ms, "peak": peak}
+
+
+HYBRID_TRAIN_ARCH = "recurrentgemma-9b"
+# two (rec, rec, attn) periods of its 38 layers: 3.41B params, 40.9 GB of params, gradients and
+# AdamW state at full depth would be 125 GB
+HYBRID_TRAIN_LAYERS = 6
+HYBRID_TRAIN_BATCH = 1  # train_4k's 4096 tokens, its batch cut to one sequence on one card
+HYBRID_TRAIN_RESULT = "[hybrid train] launches "  # the process's line of launch counts and times
+
+
+def phase_hybrid_train() -> dict:
+    """Run the hybrid train phase in a process of its own (this file with
+    ``--hybrid-train``); returns its launch counts, step ms and peak memory."""
+    return _in_process(HYBRID_TRAIN_ARG, HYBRID_TRAIN_RESULT, "[hybrid train]")
+
+
+def _hybrid_train() -> dict:
+    """recurrentgemma-9b at full width, layers 0-5, in bfloat16 (remat "full"), 3 AdamW steps
+    on TokenSource batches of HYBRID_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`."""
+    cfg = get_config(HYBRID_TRAIN_ARCH)
+    cfg = dataclasses.replace(
+        cfg,
+        num_layers=HYBRID_TRAIN_LAYERS,
+        block_pattern=cfg.block_pattern[:HYBRID_TRAIN_LAYERS],
+    )
+    return _bf16_train(cfg, HYBRID_TRAIN_BATCH, "[hybrid train]")
 
 
 def _grad_run(model, params, batch):
@@ -3537,7 +3861,7 @@ def _named_leaves(tree, prefix=""):
     return [(prefix.lstrip("/"), tree)]
 
 
-def _check_dense_train_against_plain(cfg, model, params, batch) -> None:
+def _check_bf16_train_against_plain(cfg, model, params, batch, tag) -> None:
     """Step 0's gradient through the kernels against attn_impl="ref" (plain attention under
     autograd, the same bfloat16 GEMMs), within DENSE_TRAIN_GAPS times the plain path's gap
     between this bfloat16 run and a float32 run of the same params (upcast) on the same
@@ -3582,11 +3906,11 @@ def _check_dense_train_against_plain(cfg, model, params, batch) -> None:
             worst, worst_ratio = name, ratio
         if err > DENSE_TRAIN_GAPS * gap:
             raise AssertionError(
-                f"[dense train] step 0 kernel path vs attn_impl='ref': {name} {err:.3e} > "
+                f"{tag} step 0 kernel path vs attn_impl='ref': {name} {err:.3e} > "
                 f"{DENSE_TRAIN_GAPS} x the bfloat16-vs-float32 gap {gap:.3e}"
             )
     log(
-        f"[dense train] step 0 kernel path vs attn_impl='ref' (both bfloat16), each within "
+        f"{tag} step 0 kernel path vs attn_impl='ref' (both bfloat16), each within "
         f"{DENSE_TRAIN_GAPS} x the plain path's bfloat16-vs-float32 gap: loss {loss:.6f} vs "
         f"{plain_loss:.6f} (|diff| {rows[0][1]:.3e}, gap {rows[0][2]:.3e}; float32 "
         f"{loss32:.6f}), grad_norm {gn:.6f} vs {plain_gn:.6f} (|diff| {rows[1][1]:.3e}, gap "
@@ -3642,6 +3966,7 @@ def main() -> int:
     _timed("rwkv exactness", phase_rwkv_exactness)
     _timed("dense", phase_dense)
     dense_train = _timed("dense train", phase_dense_train)
+    hybrid_train = _timed("hybrid train", phase_hybrid_train)
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
@@ -3687,6 +4012,24 @@ def main() -> int:
             bwd_rows["bf16"]["bwd"],
             "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal; flash_bwd_bf16_delta_kernel, "
             + ", ".join(BF16_WGMMA_KERNELS),
+        ),
+        _kernel_entry(
+            "flash_attention_bwd_bf16_hd256",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+            "src/repro/kernels/flash_attention.py:139",
+            hybrid_train["flash_bwd"],
+            bwd_rows["bf16_hd256"],
+            "q,dO(1,16,4096,256) k,v(1,1,4096,256) bfloat16 causal window 2048; the split "
+            "builds of flash_bwd_bf16_dkdv_wgmma_kernel and flash_bwd_bf16_dq_wgmma_kernel",
+        ),
+        _kernel_entry(
+            "rglru_bwd",
+            "src/repro_torch/kernels/csrc/rglru_bwd.cu",
+            "src/repro/kernels/rglru.py:29 (its gradient: jax.grad through "
+            "src/repro/kernels/ref.py:227 rglru_scan_ref)",
+            hybrid_train["rglru_bwd"],
+            rglru_rows["bwd"],
+            "x,dh(1,4096,4096) bfloat16, a float32, no h0; rglru_bwd_kernel",
         ),
         _kernel_entry(
             "flash_attention_fwd_hd256",
@@ -3751,4 +4094,6 @@ if __name__ == "__main__":
         sys.exit(_process_main(TRAIN_RESULT, _train))
     if sys.argv[1:] == [DENSE_TRAIN_ARG]:
         sys.exit(_process_main(DENSE_TRAIN_RESULT, _dense_train))
+    if sys.argv[1:] == [HYBRID_TRAIN_ARG]:
+        sys.exit(_process_main(HYBRID_TRAIN_RESULT, _hybrid_train))
     sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

@@ -34,6 +34,7 @@ KERNEL_SOURCES: Dict[str, str] = {
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "flash_attention_bwd_bf16": "flash_attention_bwd_bf16.cu",
     "flash_attention_fwd": "flash_attention_fwd.cu",
+    "rglru_bwd": "rglru_bwd.cu",
     "rglru_scan": "rglru_scan.cu",
     "wkv6": "wkv6.cu",
 }

@@ -73,6 +73,21 @@
 //   and chunks has a fixed count: a branch between the wgmmas of a product makes the compiler
 //   copy their accumulators, and ptxas then serializes every wgmma (its note C7515).
 //
+// Head dims above 128 (up to 256: recurrentgemma-9b's 256), the "split" builds of 4 chunks
+// (`Plan::SPLIT`). The plan above does not carry over: at D = Dv = 256 a consumer's dK and dV
+// for 64 owned keys would take 2 x 64 x 256 / 128 = 256 float32 registers a thread before S and
+// dP, and 128 owned rows of K and V (128 KB) beside a ring of 4 stages of 64 KB exceed the
+// 227 KB a block may have. So a block owns 64 rows, not 128, and both consumer warpgroups own
+// all of them: each computes the same S^T and dP^T (S and dP in dQ) over the whole head dim and
+// keeps half of the output's column chunks (warpgroup w the chunks [w DC/2, (w+1) DC/2) of dK
+// or dQ and likewise of dV), so a thread holds the registers it holds at 128 (dK and dV 64 + 64
+// at D = Dv = 256). S and dP are computed twice, rather than shared through shared memory and a
+// barrier between the warpgroups: 9 products where 7 would do. Shared memory at D = Dv = 256:
+// owned rows 64 KB, 2 stages of 64 KB, lse and D; 198,696 bytes. A chunk of 64 columns wholly
+// past D or Dv (D <= 64 or 128 < D <= 192 in these builds) is zeroed once in every place it
+// would occupy and never loaded. Every sum keeps its order: the GQA group's heads in order into
+// float32 registers, each output element written once.
+//
 // Plain C interface, loaded with ctypes; every pointer and the stream are void*. The TMA
 // encoder comes from cudaGetDriverEntryPoint (hopper.cuh), so the library needs no -lcuda.
 
@@ -88,11 +103,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int MAX_D = 128;
-constexpr int OWN = 128;     // owned rows a block: two consumer warpgroups of 64
+constexpr int MAX_D = 256;
 constexpr int BOX = 64;      // rows of a TMA box: an owned half, or a walk tile
 constexpr int WALK = 64;     // rows of a walk tile: query rows (dK/dV) or keys (dQ)
-constexpr int STAGES = 4;    // walk tiles in flight
 constexpr int COLS = 64;     // head-dim columns of a box: 128 bytes, the swizzle span
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMERS = 256;
@@ -149,14 +162,21 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) delta[row] = s;
 }
 
-// Shared memory of a block, byte offsets from a 1024-byte-aligned base: the owned rows (the
-// operand behind S in DC chunks of OWN rows x 64 columns, then the one behind dP in DVC), the
-// ring (STAGES x [the walked tensor behind S in DC chunks of WALK rows, then the one behind dP
-// in DVC]), dK/dV's ring of lse and D (STAGES x 2 x WALK floats), then the barriers (own, full,
-// empty).
+// The plan of a build of DC and DVC chunks of 64 columns of D and Dv: the rows a block owns,
+// the ring's depth, the output chunks a consumer warpgroup keeps; then the shared memory of a
+// block, byte offsets from a 1024-byte-aligned base: the owned rows (the operand behind S in DC
+// chunks of OWN rows x 64 columns, then the one behind dP in DVC), the ring (STAGES x [the
+// walked tensor behind S in DC chunks of WALK rows, then the one behind dP in DVC]), dK/dV's
+// ring of lse and D (STAGES x 2 x WALK floats), then the barriers (own, full, empty).
 template <int DC, int DVC>
-struct Smem {
-  static constexpr uint32_t OWN_CHUNK = OWN * ROW_BYTES;  // 16 KB
+struct Plan {
+  static constexpr bool SPLIT = DC > 2 || DVC > 2;  // head dims above 128
+  static constexpr int OWN = SPLIT ? 64 : 128;        // owned rows a block
+  static constexpr int STAGES = SPLIT ? 2 : 4;        // walk tiles in flight
+  static constexpr int KC = SPLIT ? DC / 2 : DC;      // chunks of dK or dQ a warpgroup keeps
+  static constexpr int VC = SPLIT ? DVC / 2 : DVC;    // chunks of dV a warpgroup keeps
+  static_assert(!SPLIT || (DC % 2 == 0 && DVC % 2 == 0), "split builds halve the chunks");
+  static constexpr uint32_t OWN_CHUNK = OWN * ROW_BYTES;  // 16 KB, 8 KB split
   static constexpr uint32_t STAGE_BYTES = (DC + DVC) * WALK_CHUNK;
   static constexpr uint32_t own_s = 0;
   static constexpr uint32_t own_p = own_s + DC * OWN_CHUNK;
@@ -164,6 +184,7 @@ struct Smem {
   static constexpr uint32_t lse = ring + STAGES * STAGE_BYTES;
   static constexpr uint32_t bars = lse + STAGES * 2 * WALK * 4;
   static constexpr uint32_t total = bars + 8 * (1 + 2 * STAGES);
+  static_assert(1024 + total <= 232448, "shared memory of a block");
 };
 
 __device__ __forceinline__ uint32_t aligned_base(const uint8_t* p) {
@@ -172,6 +193,7 @@ __device__ __forceinline__ uint32_t aligned_base(const uint8_t* p) {
 
 // Initialises the barriers (full: `full_count` arrivals plus the TMA bytes; empty: every
 // consumer thread) and makes them visible to the whole block.
+template <int STAGES>
 __device__ __forceinline__ void init_barriers(uint32_t bars, uint32_t full_count) {
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
@@ -185,21 +207,49 @@ __device__ __forceinline__ void init_barriers(uint32_t bars, uint32_t full_count
 }
 
 // The producer's loads of the owned rows: rows [row0, row0 + OWN) of two (B*H, n, cols)
-// tensors (DC and DVC chunks of 64 columns) at head bh, in boxes of BOX rows; boxes wholly
-// past n are not loaded (their warpgroup has no live row and never reads them).
+// tensors (dcl and dvcl live chunks of 64 columns) at head bh, in boxes of BOX rows; boxes
+// wholly past n are not loaded (their warpgroup has no live row and never reads them).
 template <int DC, int DVC>
 __device__ __forceinline__ void load_owned(uint32_t dst_s, uint32_t dst_p,
                                            const CUtensorMap* map_s, const CUtensorMap* map_p,
-                                           uint32_t bar, int row0, int n, int bh) {
-  constexpr uint32_t chunk = Smem<DC, DVC>::OWN_CHUNK;
-  const int halves = row0 + BOX < n ? 2 : 1;
-  mbar_expect_tx(bar, halves * (DC + DVC) * BOX_BYTES);
+                                           uint32_t bar, int row0, int n, int bh, int dcl,
+                                           int dvcl) {
+  using P = Plan<DC, DVC>;
+  constexpr uint32_t chunk = P::OWN_CHUNK;
+  const int halves = P::OWN > BOX && row0 + BOX < n ? 2 : 1;
+  mbar_expect_tx(bar, halves * (dcl + dvcl) * BOX_BYTES);
   for (int h = 0; h < halves; ++h) {
-    for (int c = 0; c < DC; ++c)
+    for (int c = 0; c < dcl; ++c)
       tma_load(dst_s + c * chunk + h * BOX_BYTES, map_s, bar, c * COLS, row0 + h * BOX, bh);
-    for (int c = 0; c < DVC; ++c)
+    for (int c = 0; c < dvcl; ++c)
       tma_load(dst_p + c * chunk + h * BOX_BYTES, map_p, bar, c * COLS, row0 + h * BOX, bh);
   }
+}
+
+// The chunks of 64 columns that hold some column below d: the ones the producer loads.
+__device__ __forceinline__ int live_chunks(int nc, int d) {
+  return imin(nc, (d + COLS - 1) / COLS);
+}
+
+// Split builds: zeros in every place a chunk wholly past D or Dv would occupy (owned rows and
+// every ring stage), which the producer never loads, so that the products over the head dim
+// add zeros there; then the fence that shows the generic proxy's stores to wgmma's async proxy.
+// Runs before the barriers' __syncthreads().
+template <int DC, int DVC>
+__device__ __forceinline__ void zero_dead_chunks(uint8_t* base, int dcl, int dvcl) {
+  using P = Plan<DC, DVC>;
+  auto zero = [&](uint32_t off, uint32_t bytes) {
+    for (uint32_t i = threadIdx.x * 16u; i < bytes; i += THREADS * 16u)
+      *reinterpret_cast<uint4*>(base + off + i) = make_uint4(0u, 0u, 0u, 0u);
+  };
+  for (int c = dcl; c < DC; ++c) zero(P::own_s + c * P::OWN_CHUNK, P::OWN_CHUNK);
+  for (int c = dvcl; c < DVC; ++c) zero(P::own_p + c * P::OWN_CHUNK, P::OWN_CHUNK);
+  for (int s = 0; s < P::STAGES; ++s) {
+    const uint32_t st = P::ring + s * P::STAGE_BYTES;
+    for (int c = dcl; c < DC; ++c) zero(st + c * WALK_CHUNK, WALK_CHUNK);
+    for (int c = dvcl; c < DVC; ++c) zero(st + (DC + c) * WALK_CHUNK, WALK_CHUNK);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // c (64 x 64) = A B^T over the head dim: A this warpgroup's 64 owned rows, B a walk tile's 64
@@ -226,16 +276,16 @@ __device__ __forceinline__ void product_walk(float (&acc)[32], const uint32_t (&
     wgmma_bf16_rs_mn(acc, x[j], mnmajor_bf16_desc(b + j * KSTEP_ROWS_BYTES));
 }
 
-// Rows r0 and r1 (< n) of a warpgroup accumulator (NC chunks of 64 columns), times mul, as
-// bfloat16 into a row-major (n, cols) matrix: columns below cols (a multiple of 8).
+// Rows r0 and r1 (< n) of a warpgroup accumulator (NC chunks of 64 columns from chunk c0),
+// times mul, as bfloat16 into a row-major (n, cols) matrix: columns below cols (a multiple of 8).
 template <int NC>
 __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[NC][32], int r0, int r1,
-                                          int n, int cols, float mul, int qd) {
+                                          int n, int cols, float mul, int qd, int c0) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int nt = 0; nt < COLS / 8; ++nt) {
-      const int col = c * COLS + 8 * nt + 2 * qd;
+      const int col = (c0 + c) * COLS + 8 * nt + 2 * qd;
       if (col >= cols) continue;
       if (r0 < n)
         *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r0 * cols + col) =
@@ -294,14 +344,19 @@ __global__ void __launch_bounds__(THREADS, 1)
                                      const float* __restrict__ lse, const float* __restrict__ delta,
                                      bf16* __restrict__ dk, bf16* __restrict__ dv_out, int batch,
                                      int hq, int hkv, int d, int dv, Masks mk, float scale) {
-  using L = Smem<DC, DVC>;
+  using L = Plan<DC, DVC>;
+  constexpr int OWN = L::OWN, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = aligned_base(smem_raw);
-  float* lse_ring = reinterpret_cast<float*>(smem_raw + (s0 - smem_u32(smem_raw)) + L::lse);
+  uint8_t* base = smem_raw + (s0 - smem_u32(smem_raw));
+  float* lse_ring = reinterpret_cast<float*>(base + L::lse);
   const uint32_t own_full = s0 + L::bars;
   auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
   auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
   auto stage = [&](int s) { return s0 + L::ring + s * L::STAGE_BYTES; };
+  // chunks the producer loads: all of them below 128 columns, where none lies wholly past D
+  const int dcl = L::SPLIT ? live_chunks(DC, d) : DC;
+  const int dvcl = L::SPLIT ? live_chunks(DVC, dv) : DVC;
 
   // Blocks in the order of their key tiles across every (KV head, batch): the longest causal
   // walks, the first key tiles', start first on the card.
@@ -316,7 +371,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int per_head = i_end > i_begin ? (i_end + WALK - 1) / WALK - t_begin : 0;
   const int n_tiles = grp * per_head;  // the group's heads in order, each its tiles in order
 
-  init_barriers(s0 + L::bars, 32);  // full: the producer warp's lanes, one with the TMA bytes
+  if constexpr (L::SPLIT) zero_dead_chunks<DC, DVC>(base, dcl, dvcl);
+  init_barriers<STAGES>(s0 + L::bars, 32);  // full: the producer warp's lanes, one with TMA bytes
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: its first warp loads the owned rows, then the walk ----
@@ -325,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int lane = threadIdx.x;
       if (lane == 0)
         load_owned<DC, DVC>(s0 + L::own_s, s0 + L::own_p, &k_map, &v_map, own_full, k0, sk,
-                            b * hkv + hk);
+                            b * hkv + hk, dcl, dvcl);
       int hh = 0, t = t_begin;  // the walk tile's query head in the group, and its tile
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES, i0 = t * WALK;
@@ -337,10 +393,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           lse_ring[(2 * s + 1) * WALK + r] = i < sq ? delta[(size_t)head * sq + i] : 0.f;
         }
         if (lane == 0) {
-          mbar_expect_tx(full(s), L::STAGE_BYTES);
-          for (int c = 0; c < DC; ++c)
+          mbar_expect_tx(full(s), (dcl + dvcl) * WALK_CHUNK);
+          for (int c = 0; c < dcl; ++c)
             tma_load(stage(s) + c * WALK_CHUNK, &q_map, full(s), c * COLS, i0, head);
-          for (int c = 0; c < DVC; ++c)
+          for (int c = 0; c < dvcl; ++c)
             tma_load(stage(s) + (DC + c) * WALK_CHUNK, &o_map, full(s), c * COLS, i0, head);
         } else {
           mbar_arrive(full(s));
@@ -354,19 +410,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     return;
   }
 
-  // ---- consumer warpgroups: 64 keys each ----
+  // ---- consumer warpgroups: 64 keys each (split: the same 64, half the columns each) ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
   const int lane = tid % 32, g = lane / 4, qd = lane % 4;
-  const int key0 = k0 + 64 * wgi + 16 * (tid / 32) + g, key1 = key0 + 8;
-  const int kw_lo = k0 + 64 * wgi, kw_hi = imin(kw_lo + 63, sk - 1);  // the warpgroup's keys
-  const uint32_t a_k = s0 + L::own_s + wgi * BOX_BYTES, a_v = s0 + L::own_p + wgi * BOX_BYTES;
+  const int own0 = L::SPLIT ? 0 : 64 * wgi;  // the warpgroup's first row in the block
+  const int kc0 = L::SPLIT ? wgi * L::KC : 0, vc0 = L::SPLIT ? wgi * L::VC : 0;  // its chunks
+  const int key0 = k0 + own0 + 16 * (tid / 32) + g, key1 = key0 + 8;
+  const int kw_lo = k0 + own0, kw_hi = imin(kw_lo + 63, sk - 1);  // the warpgroup's keys
+  const uint32_t a_k = s0 + L::own_s + (L::SPLIT ? 0 : wgi * BOX_BYTES);
+  const uint32_t a_v = s0 + L::own_p + (L::SPLIT ? 0 : wgi * BOX_BYTES);
   const float scale_log2 = scale * LOG2E;
-  float dka[DC][32], dva[DVC][32];
+  float dka[L::KC][32], dva[L::VC][32];
 #pragma unroll
-  for (int c = 0; c < DC; ++c) zero(dka[c]);
+  for (int c = 0; c < L::KC; ++c) zero(dka[c]);
 #pragma unroll
-  for (int c = 0; c < DVC; ++c) zero(dva[c]);
+  for (int c = 0; c < L::VC; ++c) zero(dva[c]);
   mbar_wait(own_full, 0);
 
   int t = t_begin;  // the walk tile's index in its query head's walk
@@ -402,10 +461,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 4; ++r) pf[j][r] = pack_bf16(st[8 * j + 2 * r], st[8 * j + 2 * r + 1]);
       }
 #pragma unroll
-      for (int c = 0; c < DVC; ++c) pin(dva[c]);
+      for (int c = 0; c < L::VC; ++c) pin(dva[c]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < DVC; ++c) product_walk(dva[c], pf, ot + c * WALK_CHUNK);  // dV += P^T dO
+      for (int c = 0; c < L::VC; ++c)
+        product_walk(dva[c], pf, ot + (vc0 + c) * WALK_CHUNK);  // dV += P^T dO
       wgmma_commit();
       wgmma_wait_pending<1>();  // dP^T (P^T dO may still run)
       pin(dpt);
@@ -423,16 +483,17 @@ __global__ void __launch_bounds__(THREADS, 1)
           sf[j][r] = pack_bf16(dpt[8 * j + 2 * r], dpt[8 * j + 2 * r + 1]);
       }
 #pragma unroll
-      for (int c = 0; c < DC; ++c) pin(dka[c]);
+      for (int c = 0; c < L::KC; ++c) pin(dka[c]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < DC; ++c) product_walk(dka[c], sf, qt + c * WALK_CHUNK);  // dK += dS^T Q
+      for (int c = 0; c < L::KC; ++c)
+        product_walk(dka[c], sf, qt + (kc0 + c) * WALK_CHUNK);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait_pending<0>();
 #pragma unroll
-      for (int c = 0; c < DC; ++c) pin(dka[c]);
+      for (int c = 0; c < L::KC; ++c) pin(dka[c]);
 #pragma unroll
-      for (int c = 0; c < DVC; ++c) pin(dva[c]);
+      for (int c = 0; c < L::VC; ++c) pin(dva[c]);
 #pragma unroll
       for (int j = 0; j < WALK / 16; ++j) {
         pin(pf[j]);
@@ -443,8 +504,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     t = t + 1 == t_begin + per_head ? t_begin : t + 1;
   }
   const size_t kv_head = (size_t)b * hkv + hk;
-  store_acc<DC>(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd);
-  store_acc<DVC>(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd);
+  store_acc<L::KC>(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd, kc0);
+  store_acc<L::VC>(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd, vc0);
 }
 
 // dQ of OWN query rows of one head.
@@ -457,9 +518,13 @@ __global__ void __launch_bounds__(THREADS, 1)
                                    const float* __restrict__ lse, const float* __restrict__ delta,
                                    bf16* __restrict__ dq, int batch, int hq, int hkv, int d,
                                    int dv, Masks mk, float scale) {
-  using L = Smem<DC, DVC>;
+  using L = Plan<DC, DVC>;
+  constexpr int OWN = L::OWN, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = aligned_base(smem_raw);
+  // chunks the producer loads: all of them below 128 columns, where none lies wholly past D
+  const int dcl = L::SPLIT ? live_chunks(DC, d) : DC;
+  const int dvcl = L::SPLIT ? live_chunks(DVC, dv) : DVC;
   const uint32_t own_full = s0 + L::bars;
   auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
   auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
@@ -475,34 +540,38 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int k_begin = (mk.window > 0 ? imax(0, q0 + off - mk.window + 1) : 0) / WALK * WALK;
   const int n_tiles = imax(0, (k_end - k_begin + WALK - 1) / WALK);
 
-  init_barriers(s0 + L::bars, 1);
+  if constexpr (L::SPLIT) {
+    zero_dead_chunks<DC, DVC>(smem_raw + (s0 - smem_u32(smem_raw)), dcl, dvcl);
+  }
+  init_barriers<STAGES>(s0 + L::bars, 1);
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread loads the owned rows, then the walk ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
       load_owned<DC, DVC>(s0 + L::own_s, s0 + L::own_p, &q_map, &o_map, own_full, q0, sq,
-                          b * hq + h);
+                          b * hq + h, dcl, dvcl);
       const int kv_bh = b * hkv + hk;
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES, kt = k_begin + it * WALK;
         if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
-        mbar_expect_tx(full(s), L::STAGE_BYTES);
-        for (int c = 0; c < DC; ++c)
+        mbar_expect_tx(full(s), (dcl + dvcl) * WALK_CHUNK);
+        for (int c = 0; c < dcl; ++c)
           tma_load(stage(s) + c * WALK_CHUNK, &k_map, full(s), c * COLS, kt, kv_bh);
-        for (int c = 0; c < DVC; ++c)
+        for (int c = 0; c < dvcl; ++c)
           tma_load(stage(s) + (DC + c) * WALK_CHUNK, &v_map, full(s), c * COLS, kt, kv_bh);
       }
     }
     return;
   }
 
-  // ---- consumer warpgroups: 64 query rows each ----
+  // ---- consumer warpgroups: 64 query rows each (split: the same 64, half the columns) ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
   const int lane = tid % 32, g = lane / 4, qd = lane % 4;
   const size_t head = (size_t)b * hq + h;
-  const int r_lo = q0 + 64 * wgi;  // the warpgroup's rows, for the tile tests
+  const int kc0 = L::SPLIT ? wgi * L::KC : 0;  // the warpgroup's chunks of dQ
+  const int r_lo = q0 + (L::SPLIT ? 0 : 64 * wgi);  // the warpgroup's rows, for the tile tests
   const int row0 = r_lo + 16 * (tid / 32) + g, row1 = row0 + 8;
   const bool rows_live = r_lo < sq;
   const int qpos_lo = r_lo + off, qpos_hi = imin(r_lo + 64, sq) - 1 + off;
@@ -510,11 +579,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float lse1 = row1 < sq ? lse[head * sq + row1] * LOG2E : 0.f;
   const float dl0 = row0 < sq ? delta[head * sq + row0] : 0.f;
   const float dl1 = row1 < sq ? delta[head * sq + row1] : 0.f;
-  const uint32_t a_q = s0 + L::own_s + wgi * BOX_BYTES, a_o = s0 + L::own_p + wgi * BOX_BYTES;
+  const uint32_t a_q = s0 + L::own_s + (L::SPLIT ? 0 : wgi * BOX_BYTES);
+  const uint32_t a_o = s0 + L::own_p + (L::SPLIT ? 0 : wgi * BOX_BYTES);
   const float scale_log2 = scale * LOG2E;
-  float dqa[DC][32];
+  float dqa[L::KC][32];
 #pragma unroll
-  for (int c = 0; c < DC; ++c) zero(dqa[c]);
+  for (int c = 0; c < L::KC; ++c) zero(dqa[c]);
   mbar_wait(own_full, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -549,20 +619,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 4; ++r) sf[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
       }
 #pragma unroll
-      for (int c = 0; c < DC; ++c) pin(dqa[c]);
+      for (int c = 0; c < L::KC; ++c) pin(dqa[c]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < DC; ++c) product_walk(dqa[c], sf, kt_s + c * WALK_CHUNK);  // dQ += dS K
+      for (int c = 0; c < L::KC; ++c)
+        product_walk(dqa[c], sf, kt_s + (kc0 + c) * WALK_CHUNK);  // dQ += dS K
       wgmma_commit();
       wgmma_wait_pending<0>();
 #pragma unroll
-      for (int c = 0; c < DC; ++c) pin(dqa[c]);
+      for (int c = 0; c < L::KC; ++c) pin(dqa[c]);
 #pragma unroll
       for (int j = 0; j < WALK / 16; ++j) pin(sf[j]);
     }
     mbar_arrive(empty(s));  // this thread is done with stage s
   }
-  store_acc<DC>(dq + head * sq * d, dqa, row0, row1, sq, d, scale, qd);
+  store_acc<L::KC>(dq + head * sq * d, dqa, row0, row1, sq, d, scale, qd, kc0);
 }
 
 // A (B*H, rows, cols) bfloat16 tensor as a 3-D tensor map; boxes of (1, BOX, COLS), 128-byte
@@ -583,7 +654,7 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int co
 
 template <int DC, int DVC>
 size_t shared_bytes() {
-  return 1024 + Smem<DC, DVC>::total;
+  return 1024 + Plan<DC, DVC>::total;
 }
 
 template <int DC, int DVC>
@@ -591,6 +662,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap& km,
            const CUtensorMap& vm, const float* lse, const float* delta, bf16* dq, bf16* dk,
            bf16* dv_out, int b, int hq, int hkv, int d, int dv, const Masks& mk, float scale,
            cudaStream_t stream) {
+  constexpr int OWN = Plan<DC, DVC>::OWN;
   const size_t smem = shared_bytes<DC, DVC>();
   auto kv_kernel = flash_bwd_bf16_dkdv_wgmma_kernel<DC, DVC>;
   auto q_kernel = flash_bwd_bf16_dq_wgmma_kernel<DC, DVC>;
@@ -615,7 +687,7 @@ extern "C" {
 
 // q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), o and dout (B,Hq,Sq,Dv): bfloat16,
 // contiguous, 16-byte aligned (cudaErrorMisalignedAddress otherwise: TMA's base addresses),
-// D and Dv multiples of 8 up to 128 (TMA's 16-byte row strides); lse (B,Hq,Sq) float32.
+// D and Dv multiples of 8 up to 256 (TMA's 16-byte row strides); lse (B,Hq,Sq) float32.
 // Writes delta (B,Hq,Sq) float32 (scratch: D = rowsum(dO o O)), dq, dk, dv in bfloat16 (shaped
 // as q, k, v), every element. window <= 0 means no window. The caller has checked
 // Hq % Hkv == 0, B, Sq, Sk >= 1, causal/window only with Sq <= Sk, and the grid limits. Returns
@@ -654,6 +726,10 @@ int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, 
   bf16* gv = static_cast<bf16*>(dv_out);
 #define REPRO_LAUNCH(DC, DVC) \
   launch<DC, DVC>(qm, om, km, vm, fl, fd, gq, gk, gv, b, hq, hkv, d, dv, mk, scale, s)
+  if (d > 128 || dv > 128) {  // the split builds: 2 or 4 chunks of each
+    if (d > 128) return dv > 128 ? REPRO_LAUNCH(4, 4) : REPRO_LAUNCH(4, 2);
+    return REPRO_LAUNCH(2, 4);
+  }
   if (d <= 64) return dv <= 64 ? REPRO_LAUNCH(1, 1) : REPRO_LAUNCH(1, 2);
   return dv <= 64 ? REPRO_LAUNCH(2, 1) : REPRO_LAUNCH(2, 2);
 #undef REPRO_LAUNCH
@@ -662,6 +738,10 @@ int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, 
 // Dynamic shared memory a block of the dK/dV or dQ kernel asks for (the two are equal) at
 // head dims D and Dv.
 int repro_flash_attention_bwd_bf16_shared_bytes(int d, int dv) {
+  if (d > 128 || dv > 128) {
+    if (d > 128) return (int)(dv > 128 ? shared_bytes<4, 4>() : shared_bytes<4, 2>());
+    return (int)shared_bytes<2, 4>();
+  }
   if (d <= 64) return (int)(dv <= 64 ? shared_bytes<1, 1>() : shared_bytes<1, 2>());
   return (int)(dv <= 64 ? shared_bytes<2, 1>() : shared_bytes<2, 2>());
 }

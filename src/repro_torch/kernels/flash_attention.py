@@ -16,10 +16,11 @@ masks alone, never from B or the card, so a row's bits do not depend on
 the batch it runs in. Asked for it, both paths also write each row's
 logsumexp in float32, which the backward needs.
 
-Backward (:func:`flash_attention_bwd`, head dims up to 128): the
-FlashAttention-2 form, three launches (Δ = rowsum(dO∘O); dK and dV a block
-per key tile, summed over the GQA group in a fixed order in float32; dQ a
-block per query tile), no atomics: a step replays bit for bit. float32 runs
+Backward (:func:`flash_attention_bwd`, head dims up to 256 in bfloat16 and up
+to 128 in float32): the FlashAttention-2 form, three launches (Δ =
+rowsum(dO∘O); dK and dV a block per key tile, summed over the GQA group in a
+fixed order in float32; dQ a block per query tile), no atomics: a step
+replays bit for bit. float32 runs
 in 3xTF32: head dims up to 64 that are multiples of 4 (the demo's training)
 on ``wgmma`` fed by a TMA ring, every other one on ``mma.sync``. bfloat16
 runs its own kernels, also ``wgmma`` fed by a TMA ring and warp-specialised,
@@ -53,12 +54,14 @@ __all__ = [
     "f32_plan",
     "MAX_HEAD_DIM",
     "MAX_BWD_HEAD_DIM",
+    "MAX_BWD_BF16_HEAD_DIM",
     "PATHS",
     "bwd_path",
 ]
 
 MAX_HEAD_DIM = 256  # the C side's MAX_D in csrc/flash_attention_fwd.cu
-MAX_BWD_HEAD_DIM = 128  # the C side's MAX_D in csrc/flash_attention_bwd*.cu
+MAX_BWD_HEAD_DIM = 128  # float32: the C side's MAX_D in csrc/flash_attention_bwd.cu
+MAX_BWD_BF16_HEAD_DIM = 256  # bfloat16: MAX_D in csrc/flash_attention_bwd_bf16.cu
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_YZ = 65535
 #: the kernel that serves each dtype, both on the tensor cores: wgmma (bfloat16) and
@@ -281,12 +284,16 @@ flash_attention_fwd.launches = 0
 
 
 def _check_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Refuse what the backward kernels do not take, on every device alike."""
+    """Refuse what the backward kernels do not take, on every device alike: head dims above
+    256 in bfloat16, above 128 in float32."""
     d, dv = q.shape[-1], v.shape[-1]
-    if d > MAX_BWD_HEAD_DIM or dv > MAX_BWD_HEAD_DIM:
+    bf16 = q.dtype == torch.bfloat16
+    limit = MAX_BWD_BF16_HEAD_DIM if bf16 else MAX_BWD_HEAD_DIM
+    if d > limit or dv > limit:
         raise ValueError(
-            f"flash attention backward: head dims D={d}, Dv={dv} above {MAX_BWD_HEAD_DIM}; "
-            "wider heads wait for ROADMAP Queue 2 item 4"
+            f"flash attention backward: head dims D={d}, Dv={dv} above {limit} in {q.dtype}; "
+            + ("" if bf16 else "float32 heads above 128 wait for ")
+            + "ROADMAP Queue 2 item 4"
         )
 
 

@@ -12,7 +12,8 @@ Counterpart of ``repro.kernels.ops``. Models import only from this module.
                             through ``FlashAttentionFunction``: the forward
                             kernel saves the logsumexp and the backward
                             kernels (plain versions on the CPU) give the
-                            gradient
+                            gradient; the RG-LRU likewise through
+                            ``RGLRUFunction`` and its backward kernel
   impl="ref"              : the blocked attention / cached decode / chunked
                             WKV6 / associative-scan RG-LRU plain version on
                             any device (its gradient by plain autograd)
@@ -31,7 +32,7 @@ import torch
 from . import ref as _ref
 from .decode_attention import decode_attention as _decode_attention_kernel
 from .flash_attention import FlashAttentionFunction, flash_attention_fwd
-from .rglru import rglru_scan
+from .rglru import RGLRUFunction, rglru_scan
 from .wkv6 import CHUNK as _WKV_CHUNK
 from .wkv6 import wkv6_chunked
 
@@ -109,6 +110,9 @@ def rglru(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU h_t = a_t h_{t-1} + sqrt(1 - a_t²) x_t. x, a (B,T,W) -> (h, final state (B,W))."""
     if impl in ("auto", "pallas"):
+        inputs = (x, a) if initial_state is None else (x, a, initial_state)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            return RGLRUFunction.apply(x, a, initial_state)
         return rglru_scan(x, a, initial_state=initial_state)
     if impl == "ref":
         return _ref.rglru_scan_ref(x, a, initial_state=initial_state)

@@ -20,6 +20,8 @@ state in float32, h returned in the dtype of x and the final state in
 float32. ``rglru_ref`` steps through time; ``rglru_scan_ref`` is the
 associative-scan form (torch has no ``associative_scan``: it doubles the
 span ``log2(T)`` times, Hillis-Steele, with the reference's combine).
+``rglru_bwd_ref`` is the gradient: a walk back through time from the
+forward's float32 states, which it recomputes.
 
 WKV6 (RWKV6 "Finch"): per head, with the K x V state S in float32,
 ``o_t = (r_t * u)^T (k_t v_t^T) + r_t^T S_{t-1}`` and
@@ -43,6 +45,7 @@ __all__ = [
     "decode_attention_ref",
     "rglru_ref",
     "rglru_scan_ref",
+    "rglru_bwd_ref",
     "wkv6_ref",
     "wkv6_chunked_ref",
 ]
@@ -253,6 +256,49 @@ def rglru_ref(
         h = af[:, t] * h + gated[:, t]
         out[:, t] = h.to(x.dtype)
     return out, h
+
+
+def rglru_bwd_ref(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    dh: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    dh_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RG-LRU's gradient, walking back through time: the Hopper kernel's plain version.
+
+    From x, a and initial_state (as :func:`rglru_ref` takes them), the gradient ``dh``
+    (B, T, W) of h (in x's dtype) and ``dh_last`` (B, W) of the final state (None: zero),
+    returns (dx in x's dtype, da float32, dh0 (B, W) float32; float64 throughout for a
+    float64 x). With b_t = sqrt(max(1 - a_t², 0)) and the carried gradient c (dh_last at
+    the start), from t = T-1 down to 0:
+    ``g = dh_t + c``, ``dx_t = g * b_t``, ``da_t = g * (h_{t-1} - a_t * x_t / b_t)``,
+    ``c = a_t * g``; dh0 is the last c. h_{t-1} is the forward's float32 state, recomputed
+    here with :func:`rglru_ref`'s rounding. Each operation is rounded once, in the kernel's
+    order. At a_t = 1 (b_t = 0), da_t is ±inf where x_t != 0 and NaN where x_t = 0, as
+    ``jax.grad`` through the reference gives.
+    """
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32  # float64: gradcheck
+    xf, af = x.to(ct), a.to(ct)
+    root = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0))
+    gated = root * xf
+    h0 = _rglru_h0(x, None).to(ct) if initial_state is None else initial_state.to(ct)
+    states = torch.empty(x.shape, dtype=ct, device=x.device)
+    h = h0
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + gated[:, t]
+        states[:, t] = h
+    carry = torch.zeros_like(h0) if dh_last is None else dh_last.to(ct)
+    dx = torch.empty(x.shape, dtype=ct, device=x.device)
+    da = torch.empty(x.shape, dtype=ct, device=x.device)
+    for t in range(x.shape[1] - 1, -1, -1):
+        g = dh[:, t].to(ct) + carry
+        prev = states[:, t - 1] if t > 0 else h0
+        dx[:, t] = g * root[:, t]
+        da[:, t] = g * (prev - af[:, t] * xf[:, t] / root[:, t])
+        carry = af[:, t] * g
+    return dx.to(x.dtype), da, carry
 
 
 def rglru_scan_ref(

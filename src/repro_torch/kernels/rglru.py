@@ -14,10 +14,16 @@ The ring kernel's 16-byte copies need W a multiple of 8 and x, a 16-byte
 aligned; the wrapper pads W with zeros (a = 0, x = 0 keep h = 0 there) when
 they are not, as the flash wrapper pads head dims.
 
-On a CUDA tensor the wrapper launches the kernel or raises. On a CPU
-tensor it runs the plain version, :func:`repro_torch.kernels.ref.rglru_ref`,
-and only because the tensor lies on the CPU. The same checks apply on both
-devices, so the CPU tests see what the kernel would refuse.
+The gradient is :func:`rglru_bwd`, a third kernel in ``csrc/rglru_bwd.cu``
+(one thread a channel walking back through time, bit for bit
+:func:`repro_torch.kernels.ref.rglru_bwd_ref`); :class:`RGLRUFunction`
+joins the forward and it under autograd.
+
+On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
+tensor it runs the plain version (:func:`repro_torch.kernels.ref.rglru_ref`,
+:func:`~repro_torch.kernels.ref.rglru_bwd_ref`), and only because the tensor
+lies on the CPU. The same checks apply on both devices, so the CPU tests see
+what the kernels would refuse.
 """
 
 from __future__ import annotations
@@ -30,7 +36,14 @@ import torch
 from . import ref as _ref
 from ._build import count_launch
 
-__all__ = ["rglru_scan", "path_for", "RING_CHANNELS", "STEP_MAX_T"]
+__all__ = [
+    "rglru_scan",
+    "rglru_bwd",
+    "RGLRUFunction",
+    "path_for",
+    "RING_CHANNELS",
+    "STEP_MAX_T",
+]
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GRID_Y = 65535
@@ -74,18 +87,20 @@ def _check(x: torch.Tensor, a: torch.Tensor, h0: Optional[torch.Tensor]) -> None
         raise ValueError(f"rglru_scan: B={b} exceeds the grid limit")
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "rglru_scan", n_ptr: int = 5, n_int: int = 5) -> ctypes.CDLL:
+    """Kernel library ``name``, its entry point ``repro_<name>`` declared as n_ptr pointers,
+    n_int ints and the stream."""
     from . import _build
 
-    lib = _build.load("rglru_scan")
-    fn = lib.repro_rglru_scan
+    lib = _build.load(name)
+    fn = getattr(lib, f"repro_{name}")
     if fn.argtypes is None:  # first use: declare the C signature
         # argtypes last: it is the flag another thread tests above
         fn.restype = ctypes.c_int
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        fn.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
     return lib
 
 
@@ -154,3 +169,91 @@ def rglru_scan(
 
 
 rglru_scan.launches = 0
+
+
+def rglru_bwd(
+    x: torch.Tensor,
+    a: torch.Tensor,
+    dh: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    dh_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rglru_scan`: from x, a, initial_state, ``dh`` (B,T,W) in x's
+    dtype and ``dh_last`` (B,W) float32 or None, returns (dx in x's dtype, da float32,
+    dh0 (B,W) float32).
+
+    ``rglru_bwd.launches`` counts kernel launches (never the CPU path). The kernel
+    recomputes the forward's float32 states into a (B,T,W) float32 scratch of its own.
+    """
+    _check(x, a, initial_state)
+    b, t, w = x.shape
+    if dh.shape != x.shape or dh.dtype != x.dtype or not dh.is_contiguous():
+        raise ValueError(
+            f"rglru_bwd: dh {tuple(dh.shape)} {dh.dtype} must be contiguous, shaped and typed "
+            f"as x {tuple(x.shape)} {x.dtype}"
+        )
+    if dh_last is not None and (
+        dh_last.shape != (b, w) or dh_last.dtype != torch.float32 or not dh_last.is_contiguous()
+    ):
+        raise ValueError(f"rglru_bwd: dh_last {tuple(dh_last.shape)} must be ({b}, {w}) float32")
+    if any(g.device != x.device for g in (dh, dh_last) if g is not None):
+        raise ValueError("rglru_bwd: the gradients lie on another device than x")
+    if x.device.type == "cpu":
+        return _ref.rglru_bwd_ref(x, a, dh, initial_state=initial_state, dh_last=dh_last)
+    if x.device.type != "cuda":
+        raise ValueError(f"rglru_bwd: no kernel for device {x.device}")
+    dx = torch.empty_like(x)
+    da = torch.empty_like(a)
+    dh0 = torch.empty((b, w), dtype=torch.float32, device=x.device)
+    states = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    lib = _lib("rglru_bwd", 9, 4)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_rglru_bwd(
+            x.data_ptr(),
+            a.data_ptr(),
+            initial_state.data_ptr() if initial_state is not None else None,
+            dh.data_ptr(),
+            dh_last.data_ptr() if dh_last is not None else None,
+            states.data_ptr(),
+            dx.data_ptr(),
+            da.data_ptr(),
+            dh0.data_ptr(),
+            b,
+            t,
+            w,
+            int(x.dtype == torch.bfloat16),
+            stream,
+        )
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"rglru_bwd: launch failed: CUDA error {err} ({msg})")
+    count_launch(rglru_bwd)
+    return dx, da, dh0
+
+
+rglru_bwd.launches = 0
+
+
+class RGLRUFunction(torch.autograd.Function):
+    """The RG-LRU with its gradient: :func:`rglru_scan` forward with x, a and the initial
+    state saved, :func:`rglru_bwd` backward. ``initial_state`` may be None."""
+
+    @staticmethod
+    def forward(ctx, x, a, initial_state):
+        h, h_last = rglru_scan(x, a, initial_state=initial_state)
+        ctx.save_for_backward(x, a, initial_state)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        x, a, initial_state = ctx.saved_tensors
+        dx, da, dh0 = rglru_bwd(
+            x,
+            a,
+            dh.contiguous(),
+            initial_state=initial_state,
+            dh_last=dh_last.float().contiguous(),
+        )
+        return dx, da, dh0 if initial_state is not None else None

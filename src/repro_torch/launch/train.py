@@ -5,14 +5,17 @@
     python -m repro_torch.launch.train --arch serpytor-demo-100m --device cpu --steps 2
 
 Selects an architecture config (``--reduced``, the default, takes its smoke
-variant; ``--full`` the published one) and runs the durable ``Trainer``:
+variant; ``--full`` the published one; ``--layers N`` keeps its first N
+layers) and runs the durable ``Trainer``:
 journaled rounds, checkpoints, a heartbeat, replay verification. Run the
 same command again on the same ``--run-dir`` and it recovers from the newest
 complete checkpoint and re-executes, and verifies against the journal, every
 step after it. Runs on ``cuda`` unless ``--device cpu``, with
-``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless it is set. Only the dense
-family trains; the others raise where train mode refuses them (ROADMAP
-Queue 1 items 7–10).
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless it is set. The dense and
+hybrid families train; the others raise where train mode refuses them
+(ROADMAP Queue 1 items 7–10). A bfloat16 config (``--full``) trains but is
+refused at the durable host boundary (``train/host.py``), which waits for
+ROADMAP Queue 1 item 7.
 
 Prints the heartbeat's address, a line per ``--log-every`` steps (as the
 reference), and at the end the summary and the flash kernels' launches.
@@ -21,6 +24,7 @@ reference), and at the end the summary and the flash kernels' launches.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import List, Optional
@@ -54,6 +58,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument(
         "--full", dest="reduced", action="store_false", help="use the full published config"
     )
+    ap.add_argument(
+        "--layers", type=int, default=0, help="train the config's first N layers (0: all)"
+    )
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--seq", type=int, default=0)
     ap.add_argument("--journal-sync", default="batch", choices=["always", "batch", "never"])
@@ -73,10 +80,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     else:
         batch = args.batch or shape.global_batch
         seq = args.seq or shape.seq_len
+    if args.layers:
+        if not 1 <= args.layers <= cfg.num_layers:
+            ap.error(f"--layers {args.layers}: {cfg.name} has {cfg.num_layers} layers")
+        cfg = dataclasses.replace(
+            cfg, num_layers=args.layers, block_pattern=cfg.block_pattern[: args.layers]
+        )
 
     run_dir = args.run_dir or f"runs/{cfg.name}"
     print(
-        f"training {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "
+        f"training {cfg.name}: {cfg.num_layers} layers, {cfg.param_count() / 1e6:.1f}M params, "
         f"{args.steps} steps, batch {batch}×{seq} → {run_dir} on {args.device}",
         flush=True,
     )

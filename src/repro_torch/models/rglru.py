@@ -11,7 +11,8 @@ arithmetic:
 
 Per-layer decode state: ``{"h": (B, lru_width) float32, "conv": (B, w-1,
 lru_width)}``. Prefill and decode (T = 1) both go through ``ops.rglru``,
-the Hopper kernel on the card.
+the Hopper kernel on the card; in training its gradient is the RG-LRU
+backward kernel's (``ops.rglru`` through ``RGLRUFunction``).
 """
 
 from __future__ import annotations
@@ -63,10 +64,16 @@ def _causal_conv1d(
         tail = x.new_zeros((b, k - 1, w))
     xp = torch.cat([tail.to(x.dtype), x], dim=1)  # (B, T+K-1, W)
     y = torch.zeros((b, t, w), dtype=torch.float32, device=x.device)
-    tap = torch.empty_like(y)
-    for i in range(k):  # K is tiny (4): unrolled taps, in float32, one buffer for all
-        y.add_(torch.mul(xp[:, i : i + t, :], weight[i].float(), out=tap))
-    y = y.add_(bias.float()).to(x.dtype)
+    if torch.is_grad_enabled() and any(z.requires_grad for z in (x, weight, bias, tail)):
+        # out of place for autograd, the same float32 ops in the same order: the same bits
+        for i in range(k):
+            y = y + xp[:, i : i + t, :] * weight[i].float()
+        y = (y + bias.float()).to(x.dtype)
+    else:
+        tap = torch.empty_like(y)
+        for i in range(k):  # K is tiny (4): unrolled taps, in float32, one buffer for all
+            y.add_(torch.mul(xp[:, i : i + t, :], weight[i].float(), out=tap))
+        y = y.add_(bias.float()).to(x.dtype)
     # the tail as a copy: a view would keep all of xp alive in a prefill cache
     return y, xp[:, t:, :].clone()
 

@@ -8,8 +8,8 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 repeat in a Python loop: both layouts run the same way.
 
 This port runs four kinds, in the modes ``prefill`` (build the cache) and
-``decode`` (one token against the cache, updated in place); ``dense`` and
-``attn`` also in ``train`` (the whole sequence, no cache, under autograd;
+``decode`` (one token against the cache, updated in place); ``dense``,
+``attn`` and ``rec`` also in ``train`` (the whole sequence, no cache, under autograd;
 ``cfg.remat`` "full" recomputes each repeat of a segment unit in the
 backward through ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` around its unit body; "dots", which keeps the matmul
@@ -23,8 +23,7 @@ outputs, raises and names its ROADMAP item):
           ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
 
 Every other kind raises ``NotImplementedError`` naming its ROADMAP item,
-and so do ``rec`` and ``rwkv`` in train mode (their kernels have no
-backward yet).
+and so does ``rwkv`` in train mode (the WKV6 kernel has no backward yet).
 """
 
 from __future__ import annotations
@@ -178,9 +177,10 @@ def apply_layer(
     _require_ported(cfg, kind)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r}: this port runs {', '.join(_MODES)}")
-    if mode == "train" and kind in ("rec", "rwkv"):
+    if mode == "train" and kind == "rwkv":
         raise NotImplementedError(
-            f"training a {kind!r} layer: its kernel has no backward yet: ROADMAP Queue 1 item 7"
+            "training an 'rwkv' layer: the WKV6 kernel has no backward yet: ROADMAP Queue 1 "
+            "item 7, Queue 2 item 2"
         )
     if kind == "rwkv":
         return _apply_rwkv(h, lp, cfg, mode=mode, cache=cache)
@@ -190,7 +190,9 @@ def apply_layer(
             cache = init_rglru_state(cfg, h.shape[0], h.dtype, h.device)
         rec_out, state = recurrent_block(x1, lp["rec"], cfg, state=cache)
         h = h + rec_out
-        if mode == "prefill":
+        if mode == "train":
+            new_cache = None
+        elif mode == "prefill":
             new_cache = state
         else:  # decode: write the new state into the cache in place
             cache["h"].copy_(state["h"])

@@ -364,12 +364,11 @@ def test_sharded_loader_resumes_at_any_step():
 @pytest.mark.parametrize(
     "arch, changes, match",
     [
-        ("recurrentgemma-9b", {}, "ROADMAP Queue 1 item 7"),
         ("rwkv6-7b", {}, "ROADMAP Queue 1 item 7"),
         (ARCH, {"mtp": True}, "ROADMAP Queue 1 item 9"),
         (ARCH, {"remat": "dots"}, "ROADMAP Queue 1 item 13"),
     ],
-    ids=["rec", "rwkv", "mtp", "remat_dots"],
+    ids=["rwkv", "mtp", "remat_dots"],
 )
 def test_train_mode_refuses_what_is_not_ported(arch, changes, match):
     cfg = dataclasses.replace(tsmoke(tconfigs.get_config(arch)), **changes)
