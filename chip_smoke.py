@@ -70,7 +70,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``csrc/rglru_bwd.cu``) against ``ref.rglru_bwd_ref`` bit for bit at the
    hybrid's train shape (1, 4096, 4096) in bf16 and f32, with and without h0,
    at T = 1 and 32, ragged W, and the a = 1 edge; its bits on two launches and
-   for a row alone as within a batch of 4; its time beside its bound. The
+   for a row alone as within a batch of 4; its time beside its bound. The WKV6
+   backward (``csrc/wkv6_bwd.cu``) against ``ref.wkv6_bwd_ref`` at TOL of each
+   gradient's largest entry: rwkv6-7b's train shape (1, 64, 4096, 64) in
+   bfloat16 with and without h0 and dS_T, the float32 cases of WKV_CASES, T =
+   17, and log w in U(-4, -3.9), where every entry is finite and autodiff
+   through the plain chunked form is not; its bits on two launches and for B =
+   1 against row 0 of B = 4; at the train shape its time beside its plain
+   version's and the bound; on every float32 case its error against float64
+   autograd through ``ref.wkv6_ref`` at most twice the plain version's. The
    dense family's prefill and decode
    shapes are among the flash and decode-attention cases. Each timed case
    prints the kernel's time, its plain version's, one PyTorch library call's
@@ -210,7 +218,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    memory and a profiled step (flash forward and backward, RG-LRU forward and
    backward, GEMMs, elementwise, optimizer); step 0 against attn_impl="ref"
    within DENSE_TRAIN_GAPS times the plain path's bf16-vs-f32 gap;
-13. the JSON line of kernels, the card's name and power limit, and last the
+13. rwkv train, in a process of its own (this file run with ``--rwkv-train``,
+   set up as ``--hybrid-train``): ``rwkv6-7b`` at full width, layers 0-7, in
+   bfloat16 with remat "full", the same 3 AdamW steps on batches of 1 x 4096
+   and the same gates: step 0 replayed with equal bits, every step launching
+   the WKV6 chunk forward 2 x 8 times and its backward 8 times; step ms,
+   tokens/s, peak memory and a profiled step (WKV6 forward and backward,
+   GEMMs, elementwise, optimizer); step 0 against attn_impl="ref" (autograd
+   through the plain chunked WKV6) within DENSE_TRAIN_GAPS times the plain
+   path's bf16-vs-f32 gap;
+14. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
 Every model is freed before the next is built. It imports the port
@@ -246,9 +263,11 @@ TRAIN_ARG = "--train"
 DIST_ARG = "--distributed"  # the distributed phase's process, set up as the train phase's
 DENSE_TRAIN_ARG = "--dense-train"  # the dense train phase's process, set up the same way
 HYBRID_TRAIN_ARG = "--hybrid-train"  # the hybrid train phase's process, set up the same way
-if sys.argv[1:] in ([TRAIN_ARG], [DIST_ARG], [DENSE_TRAIN_ARG], [HYBRID_TRAIN_ARG]):
+RWKV_TRAIN_ARG = "--rwkv-train"  # the rwkv train phase's process, set up as the hybrid's
+_TRAIN_ARGS = (TRAIN_ARG, DIST_ARG, DENSE_TRAIN_ARG, HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG)
+if sys.argv[1:] in ([arg] for arg in _TRAIN_ARGS):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-if sys.argv[1:] == [HYBRID_TRAIN_ARG]:
+if sys.argv[1:] in ([HYBRID_TRAIN_ARG], [RWKV_TRAIN_ARG]):
     # two copies of params, m and v (the out-of-place step) fill ~75 GB of the card: blocks
     # that grow in place keep the allocator's free pieces from splitting it further
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -285,7 +304,7 @@ from repro_torch.launch.serve import drain, make_prompts, serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.layers import apply_norm, softcap  # noqa: E402
 from repro_torch.models.model import unembed_logits  # noqa: E402
-from repro_torch.models.transformer import apply_layer, run_stack  # noqa: E402
+from repro_torch.models.transformer import apply_layer, layer_pattern, run_stack  # noqa: E402
 from repro_torch.optim.adamw import (  # noqa: E402
     AdamWConfig,
     adamw_update,
@@ -478,6 +497,29 @@ WKV_TIMED = (WKV_JSON, WKV_CASES[6], WKV_CASES[7])
 # the same bits twice, and for batch row 0 alone as within a batch of 4, on each path
 WKV_DETERMINISM = ((4, 64, 777, 64, 64, "bfloat16", True), (4, 64, 1, 64, 64, "bfloat16", True))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # rtol = atol, tests/test_kernels.py:47
+# The WKV6 backward (csrc/wkv6_bwd.cu) against ref.wkv6_bwd_ref, each gradient within TOL of the
+# case's dtype times its largest entry. (B, H, T, K, V, dtype, with h0, with dS_T): rwkv6-7b's
+# train shape (1 x 4096 tokens, 64 heads of 64, bfloat16, no initial state and no gradient of
+# the final state, as training calls it), the same with both; the float32 cases of WKV_CASES
+# (T from 1 to 128, 15, 16, 21 and 33 about the chunk's edges, K != V at 16/32 and 20/12), T =
+# 17 in both dtypes
+WKV_BWD_JSON = (1, 64, 4096, 64, 64, "bfloat16", False, False)
+WKV_BWD_CASES = [
+    WKV_BWD_JSON,
+    (1, 64, 4096, 64, 64, "bfloat16", True, True),
+    *(c + (c[6],) for c in WKV_CASES if c[5] == "float32"),
+    (2, 2, 17, 64, 64, "float32", True, True),
+    (2, 2, 17, 64, 64, "bfloat16", True, False),
+]
+# log w in U(-4, -3.9): chunk sums down to -64, where autodiff through the chunked form's k / D_t
+# divides by an underflowed D_t^2 and gives NaN; every entry of the kernel's gradient is finite
+WKV_BWD_DEEP = (2, 4, 300, 64, 64, "float32", True, True)
+WKV_BWD_DETERMINISM = (4, 64, 777, 64, 64, "bfloat16", True, True)
+# the gradients against float64 autograd through ref.wkv6_ref: the kernel's error at most this
+# many times the plain version's, gradient by gradient (relative L2), on every float32 case;
+# an error below WKV_BWD_F64_FLOOR (a few float32 roundings) counts as that floor
+WKV_BWD_F64_RATIO = 2.0
+WKV_BWD_F64_FLOOR = 1e-6
 # the flash backward against its plain version: rtol = atol = 1e-4, ten times tighter than
 # the 1e-3 of tests/test_kernels.py:63: a backward with one TF32 pass a product, or with dK and
 # dV summed over a whole walk in the tensor cores, exceeds it (tests/test_torch_flash_bwd.py)
@@ -634,6 +676,8 @@ LOGIT_TOL_RWKV = 0.66
 RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
 
 
+# the WKV6 backward's kernels, which ptxas must build with no spills
+WKV6_BWD_KERNELS = ("wkv6_bwd_kernel", "wkv6_bwd_du_kernel")
 # the device-side names of the port's kernels (csrc/*.cu), as the profiler reports them
 PORT_KERNEL_SYMBOLS = (
     "flash_fwd_wgmma_kernel",
@@ -651,6 +695,7 @@ PORT_KERNEL_SYMBOLS = (
     "rglru_step_kernel",
     "wkv6_chunk_kernel",
     "wkv6_stream_kernel",
+    *WKV6_BWD_KERNELS,
 )
 
 
@@ -795,6 +840,45 @@ def wkv6_bound_ms(b, h, t, kd, vd, itemsize, with_h0):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def wkv6_bwd_bound_ms(b, h, t, kd, vd, itemsize, with_h0, with_ds):
+    """Least time for one WKV6 backward: max(FLOPs / the float32 CUDA cores' peak, bytes /
+    bandwidth); the arithmetic is float32 whatever the inputs' type.
+
+    Bytes: r, k, v and dout read and dr, dk, dv written in the input type, w read and dw
+    written in float32, u read and du written, h0 read and dS0 written and dS_T read in
+    float32 where the call has them; the chunk-start states the kernel recomputes into its
+    scratch are its own traffic, not the function's. FLOPs: the form csrc/wkv6_bwd.cu computes
+    (:func:`_wkv6_bwd_chunk_flops`)."""
+    full, rem = divmod(t, wk.CHUNK)
+    flops = b * h * (full * _wkv6_bwd_chunk_flops(wk.CHUNK, kd, vd) + (
+        _wkv6_bwd_chunk_flops(rem, kd, vd) if rem else 0
+    ))
+    nbytes = b * h * t * ((4 * kd + 3 * vd) * itemsize + 8 * kd)
+    nbytes += 2 * h * kd * itemsize + b * h * kd * vd * 4 * ((2 if with_h0 else 0) + with_ds)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), by, 1e3 * t_bytes
+
+
+def _wkv6_bwd_chunk_flops(c, kd, vd):
+    """FLOPs of one chunk of ``c`` rows in the backward's form: five K x V products a row (the
+    states' walk, S_c dout, dS v, kw dS and the dS update), the 16 x 16 tiles' products over
+    the rows that need them (vd for s <= t, A, the intra part of x and y for s < t, their
+    product with dout), the pairs that straddle a row in dw, and the per-row factors, scans
+    and sums (logs, exps, r^, k^, kw, dr, dk, du, the bonus: ~40 a row and channel)."""
+    pairs = c * (c - 1)
+    return (
+        10 * c * kd * vd
+        + 5 * kd * vd
+        + c * (c + 1) * vd
+        + pairs * vd
+        + 3 * pairs * kd
+        + 3 * pairs // 2 * kd
+        + 40 * c * kd
+        + 2 * c * vd
+    )
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -823,6 +907,11 @@ def phase_build() -> None:
     if faults:
         raise AssertionError("[build] the bfloat16 backward's wgmma kernels: " + "; ".join(faults))
     log(f"[build] {', '.join(BF16_WGMMA_KERNELS)}: no spills, no wgmma serialized")
+    report = (_build.build_dir() / "wkv6_bwd.log").read_text()
+    faults = _ptxas_faults(report, WKV6_BWD_KERNELS)
+    if faults:
+        raise AssertionError("[build] the WKV6 backward's kernels: " + "; ".join(faults))
+    log(f"[build] {', '.join(WKV6_BWD_KERNELS)}: no spills")
 
 
 def _ptxas_faults(report: str, names) -> list:
@@ -1816,6 +1905,177 @@ def _wkv6_determinism(gen) -> None:
         )
 
 
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dS0")
+
+
+def _wkv6_bwd_inputs(gen, case, deep=False):
+    """The forward's operands as _wkv6_inputs draws them (``deep``: log w in U(-4, -3.9)), the
+    output's gradient in their dtype and the final state's in float32 or None."""
+    b, h, t, kd, vd, dt, with_h0, with_ds = case
+    r, k, v, w, u, h0 = _wkv6_inputs(gen, b, h, t, kd, vd, getattr(torch, dt), with_h0)
+    if deep:
+        logw = -3.9 - 0.1 * torch.rand(b, t, h, kd, generator=gen, device=DEV)
+        w = torch.exp(logw).transpose(1, 2)
+    dout = torch.randn(b, t, h, vd, generator=gen, device=DEV).to(r.dtype).transpose(1, 2)
+    ds = torch.randn(b, h, kd, vd, generator=gen, device=DEV) if with_ds else None
+    return r, k, v, w, u, h0, dout, ds
+
+
+def _wkv6_bwd_case(label, got, want, tol) -> float:
+    """Each gradient within ``tol`` times its plain version's largest entry, every entry
+    finite; returns the largest share of its tolerance that a gradient used."""
+    used = 0.0
+    for name, g, p in zip(WKV_BWD_NAMES, got, want, strict=True):
+        if g is None or p is None:
+            if (g is None) != (p is None):
+                raise AssertionError(f"[kernels] {label}: {name} is None on one side only")
+            continue
+        if not torch.isfinite(g.float()).all():
+            raise AssertionError(f"[kernels] {label}: {name} has non-finite entries")
+        scale = p.float().abs().max().clamp_min(1e-30)
+        err = (g.float() - p.float()).abs().max()
+        share = (err / (tol * scale)).item()
+        if share > 1:
+            raise AssertionError(
+                f"[kernels] {label}: {name} max |err| {err.item():.3e} > {tol} x its largest "
+                f"entry {scale.item():.3e}"
+            )
+        used = max(used, share)
+    return used
+
+
+def _wkv6_bwd_f64_errors(r, k, v, w, u, h0, dout, ds, grads):
+    """Relative L2 error of each gradient in ``grads`` (a list of 6-tuples) against float64
+    autograd through ref.wkv6_ref on the same (upcast) inputs."""
+    leaves = [x.double().requires_grad_(True) for x in (r, k, v, w, u)]
+    if h0 is not None:
+        leaves.append(h0.double().requires_grad_(True))
+    out, state = ref.wkv6_ref(*leaves[:5], initial_state=leaves[5] if h0 is not None else None)
+    loss = (out * dout.double()).sum() + ((state * ds.double()).sum() if ds is not None else 0)
+    want = torch.autograd.grad(loss, leaves)
+    del out, state, loss, leaves
+    errs = []
+    for got in grads:
+        errs.append(
+            [
+                ((g.double() - x).norm() / x.norm().clamp_min(1e-300)).item()
+                for g, x in zip(got, want)
+            ]
+        )
+    return errs
+
+
+def _wkv6_bwd_rows(gen) -> dict:
+    """The WKV6 backward against its plain version on every case, each gradient within TOL of
+    its largest entry, and on the float32 cases both against float64; the deep-decay case
+    finite where autodiff through the chunked form is not; its bits on two launches and for a
+    batch row alone as within a batch of 4; at the train shape its time beside its plain
+    version's and the bound. Returns the row of the kernels line."""
+    row, worst = None, (0.0, "", 0.0)  # the kernel's float64 error over the plain's; where
+    for case in WKV_BWD_CASES + [WKV_BWD_DEEP]:
+        b, h, t, kd, vd, dt, with_h0, with_ds = case
+        deep = case == WKV_BWD_DEEP
+        r, k, v, w, u, h0, dout, ds = _wkv6_bwd_inputs(gen, case, deep)
+        got = wk.wkv6_bwd(r, k, v, w, u, dout, initial_state=h0, ds_last=ds)
+        want = ref.wkv6_bwd_ref(r, k, v, w, u, dout, initial_state=h0, ds_last=ds)
+        want = want[:5] + (want[5] if h0 is not None else None,)
+        torch.cuda.synchronize()
+        label = (
+            f"wkv6_bwd r{tuple(r.shape)} v{tuple(v.shape)} {dt} h0={with_h0} dS_T={with_ds}"
+            + (" log w in U(-4, -3.9)" if deep else "")
+        )
+        used = _wkv6_bwd_case(label, got, want, TOL[dt])
+        msg = f"[kernels] {label}: {100 * used:.0f}% of the tolerance ({TOL[dt]} of each largest)"
+        if dt == "float32":
+            err = _wkv6_bwd_f64_errors(r, k, v, w, u, h0, dout, ds, [got, want])
+            for name, g, q in zip(WKV_BWD_NAMES, *err):
+                ratio = g / max(q, WKV_BWD_F64_FLOOR)
+                if ratio > WKV_BWD_F64_RATIO:
+                    raise AssertionError(f"[kernels] {label}: {name} against float64 {err}")
+                if ratio > worst[0]:
+                    worst = (ratio, f"{name} of {label}", g)
+        if deep:
+            leaves = [x.clone().requires_grad_(True) for x in (r, k, v, w, u, h0)]
+            out, state = ref.wkv6_chunked_ref(*leaves[:5], initial_state=leaves[5])
+            auto = torch.autograd.grad((out * dout).sum() + (state * ds).sum(), leaves)
+            bad = int((~torch.isfinite(auto[3])).sum())
+            msg += (
+                f"; every entry finite, where autodiff through ref.wkv6_chunked_ref gives {bad} "
+                f"non-finite dw entries of {auto[3].numel()}; relative L2 against float64 "
+                + ", ".join(f"{n} {g:.2e} (plain {q:.2e})" for n, g, q in zip(WKV_BWD_NAMES, *err))
+            )
+        if case != WKV_BWD_JSON:
+            log(msg)
+            continue
+        bound, bound_by, bytes_ms = wkv6_bwd_bound_ms(
+            b, h, t, kd, vd, r.element_size(), with_h0, with_ds
+        )
+
+        def kernel(r=r, k=k, v=v, w=w, u=u, h0=h0, dout=dout, ds=ds):
+            return wk.wkv6_bwd(r, k, v, w, u, dout, initial_state=h0, ds_last=ds)
+
+        def plain(r=r, k=k, v=v, w=w, u=u, h0=h0, dout=dout, ds=ds):
+            return ref.wkv6_bwd_ref(r, k, v, w, u, dout, initial_state=h0, ds_last=ds)
+
+        err = max(
+            (g.float() - p.float()).abs().max().item()
+            for g, p in zip(got, want)
+            if g is not None
+        )
+        row = {
+            "ms": time_ms(kernel, iters=10),
+            "plain_ms": time_ms(plain, iters=1, warmup=0),  # warm: it gave ``want`` above
+            "library_ms": None,  # no PyTorch call computes this gradient
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": err,
+        }
+        scratch_ms = 1e3 * 2 * b * h * -(-t // wk.CHUNK) * kd * vd * 4 / PEAK_HBM_BYTES
+        dev_us = device_us(kernel, "wkv6_bwd", 10)
+        log(
+            f"{msg}; kernel_ms {row['ms']:.4f} (device {dev_us:.2f} us a "
+            f"call, two launches), plain_ms {row['plain_ms']:.4f}, library_ms none, bound_ms "
+            f"{bound:.5f} ({bound_by}; bytes alone {bytes_ms:.5f}; the chunk-start states it "
+            f"writes into its scratch and reads back add {scratch_ms:.5f}), kernel/bound "
+            f"{row['ms'] / bound:.1f}; shared memory a block "
+            f"{wk._bwd_lib().repro_wkv6_bwd_shared_bytes()} bytes"
+        )
+    log(
+        "[kernels] wkv6_bwd against float64 autograd through ref.wkv6_ref on every float32 case, "
+        f"each gradient's relative L2 error at most {WKV_BWD_F64_RATIO}x the plain version's "
+        f"(floored at {WKV_BWD_F64_FLOOR}): the largest ratio {worst[0]:.3f} ({worst[1]}, "
+        f"{worst[2]:.2e})"
+    )
+    _wkv6_bwd_determinism(gen)
+    return row
+
+
+def _wkv6_bwd_determinism(gen) -> None:
+    """The backward's bits at the model's widths: every gradient equal on two launches, and
+    batch row 0 alone (B = 1) equal to row 0 of B = 4 in dr, dk, dv, dw and dS0 (du sums over
+    the batch)."""
+    case = WKV_BWD_DETERMINISM
+    r, k, v, w, u, h0, dout, ds = _wkv6_bwd_inputs(gen, case)
+    first = wk.wkv6_bwd(r, k, v, w, u, dout, initial_state=h0, ds_last=ds)
+    again = wk.wkv6_bwd(r, k, v, w, u, dout, initial_state=h0, ds_last=ds)
+    alone = wk.wkv6_bwd(
+        r[:1], k[:1], v[:1], w[:1], u, dout[:1], initial_state=h0[:1], ds_last=ds[:1]
+    )
+    torch.cuda.synchronize()
+    relaunch = sum((x != y).sum().item() for x, y in zip(first, again))
+    batch = sum((x[:1] != y).sum().item() for i, (x, y) in enumerate(zip(first, alone)) if i != 4)
+    label = f"wkv6_bwd r{tuple(r.shape)} {case[5]}"
+    if relaunch or batch:
+        raise AssertionError(
+            f"[kernels] {label} not deterministic: {relaunch} elements differ between two "
+            f"launches, {batch} between B=1 and row 0 of B={case[0]}"
+        )
+    log(
+        f"[kernels] {label}: dr, dk, dv, dw, du and dS0 equal bit for bit on two launches; dr, "
+        f"dk, dv, dw and dS0 for B=1 equal row 0 of B={case[0]}"
+    )
+
+
 def _host_cost(fn, calls: int = 200):
     """(host us a call to enqueue, CUDA events us a call) of ``fn`` over ``calls`` calls:
     the host clock stops before the device is done, the events at the device's pace."""
@@ -1855,7 +2115,9 @@ def phase_kernels():
     bwd_rows["bf16_hd256"] = _flash_bwd_hd256_rows(gen)
     decode_rows, rglru_rows = _decode_attention_rows(gen), _rglru_rows(gen)
     rglru_rows["bwd"] = _rglru_bwd_rows(gen)
-    return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, _wkv6_rows(gen)
+    wkv6_rows = _wkv6_rows(gen)
+    wkv6_rows["bwd"] = _wkv6_bwd_rows(gen)
+    return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows
 
 
 def _sequential(model, params, prompt, n, max_len):
@@ -1879,6 +2141,7 @@ def _reset_launches() -> None:
     rg.rglru_scan.launches = 0
     rg.rglru_bwd.launches = 0
     wk.wkv6_chunked.launches = 0
+    wk.wkv6_bwd.launches = 0
 
 
 def _release() -> None:
@@ -3226,6 +3489,8 @@ def _kernel_kind(name: str) -> str:
         return "rglru_bwd"
     if "rglru" in name:
         return "rglru"
+    if "wkv6_bwd" in name:
+        return "wkv6_bwd"
     if "wkv6" in name:
         return "wkv6"
     if any(t in low for t in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
@@ -3687,15 +3952,19 @@ def _dense_train() -> dict:
 def _layer_launches(cfg, steps: int) -> dict:
     """The kernel launches of ``steps`` train steps of ``cfg`` with remat "full", which runs
     each layer's forward again in its backward: the flash forward twice and its backward
-    once an attention layer, the RG-LRU forward twice and its backward once a rec layer."""
-    kinds = cfg.block_pattern or ("dense",) * cfg.num_layers
+    once an attention layer, the RG-LRU forward twice and its backward once a rec layer, the
+    WKV6 chunk forward twice and its backward once an rwkv layer."""
+    kinds = layer_pattern(cfg)
     attn = sum(kind in ("dense", "attn") for kind in kinds)
     rec = sum(kind == "rec" for kind in kinds)
+    rwkv = sum(kind == "rwkv" for kind in kinds)
     return {
         "flash": 2 * attn * steps,
         "flash_bwd": attn * steps,
         "rglru": 2 * rec * steps,
         "rglru_bwd": rec * steps,
+        "wkv6": 2 * rwkv * steps,
+        "wkv6_bwd": rwkv * steps,
     }
 
 
@@ -3710,6 +3979,7 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
 
     if (cfg.param_dtype, cfg.compute_dtype, cfg.remat) != ("bfloat16", "bfloat16", "full"):
         raise AssertionError(f"{tag} {cfg.name}: {cfg.param_dtype}, {cfg.remat}")
+    t_set_up = time.monotonic()
     model = build(cfg, DEV)
     params0 = init_params(cfg, _gen(0), DEV)
     opt = AdamWConfig(**TRAIN_OPT)
@@ -3726,15 +3996,20 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     ]
     tokens = batch_size * TRAIN_SEQ
     torch.cuda.synchronize()
-    pattern = ", ".join(cfg.block_pattern) if cfg.block_pattern else "dense"
+    pattern = ", ".join(cfg.block_pattern) if cfg.block_pattern else layer_pattern(cfg)[0]
+    heads = (
+        f"{cfg.d_model // cfg.rwkv_head_size} WKV heads of {cfg.rwkv_head_size}"
+        if cfg.family == "ssm"
+        else f"{cfg.num_heads} heads on {cfg.num_kv_heads} KV heads of {cfg.head_dim}"
+    )
     log(
-        f"{tag} {cfg.name}: {cfg.num_layers} layers ({pattern}), d={cfg.d_model}, "
-        f"{cfg.num_heads} heads on {cfg.num_kv_heads} KV heads of {cfg.head_dim}"
+        f"{tag} {cfg.name}: {cfg.num_layers} layers ({pattern}), d={cfg.d_model}, {heads}"
         + (f", window {cfg.window}" if cfg.block_pattern else "")
         + f", vocab {cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
         f"{cfg.param_count()} params {cfg.param_dtype}, remat={cfg.remat}; batches of "
         f"{batch_size} x {TRAIN_SEQ} tokens from TokenSource(seed=0); {opt}; "
-        f"{torch.cuda.memory_allocated()} bytes held (params, AdamW m and v)"
+        f"{torch.cuda.memory_allocated()} bytes held (params, AdamW m and v), drawn in "
+        f"{time.monotonic() - t_set_up:.1f} s"
     )
     torch.use_deterministic_algorithms(True)
     _reset_launches()
@@ -3784,21 +4059,25 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
         "flash_bwd": fa.flash_attention_bwd.launches,
         "rglru": rg.rglru_scan.launches,
         "rglru_bwd": rg.rglru_bwd.launches,
+        "wkv6": wk.wkv6_chunked.launches,
+        "wkv6_bwd": wk.wkv6_bwd.launches,
     }
     steps = TRAIN_STEPS + 1  # 0, its replay, 1 and 2
     want = _layer_launches(cfg, steps)
-    others = (da.decode_attention.launches, wk.wkv6_chunked.launches)
-    if launches != want or any(others):
+    if launches != want or da.decode_attention.launches:
         raise AssertionError(
-            f"{tag} launches {launches}, expected {want}; decode and wkv6 launches {others}, "
-            "expected 0"
+            f"{tag} launches {launches}, expected {want}; decode launches "
+            f"{da.decode_attention.launches}, expected 0"
         )
     steady = sum(step_ms[1:]) / (len(step_ms) - 1)
-    path = fa.bwd_path(cfg.head_dim, cfg.head_dim, torch.bfloat16)
+    path = ""
+    if want["flash_bwd"]:
+        bwd_path = fa.bwd_path(cfg.head_dim, cfg.head_dim, torch.bfloat16)
+        path = f"; flash backward on the {bwd_path} path"
     log(
         f"{tag} kernels launched {launches} over {steps} steps (0, its replay, 1, 2; remat full "
-        f"runs each layer's forward again in its recompute: {want} expected; flash backward on the "
-        f"{path} path); step ms (0, replay, 1, 2) {', '.join(f'{x:.3f}' for x in step_ms)} "
+        f"runs each layer's forward again in its recompute: {want} expected{path}); step ms "
+        f"(0, replay, 1, 2) {', '.join(f'{x:.3f}' for x in step_ms)} "
         f"(all but the first: {steady:.3f} ms, {tokens / steady * 1e3:.1f} tokens/s); "
         f"max_memory_allocated over steps 1-2 {peak} bytes ({peak - held} above the {held} "
         "held before them)"
@@ -3807,7 +4086,9 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     del params, state
     _release()
     params0 = tree_map(lambda x: x.to(DEV), params0)
+    t_check = time.monotonic()
     _check_bf16_train_against_plain(cfg, model, params0, batches[0], tag)
+    log(f"{tag} the check against the plain path took {time.monotonic() - t_check:.1f} s")
     return {**launches, "step_ms": step_ms, "peak": peak}
 
 
@@ -3835,6 +4116,28 @@ def _hybrid_train() -> dict:
         block_pattern=cfg.block_pattern[:HYBRID_TRAIN_LAYERS],
     )
     return _bf16_train(cfg, HYBRID_TRAIN_BATCH, "[hybrid train]")
+
+
+RWKV_TRAIN_ARCH = "rwkv6-7b"
+# layers 0-7 of its 32: 2.32B params, a peak of 54.3 GB on an H100 80GB HBM3 (params,
+# gradients, AdamW state and the out-of-place step's second copy: ~23 bytes a parameter, as the
+# hybrid train phase's); 12 layers would need ~74 GB
+RWKV_TRAIN_LAYERS = 8
+RWKV_TRAIN_BATCH = 1  # train_4k's 4096 tokens, its batch cut to one sequence on one card
+RWKV_TRAIN_RESULT = "[rwkv train] launches "  # the process's line of launch counts and times
+
+
+def phase_rwkv_train() -> dict:
+    """Run the rwkv train phase in a process of its own (this file with ``--rwkv-train``);
+    returns its launch counts, step ms and peak memory."""
+    return _in_process(RWKV_TRAIN_ARG, RWKV_TRAIN_RESULT, "[rwkv train]")
+
+
+def _rwkv_train() -> dict:
+    """rwkv6-7b at full width, layers 0-7, in bfloat16 (remat "full"), 3 AdamW steps on
+    TokenSource batches of RWKV_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`."""
+    cfg = dataclasses.replace(get_config(RWKV_TRAIN_ARCH), num_layers=RWKV_TRAIN_LAYERS)
+    return _bf16_train(cfg, RWKV_TRAIN_BATCH, "[rwkv train]")
 
 
 def _grad_run(model, params, batch):
@@ -3888,12 +4191,14 @@ def _check_bf16_train_against_plain(cfg, model, params, batch, tag) -> None:
     gn, plain_gn, gn32 = gnorm(grads), gnorm(plain_grads), gnorm(grads32)
     rows = [("loss", abs(loss - plain_loss), abs(plain_loss - loss32))]
     rows.append(("grad_norm", abs(gn - plain_gn), abs(plain_gn - gn32)))
+    own = [abs(loss - loss32) / max(rows[0][2], 1e-30), abs(gn - gn32) / max(rows[1][2], 1e-30)]
     named = zip(
         _named_leaves(grads), tree_leaves(plain_grads), tree_leaves(grads32), strict=True
     )
     widest, widest_abs = ("", 0.0), ("", 0.0)  # the largest relative L2 gap; max-abs gap
     for (name, g), p, w in named:
         rows.append((name, rel_l2(g, p), rel_l2(p, w)))
+        own.append(rel_l2(g, w) / max(rows[-1][2], 1e-30))
         if rows[-1][2] > widest[1]:
             widest = (name, rows[-1][2])
         share = ((p.float() - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
@@ -3914,7 +4219,10 @@ def _check_bf16_train_against_plain(cfg, model, params, batch, tag) -> None:
         f"{DENSE_TRAIN_GAPS} x the plain path's bfloat16-vs-float32 gap: loss {loss:.6f} vs "
         f"{plain_loss:.6f} (|diff| {rows[0][1]:.3e}, gap {rows[0][2]:.3e}; float32 "
         f"{loss32:.6f}), grad_norm {gn:.6f} vs {plain_gn:.6f} (|diff| {rows[1][1]:.3e}, gap "
-        f"{rows[1][2]:.3e}), {len(rows) - 2} gradient leaves by relative L2 norm; the largest "
+        f"{rows[1][2]:.3e}; float32 {gn32:.6f}), {len(rows) - 2} gradient leaves by relative "
+        "L2 norm; the kernel path's own gap to float32 over the plain path's: median "
+        f"{sorted(own)[len(own) // 2]:.3f}, largest {max(own):.3f} "
+        f"({rows[own.index(max(own))][0]}); the largest "
         f"diff/gap {worst_ratio:.3f} ({worst}); the largest gap {widest[1]:.3e} ({widest[0]}); "
         f"by max |.| the largest gap is {widest_abs[1]:.3e} of its leaf's largest entry "
         f"({widest_abs[0]})"
@@ -3967,6 +4275,7 @@ def main() -> int:
     _timed("dense", phase_dense)
     dense_train = _timed("dense train", phase_dense_train)
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
+    rwkv_train = _timed("rwkv train", phase_rwkv_train)
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
@@ -4075,9 +4384,20 @@ def main() -> int:
             "wkv6_chunked",
             "src/repro_torch/kernels/csrc/wkv6.cu",
             "src/repro/kernels/rwkv6.py:32",
-            rwkv_launches,
+            rwkv_launches + rwkv_train["wkv6"],
             wkv6_rows[WKV_JSON],
-            "r,k,v(1,64,3000,64) bfloat16 in (B,T,H,K) layout, w float32, h0 (1,64,64,64) float32",
+            "r,k,v(1,64,3000,64) bfloat16 in (B,T,H,K) layout, w float32, h0 (1,64,64,64) "
+            "float32; launches of the rwkv serving and train phases",
+        ),
+        _kernel_entry(
+            "wkv6_bwd",
+            "src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+            "src/repro/kernels/rwkv6.py:32 (its gradient: jax.grad through "
+            "src/repro/kernels/ref.py:145 wkv6_chunked_ref)",
+            rwkv_train["wkv6_bwd"],
+            wkv6_rows["bwd"],
+            "r,k,v,dout(1,64,4096,64) bfloat16 in (B,T,H,K) layout, w float32, no h0, no dS_T; "
+            + ", ".join(WKV6_BWD_KERNELS),
         ),
     ]
     log(f"[done] every phase passed in {time.monotonic() - t_start:.1f} s")
@@ -4096,4 +4416,6 @@ if __name__ == "__main__":
         sys.exit(_process_main(DENSE_TRAIN_RESULT, _dense_train))
     if sys.argv[1:] == [HYBRID_TRAIN_ARG]:
         sys.exit(_process_main(HYBRID_TRAIN_RESULT, _hybrid_train))
+    if sys.argv[1:] == [RWKV_TRAIN_ARG]:
+        sys.exit(_process_main(RWKV_TRAIN_RESULT, _rwkv_train))
     sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

@@ -37,6 +37,7 @@ KERNEL_SOURCES: Dict[str, str] = {
     "rglru_bwd": "rglru_bwd.cu",
     "rglru_scan": "rglru_scan.cu",
     "wkv6": "wkv6.cu",
+    "wkv6_bwd": "wkv6_bwd.cu",
 }
 
 NVCC_FLAGS = (

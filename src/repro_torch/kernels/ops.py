@@ -12,8 +12,9 @@ Counterpart of ``repro.kernels.ops``. Models import only from this module.
                             through ``FlashAttentionFunction``: the forward
                             kernel saves the logsumexp and the backward
                             kernels (plain versions on the CPU) give the
-                            gradient; the RG-LRU likewise through
-                            ``RGLRUFunction`` and its backward kernel
+                            gradient; the RG-LRU and the WKV6 likewise
+                            through ``RGLRUFunction`` and ``WKV6Function``
+                            and their backward kernels
   impl="ref"              : the blocked attention / cached decode / chunked
                             WKV6 / associative-scan RG-LRU plain version on
                             any device (its gradient by plain autograd)
@@ -34,7 +35,7 @@ from .decode_attention import decode_attention as _decode_attention_kernel
 from .flash_attention import FlashAttentionFunction, flash_attention_fwd
 from .rglru import RGLRUFunction, rglru_scan
 from .wkv6 import CHUNK as _WKV_CHUNK
-from .wkv6 import wkv6_chunked
+from .wkv6 import WKV6Function, wkv6_chunked
 
 __all__ = ["flash_attention", "decode_attention", "wkv6", "rglru"]
 
@@ -93,6 +94,9 @@ def wkv6(
     """RWKV6 'Finch' WKV. r, k, w (B,H,T,K), v (B,H,T,V), u (H,K) -> (out (B,H,T,V),
     state (B,H,K,V) float32). Callers keep log(w) >= -4 per step (ref.wkv6_chunked_ref)."""
     if impl in ("auto", "pallas"):
+        inputs = (r, k, v, w, u) if initial_state is None else (r, k, v, w, u, initial_state)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            return WKV6Function.apply(r, k, v, w, u, initial_state)
         return wkv6_chunked(r, k, v, w, u, initial_state=initial_state)
     if impl == "ref":
         return _ref.wkv6_chunked_ref(r, k, v, w, u, chunk=_WKV_CHUNK, initial_state=initial_state)

@@ -28,7 +28,10 @@ WKV6 (RWKV6 "Finch"): per head, with the K x V state S in float32,
 ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``. ``wkv6_ref`` steps through time;
 ``wkv6_chunked_ref`` is the chunked form the Hopper kernel computes, with
 the reference's per-chunk order of operations. Both return the output in
-r's dtype and the state in float32.
+r's dtype and the state in float32 (``wkv6_ref`` keeps a float64 input in
+float64 throughout: the yardstick of the gradients). ``wkv6_bwd_ref`` is the
+gradient in the chunked form, walking the chunks back from the forward's
+chunk-start states, which it recomputes.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ __all__ = [
     "rglru_bwd_ref",
     "wkv6_ref",
     "wkv6_chunked_ref",
+    "wkv6_bwd_ref",
 ]
 
 _NEG_INF = -1e30
@@ -327,7 +331,7 @@ def _wkv_s0(r: torch.Tensor, v: torch.Tensor, initial_state: Optional[torch.Tens
     if initial_state is None:
         b, h, _, kd = r.shape
         return torch.zeros((b, h, kd, v.shape[-1]), dtype=torch.float32, device=r.device)
-    return initial_state.float()
+    return initial_state if initial_state.dtype == torch.float64 else initial_state.float()
 
 
 def wkv6_ref(
@@ -340,10 +344,12 @@ def wkv6_ref(
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential oracle. r, k, w (B,H,T,K); v (B,H,T,V); u (H,K); w is the decay
-    multiplier in (0, 1]. Returns (out (B,H,T,V) in r's dtype, state (B,H,K,V) float32)."""
-    rf, kf, vf, wf = r.float(), k.float(), v.float(), w.float()
-    ru = rf * u.float()[None, :, None, :]
-    s = _wkv_s0(r, v, initial_state)
+    multiplier in (0, 1]. Returns (out (B,H,T,V) in r's dtype, state (B,H,K,V) float32;
+    float64 throughout for a float64 r)."""
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, wf = r.to(ct), k.to(ct), v.to(ct), w.to(ct)
+    ru = rf * u.to(ct)[None, :, None, :]
+    s = _wkv_s0(r, v, initial_state).to(ct)
     out = torch.empty(v.shape, dtype=r.dtype, device=r.device)
     for t in range(r.shape[2]):
         kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]  # (B,H,K,V)
@@ -403,3 +409,151 @@ def wkv6_chunked_ref(
         s = dt[:, :, -1, :, None] * s + torch.matmul(k_scaled.transpose(-1, -2), vt)
     out = torch.cat(outs, dim=2)[:, :, :t]
     return out.to(r.dtype), s
+
+
+def wkv6_bwd_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    ds_last: Optional[torch.Tensor] = None,
+    chunk: int = 16,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6_chunked_ref`: the Hopper backward kernel's plain version.
+
+    From r, k, v, w, u and initial_state (as the forward takes them), the gradient ``dout``
+    (B,H,T,V) of the output and ``ds_last`` (B,H,K,V) float32 of the final state (None:
+    zero), returns (dr, dk, dv in r's dtype, dw (B,H,T,K) float32, du (H,K) in u's dtype,
+    dS0 (B,H,K,V) float32; float64 throughout for a float64 r). dw is the gradient of w,
+    the decay multiplier, as the forward takes it: that of log w over w.
+
+    In the kernel's order, in the analytic chunked form (chunk 16). The chunk-start states
+    S_c are recomputed first, as the forward walks them. Then the chunks are walked back,
+    carrying dS, the gradient of the state at the chunk's end (``ds_last`` at the start).
+    Within a chunk, with cum the inclusive cumulative sum of log w over its rows, excl = cum
+    - log w the exclusive one, last its last row, r^ = r exp(excl), k^ = k exp(-cum), the
+    update weights kw = k exp(last - cum), vd[t,s] = dout_t . v_s and A = r^ k^T, from the
+    strictly lower 16 x 16 tile (s < t):
+
+        x  = dout S_c^T + strict_lower(vd) k^   dr = exp(excl) x + u vd[t,t] k
+        y  = strict_lower(vd)^T r^              dk = exp(-cum) y + exp(last - cum) (dS v)
+                                                     + u vd[t,t] r
+        dv = strict_lower(A)^T dout + (r u . k) dout + kw dS
+        du = sum over batch and time of r k vd[t,t]
+        dS <- exp(last) dS + r^T dout                (the gradient of S_c)
+
+    dw comes from the gradients of the cumulative log decays: log w_m enters excl_t for t > m
+    and cum_s for s >= m. Summed over the chunk's rows, the gradient of log w_m is
+
+        sum_{t>m} r^_t . (S_c dout_t)                 the cross term (a reverse cumulative sum)
+      + sum_{s<m<t} r^_t k^_s vd[t,s]                 the intra-chunk pairs that straddle m
+      + exp(last) sum_j dS S_c + sum_{s<m} kw_s (dS v_s)   the state update (a cumulative sum)
+
+    and dw = that / w. The walk back through dS carries every later chunk's part, so each
+    sum runs over the chunk's own rows. Each holds only terms that depend on log w_m: the
+    shorter form, a reverse cumulative sum of r^ x - k^ y - kw (dS v), adds pairs that cancel
+    (the gradients of excl_t and cum_s of a pair s < t with m <= s), and loses two digits
+    where the decays are deep (1.5e-5 relative against float64 at log w in [-4, -3.9]).
+
+    Three traps: r is weighted by the exclusive product D_{t-1} = exp(excl_t), while the
+    state update weights k by the inclusive one, so r's sums start a row after m; the bonus
+    term (u) does not depend on w, so it stays out of dw; and the update's exp(last - cum_s)
+    depends on every log w of the chunk through last, so exp(last) sum_j dS S_c reaches
+    every row's dw.
+
+    Range: every factor is an exponent of a cumulative sum or of a difference of two, and
+    nothing is divided by D_t^2. Autodiff through ``k / D_t`` divides by D_t^2, which
+    underflows in float32 once a chunk's sum of log w falls below about -43.7 and makes the
+    reference's dw NaN there; here every entry is finite over the model's clamp log w in
+    [-4, -1e-4] (chunk sums down to -64). A ragged T is padded as in the forward (r = k = 0,
+    w = 1; dout = 0).
+    """
+    b, h, t, kd = r.shape
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    pad = (-t) % chunk
+    rf, kf, vf, wf, gf = (x.to(ct) for x in (r, k, v, w, dout))
+    if pad:
+        rf, kf, vf, gf = (F.pad(x, (0, 0, 0, pad)) for x in (rf, kf, vf, gf))
+        wf = F.pad(wf, (0, 0, 0, pad), value=1.0)
+    uf = u.to(ct)[None, :, None, :]
+    n = (t + pad) // chunk
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=ct, device=r.device), -1)  # [t, s]: s < t
+    rows = [slice(c * chunk, (c + 1) * chunk) for c in range(n)]
+
+    def factors(c):
+        logw = torch.log(torch.clamp(wf[:, :, rows[c]], min=1e-38))
+        cum = torch.cumsum(logw, dim=2)
+        last = cum[:, :, -1:, :]
+        return cum - logw, cum, last, torch.exp(last - cum)
+
+    # the state at each chunk's start, as the forward walks it
+    s = _wkv_s0(r, v, initial_state).to(ct)
+    states = []
+    for c in range(n):
+        _, _, last, decay = factors(c)
+        states.append(s)
+        kw = (kf[:, :, rows[c]] * decay).transpose(-1, -2)
+        s = torch.exp(last)[:, :, 0, :, None] * s + torch.matmul(kw, vf[:, :, rows[c]])
+    ds = torch.zeros_like(s) if ds_last is None else ds_last.to(ct)
+    dr, dk, dw = (torch.empty(rf.shape, dtype=ct, device=r.device) for _ in range(3))
+    dv = torch.empty(vf.shape, dtype=ct, device=r.device)
+    du = torch.zeros((b, h, kd), dtype=ct, device=r.device)
+    for c in range(n - 1, -1, -1):
+        rt, kt, vt, gt = (x[:, :, rows[c]] for x in (rf, kf, vf, gf))
+        excl, cum, last, decay = factors(c)
+        kw = kt * decay
+        r_hat, k_hat = rt * torch.exp(excl), kt * torch.exp(-cum)
+        vdot = torch.matmul(gt, vt.transpose(-1, -2))  # [t, s] = dout_t . v_s
+        lower = vdot * tri
+        diag = torch.diagonal(vdot, dim1=-2, dim2=-1)[..., None]  # (B,H,C,1)
+        att = torch.matmul(r_hat, k_hat.transpose(-1, -2)) * tri
+        bonus = (rt * uf * kt).sum(-1, keepdim=True)
+        q = torch.matmul(gt, states[c].transpose(-1, -2))  # [t, i] = sum_j S_c[i, j] dout_t[j]
+        x = q + torch.matmul(lower, k_hat)
+        y = torch.matmul(lower.transpose(-1, -2), r_hat)
+        p = torch.matmul(vt, ds.transpose(-1, -2))  # [s, i] = sum_j dS[i, j] v_s[j]
+        dr[:, :, rows[c]] = torch.exp(excl) * x + uf * diag * kt
+        dk[:, :, rows[c]] = torch.exp(-cum) * y + decay * p + uf * diag * rt
+        dv[:, :, rows[c]] = (
+            torch.matmul(att.transpose(-1, -2), gt) + bonus * gt + torch.matmul(kw, ds)
+        )
+        du += (rt * kt * diag).sum(2)
+        # the gradient of log w_m, from terms that depend on it only
+        pairs = r_hat[:, :, :, None, :] * k_hat[:, :, None, :, :] * lower[..., None]
+        straddle = (_exclusive_cumsum(pairs, 3) * tri[..., None]).sum(2)  # s < m < t
+        held = torch.exp(last) * (ds * states[c]).sum(-1)[:, :, None, :]
+        dw[:, :, rows[c]] = (
+            _exclusive_cumsum(r_hat * q, 2, reverse=True)
+            + straddle
+            + held
+            + _exclusive_cumsum(kw * p, 2)
+        )
+        ds = torch.exp(last)[:, :, 0, :, None] * ds + torch.matmul(r_hat.transpose(-1, -2), gt)
+    dw = torch.where(wf > 1e-38, dw / wf, torch.zeros_like(dw))
+    du_sum = du[0]
+    for i in range(1, b):  # over the batch in order, as the kernel adds its partials
+        du_sum = du_sum + du[i]
+    kept = (slice(None), slice(None), slice(0, t))
+    return (
+        dr[kept].to(r.dtype),
+        dk[kept].to(r.dtype),
+        dv[kept].to(r.dtype),
+        dw[kept],
+        du_sum.to(u.dtype),
+        ds,
+    )
+
+
+def _exclusive_cumsum(x: torch.Tensor, dim: int, reverse: bool = False) -> torch.Tensor:
+    """Sum over the entries before each (after it, ``reverse``) along ``dim``, the entry
+    itself left out (never added and then taken away)."""
+    n = x.shape[dim]
+    zero = torch.zeros_like(x.narrow(dim, 0, 1))
+    if reverse:
+        tail = torch.flip(torch.cumsum(torch.flip(x.narrow(dim, 1, n - 1), [dim]), dim), [dim])
+        return torch.cat([tail, zero], dim)
+    return torch.cat([zero, torch.cumsum(x.narrow(dim, 0, n - 1), dim)], dim)

@@ -17,10 +17,17 @@ v, w 16-byte aligned with strides of whole 16 bytes; an operand that is not
 (a K or V that is no multiple of 8 in bfloat16, a view at an odd offset) is
 padded first, as the flash wrapper pads head dims.
 
-On a CUDA tensor the wrapper launches a kernel or raises. On a CPU tensor
-it runs the plain version, :func:`repro_torch.kernels.ref.wkv6_chunked_ref`,
-and only because the tensor lies on the CPU. The same checks apply on both
-devices, so the CPU tests see what the kernel would refuse.
+The gradient is :func:`wkv6_bwd`, the kernel of ``csrc/wkv6_bwd.cu`` (one
+block a (batch, head) re-walks the chunk-start states into a float32 scratch,
+then walks the chunks back), and :class:`WKV6Function` puts the two together
+under autograd. It returns dr, dk, dv and dw as ``(B, H, T, .)`` views of
+fresh ``(B, T, H, .)`` tensors, the layout the model's projections have.
+
+On a CUDA tensor a wrapper launches its kernel or raises. On a CPU tensor it
+runs the plain version, :func:`repro_torch.kernels.ref.wkv6_chunked_ref` or
+:func:`repro_torch.kernels.ref.wkv6_bwd_ref`, and only because the tensor
+lies on the CPU. The same checks apply on both devices, so the CPU tests see
+what the kernel would refuse.
 """
 
 from __future__ import annotations
@@ -33,7 +40,15 @@ import torch
 from . import ref as _ref
 from ._build import count_launch
 
-__all__ = ["wkv6_chunked", "path_for", "CHUNK", "MAX_HEAD_SIZE", "STREAM_MAX_T"]
+__all__ = [
+    "wkv6_chunked",
+    "wkv6_bwd",
+    "WKV6Function",
+    "path_for",
+    "CHUNK",
+    "MAX_HEAD_SIZE",
+    "STREAM_MAX_T",
+]
 
 CHUNK = 16
 MAX_HEAD_SIZE = 64
@@ -198,3 +213,145 @@ def wkv6_chunked(
 
 
 wkv6_chunked.launches = 0
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    from . import _build
+
+    lib = _build.load("wkv6_bwd")
+    fn = lib.repro_wkv6_bwd
+    if fn.argtypes is None:  # first use: declare the C signature
+        # argtypes last: it is the flag another thread tests above
+        fn.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.repro_wkv6_bwd_shared_bytes.restype = ctypes.c_int
+        lib.repro_wkv6_bwd_shared_bytes.argtypes = []
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        fn.argtypes = [ptr] * 16 + [ctypes.POINTER(i64), i32, i32, i64] + [i32] * 3 + [ptr]
+    return lib
+
+
+def _check_grads(r, v, dout, ds_last) -> None:
+    b, h, _, kd = r.shape
+    vd = v.shape[-1]
+    if dout.shape != v.shape or dout.dtype != r.dtype or dout.stride(-1) != 1:
+        raise ValueError(
+            f"wkv6_bwd: dout {tuple(dout.shape)} {dout.dtype} must be shaped as v "
+            f"{tuple(v.shape)}, in r's dtype {r.dtype}, its last axis contiguous"
+        )
+    if ds_last is not None and (
+        ds_last.shape != (b, h, kd, vd)
+        or ds_last.dtype != torch.float32
+        or not ds_last.is_contiguous()
+    ):
+        raise ValueError(
+            f"wkv6_bwd: ds_last {tuple(ds_last.shape)} must be ({b}, {h}, {kd}, {vd}) float32, "
+            "contiguous"
+        )
+    if any(g.device != r.device for g in (dout, ds_last) if g is not None):
+        raise ValueError("wkv6_bwd: the gradients lie on another device than r")
+
+
+def _fresh(b, t, h, n, dtype, device) -> torch.Tensor:
+    """A (B, H, T, n) view of new (B, T, H, n) memory: the model's layout."""
+    return torch.empty((b, t, h, n), dtype=dtype, device=device).transpose(1, 2)
+
+
+def wkv6_bwd(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    ds_last: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6_chunked`: from its operands (as it takes them), ``dout``
+    (B,H,T,V) in r's dtype and ``ds_last`` (B,H,K,V) float32 or None (zero), returns (dr,
+    dk, dv in r's dtype, dw float32, du (H,K) in u's dtype, dS0 (B,H,K,V) float32, or None
+    when ``initial_state`` is None).
+
+    ``wkv6_bwd.launches`` counts kernel launches (never the CPU path). The kernel recomputes
+    the chunk-start states into a (B, H, ceil(T/16), K, V) float32 scratch of its own.
+    """
+    _check(r, k, v, w, u, initial_state)
+    _check_grads(r, v, dout, ds_last)
+    if r.device.type == "cpu":
+        grads = _ref.wkv6_bwd_ref(
+            r, k, v, w, u, dout, initial_state=initial_state, ds_last=ds_last, chunk=CHUNK
+        )
+        return grads[:5] + (grads[5] if initial_state is not None else None,)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6_bwd: no kernel for device {r.device}")
+    b, h, t, kd = r.shape
+    vd = v.shape[-1]
+    dev = r.device
+    dr, dk, dw = (_fresh(b, t, h, kd, dt, dev) for dt in (r.dtype, r.dtype, torch.float32))
+    dv = _fresh(b, t, h, vd, r.dtype, dev)
+    du = torch.empty((h, kd), dtype=u.dtype, device=dev)
+    du_part = torch.empty((b, h, kd), dtype=torch.float32, device=dev)
+    ds0 = None
+    if initial_state is not None:
+        ds0 = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, -(-t // CHUNK), kd, vd), dtype=torch.float32, device=dev)
+    strides = [s for x in (r, k, v, w, dout, dr, dk, dv, dw) for s in x.stride()[:3]]
+    lib = _bwd_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_wkv6_bwd(
+            r.data_ptr(),
+            k.data_ptr(),
+            v.data_ptr(),
+            w.data_ptr(),
+            u.data_ptr(),
+            initial_state.data_ptr() if initial_state is not None else None,
+            dout.data_ptr(),
+            ds_last.data_ptr() if ds_last is not None else None,
+            states.data_ptr(),
+            dr.data_ptr(),
+            dk.data_ptr(),
+            dv.data_ptr(),
+            dw.data_ptr(),
+            du_part.data_ptr(),
+            du.data_ptr(),
+            ds0.data_ptr() if ds0 is not None else None,
+            (ctypes.c_longlong * len(strides))(*strides),
+            b,
+            h,
+            t,
+            kd,
+            vd,
+            int(r.dtype == torch.bfloat16),
+            stream,
+        )
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"wkv6_bwd: launch failed: CUDA error {err} ({msg})")
+    count_launch(wkv6_bwd)
+    return dr, dk, dv, dw, du, ds0
+
+
+wkv6_bwd.launches = 0
+
+
+class WKV6Function(torch.autograd.Function):
+    """The WKV with its gradient: :func:`wkv6_chunked` forward with r, k, v, w, u and the
+    initial state saved, :func:`wkv6_bwd` backward. ``initial_state`` may be None."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, initial_state):
+        out, s = wkv6_chunked(r, k, v, w, u, initial_state=initial_state)
+        ctx.save_for_backward(r, k, v, w, u, initial_state)
+        return out, s
+
+    @staticmethod
+    def backward(ctx, dout, ds_last):
+        r, k, v, w, u, initial_state = ctx.saved_tensors
+        if dout.stride(-1) != 1:  # the kernel takes any (batch, head, time) strides
+            dout = dout.contiguous()
+        return wkv6_bwd(
+            r, k, v, w, u, dout, initial_state=initial_state, ds_last=ds_last.contiguous()
+        )

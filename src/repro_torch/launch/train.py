@@ -11,9 +11,9 @@ journaled rounds, checkpoints, a heartbeat, replay verification. Run the
 same command again on the same ``--run-dir`` and it recovers from the newest
 complete checkpoint and re-executes, and verifies against the journal, every
 step after it. Runs on ``cuda`` unless ``--device cpu``, with
-``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless it is set. The dense and
-hybrid families train; the others raise where train mode refuses them
-(ROADMAP Queue 1 items 7–10). A bfloat16 config (``--full``) trains but is
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless it is set. The dense, hybrid
+and RWKV6 families train; the others raise where train mode refuses them
+(ROADMAP Queue 1 items 8–10). A bfloat16 config (``--full``) trains but is
 refused at the durable host boundary (``train/host.py``), which waits for
 ROADMAP Queue 1 item 7.
 

@@ -7,9 +7,9 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 ``lax.scan`` (the 8-layer demo), the port indexes the stacked params per
 repeat in a Python loop: both layouts run the same way.
 
-This port runs four kinds, in the modes ``prefill`` (build the cache) and
-``decode`` (one token against the cache, updated in place); ``dense``,
-``attn`` and ``rec`` also in ``train`` (the whole sequence, no cache, under autograd;
+This port runs four kinds, in the modes ``prefill`` (build the cache),
+``decode`` (one token against the cache, updated in place) and ``train``
+(the whole sequence, no cache, under autograd;
 ``cfg.remat`` "full" recomputes each repeat of a segment unit in the
 backward through ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` around its unit body; "dots", which keeps the matmul
@@ -22,8 +22,7 @@ outputs, raises and names its ROADMAP item):
   rwkv  : RWKV6 time mix (WKV6) + channel mix; its cache is the O(1) state
           ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
 
-Every other kind raises ``NotImplementedError`` naming its ROADMAP item,
-and so does ``rwkv`` in train mode (the WKV6 kernel has no backward yet).
+Every other kind raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -177,11 +176,6 @@ def apply_layer(
     _require_ported(cfg, kind)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r}: this port runs {', '.join(_MODES)}")
-    if mode == "train" and kind == "rwkv":
-        raise NotImplementedError(
-            "training an 'rwkv' layer: the WKV6 kernel has no backward yet: ROADMAP Queue 1 "
-            "item 7, Queue 2 item 2"
-        )
     if kind == "rwkv":
         return _apply_rwkv(h, lp, cfg, mode=mode, cache=cache)
     x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
@@ -218,9 +212,9 @@ def apply_layer(
 
 
 def _apply_rwkv(h, lp, cfg, *, mode, cache):
-    """Time mix then channel mix, each behind its LayerNorm. Prefill starts from
-    the zero state, as the reference does; decode writes the new state into
-    ``cache`` in place."""
+    """Time mix then channel mix, each behind its LayerNorm. Train and prefill
+    start from the zero state, as the reference does; train keeps no cache,
+    and decode writes the new state into ``cache`` in place."""
     if mode == "prefill":
         cache = init_rwkv_state(cfg, h.shape[0], h.dtype, h.device)
     x1 = apply_norm(h, lp["ln1"], cfg.norm, cfg.norm_eps)
@@ -229,6 +223,8 @@ def _apply_rwkv(h, lp, cfg, *, mode, cache):
     x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
     cm_out, state = rwkv_channel_mix(x2, lp["rwkv"], cfg, state=state)
     h = h + cm_out
+    if mode == "train":
+        return h, None
     if mode == "prefill":
         return h, state  # tm_prev = x1[:, -1], cm_prev = x2[:, -1]
     for key in ("wkv", "tm_prev", "cm_prev"):

@@ -498,16 +498,6 @@ def test_cli_trains_the_first_layers_alone(tmp_path):
     assert proc.returncode != 0 and "--layers 5" in proc.stderr
 
 
-def test_rwkv_training_is_still_refused_by_name():
-    cfg = tsmoke(tconfigs.get_config("rwkv6-7b"))
-    model = build(cfg, "cpu")
-    from repro_torch.params import init_params
-
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7, Queue 2 item 2"):
-        value_and_grad(model.loss_fn, params, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
-
-
 def test_cli_trains_the_hybrid_smoke_config_on_the_cpu(tmp_path):
     root = Path(__file__).resolve().parents[1]
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH, "--device", "cpu"]

@@ -364,7 +364,9 @@ def test_sharded_loader_resumes_at_any_step():
 @pytest.mark.parametrize(
     "arch, changes, match",
     [
-        ("rwkv6-7b", {}, "ROADMAP Queue 1 item 7"),
+        # rwkv layers train since the WKV6 backward (tests/test_torch_rwkv_train.py); their
+        # train mode refuses what every kind's does
+        ("rwkv6-7b", {"remat": "dots"}, "ROADMAP Queue 1 item 13"),
         (ARCH, {"mtp": True}, "ROADMAP Queue 1 item 9"),
         (ARCH, {"remat": "dots"}, "ROADMAP Queue 1 item 13"),
     ],
