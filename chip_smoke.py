@@ -676,8 +676,16 @@ LOGIT_TOL_RWKV = 0.66
 RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
 
 
-# the WKV6 backward's kernels, which ptxas must build with no spills
-WKV6_BWD_KERNELS = ("wkv6_bwd_kernel", "wkv6_bwd_du_kernel")
+# the WKV6 backward's kernels (both walks, the chunk pass, du), which ptxas must build with no
+# spills and no wgmma serialized
+WKV6_BWD_KERNELS = ("wkv6_bwd_walk_kernel", "wkv6_bwd_chunk_kernel", "wkv6_bwd_du_kernel")
+# the RG-LRU backward's ring kernels (the forward's states re-walked, then the walk back), held
+# the same way
+RGLRU_BWD_KERNELS = ("rglru_bwd_states_kernel", "rglru_bwd_ring_kernel")
+# the times of the right-first backwards these replaced, at the train shapes (ms; PERF.md §6,
+# NVIDIA H100 80GB HBM3, 700.00 W), logged beside the new ones
+WKV6_BWD_PR26_MS = "5.5087-5.5600"
+RGLRU_BWD_PR25_MS = "0.9007-0.9058"
 # the device-side names of the port's kernels (csrc/*.cu), as the profiler reports them
 PORT_KERNEL_SYMBOLS = (
     "flash_fwd_wgmma_kernel",
@@ -696,6 +704,7 @@ PORT_KERNEL_SYMBOLS = (
     "wkv6_chunk_kernel",
     "wkv6_stream_kernel",
     *WKV6_BWD_KERNELS,
+    *RGLRU_BWD_KERNELS,
 )
 
 
@@ -840,9 +849,11 @@ def wkv6_bound_ms(b, h, t, kd, vd, itemsize, with_h0):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def wkv6_bwd_bound_ms(b, h, t, kd, vd, itemsize, with_h0, with_ds):
-    """Least time for one WKV6 backward: max(FLOPs / the float32 CUDA cores' peak, bytes /
-    bandwidth); the arithmetic is float32 whatever the inputs' type.
+def wkv6_bwd_bound_ms(b, h, t, kd, vd, itemsize, with_h0, with_ds, form="3xtf32"):
+    """Least time for one WKV6 backward: max(FLOPs / peak, bytes / bandwidth); the arithmetic
+    is float32 whatever the inputs' type. ``form`` picks the peak: "3xtf32" three TF32
+    tensor-core products a float32 one (the form csrc/wkv6_bwd.cu runs its products in: 3 x
+    FLOPs at the TF32 rate), "cuda_core" float32 on the CUDA cores.
 
     Bytes: r, k, v and dout read and dr, dk, dv written in the input type, w read and dw
     written in float32, u read and du written, h0 read and dS0 written and dS_T read in
@@ -855,7 +866,8 @@ def wkv6_bwd_bound_ms(b, h, t, kd, vd, itemsize, with_h0, with_ds):
     ))
     nbytes = b * h * t * ((4 * kd + 3 * vd) * itemsize + 8 * kd)
     nbytes += 2 * h * kd * itemsize + b * h * kd * vd * 4 * ((2 if with_h0 else 0) + with_ds)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops = {"3xtf32": 3 * flops / PEAK_TF32_FLOPS, "cuda_core": flops / PEAK_F32_FLOPS}[form]
+    t_bytes = nbytes / PEAK_HBM_BYTES
     by = "operations" if t_ops >= t_bytes else "bytes"
     return 1e3 * max(t_ops, t_bytes), by, 1e3 * t_bytes
 
@@ -907,11 +919,11 @@ def phase_build() -> None:
     if faults:
         raise AssertionError("[build] the bfloat16 backward's wgmma kernels: " + "; ".join(faults))
     log(f"[build] {', '.join(BF16_WGMMA_KERNELS)}: no spills, no wgmma serialized")
-    report = (_build.build_dir() / "wkv6_bwd.log").read_text()
-    faults = _ptxas_faults(report, WKV6_BWD_KERNELS)
-    if faults:
-        raise AssertionError("[build] the WKV6 backward's kernels: " + "; ".join(faults))
-    log(f"[build] {', '.join(WKV6_BWD_KERNELS)}: no spills")
+    for lib, names in (("wkv6_bwd", WKV6_BWD_KERNELS), ("rglru_bwd", RGLRU_BWD_KERNELS)):
+        faults = _ptxas_faults((_build.build_dir() / f"{lib}.log").read_text(), names)
+        if faults:
+            raise AssertionError(f"[build] the {lib} kernels: " + "; ".join(faults))
+        log(f"[build] {', '.join(names)}: no spills, no wgmma serialized")
 
 
 def _ptxas_faults(report: str, names) -> list:
@@ -1690,9 +1702,11 @@ def _rglru_bwd_rows(gen) -> dict:
             "max_abs_err": 0.0,
         }
         scratch_ms = 1e3 * b * t * w * (8 + x.element_size() + 4) / PEAK_HBM_BYTES
+        parts = ", ".join(f"{n} {device_us(kernel, n):.2f}" for n in RGLRU_BWD_KERNELS)
         log(
             f"{msg}; kernel_ms {row['ms']:.4f} (device {device_us(kernel, 'rglru_bwd'):.2f} us "
-            f"a launch), plain_ms {row['plain_ms']:.4f}, library_ms none, bound_ms {bound:.5f} "
+            f"a call: {parts}; PR 25's thread-a-channel kernel: {RGLRU_BWD_PR25_MS}), plain_ms "
+            f"{row['plain_ms']:.4f}, library_ms none, bound_ms {bound:.5f} "
             f"({bound_by}; the float32 states it recomputes into its scratch, written and read, "
             f"and x and a read again add {scratch_ms:.5f}), kernel/bound {row['ms'] / bound:.1f}"
         )
@@ -1906,6 +1920,8 @@ def _wkv6_determinism(gen) -> None:
 
 
 WKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "dS0")
+# wkv6_bwd_<part>_kernel: the WKV6 backward's launches
+WKV6_BWD_PARTS = ("walk", "chunk", "du")
 
 
 def _wkv6_bwd_inputs(gen, case, deep=False):
@@ -2030,15 +2046,24 @@ def _wkv6_bwd_rows(gen) -> dict:
             "bound_by": bound_by,
             "max_abs_err": err,
         }
-        scratch_ms = 1e3 * 2 * b * h * -(-t // wk.CHUNK) * kd * vd * 4 / PEAK_HBM_BYTES
+        cuda_core, cuda_core_by, _ = wkv6_bwd_bound_ms(
+            b, h, t, kd, vd, r.element_size(), with_h0, with_ds, form="cuda_core"
+        )
+        scratch_ms = 1e3 * 4 * b * h * -(-t // wk.CHUNK) * kd * vd * 4 / PEAK_HBM_BYTES
         dev_us = device_us(kernel, "wkv6_bwd", 10)
+        parts = {n: device_us(kernel, f"wkv6_bwd_{n}_kernel", 10) for n in WKV6_BWD_PARTS}
+        lib, bf16 = wk._bwd_lib(), int(r.dtype == torch.bfloat16)
         log(
-            f"{msg}; kernel_ms {row['ms']:.4f} (device {dev_us:.2f} us a "
-            f"call, two launches), plain_ms {row['plain_ms']:.4f}, library_ms none, bound_ms "
-            f"{bound:.5f} ({bound_by}; bytes alone {bytes_ms:.5f}; the chunk-start states it "
-            f"writes into its scratch and reads back add {scratch_ms:.5f}), kernel/bound "
-            f"{row['ms'] / bound:.1f}; shared memory a block "
-            f"{wk._bwd_lib().repro_wkv6_bwd_shared_bytes()} bytes"
+            f"{msg}; kernel_ms {row['ms']:.4f} (device {dev_us:.2f} us a call: "
+            + ", ".join(f"{n} {us:.2f}" for n, us in parts.items())
+            + f"; PR 26's one-block-a-head kernel: {WKV6_BWD_PR26_MS}), plain_ms "
+            f"{row['plain_ms']:.4f}, library_ms none, bound_ms {bound:.5f} ({bound_by}, the "
+            f"tensor-core form: 3xTF32 at 495 TFLOP/s; bytes alone {bytes_ms:.5f}; on the CUDA "
+            f"cores {cuda_core:.5f}, {cuda_core_by}; the chunk-start states and chunk-end "
+            f"gradients it writes into its scratch and reads back add {scratch_ms:.5f}), "
+            f"kernel/bound {row['ms'] / bound:.1f}; shared memory a block: walk "
+            f"{lib.repro_wkv6_bwd_shared_bytes(0, bf16)}, chunk "
+            f"{lib.repro_wkv6_bwd_shared_bytes(1, bf16)} bytes"
         )
     log(
         "[kernels] wkv6_bwd against float64 autograd through ref.wkv6_ref on every float32 case, "
@@ -2748,6 +2773,8 @@ DURABLE_CMD = [
     "--steps", str(TRAIN_STEPS), "--checkpoint-every", "2",
 ]  # fmt: skip
 LAUNCHES_LINE = "kernel launches "  # the train CLI's last line
+# its counts of the kernels the demo's train steps do not run (it has no rec or rwkv layers)
+NO_LAUNCHES = {"rglru_scan": 0, "rglru_bwd": 0, "wkv6_chunked": 0, "wkv6_bwd": 0}
 
 
 def _run_trainer(tag: str, run_dir: Path) -> dict:
@@ -2842,7 +2869,8 @@ def phase_durable(direct: dict) -> None:
                 f"[durable A] journaled step digests {got} != the direct steps' "
                 f"{direct['step_digests']}"
             )
-        want_launches = {"flash_attention_fwd": per_step * 3, "flash_attention_bwd": per_step * 3}
+        n = per_step * 3
+        want_launches = {**NO_LAUNCHES, "flash_attention_fwd": n, "flash_attention_bwd": n}
         if a["launches"] != want_launches or a["summary"]["steps"] != TRAIN_STEPS:
             raise AssertionError(f"[durable A] launches {a['launches']}, summary {a['summary']}")
         beat = a["heartbeat"]
@@ -2875,7 +2903,8 @@ def phase_durable(direct: dict) -> None:
         ran = [r.node_id for r in new if r.kind == "NODE_START"]
         step2 = [r.output_digest for r in new if r.kind == "NODE_COMMIT" and r.node_id == "step@2"]
         refs = [r.ref for r in new if r.kind == "CKPT"]
-        want_launches = {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step}
+        n = per_step
+        want_launches = {**NO_LAUNCHES, "flash_attention_fwd": n, "flash_attention_bwd": n}
         if starts != ["round2"] or ran != ["step@2", f"ckpt@{TRAIN_STEPS}"]:
             raise AssertionError(f"[durable B] rounds {starts}, nodes run {ran}")
         if step2 != [got[2]] or refs != [ckpt_refs[-1]]:
@@ -4338,7 +4367,7 @@ def main() -> int:
             "src/repro/kernels/ref.py:227 rglru_scan_ref)",
             hybrid_train["rglru_bwd"],
             rglru_rows["bwd"],
-            "x,dh(1,4096,4096) bfloat16, a float32, no h0; rglru_bwd_kernel",
+            "x,dh(1,4096,4096) bfloat16, a float32, no h0; " + ", ".join(RGLRU_BWD_KERNELS),
         ),
         _kernel_entry(
             "flash_attention_fwd_hd256",

@@ -31,12 +31,15 @@ the reference's per-chunk order of operations. Both return the output in
 r's dtype and the state in float32 (``wkv6_ref`` keeps a float64 input in
 float64 throughout: the yardstick of the gradients). ``wkv6_bwd_ref`` is the
 gradient in the chunked form, walking the chunks back from the forward's
-chunk-start states, which it recomputes.
+chunk-start states, which it recomputes; ``wkv6_bwd_split_ref`` is the same
+gradient in the Hopper kernels' decomposition: the two state walks first,
+then each chunk's gradients from its own chunk-start state and chunk-end
+state gradient alone, in any order.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +55,7 @@ __all__ = [
     "wkv6_ref",
     "wkv6_chunked_ref",
     "wkv6_bwd_ref",
+    "wkv6_bwd_split_ref",
 ]
 
 _NEG_INF = -1e30
@@ -537,6 +541,128 @@ def wkv6_bwd_ref(
     du_sum = du[0]
     for i in range(1, b):  # over the batch in order, as the kernel adds its partials
         du_sum = du_sum + du[i]
+    kept = (slice(None), slice(None), slice(0, t))
+    return (
+        dr[kept].to(r.dtype),
+        dk[kept].to(r.dtype),
+        dv[kept].to(r.dtype),
+        dw[kept],
+        du_sum.to(u.dtype),
+        ds,
+    )
+
+
+#: runs of consecutive chunks in which the backward kernels sum du (``DU_SPLITS`` in
+#: ``csrc/wkv6_bwd.cu``)
+WKV6_DU_SPLITS = 16
+
+
+def wkv6_bwd_split_ref(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+    ds_last: Optional[torch.Tensor] = None,
+    chunk: int = 16,
+    order: Optional[Sequence[int]] = None,
+    matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`wkv6_chunked_ref` in the decomposition of the Hopper backward
+    kernels (``csrc/wkv6_bwd.cu``); returns what :func:`wkv6_bwd_ref` returns.
+
+    Walk A runs the chunks forward from the initial state and keeps S_c, the state at each
+    chunk's start; walk B runs them back from ``ds_last`` and keeps dS_c, the gradient of the
+    state at each chunk's end, and ends at dS0. Then each chunk's dr, dk, dv, dw and du part
+    come from its own rows, S_c and dS_c alone, the chunks taken in ``order`` (default: from
+    the last): any order gives the same result. dlog w_m is summed as the kernel sums it:
+    ((later + straddle) + held) + earlier, later = sum_{t>m} r^_t q_t from the chunk's end,
+    straddle = sum_{t>m} r^_t sum_{s<m} k^_s vd[t, s], held = exp(last) sum_j dS S_c and
+    earlier = sum_{s<m} kw_s p_s. du: for each batch row, the chunks in
+    :data:`WKV6_DU_SPLITS` runs of consecutive chunks, each summed in order, the runs added
+    in order, then the batch rows in order. ``matmul`` computes every product the kernels
+    run on the tensor cores (the walks' updates, q, p, vd, r^ k^T, x's and y's products with
+    the lower tile, att^T dout and kw dS), so a test can model their rounding.
+    """
+    b, h, t, kd = r.shape
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
+    pad = (-t) % chunk
+    rf, kf, vf, wf, gf = (x.to(ct) for x in (r, k, v, w, dout))
+    if pad:
+        rf, kf, vf, gf = (F.pad(x, (0, 0, 0, pad)) for x in (rf, kf, vf, gf))
+        wf = F.pad(wf, (0, 0, 0, pad), value=1.0)
+    uf = u.to(ct)[None, :, None, :]
+    n = (t + pad) // chunk
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=ct, device=r.device), -1)  # [t, s]: s < t
+    rows = [slice(c * chunk, (c + 1) * chunk) for c in range(n)]
+
+    def factors(c):
+        logw = torch.log(torch.clamp(wf[:, :, rows[c]], min=1e-38))
+        cum = torch.cumsum(logw, dim=2)
+        last = cum[:, :, -1:, :]
+        return cum - logw, cum, last
+
+    # walk A: the state at every chunk's start
+    s = _wkv_s0(r, v, initial_state).to(ct)
+    states = []
+    for c in range(n):
+        _, cum, last = factors(c)
+        states.append(s)
+        kw = kf[:, :, rows[c]] * torch.exp(last - cum)
+        s = torch.exp(last)[:, :, 0, :, None] * s + matmul(kw.transpose(-1, -2), vf[:, :, rows[c]])
+    # walk B: the gradient of the state at every chunk's end
+    ds = torch.zeros_like(s) if ds_last is None else ds_last.to(ct)
+    ds_end = [None] * n
+    for c in range(n - 1, -1, -1):
+        excl, _, last = factors(c)
+        ds_end[c] = ds
+        r_hat = rf[:, :, rows[c]] * torch.exp(excl)
+        ds = torch.exp(last)[:, :, 0, :, None] * ds + matmul(r_hat.transpose(-1, -2), gf[:, :, rows[c]])
+    # each chunk from its own rows, S_c and dS_c
+    dr, dk, dw = (torch.empty(rf.shape, dtype=ct, device=r.device) for _ in range(3))
+    dv = torch.empty(vf.shape, dtype=ct, device=r.device)
+    du_part = torch.empty((b, h, n, kd), dtype=ct, device=r.device)
+    for c in range(n - 1, -1, -1) if order is None else order:
+        rt, kt, vt, gt = (x[:, :, rows[c]] for x in (rf, kf, vf, gf))
+        excl, cum, last = factors(c)
+        ee, ec, dec = torch.exp(excl), torch.exp(-cum), torch.exp(last - cum)
+        r_hat, k_hat, kw = rt * ee, kt * ec, kt * dec
+        s_c, ds_c = states[c], ds_end[c]
+        vd = matmul(gt, vt.transpose(-1, -2))  # [t, s] = dout_t . v_s
+        lower = vd * tri
+        diag = torch.diagonal(vd, dim1=-2, dim2=-1)[..., None]  # (B,H,C,1)
+        att = matmul(r_hat, k_hat.transpose(-1, -2)) * tri
+        bonus = (rt * uf * kt).sum(-1, keepdim=True)
+        q = matmul(gt, s_c.transpose(-1, -2))  # [t, i] = sum_j S_c[i, j] dout_t[j]
+        p = matmul(vt, ds_c.transpose(-1, -2))  # [s, i] = sum_j dS_c[i, j] v_s[j]
+        x = q + matmul(lower, k_hat)
+        y = matmul(lower.transpose(-1, -2), r_hat)
+        ukd = uf * diag
+        dr[:, :, rows[c]] = ee * x + ukd * kt
+        dk[:, :, rows[c]] = ec * y + dec * p + ukd * rt
+        dv[:, :, rows[c]] = (matmul(att.transpose(-1, -2), gt) + bonus * gt) + matmul(kw, ds_c)
+        du_part[:, :, c] = (rt * kt * diag).sum(2)
+        later = _exclusive_cumsum(r_hat * q, 2, reverse=True)
+        pairs = k_hat[:, :, None, :, :] * lower[..., None]  # [t, s, i]
+        inner = _exclusive_cumsum(pairs, 3)  # [t, m, i] = sum_{s<m} k^_s vd[t, s]
+        straddle = (r_hat[:, :, :, None, :] * inner * tri[..., None]).sum(2)  # over t > m
+        held = torch.exp(last) * (ds_c * s_c).sum(-1)[:, :, None, :]
+        earlier = _exclusive_cumsum(kw * p, 2)
+        dw[:, :, rows[c]] = ((later + straddle) + held) + earlier
+    dw = torch.where(wf > 1e-38, dw / wf, torch.zeros_like(dw))
+    per = -(-n // WKV6_DU_SPLITS)
+    du_sum = None
+    for i in range(b):
+        total = None
+        for c0 in range(0, n, per):
+            run = du_part[i, :, c0]
+            for c in range(c0 + 1, min(n, c0 + per)):
+                run = run + du_part[i, :, c]
+            total = run if total is None else total + run
+        du_sum = total if du_sum is None else du_sum + total
     kept = (slice(None), slice(None), slice(0, t))
     return (
         dr[kept].to(r.dtype),

@@ -14,10 +14,12 @@ The ring kernel's 16-byte copies need W a multiple of 8 and x, a 16-byte
 aligned; the wrapper pads W with zeros (a = 0, x = 0 keep h = 0 there) when
 they are not, as the flash wrapper pads head dims.
 
-The gradient is :func:`rglru_bwd`, a third kernel in ``csrc/rglru_bwd.cu``
-(one thread a channel walking back through time, bit for bit
-:func:`repro_torch.kernels.ref.rglru_bwd_ref`); :class:`RGLRUFunction`
-joins the forward and it under autograd.
+The gradient is :func:`rglru_bwd`, two more ring kernels in
+``csrc/rglru_bwd.cu`` (the forward's float32 states re-walked into a scratch,
+then every channel walked back through time; bit for bit
+:func:`repro_torch.kernels.ref.rglru_bwd_ref`), whose W the wrapper pads as
+the ring kernel's; :class:`RGLRUFunction` joins the forward and it under
+autograd.
 
 On a CUDA tensor each wrapper launches its kernel or raises. On a CPU
 tensor it runs the plain version (:func:`repro_torch.kernels.ref.rglru_ref`,
@@ -183,8 +185,8 @@ def rglru_bwd(
     dtype and ``dh_last`` (B,W) float32 or None, returns (dx in x's dtype, da float32,
     dh0 (B,W) float32).
 
-    ``rglru_bwd.launches`` counts kernel launches (never the CPU path). The kernel
-    recomputes the forward's float32 states into a (B,T,W) float32 scratch of its own.
+    ``rglru_bwd.launches`` counts calls that launched the kernels (never the CPU path). They
+    recompute the forward's float32 states into a (B,T,W) float32 scratch of their own.
     """
     _check(x, a, initial_state)
     b, t, w = x.shape
@@ -203,9 +205,15 @@ def rglru_bwd(
         return _ref.rglru_bwd_ref(x, a, dh, initial_state=initial_state, dh_last=dh_last)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_bwd: no kernel for device {x.device}")
+    given = [g for g in (x, a, dh, initial_state, dh_last) if g is not None]
+    wp = w + (-w) % 8  # the ring kernels' 16-byte copies: W padded with zeros, as _plan pads
+    if wp != w or any(g.data_ptr() % 16 for g in given):
+        x, a, dh = (_padded(g, wp) for g in (x, a, dh))
+        initial_state = None if initial_state is None else _padded(initial_state, wp)
+        dh_last = None if dh_last is None else _padded(dh_last, wp)
     dx = torch.empty_like(x)
     da = torch.empty_like(a)
-    dh0 = torch.empty((b, w), dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((b, wp), dtype=torch.float32, device=x.device)
     states = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     lib = _lib("rglru_bwd", 9, 4)
     with torch.cuda.device(x.device):
@@ -222,7 +230,7 @@ def rglru_bwd(
             dh0.data_ptr(),
             b,
             t,
-            w,
+            wp,
             int(x.dtype == torch.bfloat16),
             stream,
         )
@@ -230,6 +238,8 @@ def rglru_bwd(
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"rglru_bwd: launch failed: CUDA error {err} ({msg})")
     count_launch(rglru_bwd)
+    if wp != w:
+        return dx[..., :w].contiguous(), da[..., :w].contiguous(), dh0[:, :w].contiguous()
     return dx, da, dh0
 
 

@@ -17,11 +17,14 @@ v, w 16-byte aligned with strides of whole 16 bytes; an operand that is not
 (a K or V that is no multiple of 8 in bfloat16, a view at an odd offset) is
 padded first, as the flash wrapper pads head dims.
 
-The gradient is :func:`wkv6_bwd`, the kernel of ``csrc/wkv6_bwd.cu`` (one
-block a (batch, head) re-walks the chunk-start states into a float32 scratch,
-then walks the chunks back), and :class:`WKV6Function` puts the two together
-under autograd. It returns dr, dk, dv and dw as ``(B, H, T, .)`` views of
-fresh ``(B, T, H, .)`` tensors, the layout the model's projections have.
+The gradient is :func:`wkv6_bwd`, the kernels of ``csrc/wkv6_bwd.cu`` (two
+walks over the chunks, split by state columns, write the chunk-start states
+and the gradients of the chunk-end states into a float32 scratch; then a block
+a chunk computes every chunk's gradients on the tensor cores; then du), and
+:class:`WKV6Function` puts the two together under autograd. It returns dr, dk,
+dv and dw as ``(B, H, T, .)`` views of fresh ``(B, T, H, .)`` tensors, the
+layout the model's projections have. Its 16-byte copies need the operands
+aligned as the chunk kernel's do, and the wrapper pads them the same way.
 
 On a CUDA tensor a wrapper launches its kernel or raises. On a CPU tensor it
 runs the plain version, :func:`repro_torch.kernels.ref.wkv6_chunked_ref` or
@@ -225,7 +228,7 @@ def _bwd_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_wkv6_bwd_shared_bytes.restype = ctypes.c_int
-        lib.repro_wkv6_bwd_shared_bytes.argtypes = []
+        lib.repro_wkv6_bwd_shared_bytes.argtypes = [i32, i32]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         fn.argtypes = [ptr] * 16 + [ctypes.POINTER(i64), i32, i32, i64] + [i32] * 3 + [ptr]
@@ -274,8 +277,9 @@ def wkv6_bwd(
     dk, dv in r's dtype, dw float32, du (H,K) in u's dtype, dS0 (B,H,K,V) float32, or None
     when ``initial_state`` is None).
 
-    ``wkv6_bwd.launches`` counts kernel launches (never the CPU path). The kernel recomputes
-    the chunk-start states into a (B, H, ceil(T/16), K, V) float32 scratch of its own.
+    ``wkv6_bwd.launches`` counts calls that launched the kernels (never the CPU path). They
+    write the chunk-start states and the chunk-end state gradients into a float32 scratch of
+    2 x (B, H, ceil(T/16), K, V rounded up to 4) of their own.
     """
     _check(r, k, v, w, u, initial_state)
     _check_grads(r, v, dout, ds_last)
@@ -289,14 +293,17 @@ def wkv6_bwd(
     b, h, t, kd = r.shape
     vd = v.shape[-1]
     dev = r.device
+    r, k, v, w, dout = (_aligned(x) for x in (r, k, v, w, dout))
     dr, dk, dw = (_fresh(b, t, h, kd, dt, dev) for dt in (r.dtype, r.dtype, torch.float32))
     dv = _fresh(b, t, h, vd, r.dtype, dev)
     du = torch.empty((h, kd), dtype=u.dtype, device=dev)
-    du_part = torch.empty((b, h, kd), dtype=torch.float32, device=dev)
+    n_chunks = -(-t // CHUNK)
+    du_part = torch.empty((b, h, n_chunks, kd), dtype=torch.float32, device=dev)
     ds0 = None
     if initial_state is not None:
         ds0 = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, -(-t // CHUNK), kd, vd), dtype=torch.float32, device=dev)
+    vp = -(-vd // 4) * 4
+    states = torch.empty((2, b, h, n_chunks, kd, vp), dtype=torch.float32, device=dev)
     strides = [s for x in (r, k, v, w, dout, dr, dk, dv, dw) for s in x.stride()[:3]]
     lib = _bwd_lib()
     with torch.cuda.device(dev):

@@ -18,7 +18,8 @@ refused at the durable host boundary (``train/host.py``), which waits for
 ROADMAP Queue 1 item 7.
 
 Prints the heartbeat's address, a line per ``--log-every`` steps (as the
-reference), and at the end the summary and the flash kernels' launches.
+reference), and at the end the summary and the launches of every kernel a train
+step can run (:func:`kernel_launches`).
 """
 
 from __future__ import annotations
@@ -31,16 +32,30 @@ from typing import List, Optional
 
 from repro_torch.configs import SHAPES, get_config, list_archs, smoke_variant
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rglru as rg
+from repro_torch.kernels import wkv6 as wk
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import TrainConfig, Trainer
 
-__all__ = ["main", "opt_config"]
+__all__ = ["kernel_launches", "main", "opt_config"]
 
 
 def opt_config(steps: int) -> AdamWConfig:
     """The AdamW this CLI trains with for ``steps`` steps (the reference CLI's)."""
     return AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=steps)
 
+
+
+def kernel_launches() -> dict:
+    """The launch counts of every kernel a train step can run, in this process."""
+    return {
+        "flash_attention_fwd": fa.flash_attention_fwd.launches,
+        "flash_attention_bwd": fa.flash_attention_bwd.launches,
+        "rglru_scan": rg.rglru_scan.launches,
+        "rglru_bwd": rg.rglru_bwd.launches,
+        "wkv6_chunked": wk.wkv6_chunked.launches,
+        "wkv6_bwd": wk.wkv6_bwd.launches,
+    }
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
@@ -111,11 +126,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         f"final loss {out['final_loss']}",
         flush=True,
     )
-    launches = {
-        "flash_attention_fwd": fa.flash_attention_fwd.launches,
-        "flash_attention_bwd": fa.flash_attention_bwd.launches,
-    }
-    print(f"kernel launches {json.dumps(launches)}", flush=True)
+    print(f"kernel launches {json.dumps(kernel_launches())}", flush=True)
 
 
 if __name__ == "__main__":

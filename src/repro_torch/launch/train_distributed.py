@@ -32,11 +32,10 @@ from typing import List, Optional
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core import FlakyWorker, InProcWorker, Journal
-from repro_torch.kernels import flash_attention as fa
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import DistributedTrainer, DistTrainConfig
 
-from .train import opt_config
+from .train import kernel_launches, opt_config
 
 __all__ = ["main"]
 
@@ -114,11 +113,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             "absorbed by surviving workers",
             flush=True,
         )
-    launches = {
-        "flash_attention_fwd": fa.flash_attention_fwd.launches,
-        "flash_attention_bwd": fa.flash_attention_bwd.launches,
-    }
-    print(f"kernel launches {json.dumps(launches)}", flush=True)
+    print(f"kernel launches {json.dumps(kernel_launches())}", flush=True)
     print(f"final params digest: {digest}", flush=True)
 
 

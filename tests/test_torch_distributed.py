@@ -383,7 +383,10 @@ def test_cli_with_and_without_a_killed_worker_ends_at_one_digest(tmp_path):
     calm, killed = _cli(tmp_path / "calm"), _cli(tmp_path / "killed", "--kill-worker")
     assert calm[0].startswith("arch=serpytor-demo-smoke shards=2 workers=2 batch 2x32")
     assert "on cpu" in calm[0] and "done: 4 steps" in "\n".join(calm)
-    assert calm[-2] == 'kernel launches {"flash_attention_fwd": 0, "flash_attention_bwd": 0}'
+    assert calm[-2] == (
+        'kernel launches {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "rglru_scan": 0, '
+        '"rglru_bwd": 0, "wkv6_chunked": 0, "wkv6_bwd": 0}'
+    )
     assert calm[-1].startswith("final params digest: ") and killed[-1] == calm[-1]
     assert not any(line.startswith("elastic re-shard") for line in calm)
     assert any(line.startswith("elastic re-shard: ") for line in killed)

@@ -508,4 +508,7 @@ def test_cli_trains_the_hybrid_smoke_config_on_the_cpu(tmp_path):
     assert proc.stdout.startswith(f"training {ARCH}-smoke: 4 layers,")
     assert "done: 2 steps" in proc.stdout
     last = proc.stdout.strip().splitlines()[-1]
-    assert last == 'kernel launches {"flash_attention_fwd": 0, "flash_attention_bwd": 0}'
+    assert last == (
+        'kernel launches {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "rglru_scan": 0, '
+        '"rglru_bwd": 0, "wkv6_chunked": 0, "wkv6_bwd": 0}'
+    )

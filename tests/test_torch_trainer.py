@@ -414,6 +414,9 @@ def test_cli_trains_the_reduced_config_on_the_cpu(tmp_path):
     assert lines[0].startswith(f"training {ARCH}-smoke:") and "on cpu" in lines[0]
     assert lines[1].startswith("heartbeat at http://127.0.0.1:")
     assert "done: 2 steps" in proc.stdout
-    assert lines[-1] == 'kernel launches {"flash_attention_fwd": 0, "flash_attention_bwd": 0}'
+    assert lines[-1] == (
+        'kernel launches {"flash_attention_fwd": 0, "flash_attention_bwd": 0, "rglru_scan": 0, '
+        '"rglru_bwd": 0, "wkv6_chunked": 0, "wkv6_bwd": 0}'
+    )
     summary = json.load(open(run / "summary.json"))
     assert summary["steps"] == 2 and [m["step"] for m in summary["log"]] == [0, 1]
