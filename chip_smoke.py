@@ -49,9 +49,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    backward (each launch's device time) against its plain version, SDPA's
    memory-efficient backward, its bound and the tensor-core floor of the seven
    products it runs at the probed TF32 rates. The bfloat16 backward
-   (``csrc/flash_attention_bwd_bf16.cu``: wgmma fed by a TMA ring, whose two
-   walk kernels the build phase holds to no spills and no wgmma serialized in
-   ptxas's report) against its plain version on the
+   (``csrc/flash_attention_bwd_bf16.cu``: wgmma fed by a TMA ring, whose walk
+   kernels, up to head dim 128 and in the split builds above it, the build
+   phase holds to no spills and no wgmma serialized in ptxas's report) against
+   its plain version on the
    cases of ``tests/test_torch_flash_bwd_bf16.py``, edges and qwen3-1.7b's
    train shape (2, 16, 4096, 128) at BWD_BF16_TOL of each gradient's largest
    entry, each case holding the bfloat16 forward's logsumexp against the plain
@@ -60,13 +61,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    against its plain version, SDPA's flash-backend backward and its bound, and
    its error against float64 at most twice SDPA's; the float32 backward at
    head dim 128 timed at that shape. The bfloat16 backward at head dim 256 (the
-   split builds) on recurrentgemma-9b's train shape (1, 16, 4096, 256) with
-   MQA and window 2048 and on edges (Dv 256 and 128, ragged Sq and Sk, Sq <
-   Sk, a window crossing tile edges, groups 16 and 1, Sq = 1, chunks wholly
-   past D or Dv), with the forward's logsumexp at 256 held against the plain
-   one; its bits on two launches and for B = 1 against row 0 of B = 4; its time
-   beside its plain version's, SDPA's backward with the window as a mask and
-   the bound, and the float64 yardstick. The RG-LRU backward
+   split builds: each key tile's dK/dV walk cut into the parts of
+   ``flash_attention.bwd_split_plan``, their partials summed in order by a
+   reduction kernel; S and dP computed once a tile) on recurrentgemma-9b's
+   train shape (1, 16, 4096, 256) with MQA and window 2048 and on edges (Dv 256
+   and 128, ragged Sq and Sk, Sq < Sk, a window crossing tile edges, groups 16,
+   3 and 1, Sq = 1, chunks wholly past D or Dv, parts cut unevenly or empty),
+   with the forward's logsumexp at 256 held against the plain one; its bits on
+   two launches and for B = 1 against row 0 of B = 4; the dK/dV grid (blocks,
+   parts, the busiest SM's walk tiles in the planner's model); its time and
+   each launch's beside the earlier split builds', its plain version's, SDPA's
+   backward with the window as a mask and the bound, and the float64
+   yardstick. The RG-LRU backward
    (``csrc/rglru_bwd.cu``) against ``ref.rglru_bwd_ref`` bit for bit at the
    hybrid's train shape (1, 4096, 4096) in bf16 and f32, with and without h0,
    at T = 1 and 32, ragged W, and the a = 1 edge; its bits on two launches and
@@ -587,16 +593,28 @@ BWD_BF16_TOL = 2.0**-6
 LSE_BF16_TOL = 1e-4
 # the bfloat16 backward's same bits on two launches and for B = 1 against row 0 of B = 4
 FLASH_BWD_BF16_DETERMINISM = (4, 16, 8, 1024, 1024, 128, True, None, "bfloat16", 128)
-# flash_bwd_bf16_<part>_kernel: the bfloat16 backward's launches
+# flash_bwd_bf16_<part>_kernel: the bfloat16 backward's launches, up to head dim 128 and in
+# the split builds above it (the reduction runs where a key tile's walk is cut into parts)
 BF16_KERNEL_PARTS = ("delta", "dkdv_wgmma", "dq_wgmma")
-# its wgmma kernels, which ptxas must build with no spills and no wgmma serialized (its notes
-# C7514, C7515, C7518)
-BF16_WGMMA_KERNELS = ("flash_bwd_bf16_dkdv_wgmma_kernel", "flash_bwd_bf16_dq_wgmma_kernel")
+BF16_SPLIT_PARTS = ("delta", "dkdv_split", "dkdv_reduce", "dq_split")
+# its wgmma kernels (up to head dim 128, then the split builds'), which ptxas must build with no
+# spills and no wgmma serialized (its notes C7514, C7515, C7518); the split builds' reduction
+# with no spills
+BF16_WGMMA_KERNELS = (
+    "flash_bwd_bf16_dkdv_wgmma_kernel",
+    "flash_bwd_bf16_dq_wgmma_kernel",
+    "flash_bwd_bf16_dkdv_split_kernel",
+    "flash_bwd_bf16_dq_split_kernel",
+)
+BF16_REDUCE_KERNEL = "flash_bwd_bf16_dkdv_reduce_kernel"
 # The bfloat16 backward at head dims above 128 (the split builds): recurrentgemma-9b's train
 # shape (1 x 4096 tokens, 16 query heads on one KV head of 256, causal, window 2048), then edges:
 # a group of 16 with ragged Sq = Sk, Sq < Sk with a window crossing the 64-row tiles and Dv 128,
 # a group of 1 with a window, Sq = 1, no mask with GQA at B = 2, and chunks of 64 columns wholly
-# past D or Dv, which the kernels zero instead of loading (D 64 with Dv 256, D 160).
+# past D or Dv, which the kernels zero instead of loading (D 64 with Dv 256, D 160); then Sq < Sk
+# with a window and a group of 3, whose key tiles' walks (3 to 15 tiles) the 8 parts of
+# flash_attention.bwd_split_plan cut unevenly, some parts empty; and walks of one tile, which
+# the planner leaves in one part, so that the dK/dV kernel writes dK and dV itself.
 FLASH_BWD_HD256_TRAIN = (1, 16, 1, TRAIN_SEQ, TRAIN_SEQ, 256, True, 2048, "bfloat16", 256)
 FLASH_BWD_HD256_CASES = [
     (1, 16, 1, 300, 300, 256, True, None, "bfloat16", 256),
@@ -606,12 +624,17 @@ FLASH_BWD_HD256_CASES = [
     (2, 4, 2, 100, 130, 256, False, None, "bfloat16", 256),
     (1, 2, 1, 70, 70, 64, True, 30, "bfloat16", 256),
     (1, 4, 2, 64, 64, 160, True, None, "bfloat16", 160),
+    (1, 6, 2, 300, 500, 256, True, 150, "bfloat16", 256),
+    (1, 2, 2, 64, 64, 256, True, None, "bfloat16", 256),
     FLASH_BWD_HD256_TRAIN,
 ]
 FLASH_BWD_HD256_DETERMINISM = (4, 16, 1, 1024, 1024, 256, True, 512, "bfloat16", 256)
 # the mma.sync bfloat16 backward that the wgmma kernels replaced, at qwen3-1.7b's train shape,
 # for the record beside their time (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W)
 BWD_BF16_MMA_SYNC_MS = 3.6506
+# the split builds before their redesign (S and dP computed by both consumer warpgroups, one
+# block a key tile), at recurrentgemma-9b's train shape (ms; PERF.md §6, same card)
+BWD_HD256_BEFORE_MS = "1.6932-1.7129"
 # AdamW as the train CLI sets it for TRAIN_STEPS steps (repro_torch.launch.train.opt_config,
 # held equal in the train process): the durable phase's trainer steps take the same AdamW
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
@@ -698,6 +721,7 @@ PORT_KERNEL_SYMBOLS = (
     "flash_bwd_dq_kernel",
     "flash_bwd_bf16_delta_kernel",
     *BF16_WGMMA_KERNELS,
+    BF16_REDUCE_KERNEL,
     "decode_attention_kernel",
     "rglru_ring_kernel",
     "rglru_step_kernel",
@@ -915,10 +939,13 @@ def phase_build() -> None:
         report = (_build.build_dir() / f"{name}.log").read_text().strip()
         log(f"[build] {name} ptxas:\n{report}")
     report = (_build.build_dir() / "flash_attention_bwd_bf16.log").read_text()
-    faults = _ptxas_faults(report, BF16_WGMMA_KERNELS)
+    faults = _ptxas_faults(report, (*BF16_WGMMA_KERNELS, BF16_REDUCE_KERNEL))
     if faults:
-        raise AssertionError("[build] the bfloat16 backward's wgmma kernels: " + "; ".join(faults))
-    log(f"[build] {', '.join(BF16_WGMMA_KERNELS)}: no spills, no wgmma serialized")
+        raise AssertionError("[build] the bfloat16 backward's kernels: " + "; ".join(faults))
+    log(
+        f"[build] {', '.join(BF16_WGMMA_KERNELS)}, {BF16_REDUCE_KERNEL}: no spills, no wgmma "
+        "serialized"
+    )
     for lib, names in (("wkv6_bwd", WKV6_BWD_KERNELS), ("rglru_bwd", RGLRU_BWD_KERNELS)):
         faults = _ptxas_faults((_build.build_dir() / f"{lib}.log").read_text(), names)
         if faults:
@@ -1337,6 +1364,12 @@ def _flash_bwd_hd256_rows(gen) -> dict:
     its bits on two launches and for B = 1 against row 0 of B = 4; at the hybrid's train
     shape its time beside its plain version's, SDPA's and the bound, and the float64
     yardstick. Returns the row of the kernels line."""
+    plans = {_hd256_parts(case) for case in FLASH_BWD_HD256_CASES}
+    if not (1 in plans and max(plans) > 1):
+        raise AssertionError(
+            f"[kernels] the head-dim-256 cases plan parts {sorted(plans)}: they must hold the "
+            "split builds both in one part and in more"
+        )
     row = None
     for case in FLASH_BWD_HD256_CASES:
         q, k, v, dout, err, _ = _flash_bwd_bf16_case(gen, case)
@@ -1344,6 +1377,12 @@ def _flash_bwd_hd256_rows(gen) -> dict:
             row = _flash_bwd_hd256_timed(case, q, k, v, dout, err)
     _flash_bwd_determinism(gen, FLASH_BWD_HD256_DETERMINISM)
     return row
+
+
+def _hd256_parts(case) -> int:
+    """The parts of each key tile's dK/dV walk that the split builds run a case in."""
+    _, hq, hkv, sq, sk, _, causal, window, _, _ = case
+    return fa.bwd_split_plan(sq, sk, hq, hkv, causal, window)
 
 
 def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
@@ -1365,12 +1404,14 @@ def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
     )
     sdpa = _sdpa_bwd(q, k, v, dout, None, mask=mask)
     bound, bound_by, bytes_ms = attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, causal, window, 2)
+    parts = _hd256_parts(case)
+    walks = [hq // hkv * n for _, n in fa.bwd_split_walks(sq, sk, causal, window)]
     row = {
         "ms": time_ms(kernel, iters=10),
         "device_us": device_us(kernel, launches=10),
         **{
             f"{n}_us": device_us(kernel, f"flash_bwd_bf16_{n}", launches=10)
-            for n in BF16_KERNEL_PARTS
+            for n in BF16_SPLIT_PARTS
         },
         "plain_ms": time_ms(
             lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks),
@@ -1382,11 +1423,20 @@ def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
         "bound_by": bound_by,
         "max_abs_err": err,
     }
-    parts = ", ".join(f"{n} {row[n + '_us']:.2f}" for n in BF16_KERNEL_PARTS)
+    launches = ", ".join(f"{n} {row[n + '_us']:.2f}" for n in BF16_SPLIT_PARTS)
+    log(
+        f"[kernels]   recurrentgemma-9b train shape: dK/dV grid {len(walks) * parts * hkv * b} "
+        f"blocks ({len(walks)} key tiles x {parts} parts x {hkv} KV heads x B {b}), the busiest "
+        f"of {fa.BWD_SPLIT_SMS} SMs {fa.bwd_split_longest(walks, parts, hkv)} walk tiles "
+        f"({fa.bwd_split_longest(walks, 1, hkv)} with one part; even share "
+        f"{sum(walks) * hkv / fa.BWD_SPLIT_SMS:.1f}); dQ grid {-(-sq // 128) * hq * b} blocks "
+        f"(pairs of query tiles x {hq} heads x B {b}) on the dK/dV kernel's dS^T tiles"
+    )
     log(
         f"[kernels]   recurrentgemma-9b train shape q{tuple(q.shape)} k{tuple(k.shape)} "
         f"bfloat16 window {window}: backward kernel_ms {row['ms']:.4f} (device "
-        f"{row['device_us']:.2f} us a call: {parts}), plain_ms {row['plain_ms']:.4f}, "
+        f"{row['device_us']:.2f} us a call: {launches}; the split builds before their redesign "
+        f"{BWD_HD256_BEFORE_MS} ms), plain_ms {row['plain_ms']:.4f}, "
         f"library_ms (SDPA backward alone, the window as a boolean mask, K/V expanded to {hq} "
         f"heads, backend {backend}) {row['library_ms']:.4f} (kernel "
         f"{'faster' if row['ms'] < row['library_ms'] else 'NOT faster'}), bound_ms "
@@ -4349,7 +4399,7 @@ def main() -> int:
             dense_train["flash_bwd"],
             bwd_rows["bf16"]["bwd"],
             "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal; flash_bwd_bf16_delta_kernel, "
-            + ", ".join(BF16_WGMMA_KERNELS),
+            + ", ".join(BF16_WGMMA_KERNELS[:2]),
         ),
         _kernel_entry(
             "flash_attention_bwd_bf16_hd256",
@@ -4358,7 +4408,9 @@ def main() -> int:
             hybrid_train["flash_bwd"],
             bwd_rows["bf16_hd256"],
             "q,dO(1,16,4096,256) k,v(1,1,4096,256) bfloat16 causal window 2048; the split "
-            "builds of flash_bwd_bf16_dkdv_wgmma_kernel and flash_bwd_bf16_dq_wgmma_kernel",
+            "builds: flash_bwd_bf16_delta_kernel, "
+            + ", ".join((*BF16_WGMMA_KERNELS[2:], BF16_REDUCE_KERNEL))
+            + f" ({_hd256_parts(FLASH_BWD_HD256_TRAIN)} parts a key tile)",
         ),
         _kernel_entry(
             "rglru_bwd",

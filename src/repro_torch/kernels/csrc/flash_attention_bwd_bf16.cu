@@ -14,7 +14,9 @@
 //   D = rowsum(dO o O);  P = exp(S scale - lse);  dV = P^T dO;  dP = dO V^T;
 //   dS = P o (dP - D);   dQ = dS K scale;         dK = dS^T Q scale.
 // P and dS are rounded to bfloat16 only where they enter a product; P stays float32 in dS.
-// Three launches. Each output element is summed in a fixed order in float32 and written once:
+// Three launches (four in a split build whose dK/dV walks are cut into parts: see the end of
+// this note).
+// Each output element is summed in a fixed order in float32 and written once:
 // no atomics, so two launches give the same bits and a batch row's gradients do not depend on
 // the batch it is in.
 //   - flash_bwd_bf16_delta_kernel: D in float32, one warp a row.
@@ -73,20 +75,42 @@
 //   and chunks has a fixed count: a branch between the wgmmas of a product makes the compiler
 //   copy their accumulators, and ptxas then serializes every wgmma (its note C7515).
 //
-// Head dims above 128 (up to 256: recurrentgemma-9b's 256), the "split" builds of 4 chunks
-// (`Plan::SPLIT`). The plan above does not carry over: at D = Dv = 256 a consumer's dK and dV
-// for 64 owned keys would take 2 x 64 x 256 / 128 = 256 float32 registers a thread before S and
-// dP, and 128 owned rows of K and V (128 KB) beside a ring of 4 stages of 64 KB exceed the
-// 227 KB a block may have. So a block owns 64 rows, not 128, and both consumer warpgroups own
-// all of them: each computes the same S^T and dP^T (S and dP in dQ) over the whole head dim and
-// keeps half of the output's column chunks (warpgroup w the chunks [w DC/2, (w+1) DC/2) of dK
-// or dQ and likewise of dV), so a thread holds the registers it holds at 128 (dK and dV 64 + 64
-// at D = Dv = 256). S and dP are computed twice, rather than shared through shared memory and a
-// barrier between the warpgroups: 9 products where 7 would do. Shared memory at D = Dv = 256:
-// owned rows 64 KB, 2 stages of 64 KB, lse and D; 198,696 bytes. A chunk of 64 columns wholly
-// past D or Dv (D <= 64 or 128 < D <= 192 in these builds) is zeroed once in every place it
-// would occupy and never loaded. Every sum keeps its order: the GQA group's heads in order into
-// float32 registers, each output element written once.
+// Head dims above 128 (up to 256: recurrentgemma-9b's 256), the "split" builds of 2 or 4
+// chunks of 64 columns of D and of Dv, kernels of their own. The plan above does not carry
+// over: at D = Dv = 256 a consumer's dK and dV for 64 owned keys would take 2 x 64 x 256 / 128 =
+// 256 float32 registers a thread before S and dP, and 128 owned rows of K and V (128 KB) beside
+// a ring of 4 stages of 64 KB exceed the 227 KB a block may have. So (`SplitPlan`):
+//   - flash_bwd_bf16_dkdv_split_kernel: a block owns 64 keys, shared by both consumer
+//     warpgroups, and S^T and dP^T are computed once a walk tile: consumer warpgroup w takes
+//     the tile's 32 query rows [32w, 32w + 32), S^T and dP^T as wgmma m64n32 over the whole
+//     head dim, then its half of P^T and dS^T in float32 registers, written as bfloat16 into
+//     64 x 64 exchange tiles in shared memory laid out as TMA lays a box (128-byte swizzle),
+//     which wgmma reads as a K-major A operand. A named barrier between the two consumer
+//     warpgroups (the producer runs on) hands the tiles over; each warpgroup then runs its
+//     half of dK's and dV's column chunks ([w DC/2, (w+1) DC/2) of dK, likewise of dV) over all
+//     64 rows, both operands in shared memory: four products' work a tile. The exchange tiles
+//     are double-buffered by the tile's parity, so one barrier a tile suffices. One thread then
+//     stores the tile's dS^T with a TMA store into a bfloat16 scratch for dQ, which holds for
+//     each (batch, query head) the tiles of every query tile's walk, one walk after another
+//     (ds_offset): exactly the tiles walked.
+//   - The walk of a key tile over the GQA group's (query head, query tile) pairs is cut into
+//     `parts` spans of equal length (within one tile), each on a block of its own, so that the
+//     longest walks spread over every SM: at recurrentgemma-9b's train shape (MQA, 16 heads,
+//     causal, window 2048) 64 key tiles x 8 parts. The host chooses `parts` from the shapes
+//     and masks alone, never from B (kernels/flash_attention.py bwd_split_plan). With one part
+//     the block writes dK and dV; with more each writes its float32 partial into a scratch the
+//     wrapper allocates, and flash_bwd_bf16_dkdv_reduce_kernel adds a key's partials in part
+//     order and rounds once.
+//   - flash_bwd_bf16_dq_split_kernel: dQ = scale sum of dS K over the key tiles in order, from
+//     the stored dS^T tiles (one product a tile: S and dP are not recomputed), a block per two
+//     tiles of 64 query rows of one head, a consumer warpgroup each, one copy of a K tile
+//     serving both (`DqPlan`: a ring of 4 stages of K and the two dS^T tiles).
+// Shared memory at D = Dv = 256: dK/dV owned rows 64 KB, 2 ring stages of 64 KB, the exchange
+// tiles 2 x 16 KB, lse and D, 231,464 bytes; dQ 4 stages of 48 KB, 197,696 bytes. A chunk of 64
+// columns wholly past D or Dv (D <= 64 or 128 < D <= 192 in these builds) is zeroed once in
+// every place it would occupy and never loaded. Every sum keeps its order: within a part the
+// heads in order, then each tile in order, into float32 registers; the parts in order; dQ's
+// key tiles in order; each output element written once.
 //
 // Plain C interface, loaded with ctypes; every pointer and the stream are void*. The TMA
 // encoder comes from cudaGetDriverEntryPoint (hopper.cuh), so the library needs no -lcuda.
@@ -104,6 +128,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int MAX_D = 256;
+constexpr int MAX_PARTS = 8;  // pieces of a key tile's walk in the split builds
 constexpr int BOX = 64;      // rows of a TMA box: an owned half, or a walk tile
 constexpr int WALK = 64;     // rows of a walk tile: query rows (dK/dV) or keys (dQ)
 constexpr int COLS = 64;     // head-dim columns of a box: 128 bytes, the swizzle span
@@ -130,6 +155,41 @@ struct Masks {
     return i < sq && j < sk && (!causal || j <= qpos) && (window <= 0 || j > qpos - window);
   }
 };
+
+// Split builds: the key tiles [kb, ke) that some row of query tile qt sees (the forward's walk,
+// in tiles of WALK keys): those the dQ kernel walks, whose dS^T tiles the dK/dV kernel stores.
+__host__ __device__ __forceinline__ void dq_walk(const Masks& mk, int qt, int& kb, int& ke) {
+  const int q0 = qt * WALK, off = mk.sk - mk.sq;
+  const int k_end = mk.causal ? imin(mk.sk, imin(q0 + WALK, mk.sq) - 1 + off + 1) : mk.sk;
+  kb = (mk.window > 0 ? imax(0, q0 + off - mk.window + 1) : 0) / WALK;
+  ke = imax(kb, (k_end + WALK - 1) / WALK);
+}
+
+// Split builds: the dS scratch holds, for each (batch, query head), the dS^T tiles of every
+// query tile's walk, the tiles in order, one walk after another: ds_tiles(mk) slots a head.
+// Query tile qt's first is ds_offset(mk, qt), the sum of the walks before it
+// (kernels/flash_attention.py bwd_ds_offsets); computed by a whole warp, every lane gets it.
+__device__ __forceinline__ int ds_offset(const Masks& mk, int qt, int lane) {
+  int sum = 0;
+  for (int j = lane; j < qt; j += 32) {
+    int kb, ke;
+    dq_walk(mk, j, kb, ke);
+    sum += ke - kb;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL_MASK, sum, o);
+  return sum;
+}
+
+int ds_tiles(const Masks& mk) {
+  int n = 0;
+  for (int qt = 0; qt < (mk.sq + WALK - 1) / WALK; ++qt) {
+    int kb, ke;
+    dq_walk(mk, qt, kb, ke);
+    n += ke - kb;
+  }
+  return n;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -162,26 +222,46 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) delta[row] = s;
 }
 
-// The plan of a build of DC and DVC chunks of 64 columns of D and Dv: the rows a block owns,
-// the ring's depth, the output chunks a consumer warpgroup keeps; then the shared memory of a
-// block, byte offsets from a 1024-byte-aligned base: the owned rows (the operand behind S in DC
-// chunks of OWN rows x 64 columns, then the one behind dP in DVC), the ring (STAGES x [the
-// walked tensor behind S in DC chunks of WALK rows, then the one behind dP in DVC]), dK/dV's
-// ring of lse and D (STAGES x 2 x WALK floats), then the barriers (own, full, empty).
+// The plan of a build of DC and DVC chunks of 64 columns of D and Dv (1 or 2 each): the rows
+// a block owns, the ring's depth; then the shared memory of a block, byte offsets from a
+// 1024-byte-aligned base: the owned rows (the operand behind S in DC chunks of OWN rows x 64
+// columns, then the one behind dP in DVC), the ring (STAGES x [the walked tensor behind S in DC
+// chunks of WALK rows, then the one behind dP in DVC]), dK/dV's ring of lse and D (STAGES x 2 x
+// WALK floats), then the barriers (own, full, empty).
 template <int DC, int DVC>
 struct Plan {
-  static constexpr bool SPLIT = DC > 2 || DVC > 2;  // head dims above 128
-  static constexpr int OWN = SPLIT ? 64 : 128;        // owned rows a block
-  static constexpr int STAGES = SPLIT ? 2 : 4;        // walk tiles in flight
-  static constexpr int KC = SPLIT ? DC / 2 : DC;      // chunks of dK or dQ a warpgroup keeps
-  static constexpr int VC = SPLIT ? DVC / 2 : DVC;    // chunks of dV a warpgroup keeps
-  static_assert(!SPLIT || (DC % 2 == 0 && DVC % 2 == 0), "split builds halve the chunks");
-  static constexpr uint32_t OWN_CHUNK = OWN * ROW_BYTES;  // 16 KB, 8 KB split
+  static constexpr int OWN = 128;   // owned rows a block
+  static constexpr int STAGES = 4;  // walk tiles in flight
+  static constexpr uint32_t OWN_CHUNK = OWN * ROW_BYTES;  // 16 KB
   static constexpr uint32_t STAGE_BYTES = (DC + DVC) * WALK_CHUNK;
   static constexpr uint32_t own_s = 0;
   static constexpr uint32_t own_p = own_s + DC * OWN_CHUNK;
   static constexpr uint32_t ring = own_p + DVC * OWN_CHUNK;
   static constexpr uint32_t lse = ring + STAGES * STAGE_BYTES;
+  static constexpr uint32_t bars = lse + STAGES * 2 * WALK * 4;
+  static constexpr uint32_t total = bars + 8 * (1 + 2 * STAGES);
+  static_assert(1024 + total <= 232448, "shared memory of a block");
+};
+
+// The split builds' plan (DC and DVC chunks of 64 columns, 2 or 4 each, one of them 4): a block
+// owns 64 rows, which both consumer warpgroups share; each keeps KC chunks of dK or dQ and VC
+// of dV. Shared memory from a 1024-byte-aligned base: the owned rows, the ring as above, the
+// exchange (2 buffers of [P^T, dS^T], 64 x 64 bfloat16 each; dQ uses the first tile of each),
+// dK/dV's ring of lse and D, the barriers.
+template <int DC, int DVC>
+struct SplitPlan {
+  static constexpr int OWN = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int KC = DC / 2, VC = DVC / 2;
+  static_assert(DC % 2 == 0 && DVC % 2 == 0, "split builds halve the output's chunks");
+  static constexpr uint32_t OWN_CHUNK = OWN * ROW_BYTES;  // 8 KB
+  static constexpr uint32_t STAGE_BYTES = (DC + DVC) * WALK_CHUNK;
+  static constexpr uint32_t TILE = WALK * ROW_BYTES;  // 8 KB: a 64 x 64 exchange tile
+  static constexpr uint32_t own_s = 0;
+  static constexpr uint32_t own_p = own_s + DC * OWN_CHUNK;
+  static constexpr uint32_t ring = own_p + DVC * OWN_CHUNK;
+  static constexpr uint32_t xch = ring + STAGES * STAGE_BYTES;
+  static constexpr uint32_t lse = xch + 2 * 2 * TILE;
   static constexpr uint32_t bars = lse + STAGES * 2 * WALK * 4;
   static constexpr uint32_t total = bars + 8 * (1 + 2 * STAGES);
   static_assert(1024 + total <= 232448, "shared memory of a block");
@@ -207,16 +287,16 @@ __device__ __forceinline__ void init_barriers(uint32_t bars, uint32_t full_count
 }
 
 // The producer's loads of the owned rows: rows [row0, row0 + OWN) of two (B*H, n, cols)
-// tensors (dcl and dvcl live chunks of 64 columns) at head bh, in boxes of BOX rows; boxes
-// wholly past n are not loaded (their warpgroup has no live row and never reads them).
-template <int DC, int DVC>
+// tensors (dcl and dvcl live chunks of 64 columns, OWN rows apart) at head bh, in boxes of BOX
+// rows; boxes wholly past n are not loaded (their warpgroup has no live row and never reads
+// them).
+template <int OWN>
 __device__ __forceinline__ void load_owned(uint32_t dst_s, uint32_t dst_p,
                                            const CUtensorMap* map_s, const CUtensorMap* map_p,
                                            uint32_t bar, int row0, int n, int bh, int dcl,
                                            int dvcl) {
-  using P = Plan<DC, DVC>;
-  constexpr uint32_t chunk = P::OWN_CHUNK;
-  const int halves = P::OWN > BOX && row0 + BOX < n ? 2 : 1;
+  constexpr uint32_t chunk = OWN * ROW_BYTES;
+  const int halves = OWN > BOX && row0 + BOX < n ? 2 : 1;
   mbar_expect_tx(bar, halves * (dcl + dvcl) * BOX_BYTES);
   for (int h = 0; h < halves; ++h) {
     for (int c = 0; c < dcl; ++c)
@@ -237,7 +317,7 @@ __device__ __forceinline__ int live_chunks(int nc, int d) {
 // Runs before the barriers' __syncthreads().
 template <int DC, int DVC>
 __device__ __forceinline__ void zero_dead_chunks(uint8_t* base, int dcl, int dvcl) {
-  using P = Plan<DC, DVC>;
+  using P = SplitPlan<DC, DVC>;
   auto zero = [&](uint32_t off, uint32_t bytes) {
     for (uint32_t i = threadIdx.x * 16u; i < bytes; i += THREADS * 16u)
       *reinterpret_cast<uint4*>(base + off + i) = make_uint4(0u, 0u, 0u, 0u);
@@ -297,14 +377,74 @@ __device__ __forceinline__ void store_acc(bf16* dst, const float (&acc)[NC][32],
   }
 }
 
+// Split builds. c (64 x 32) = A B^T over the head dim: A the 64 owned rows, B 32 rows of a walk
+// tile (a consumer warpgroup's half), both K-major in NC chunks of 64 columns (a_chunk and
+// WALK_CHUNK bytes apart): every k-step run, as product_s.
+template <int NC>
+__device__ __forceinline__ void product_half(float (&c)[16], uint32_t a, uint32_t a_chunk,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < NC * 4; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_bf16_ss_n32(c, kmajor_bf16_desc(a + (kk >> 2) * a_chunk + col),
+                      kmajor_bf16_desc(b + (kk >> 2) * WALK_CHUNK + col), kk != 0);
+  }
+}
+
+// Split builds. acc (64 x 64 columns, one chunk of the head dim) += X B over the walk tile: X an
+// exchange tile (64 x 64, K-major), B the walk tile's chunk read MN-major.
+__device__ __forceinline__ void product_walk_ss(float (&acc)[32], uint32_t x, uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < WALK / 16; ++j)
+    wgmma_bf16_ss_mn(acc, kmajor_bf16_desc(x + j * 32),
+                     mnmajor_bf16_desc(b + j * KSTEP_ROWS_BYTES));
+}
+
+// A warpgroup's m64n32 accumulator x (this thread's rows 16 warp + g and + 8, columns c0 +
+// 8 nt + 2 qd and + 1 of a 64 x 64 tile) as bfloat16 into the exchange tile at `tile`, in the
+// layout TMA gives a box (row r's 16-byte unit u at u ^ (r & 7)): what a K-major descriptor
+// reads. Rows hold 128 bytes, so a warp's stores fall on 32 different banks.
+__device__ __forceinline__ void store_half(uint8_t* tile, const float (&x)[16], int warp, int g,
+                                           int qd, int c0) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int unit = ((c0 >> 3) + nt) ^ g;  // both rows are g mod 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + (16 * warp + g + 8 * h) * ROW_BYTES + unit * 16 +
+                                   4 * qd) = pack_bf16(x[4 * nt + 2 * h], x[4 * nt + 2 * h + 1]);
+  }
+}
+
+// Rows r0 and r1 (< n) of a warpgroup accumulator (NC chunks of 64 columns from chunk c0) in
+// float32 into a row-major (n, cols) matrix: columns below cols.
+template <int NC>
+__device__ __forceinline__ void store_partial(float* dst, const float (&acc)[NC][32], int r0,
+                                              int r1, int n, int cols, int qd, int c0) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; ++nt) {
+      const int col = (c0 + c) * COLS + 8 * nt + 2 * qd;
+      if (col >= cols) continue;
+      if (r0 < n)
+        *reinterpret_cast<float2*>(dst + (size_t)r0 * cols + col) =
+            make_float2(acc[c][4 * nt], acc[c][4 * nt + 1]);
+      if (r1 < n)
+        *reinterpret_cast<float2*>(dst + (size_t)r1 * cols + col) =
+            make_float2(acc[c][4 * nt + 2], acc[c][4 * nt + 3]);
+    }
+  }
+}
+
 // P^T of a dK/dV walk tile in place of S^T (this thread's keys key0 and key1 by the tile's
-// rows i0 + column): exp2(S^T scale log2(e) - lse log2(e)), lt the tile's lse log2(e); with
-// MASKED (a tile an edge cuts) zero where the masks hide the pair.
-template <bool MASKED>
-__device__ __forceinline__ void probs_kv(float (&st)[32], const float* lt, float scale_log2,
+// rows i0 + column; N / 4 columns, 64 or 32): exp2(S^T scale log2(e) - lse log2(e)), lt the
+// rows' lse log2(e); with MASKED (a tile an edge cuts) zero where the masks hide the pair.
+template <bool MASKED, int N>
+__device__ __forceinline__ void probs_kv(float (&st)[N], const float* lt, float scale_log2,
                                          const Masks& mk, int i0, int key0, int key1, int qd) {
 #pragma unroll
-  for (int nt = 0; nt < WALK / 8; ++nt) {
+  for (int nt = 0; nt < N / 4; ++nt) {
     const float2 l = *reinterpret_cast<const float2*>(lt + 8 * nt + 2 * qd);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -316,14 +456,14 @@ __device__ __forceinline__ void probs_kv(float (&st)[32], const float* lt, float
 }
 
 // P of a dQ walk tile in place of S (this thread's rows row0 and row1, their lse log2(e)
-// lse0 and lse1, by the tile's keys kt + column); with MASKED zero where the masks hide the
-// pair.
-template <bool MASKED>
-__device__ __forceinline__ void probs_q(float (&sc)[32], float lse0, float lse1,
+// lse0 and lse1, by the tile's keys kt + column; N / 4 columns); with MASKED zero where the
+// masks hide the pair.
+template <bool MASKED, int N>
+__device__ __forceinline__ void probs_q(float (&sc)[N], float lse0, float lse1,
                                         float scale_log2, const Masks& mk, int kt, int row0,
                                         int row1, int qd) {
 #pragma unroll
-  for (int nt = 0; nt < WALK / 8; ++nt) {
+  for (int nt = 0; nt < N / 4; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = exp2f(sc[4 * nt + e] * scale_log2 - (e < 2 ? lse0 : lse1));
@@ -354,9 +494,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
   auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
   auto stage = [&](int s) { return s0 + L::ring + s * L::STAGE_BYTES; };
-  // chunks the producer loads: all of them below 128 columns, where none lies wholly past D
-  const int dcl = L::SPLIT ? live_chunks(DC, d) : DC;
-  const int dvcl = L::SPLIT ? live_chunks(DVC, dv) : DVC;
 
   // Blocks in the order of their key tiles across every (KV head, batch): the longest causal
   // walks, the first key tiles', start first on the card.
@@ -371,7 +508,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int per_head = i_end > i_begin ? (i_end + WALK - 1) / WALK - t_begin : 0;
   const int n_tiles = grp * per_head;  // the group's heads in order, each its tiles in order
 
-  if constexpr (L::SPLIT) zero_dead_chunks<DC, DVC>(base, dcl, dvcl);
   init_barriers<STAGES>(s0 + L::bars, 32);  // full: the producer warp's lanes, one with TMA bytes
 
   if (threadIdx.x < 128) {
@@ -380,8 +516,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0)
-        load_owned<DC, DVC>(s0 + L::own_s, s0 + L::own_p, &k_map, &v_map, own_full, k0, sk,
-                            b * hkv + hk, dcl, dvcl);
+        load_owned<OWN>(s0 + L::own_s, s0 + L::own_p, &k_map, &v_map, own_full, k0, sk,
+                        b * hkv + hk, DC, DVC);
       int hh = 0, t = t_begin;  // the walk tile's query head in the group, and its tile
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES, i0 = t * WALK;
@@ -393,10 +529,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           lse_ring[(2 * s + 1) * WALK + r] = i < sq ? delta[(size_t)head * sq + i] : 0.f;
         }
         if (lane == 0) {
-          mbar_expect_tx(full(s), (dcl + dvcl) * WALK_CHUNK);
-          for (int c = 0; c < dcl; ++c)
+          mbar_expect_tx(full(s), (DC + DVC) * WALK_CHUNK);
+          for (int c = 0; c < DC; ++c)
             tma_load(stage(s) + c * WALK_CHUNK, &q_map, full(s), c * COLS, i0, head);
-          for (int c = 0; c < dvcl; ++c)
+          for (int c = 0; c < DVC; ++c)
             tma_load(stage(s) + (DC + c) * WALK_CHUNK, &o_map, full(s), c * COLS, i0, head);
         } else {
           mbar_arrive(full(s));
@@ -410,22 +546,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     return;
   }
 
-  // ---- consumer warpgroups: 64 keys each (split: the same 64, half the columns each) ----
+  // ---- consumer warpgroups: 64 keys each ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
   const int lane = tid % 32, g = lane / 4, qd = lane % 4;
-  const int own0 = L::SPLIT ? 0 : 64 * wgi;  // the warpgroup's first row in the block
-  const int kc0 = L::SPLIT ? wgi * L::KC : 0, vc0 = L::SPLIT ? wgi * L::VC : 0;  // its chunks
+  const int own0 = 64 * wgi;  // the warpgroup's first row in the block
   const int key0 = k0 + own0 + 16 * (tid / 32) + g, key1 = key0 + 8;
   const int kw_lo = k0 + own0, kw_hi = imin(kw_lo + 63, sk - 1);  // the warpgroup's keys
-  const uint32_t a_k = s0 + L::own_s + (L::SPLIT ? 0 : wgi * BOX_BYTES);
-  const uint32_t a_v = s0 + L::own_p + (L::SPLIT ? 0 : wgi * BOX_BYTES);
+  const uint32_t a_k = s0 + L::own_s + wgi * BOX_BYTES;
+  const uint32_t a_v = s0 + L::own_p + wgi * BOX_BYTES;
   const float scale_log2 = scale * LOG2E;
-  float dka[L::KC][32], dva[L::VC][32];
+  float dka[DC][32], dva[DVC][32];
 #pragma unroll
-  for (int c = 0; c < L::KC; ++c) zero(dka[c]);
+  for (int c = 0; c < DC; ++c) zero(dka[c]);
 #pragma unroll
-  for (int c = 0; c < L::VC; ++c) zero(dva[c]);
+  for (int c = 0; c < DVC; ++c) zero(dva[c]);
   mbar_wait(own_full, 0);
 
   int t = t_begin;  // the walk tile's index in its query head's walk
@@ -461,11 +596,10 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 4; ++r) pf[j][r] = pack_bf16(st[8 * j + 2 * r], st[8 * j + 2 * r + 1]);
       }
 #pragma unroll
-      for (int c = 0; c < L::VC; ++c) pin(dva[c]);
+      for (int c = 0; c < DVC; ++c) pin(dva[c]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < L::VC; ++c)
-        product_walk(dva[c], pf, ot + (vc0 + c) * WALK_CHUNK);  // dV += P^T dO
+      for (int c = 0; c < DVC; ++c) product_walk(dva[c], pf, ot + c * WALK_CHUNK);  // dV += P^T dO
       wgmma_commit();
       wgmma_wait_pending<1>();  // dP^T (P^T dO may still run)
       pin(dpt);
@@ -483,17 +617,16 @@ __global__ void __launch_bounds__(THREADS, 1)
           sf[j][r] = pack_bf16(dpt[8 * j + 2 * r], dpt[8 * j + 2 * r + 1]);
       }
 #pragma unroll
-      for (int c = 0; c < L::KC; ++c) pin(dka[c]);
+      for (int c = 0; c < DC; ++c) pin(dka[c]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < L::KC; ++c)
-        product_walk(dka[c], sf, qt + (kc0 + c) * WALK_CHUNK);  // dK += dS^T Q
+      for (int c = 0; c < DC; ++c) product_walk(dka[c], sf, qt + c * WALK_CHUNK);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait_pending<0>();
 #pragma unroll
-      for (int c = 0; c < L::KC; ++c) pin(dka[c]);
+      for (int c = 0; c < DC; ++c) pin(dka[c]);
 #pragma unroll
-      for (int c = 0; c < L::VC; ++c) pin(dva[c]);
+      for (int c = 0; c < DVC; ++c) pin(dva[c]);
 #pragma unroll
       for (int j = 0; j < WALK / 16; ++j) {
         pin(pf[j]);
@@ -504,8 +637,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     t = t + 1 == t_begin + per_head ? t_begin : t + 1;
   }
   const size_t kv_head = (size_t)b * hkv + hk;
-  store_acc<L::KC>(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd, kc0);
-  store_acc<L::VC>(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd, vc0);
+  store_acc<DC>(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd, 0);
+  store_acc<DVC>(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd, 0);
 }
 
 // dQ of OWN query rows of one head.
@@ -522,9 +655,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int OWN = L::OWN, STAGES = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = aligned_base(smem_raw);
-  // chunks the producer loads: all of them below 128 columns, where none lies wholly past D
-  const int dcl = L::SPLIT ? live_chunks(DC, d) : DC;
-  const int dvcl = L::SPLIT ? live_chunks(DVC, dv) : DVC;
   const uint32_t own_full = s0 + L::bars;
   auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
   auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
@@ -540,38 +670,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int k_begin = (mk.window > 0 ? imax(0, q0 + off - mk.window + 1) : 0) / WALK * WALK;
   const int n_tiles = imax(0, (k_end - k_begin + WALK - 1) / WALK);
 
-  if constexpr (L::SPLIT) {
-    zero_dead_chunks<DC, DVC>(smem_raw + (s0 - smem_u32(smem_raw)), dcl, dvcl);
-  }
   init_barriers<STAGES>(s0 + L::bars, 1);
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread loads the owned rows, then the walk ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == 0) {
-      load_owned<DC, DVC>(s0 + L::own_s, s0 + L::own_p, &q_map, &o_map, own_full, q0, sq,
-                          b * hq + h, dcl, dvcl);
+      load_owned<OWN>(s0 + L::own_s, s0 + L::own_p, &q_map, &o_map, own_full, q0, sq,
+                      b * hq + h, DC, DVC);
       const int kv_bh = b * hkv + hk;
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % STAGES, kt = k_begin + it * WALK;
         if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
-        mbar_expect_tx(full(s), (dcl + dvcl) * WALK_CHUNK);
-        for (int c = 0; c < dcl; ++c)
+        mbar_expect_tx(full(s), (DC + DVC) * WALK_CHUNK);
+        for (int c = 0; c < DC; ++c)
           tma_load(stage(s) + c * WALK_CHUNK, &k_map, full(s), c * COLS, kt, kv_bh);
-        for (int c = 0; c < dvcl; ++c)
+        for (int c = 0; c < DVC; ++c)
           tma_load(stage(s) + (DC + c) * WALK_CHUNK, &v_map, full(s), c * COLS, kt, kv_bh);
       }
     }
     return;
   }
 
-  // ---- consumer warpgroups: 64 query rows each (split: the same 64, half the columns) ----
+  // ---- consumer warpgroups: 64 query rows each ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
   const int lane = tid % 32, g = lane / 4, qd = lane % 4;
   const size_t head = (size_t)b * hq + h;
-  const int kc0 = L::SPLIT ? wgi * L::KC : 0;  // the warpgroup's chunks of dQ
-  const int r_lo = q0 + (L::SPLIT ? 0 : 64 * wgi);  // the warpgroup's rows, for the tile tests
+  const int r_lo = q0 + 64 * wgi;  // the warpgroup's rows, for the tile tests
   const int row0 = r_lo + 16 * (tid / 32) + g, row1 = row0 + 8;
   const bool rows_live = r_lo < sq;
   const int qpos_lo = r_lo + off, qpos_hi = imin(r_lo + 64, sq) - 1 + off;
@@ -579,12 +705,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float lse1 = row1 < sq ? lse[head * sq + row1] * LOG2E : 0.f;
   const float dl0 = row0 < sq ? delta[head * sq + row0] : 0.f;
   const float dl1 = row1 < sq ? delta[head * sq + row1] : 0.f;
-  const uint32_t a_q = s0 + L::own_s + (L::SPLIT ? 0 : wgi * BOX_BYTES);
-  const uint32_t a_o = s0 + L::own_p + (L::SPLIT ? 0 : wgi * BOX_BYTES);
+  const uint32_t a_q = s0 + L::own_s + wgi * BOX_BYTES;
+  const uint32_t a_o = s0 + L::own_p + wgi * BOX_BYTES;
   const float scale_log2 = scale * LOG2E;
-  float dqa[L::KC][32];
+  float dqa[DC][32];
 #pragma unroll
-  for (int c = 0; c < L::KC; ++c) zero(dqa[c]);
+  for (int c = 0; c < DC; ++c) zero(dqa[c]);
   mbar_wait(own_full, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -619,21 +745,352 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int r = 0; r < 4; ++r) sf[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
       }
 #pragma unroll
-      for (int c = 0; c < L::KC; ++c) pin(dqa[c]);
+      for (int c = 0; c < DC; ++c) pin(dqa[c]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < L::KC; ++c)
-        product_walk(dqa[c], sf, kt_s + (kc0 + c) * WALK_CHUNK);  // dQ += dS K
+      for (int c = 0; c < DC; ++c) product_walk(dqa[c], sf, kt_s + c * WALK_CHUNK);  // dQ += dS K
       wgmma_commit();
       wgmma_wait_pending<0>();
 #pragma unroll
-      for (int c = 0; c < L::KC; ++c) pin(dqa[c]);
+      for (int c = 0; c < DC; ++c) pin(dqa[c]);
 #pragma unroll
       for (int j = 0; j < WALK / 16; ++j) pin(sf[j]);
     }
     mbar_arrive(empty(s));  // this thread is done with stage s
   }
-  store_acc<L::KC>(dq + head * sq * d, dqa, row0, row1, sq, d, scale, qd, kc0);
+  store_acc<DC>(dq + head * sq * d, dqa, row0, row1, sq, d, scale, qd, 0);
+}
+
+// Split builds: dK and dV of 64 keys of one KV head over one part of their walk (the part's
+// span of the group's (query head, query tile) pairs, heads in order, each its tiles in order).
+// With one part it writes dK and dV; with more, its float32 partial into `partial`: (B*Hkv,
+// parts, Sk, D) for dK, then (B*Hkv, parts, Sk, Dv) for dV. Each walk tile's dS^T (64 keys by
+// 64 query rows, bfloat16, as it enters dK) goes to the dS scratch through ds_map, for dQ.
+template <int DC, int DVC>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_bf16_dkdv_split_kernel(const __grid_constant__ CUtensorMap q_map,
+                                     const __grid_constant__ CUtensorMap o_map,
+                                     const __grid_constant__ CUtensorMap k_map,
+                                     const __grid_constant__ CUtensorMap v_map,
+                                     const __grid_constant__ CUtensorMap ds_map,
+                                     const float* __restrict__ lse, const float* __restrict__ delta,
+                                     bf16* __restrict__ dk, bf16* __restrict__ dv_out,
+                                     float* __restrict__ partial, int parts, int head_tiles,
+                                     int batch, int hq, int hkv, int d, int dv, Masks mk,
+                                     float scale) {
+  using L = SplitPlan<DC, DVC>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = aligned_base(smem_raw);
+  uint8_t* base = smem_raw + (s0 - smem_u32(smem_raw));
+  float* lse_ring = reinterpret_cast<float*>(base + L::lse);
+  const uint32_t own_full = s0 + L::bars;
+  auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
+  auto stage = [&](int s) { return s0 + L::ring + s * L::STAGE_BYTES; };
+  const int dcl = live_chunks(DC, d), dvcl = live_chunks(DVC, dv);  // chunks the producer loads
+
+  // Blocks in the order of their key tiles, each tile's parts, then (KV head, batch): the
+  // longest causal walks, the first key tiles', start first on the card.
+  const int heads = hkv * batch, per_tile = parts * heads;
+  const int part = blockIdx.x % per_tile / heads, hk = blockIdx.x % heads % hkv;
+  const int b = blockIdx.x % heads / hkv, grp = hq / hkv;
+  const int sq = mk.sq, sk = mk.sk, k0 = (blockIdx.x / per_tile) * WALK, off = sk - sq;
+  // The query rows that some key of this block is visible to, as tiles [t_begin, ...).
+  const int k_last = imin(k0 + WALK, sk) - 1;
+  const int i_begin = mk.causal ? imax(0, k0 - off) : 0;
+  const int i_end = mk.window > 0 ? imin(sq, k_last + mk.window - off) : sq;
+  const int t_begin = i_begin / WALK;
+  const int per_head = i_end > i_begin ? (i_end + WALK - 1) / WALK - t_begin : 0;
+  // This part's span [it0, it0 + n_tiles) of the walk over the group's heads, each its tiles.
+  const int walk = grp * per_head;
+  const int it0 = (int)((long long)walk * part / parts);
+  const int n_tiles = (int)((long long)walk * (part + 1) / parts) - it0;
+  const int hh0 = per_head > 0 ? it0 / per_head : 0;
+  const int t0 = t_begin + (per_head > 0 ? it0 % per_head : 0);
+
+  zero_dead_chunks<DC, DVC>(base, dcl, dvcl);
+  init_barriers<STAGES>(s0 + L::bars, 32);  // full: the producer warp's lanes, one with TMA bytes
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: its first warp loads the owned rows, then the walk ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0)
+        load_owned<L::OWN>(s0 + L::own_s, s0 + L::own_p, &k_map, &v_map, own_full, k0, sk,
+                           b * hkv + hk, dcl, dvcl);
+      int hh = hh0, t = t0;  // the walk tile's query head in the group, and its tile
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % STAGES, i0 = t * WALK;
+        if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+        const int head = b * hq + hk * grp + hh;
+        for (int r = lane; r < WALK; r += 32) {
+          const int i = i0 + r;
+          lse_ring[(2 * s) * WALK + r] = i < sq ? lse[(size_t)head * sq + i] * LOG2E : 0.f;
+          lse_ring[(2 * s + 1) * WALK + r] = i < sq ? delta[(size_t)head * sq + i] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), (dcl + dvcl) * WALK_CHUNK);
+          for (int c = 0; c < dcl; ++c)
+            tma_load(stage(s) + c * WALK_CHUNK, &q_map, full(s), c * COLS, i0, head);
+          for (int c = 0; c < dvcl; ++c)
+            tma_load(stage(s) + (DC + c) * WALK_CHUNK, &o_map, full(s), c * COLS, i0, head);
+        } else {
+          mbar_arrive(full(s));
+        }
+        if (++t == t_begin + per_head) {
+          t = t_begin;
+          ++hh;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: the block's 64 keys; 32 rows of each walk tile apiece for S^T
+  // and dP^T, half of the output's column chunks apiece for dV and dK ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const int r_lo = 32 * wgi;                                 // its rows of each walk tile
+  const int kc0 = wgi * L::KC, vc0 = wgi * L::VC;            // its chunks of dK and dV
+  const int key0 = k0 + 16 * warp + g, key1 = key0 + 8;
+  const uint32_t a_k = s0 + L::own_s, a_v = s0 + L::own_p;
+  const float scale_log2 = scale * LOG2E;
+  float dka[L::KC][32], dva[L::VC][32];
+#pragma unroll
+  for (int c = 0; c < L::KC; ++c) zero(dka[c]);
+#pragma unroll
+  for (int c = 0; c < L::VC; ++c) zero(dva[c]);
+  mbar_wait(own_full, 0);
+
+  // the thread that stores dS^T tiles: the first of the first consumer warpgroup; its slots
+  // in the dS scratch: query tile t's first among its head's, from the head's first tile's
+  const bool storer = wgi == 0 && tid == 0;
+  const int kt_idx = k0 / WALK, begin_slot = ds_offset(mk, t_begin, lane);
+  int hh = hh0, t = t0, t_slot = ds_offset(mk, t0, lane);  // t: the walk tile's query tile
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % STAGES, i0 = t * WALK + r_lo;  // the warpgroup's first row
+    const int qpos_lo = i0 + off, qpos_hi = imin(i0 + 32, sq) - 1 + off;
+    // a warpgroup whose rows see every key of the block masks nothing
+    const bool edge = i0 + 32 > sq || k0 + WALK > sk || (mk.causal && k0 + WALK - 1 > qpos_lo) ||
+                      (mk.window > 0 && k0 <= qpos_hi - mk.window);
+    const uint32_t qt = stage(s), ot = stage(s) + DC * WALK_CHUNK;
+    const float* lt = lse_ring + 2 * s * WALK + r_lo;  // the rows' lse * log2(e), D at + WALK
+    const uint32_t xo = L::xch + (it & 1) * 2 * L::TILE;  // this tile's P^T, then dS^T
+    float st[16], dpt[16];  // S^T and dP^T: the block's keys by the warpgroup's rows
+    mbar_wait(full(s), (it / STAGES) & 1);
+    wgmma_fence();
+    product_half<DC>(st, a_k, L::OWN_CHUNK, qt + r_lo * ROW_BYTES);
+    wgmma_commit();
+    product_half<DVC>(dpt, a_v, L::OWN_CHUNK, ot + r_lo * ROW_BYTES);
+    wgmma_commit();
+    wgmma_wait_pending<1>();  // S^T
+    pin(st);
+    if (edge)  // P^T
+      probs_kv<true>(st, lt, scale_log2, mk, i0, key0, key1, qd);
+    else
+      probs_kv<false>(st, lt, scale_log2, mk, i0, key0, key1, qd);
+    store_half(base + xo, st, warp, g, qd, r_lo);
+    wgmma_wait_pending<0>();  // dP^T
+    pin(dpt);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float2 dl = *reinterpret_cast<const float2*>(lt + WALK + 8 * nt + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * nt + e] = st[4 * nt + e] * (dpt[4 * nt + e] - ((e & 1) ? dl.y : dl.x));  // dS^T
+    }
+    store_half(base + xo + L::TILE, dpt, warp, g, qd, r_lo);
+    fence_proxy_async();
+    if (storer) bulk_wait_read<0>();  // the last tile's dS^T store has read its buffer
+    named_barrier<1, CONSUMERS>();  // both halves of P^T and dS^T are in place
+    int kb, ke;  // the key tiles of query tile t's walk in dQ
+    dq_walk(mk, t, kb, ke);
+    if (storer) {
+      const int head = b * hq + hk * grp + hh;
+      tma_store(&ds_map, s0 + xo + L::TILE, 0, 0, head * head_tiles + t_slot + kt_idx - kb);
+      bulk_commit();
+    }
+#pragma unroll
+    for (int c = 0; c < L::VC; ++c) pin(dva[c]);
+#pragma unroll
+    for (int c = 0; c < L::KC; ++c) pin(dka[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < L::VC; ++c)
+      product_walk_ss(dva[c], s0 + xo, ot + (vc0 + c) * WALK_CHUNK);  // dV += P^T dO
+#pragma unroll
+    for (int c = 0; c < L::KC; ++c)
+      product_walk_ss(dka[c], s0 + xo + L::TILE, qt + (kc0 + c) * WALK_CHUNK);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait_pending<0>();
+#pragma unroll
+    for (int c = 0; c < L::KC; ++c) pin(dka[c]);
+#pragma unroll
+    for (int c = 0; c < L::VC; ++c) pin(dva[c]);
+    mbar_arrive(empty(s));  // this thread is done with stage s
+    t_slot += ke - kb;
+    if (++t == t_begin + per_head) {
+      t = t_begin;
+      t_slot = begin_slot;
+      ++hh;
+    }
+  }
+  if (storer) bulk_wait_all();
+  const size_t kv_head = (size_t)b * hkv + hk;
+  if (parts == 1) {
+    store_acc<L::KC>(dk + kv_head * sk * d, dka, key0, key1, sk, d, scale, qd, kc0);
+    store_acc<L::VC>(dv_out + kv_head * sk * dv, dva, key0, key1, sk, dv, 1.f, qd, vc0);
+  } else {
+    const size_t slot = kv_head * parts + part;
+    float* pk = partial + slot * sk * d;
+    float* pv = partial + (size_t)batch * hkv * parts * sk * d + slot * sk * dv;
+    store_partial<L::KC>(pk, dka, key0, key1, sk, d, qd, kc0);
+    store_partial<L::VC>(pv, dva, key0, key1, sk, dv, qd, vc0);
+  }
+}
+
+// Split builds: dK and dV from the parts' float32 partials (more than one part): each element
+// the sum of its partials in part order, dK times the scale, rounded to bfloat16 once; four
+// elements a thread (D and Dv are multiples of 8).
+__global__ void __launch_bounds__(256)
+    flash_bwd_bf16_dkdv_reduce_kernel(const float* __restrict__ partial, bf16* __restrict__ dk,
+                                      bf16* __restrict__ dv_out, int kv_heads, int parts, int sk,
+                                      int d, int dv, float scale) {
+  const size_t nk = (size_t)kv_heads * sk * d, n = nk + (size_t)kv_heads * sk * dv;
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+  const bool is_k = i < nk;
+  const size_t j = is_k ? i : i - nk;                      // the element of dk or dv
+  const size_t per_head = (size_t)sk * (is_k ? d : dv);    // a part's elements a KV head
+  const float* src = partial + (is_k ? 0 : nk * parts) + (j / per_head) * parts * per_head +
+                     j % per_head;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int p = 1; p < parts; ++p) {
+    const float4 x = *reinterpret_cast<const float4*>(src + p * per_head);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  const float m = is_k ? scale : 1.f;
+  *reinterpret_cast<uint2*>((is_k ? dk : dv_out) + j) =
+      make_uint2(pack_bf16(acc.x * m, acc.y * m), pack_bf16(acc.z * m, acc.w * m));
+}
+
+// Split builds, dQ: the plan of a block. A ring of STAGES stages, each a key tile's DC chunks of K
+// and the two query tiles' dS^T tiles (8 KB each), then the barriers (full, empty).
+template <int DC>
+struct DqPlan {
+  static constexpr int STAGES = 4;
+  static constexpr uint32_t STAGE_BYTES = (DC + 2) * WALK_CHUNK;
+  static constexpr uint32_t ring = 0;
+  static constexpr uint32_t bars = ring + STAGES * STAGE_BYTES;
+  static constexpr uint32_t total = bars + 8 * 2 * STAGES;
+  static_assert(1024 + total <= 232448, "shared memory of a block");
+};
+
+// Split builds: dQ of two tiles of 64 query rows of one head, a consumer warpgroup each, from
+// the dS^T tiles the dK/dV kernel stored: dQ = scale sum over the key tiles a row sees, in
+// order, of dS K (dS read from its transpose, K MN-major). The two tiles' walks share the key
+// tiles they both see: one copy of a K tile serves both.
+template <int DC>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_bf16_dq_split_kernel(const __grid_constant__ CUtensorMap k_map,
+                                   const __grid_constant__ CUtensorMap ds_map,
+                                   bf16* __restrict__ dq, int head_tiles, int batch, int hq,
+                                   int hkv, int d, Masks mk, float scale) {
+  using L = DqPlan<DC>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s0 = aligned_base(smem_raw);
+  const int dcl = live_chunks(DC, d);  // chunks the producer loads
+  auto full = [&](int s) { return s0 + L::bars + 8u * s; };
+  auto empty = [&](int s) { return s0 + L::bars + 8u * (STAGES + s); };
+  auto stage = [&](int s) { return s0 + L::ring + s * L::STAGE_BYTES; };
+
+  // Blocks from the last pair of query tiles (the longest causal walks) to the first, each pair
+  // across every (head, batch) before the next.
+  const int sq = mk.sq, heads = hq * batch;
+  const int n_qt = (sq + WALK - 1) / WALK, pairs = (n_qt + 1) / 2;
+  const int pair = pairs - 1 - (int)blockIdx.x / heads;
+  const int h = blockIdx.x % heads % hq, b = blockIdx.x % heads / hq, hk = h / (hq / hkv);
+  const int head = b * hq + h;
+  int kb0, ke0, kb1 = 0, ke1 = 0;  // the two query tiles' walks: [kb, ke), in key tiles
+  dq_walk(mk, 2 * pair, kb0, ke0);
+  const bool two = 2 * pair + 1 < n_qt;  // the pair's second tile exists
+  if (two) dq_walk(mk, 2 * pair + 1, kb1, ke1);
+  const int k_lo = kb0, k_hi = two ? imax(ke0, ke1) : ke0;  // the union of the two walks
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: its first warp finds the two tiles' first slots in the dS
+    // scratch, then one thread loads the walk ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int slot0 = head * head_tiles + ds_offset(mk, 2 * pair, threadIdx.x);
+      const int slot1 = slot0 + ke0 - kb0;
+      if (threadIdx.x != 0) return;
+      const int kv_bh = b * hkv + hk;
+      for (int kt = k_lo; kt < k_hi; ++kt) {
+        const int it = kt - k_lo, s = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty(s), ((it / STAGES) - 1) & 1);
+        const bool in0 = kt >= kb0 && kt < ke0, in1 = two && kt >= kb1 && kt < ke1;
+        mbar_expect_tx(full(s), (dcl + in0 + in1) * WALK_CHUNK);
+        for (int c = 0; c < dcl; ++c)
+          tma_load(stage(s) + c * WALK_CHUNK, &k_map, full(s), c * COLS, kt * WALK, kv_bh);
+        if (in0)
+          tma_load(stage(s) + DC * WALK_CHUNK, &ds_map, full(s), 0, 0, slot0 + kt - kb0);
+        if (in1)
+          tma_load(stage(s) + (DC + 1) * WALK_CHUNK, &ds_map, full(s), 0, 0, slot1 + kt - kb1);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: query tile 2 pair + w each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wgi = consumer_warpgroup(), tid = threadIdx.x % 128;
+  const int lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const int kb = wgi == 0 ? kb0 : kb1, ke = wgi == 0 ? ke0 : ke1;  // its walk (none past Sq)
+  const int row0 = (2 * pair + wgi) * WALK + 16 * (tid / 32) + g, row1 = row0 + 8;
+  float dqa[DC][32];
+#pragma unroll
+  for (int c = 0; c < DC; ++c) zero(dqa[c]);
+  for (int kt = k_lo; kt < k_hi; ++kt) {
+    const int it = kt - k_lo, s = it % STAGES;
+    const uint32_t dst = stage(s) + (DC + wgi) * WALK_CHUNK;  // this tile's dS^T
+    mbar_wait(full(s), (it / STAGES) & 1);
+    if (kt >= kb && kt < ke) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pin(dqa[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+#pragma unroll
+        for (int j = 0; j < WALK / 16; ++j)  // dQ += dS K: k-steps of 16 keys
+          wgmma_bf16_ss_tt(dqa[c], mnmajor_bf16_desc(dst + j * KSTEP_ROWS_BYTES),
+                           mnmajor_bf16_desc(stage(s) + c * WALK_CHUNK + j * KSTEP_ROWS_BYTES));
+      }
+      wgmma_commit();
+      wgmma_wait_pending<0>();
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pin(dqa[c]);
+    }
+    mbar_arrive(empty(s));  // this thread is done with stage s
+  }
+  if (wgi == 0 || two)
+    store_acc<DC>(dq + (size_t)head * sq * d, dqa, row0, row1, sq, d, scale, qd, 0);
 }
 
 // A (B*H, rows, cols) bfloat16 tensor as a 3-D tensor map; boxes of (1, BOX, COLS), 128-byte
@@ -655,6 +1112,11 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int co
 template <int DC, int DVC>
 size_t shared_bytes() {
   return 1024 + Plan<DC, DVC>::total;
+}
+
+template <int DC, int DVC>
+size_t split_shared_bytes() {
+  return 1024 + SplitPlan<DC, DVC>::total;
 }
 
 template <int DC, int DVC>
@@ -681,6 +1143,41 @@ int launch(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap& km,
   return (int)cudaGetLastError();
 }
 
+// The split builds: dK/dV on (key tiles x parts x KV heads x B) blocks, which also store the dS
+// scratch; the partials' reduction when there is more than one part; then dQ on (pairs of query
+// tiles x Hq x B) blocks from the dS scratch.
+template <int DC, int DVC>
+int launch_split(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap& km,
+                 const CUtensorMap& vm, const CUtensorMap& dsm, const float* lse,
+                 const float* delta, bf16* dq, bf16* dk, bf16* dv_out, float* partial, int parts,
+                 int head_tiles, int b, int hq, int hkv, int d, int dv, const Masks& mk,
+                 float scale, cudaStream_t stream) {
+  const size_t kv_smem = split_shared_bytes<DC, DVC>(), q_smem = 1024 + DqPlan<DC>::total;
+  auto kv_kernel = flash_bwd_bf16_dkdv_split_kernel<DC, DVC>;
+  auto q_kernel = flash_bwd_bf16_dq_split_kernel<DC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
+  if (err != cudaSuccess) return (int)err;
+  kv_kernel<<<(mk.sk + WALK - 1) / WALK * parts * hkv * b, THREADS, kv_smem, stream>>>(
+      qm, om, km, vm, dsm, lse, delta, dk, dv_out, partial, parts, head_tiles, b, hq, hkv, d, dv,
+      mk, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (parts > 1) {
+    const size_t quads = (size_t)b * hkv * mk.sk * (d + dv) / 4;
+    flash_bwd_bf16_dkdv_reduce_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
+        partial, dk, dv_out, b * hkv, parts, mk.sk, d, dv, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int pairs = ((mk.sq + WALK - 1) / WALK + 1) / 2;
+  q_kernel<<<pairs * hq * b, THREADS, q_smem, stream>>>(km, dsm, dq, head_tiles, b, hq, hkv, d,
+                                                        mk, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -689,22 +1186,33 @@ extern "C" {
 // contiguous, 16-byte aligned (cudaErrorMisalignedAddress otherwise: TMA's base addresses),
 // D and Dv multiples of 8 up to 256 (TMA's 16-byte row strides); lse (B,Hq,Sq) float32.
 // Writes delta (B,Hq,Sq) float32 (scratch: D = rowsum(dO o O)), dq, dk, dv in bfloat16 (shaped
-// as q, k, v), every element. window <= 0 means no window. The caller has checked
-// Hq % Hkv == 0, B, Sq, Sk >= 1, causal/window only with Sq <= Sk, and the grid limits. Returns
-// the cudaError_t of the launches (0 on success). Does not synchronise.
+// as q, k, v), every element. window <= 0 means no window. `parts`: the pieces of each key
+// tile's walk in the split builds (head dims above 128; 1 below), at most MAX_PARTS; with more
+// than one, `partial` is a float32 scratch of B * Hkv * parts * Sk * (D + Dv) elements (16-byte
+// aligned). The split builds also take `ds`, a bfloat16 scratch of B * Hq * head_tiles tiles of
+// 64 x 64 (16-byte aligned), head_tiles the key tiles all query tiles of a head see, their walks
+// in tiles of 64 (kernels/flash_attention.py bwd_ds_offsets; a different count is refused); the
+// others pass null and 0. The caller has checked Hq % Hkv == 0, B, Sq, Sk >= 1,
+// causal/window only with Sq <= Sk, and the grid limits. Returns the cudaError_t of the
+// launches (0 on success). Does not synchronise.
 int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                                    const void* lse, const void* dout, void* delta, void* dq,
-                                   void* dk, void* dv_out, int b, int hq, int hkv, int sq, int sk,
-                                   int d, int dv, int causal, int window, float scale,
-                                   void* stream) {
+                                   void* dk, void* dv_out, void* partial, void* ds, int b, int hq,
+                                   int hkv, int sq, int sk, int d, int dv, int causal, int window,
+                                   float scale, int parts, int head_tiles, void* stream) {
+  const bool split = d > 128 || dv > 128;
+  const Masks mk{sq, sk, causal, window > 0 ? window : 0};
   if (d < 8 || d > MAX_D || dv < 8 || dv > MAX_D || d % 8 != 0 || dv % 8 != 0 || hkv < 1 ||
-      hq % hkv != 0 || b < 1 || sq < 1 || sk < 1)
+      hq % hkv != 0 || b < 1 || sq < 1 || sk < 1 || parts < 1 || parts > MAX_PARTS ||
+      (!split && parts != 1) || (parts > 1 && partial == nullptr) ||
+      (split && (ds == nullptr || head_tiles != ds_tiles(mk))))
     return (int)cudaErrorInvalidValue;
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
                         reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                         reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv_out);
-  if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const uintptr_t scratch = reinterpret_cast<uintptr_t>(partial) | reinterpret_cast<uintptr_t>(ds);
+  if (any % 16 != 0 || scratch % 16 != 0) return (int)cudaErrorMisalignedAddress;
   CUtensorMap qm, om, km, vm;
   cudaError_t err = make_map(&qm, q, b * hq, sq, d);
   if (err == cudaSuccess) err = make_map(&om, dout, b * hq, sq, dv);
@@ -720,27 +1228,33 @@ int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, 
       static_cast<const bf16*>(o), bo, fd, rows, dv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const Masks mk{sq, sk, causal, window > 0 ? window : 0};
   bf16* gq = static_cast<bf16*>(dq);
   bf16* gk = static_cast<bf16*>(dk);
   bf16* gv = static_cast<bf16*>(dv_out);
 #define REPRO_LAUNCH(DC, DVC) \
   launch<DC, DVC>(qm, om, km, vm, fl, fd, gq, gk, gv, b, hq, hkv, d, dv, mk, scale, s)
-  if (d > 128 || dv > 128) {  // the split builds: 2 or 4 chunks of each
-    if (d > 128) return dv > 128 ? REPRO_LAUNCH(4, 4) : REPRO_LAUNCH(4, 2);
-    return REPRO_LAUNCH(2, 4);
+#define REPRO_SPLIT(DC, DVC)                                                                 \
+  launch_split<DC, DVC>(qm, om, km, vm, dsm, fl, fd, gq, gk, gv, static_cast<float*>(partial), \
+                        parts, head_tiles, b, hq, hkv, d, dv, mk, scale, s)
+  if (split) {  // the split builds: 2 or 4 chunks of each
+    CUtensorMap dsm;  // the dS scratch as (tiles, 64, 64)
+    err = make_map(&dsm, ds, b * hq * head_tiles, WALK, WALK);
+    if (err != cudaSuccess) return (int)err;
+    if (d > 128) return dv > 128 ? REPRO_SPLIT(4, 4) : REPRO_SPLIT(4, 2);
+    return REPRO_SPLIT(2, 4);
   }
   if (d <= 64) return dv <= 64 ? REPRO_LAUNCH(1, 1) : REPRO_LAUNCH(1, 2);
   return dv <= 64 ? REPRO_LAUNCH(2, 1) : REPRO_LAUNCH(2, 2);
 #undef REPRO_LAUNCH
+#undef REPRO_SPLIT
 }
 
-// Dynamic shared memory a block of the dK/dV or dQ kernel asks for (the two are equal) at
-// head dims D and Dv.
+// Dynamic shared memory a block of the dK/dV or dQ kernel asks for at head dims D and Dv (the two
+// are equal up to 128; in the split builds, dK/dV's, the larger).
 int repro_flash_attention_bwd_bf16_shared_bytes(int d, int dv) {
   if (d > 128 || dv > 128) {
-    if (d > 128) return (int)(dv > 128 ? shared_bytes<4, 4>() : shared_bytes<4, 2>());
-    return (int)shared_bytes<2, 4>();
+    if (d > 128) return (int)(dv > 128 ? split_shared_bytes<4, 4>() : split_shared_bytes<4, 2>());
+    return (int)split_shared_bytes<2, 4>();
   }
   if (d <= 64) return (int)(dv <= 64 ? shared_bytes<1, 1>() : shared_bytes<1, 2>());
   return (int)(dv <= 64 ? shared_bytes<2, 1>() : shared_bytes<2, 2>());

@@ -26,8 +26,13 @@ on ``wgmma`` fed by a TMA ring, every other one on ``mma.sync``. bfloat16
 runs its own kernels, also ``wgmma`` fed by a TMA ring and warp-specialised,
 bfloat16 operands with float32 sums, P and dS rounded to bfloat16 only where
 they enter a product, dq, dk and dv returned in bfloat16 (:func:`bwd_path`
-names the kernels from the dtype and head dims). :class:`FlashAttentionFunction`
-joins forward and backward under autograd in either dtype.
+names the kernels from the dtype and head dims). Above head dim 128 the bfloat16
+backward runs "split" builds: each key tile's dK/dV walk is cut into parts on
+blocks of their own, summed in order by a fourth launch, and dQ is summed from
+the dS tiles the dK/dV kernel stores; :func:`bwd_split_plan` chooses the number
+of parts from the shapes and masks alone, never from B or the card.
+:class:`FlashAttentionFunction` joins forward and backward under autograd in
+either dtype.
 
 On a CUDA tensor each wrapper launches its kernels or raises. On a CPU
 tensor it runs the plain version (:func:`repro_torch.kernels.ref.
@@ -40,7 +45,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import heapq
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -52,6 +58,12 @@ __all__ = [
     "flash_attention_bwd",
     "FlashAttentionFunction",
     "f32_plan",
+    "bwd_split_plan",
+    "bwd_split_longest",
+    "bwd_split_walks",
+    "bwd_split_spans",
+    "bwd_dq_walks",
+    "bwd_ds_offsets",
     "MAX_HEAD_DIM",
     "MAX_BWD_HEAD_DIM",
     "MAX_BWD_BF16_HEAD_DIM",
@@ -81,6 +93,15 @@ BWD_WGMMA_MAX_HEAD_DIM = 64  # its tiles' head-dim columns
 #: rows of a walk tile: query rows (dK/dV) or keys (dQ), on both paths; each is summed
 #: from zero in the tensor cores before a float32 add into the walk's total
 BWD_WALK = 32
+
+# The bfloat16 backward's split builds (head dims above 128; ``SplitPlan`` in
+# csrc/flash_attention_bwd_bf16.cu).
+#: rows a block of the split builds owns, and rows of a walk tile (WALK there)
+BWD_SPLIT_TILE = 64
+BWD_SPLIT_MAX_PARTS = 8  # parts of a key tile's dK/dV walk, at most (MAX_PARTS there)
+#: the SMs the dK/dV grid is planned for, an H100's: a constant, never read from the card,
+#: so that the plan, and with it each gradient's order of summation, is the same on any
+BWD_SPLIT_SMS = 132
 
 
 def bwd_path(d: int, dv: int, dtype: torch.dtype = torch.float32) -> str:
@@ -132,6 +153,84 @@ def f32_plan(
         pieces = min(F32_MAX_PIECES, -(-F32_SPLIT_TARGET // len(tiles)))
         split = max(F32_MIN_PIECE_TILES, -(-longest // pieces))
     return split, sum(-(-n // split) for n in tiles)
+
+
+def bwd_split_walks(
+    sq: int, sk: int, causal: bool, window: Optional[int]
+) -> Sequence[Tuple[int, int]]:
+    """(first query tile, query tiles a head) of each tile of 64 keys: the query tiles
+    that some key of it is visible to, which the split builds' dK/dV kernel walks for
+    each query head of the group in turn."""
+    t, off, walks = BWD_SPLIT_TILE, sk - sq, []
+    for k0 in range(0, sk, t):
+        k_last = min(k0 + t, sk) - 1
+        i_begin = max(0, k0 - off) if causal else 0
+        i_end = min(sq, k_last + window - off) if window else sq
+        t_begin = i_begin // t
+        walks.append((t_begin, -(-i_end // t) - t_begin if i_end > i_begin else 0))
+    return walks
+
+
+def bwd_dq_walks(
+    sq: int, sk: int, causal: bool, window: Optional[int]
+) -> Sequence[Tuple[int, int]]:
+    """[first, end) key tiles of each tile of 64 query rows: the key tiles some row of it
+    sees, which the split builds' dQ kernel walks (the forward's walk, in tiles of 64)."""
+    t, off, walks = BWD_SPLIT_TILE, sk - sq, []
+    for q0 in range(0, sq, t):
+        k_end = min(sk, min(q0 + t, sq) - 1 + off + 1) if causal else sk
+        kb = (max(0, q0 + off - window + 1) if window else 0) // t
+        walks.append((kb, max(kb, -(-k_end // t))))
+    return walks
+
+
+def bwd_ds_offsets(sq: int, sk: int, causal: bool, window: Optional[int]) -> Sequence[int]:
+    """Where each query tile's dS^T tiles start among a head's slots of the split builds' dS
+    scratch, and (last) the slots a head: the prefix sums of the :func:`bwd_dq_walks`
+    lengths. The tile of (query tile qt, key tile kt) is slot ``offsets[qt] + kt - kb(qt)``
+    (``ds_offset`` in the kernels), so the scratch holds exactly the tiles walked."""
+    offsets = [0]
+    for kb, ke in bwd_dq_walks(sq, sk, causal, window):
+        offsets.append(offsets[-1] + ke - kb)
+    return offsets
+
+
+def bwd_split_spans(walk: int, parts: int) -> Sequence[Tuple[int, int]]:
+    """The spans [lo, hi) of a walk of ``walk`` tiles that its ``parts`` blocks take:
+    equal within one tile, in order."""
+    return [(walk * p // parts, walk * (p + 1) // parts) for p in range(parts)]
+
+
+def bwd_split_longest(walks: Sequence[int], parts: int, hkv: int) -> int:
+    """Walk tiles on the busiest of ``BWD_SPLIT_SMS`` SMs when the split builds' dK/dV
+    blocks of one batch row (for each key tile of ``walks`` tiles, its ``parts`` parts, then
+    the ``hkv`` KV heads: the kernel's order) go in that order each to the SM that frees
+    first."""
+    free = [0] * BWD_SPLIT_SMS
+    for walk in walks:
+        for lo, hi in bwd_split_spans(walk, parts):
+            for _ in range(hkv):
+                heapq.heappush(free, heapq.heappop(free) + hi - lo)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_split_plan(
+    sq: int, sk: int, hq: int, hkv: int, causal: bool, window: Optional[int]
+) -> int:
+    """Parts of each key tile's dK/dV walk in the bfloat16 split builds: the fewest, up to
+    ``BWD_SPLIT_MAX_PARTS`` and the longest walk's tiles, that leave the busiest of
+    ``BWD_SPLIT_SMS`` SMs least work (:func:`bwd_split_longest`, one batch row).
+
+    A function of the shapes and masks alone, never of B or the card, so each gradient is
+    summed in the same order, and has the same bits, at any batch. recurrentgemma-9b's
+    train shape (Sq = Sk = 4096, 16 query heads on one KV head, causal, window 2048): 8
+    parts, 512 blocks, 192 walk tiles on the busiest SM, the even share (528 with one).
+    """
+    g = hq // hkv
+    walks = [g * n for _, n in bwd_split_walks(sq, sk, bool(causal), window)]
+    cap = max(1, min(BWD_SPLIT_MAX_PARTS, max(walks)))
+    return min(range(1, cap + 1), key=lambda parts: (bwd_split_longest(walks, parts, hkv), parts))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window) -> None:
@@ -314,10 +413,20 @@ def flash_attention_bwd(
     ``out`` and ``dout`` are in q's dtype (float32 or bfloat16), lse in float32; the
     gradients come back in the inputs' dtype.
 
-    ``flash_attention_bwd.launches`` counts calls that launched the kernels (Δ, dK/dV and
-    dQ: one count for the three); on a CPU tensor it runs
+    ``flash_attention_bwd.launches`` counts calls that launched the kernels (Δ, dK/dV, in
+    the bfloat16 split builds the reduction of dK/dV's parts, and dQ: one count a call); on
+    a CPU tensor it runs
     :func:`repro_torch.kernels.ref.flash_attention_bwd_ref` and counts nothing.
     :func:`bwd_path` names the kernels that serve the dtype and head dims.
+
+    The split builds (bfloat16 above head dim 128) take two scratches that this function
+    allocates for the call: the dS^T tiles, B·Hq·T tiles of 64 × 64 bfloat16 (8 KiB), T
+    the key tiles all query tiles of a head see (:func:`bwd_ds_offsets`): about
+    ⌈Sq/64⌉·⌈min(Sk, window)/64⌉ with a window, half of ⌈Sq/64⌉·⌈Sk/64⌉ causal without
+    one, so O(Sq·Sk) without a window (recurrentgemma-9b's train shape, 16 heads, 4096
+    tokens, window 2048: 207.6 MB; 16 heads of 8192 causal tokens with no window: 1.08 GB);
+    and, where a key tile's walk is cut into more than one part, the float32 partials,
+    B·Hkv·parts·Sk·(D + Dv)·4 bytes (67.1 MB at that train shape).
     """
     _check(q, k, v, causal, window)
     _check_grad(q, k, v)
@@ -352,33 +461,29 @@ def flash_attention_bwd(
         q, k, v, dout = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, dout))
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    name = "flash_attention_bwd_bf16" if path == "bf16" else "flash_attention_bwd"
-    lib = _lib(name, 10, 9, 0)
+    pointers = [q, k, v, out, lse, dout, delta, dq, dk, dvv]
+    ints = [b, hq, hkv, sq, sk, d, dv, int(bool(causal)), int(window) if window is not None else 0]
+    if path == "bf16":
+        # the split builds: the parts of each key tile's dK/dV walk, the float32 scratch of
+        # their partials, and the scratch of dS^T tiles that the dK/dV kernel writes for dQ
+        parts, ds_tiles, partial, ds = 1, 0, None, None
+        if max(d, dv) > 128:
+            parts = bwd_split_plan(sq, sk, hq, hkv, causal, window)
+            ds_tiles = bwd_ds_offsets(sq, sk, causal, window)[-1]
+            t = BWD_SPLIT_TILE
+            ds = torch.empty((b * hq * ds_tiles, t, t), dtype=q.dtype, device=q.device)
+        if parts > 1:
+            n = b * hkv * parts * sk * (d + dv)
+            partial = torch.empty(n, dtype=torch.float32, device=q.device)
+        name, lib = "flash_attention_bwd_bf16", _lib("flash_attention_bwd_bf16", 12, 9, 2)
+        scratch = [None if x is None else x.data_ptr() for x in (partial, ds)]
+        args = [x.data_ptr() for x in pointers] + scratch + ints + [scale, parts, ds_tiles]
+    else:
+        name, lib = "flash_attention_bwd", _lib("flash_attention_bwd", 10, 9, 0)
+        args = [x.data_ptr() for x in pointers] + ints + [scale]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"repro_{name}")(
-            q.data_ptr(),
-            k.data_ptr(),
-            v.data_ptr(),
-            out.data_ptr(),
-            lse.data_ptr(),
-            dout.data_ptr(),
-            delta.data_ptr(),
-            dq.data_ptr(),
-            dk.data_ptr(),
-            dvv.data_ptr(),
-            b,
-            hq,
-            hkv,
-            sq,
-            sk,
-            d,
-            dv,
-            int(bool(causal)),
-            int(window) if window is not None else 0,
-            scale,
-            stream,
-        )
+        err = getattr(lib, f"repro_{name}")(*args, stream)
     _raise_on(lib, err, "flash_attention_bwd")
     count_launch(flash_attention_bwd)
     if path == "bf16" and (d, dv) != (d_in, dv_in):

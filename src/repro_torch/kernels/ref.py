@@ -9,7 +9,13 @@ right-aligned to the keys (``qpos = i + Sk - Sq``), GQA through the KV head
 ``h // g``, and a value head dim that may differ from the key head dim (MLA).
 The forward can also return each row's logsumexp, the one value its
 backward keeps besides the inputs and the output; the backward is the
-FlashAttention-2 form, recomputing the probabilities from it.
+FlashAttention-2 form, recomputing the probabilities from it
+(``flash_attention_bwd_ref``; float64 throughout for a float64 input).
+``flash_attention_bwd_split_ref`` is the same backward in the decomposition of
+the bfloat16 kernels' "split" builds (head dims above 128): tiles of 64 rows,
+each key tile's walk cut into parts whose partials are summed in order; the
+walks and their cut are the wrapper's own (``flash_attention.bwd_split_walks``,
+``bwd_split_spans``, ``bwd_dq_walks``), which it imports.
 
 Cached decode: one query token a slot against its cache (B, Sc, KV, D), the
 logits and the softmax in float32, keys masked to -1e30 past the slot's
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 __all__ = [
     "flash_attention_ref",
     "flash_attention_bwd_ref",
+    "flash_attention_bwd_split_ref",
     "flash_attention_dense_ref",
     "decode_attention_ref",
     "rglru_ref",
@@ -172,26 +179,28 @@ def flash_attention_bwd_ref(
     Δ = rowsum(dO∘O); then, ``block_k`` keys at a time as the forward walks them,
     P = exp(S·scale − lse) (0 where masked), dV = Pᵀ·dO, dS = P∘(dP − Δ) with
     dP = dO·Vᵀ, dQ = dS·K·scale and dK = dSᵀ·Q·scale. dK and dV are summed over
-    the g query heads of each KV head. All in float32; returns (dq, dk, dv) in the
-    dtypes of q, k and v. It is the function the reference's custom VJP computes
-    (``jax.vjp`` of the blocked forward), by another route.
+    the g query heads of each KV head. All in float32 (float64 for a float64 q);
+    returns (dq, dk, dv) in the dtypes of q, k and v. It is the function the
+    reference's custom VJP computes (``jax.vjp`` of the blocked forward), by
+    another route.
     """
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = hq // hkv
     scale = scale if scale is not None else d**-0.5
-    qf, dof = q.float(), dout.float()
-    delta = (dof * out.float()).sum(dim=-1)  # (B, Hq, Sq)
-    lse_f = lse.float()[..., None]
-    dq = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
-    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=q.device)
-    dvv = torch.zeros((b, hkv, sk, dv), dtype=torch.float32, device=q.device)
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf, dof = q.to(ct), dout.to(ct)
+    delta = (dof * out.to(ct)).sum(dim=-1)  # (B, Hq, Sq)
+    lse_f = lse.to(ct)[..., None]
+    dq = torch.zeros((b, hq, sq, d), dtype=ct, device=q.device)
+    dk = torch.zeros((b, hkv, sk, d), dtype=ct, device=q.device)
+    dvv = torch.zeros((b, hkv, sk, dv), dtype=ct, device=q.device)
     for start in range(0, sk, block_k):
         stop = min(start + block_k, sk)
         kpos = torch.arange(start, stop, device=q.device)
-        kq = k[:, :, start:stop].float().repeat_interleave(g, dim=1)
-        vq = v[:, :, start:stop].float().repeat_interleave(g, dim=1)
+        kq = k[:, :, start:stop].to(ct).repeat_interleave(g, dim=1)
+        vq = v[:, :, start:stop].to(ct).repeat_interleave(g, dim=1)
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kq) * scale
         valid = _mask(sq, kpos, sk, causal, window)
         p = torch.where(valid, torch.exp(s - lse_f), torch.zeros_like(s))
@@ -203,6 +212,97 @@ def flash_attention_bwd_ref(
         dv_h = torch.einsum("bhqk,bhqd->bhkd", p, dof)
         dk[:, :, start:stop] = dk_h.reshape(b, hkv, g, n, d).sum(dim=2)
         dvv[:, :, start:stop] = dv_h.reshape(b, hkv, g, n, dv).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
+
+
+def flash_attention_bwd_split_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    parts: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_bwd_ref` in the decomposition of the bfloat16 kernels'
+    split builds (``flash_bwd_bf16_dkdv_split_kernel``, ``flash_bwd_bf16_dq_split_kernel``,
+    ``flash_bwd_bf16_dkdv_reduce_kernel``).
+
+    dK and dV: for each tile of 64 keys, its walk over the group's (query head, query
+    tile) pairs, heads in order, each its tiles in order (``bwd_split_walks``), is cut
+    into ``parts`` spans (``bwd_split_spans``); each span's partial is
+    summed tile by tile from zero, and the partials are added in part order, dK then
+    times the scale. dQ: for each tile of 64 query rows, the key tiles its rows see, in
+    order, times the scale at the end. For a bfloat16 q, P and dS are rounded to bfloat16
+    where they enter dV, dK and dQ (P kept in float32 in dS), as the kernels round them;
+    float32 otherwise, float64 for a float64 q. Returns (dq, dk, dv) in the dtypes of q,
+    k and v.
+    """
+    # the kernels' walks, planned beside their wrapper (which imports this module)
+    from .flash_attention import BWD_SPLIT_TILE, bwd_dq_walks, bwd_split_spans, bwd_split_walks
+
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g, t = hq // hkv, BWD_SPLIT_TILE
+    scale = scale if scale is not None else d**-0.5
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    if q.dtype == torch.bfloat16:
+        operand = lambda x: x.bfloat16().to(ct)  # noqa: E731
+    else:
+        operand = lambda x: x  # noqa: E731
+    qf, kf, vf, dof = (x.to(ct) for x in (q, k, v, dout))
+    delta = (dof * out.to(ct)).sum(dim=-1)
+    lse_c = lse.to(ct)
+
+    def probs(qh, doh, lse_h, delta_h, kh, vh, rows, keys):
+        """P and dS of query rows ``rows`` (heads as qh's) by keys ``keys``."""
+        s = torch.einsum("bhid,bhjd->bhij", qh[:, :, rows], kh[:, :, keys]) * scale
+        kpos = torch.arange(keys.start, keys.stop, device=q.device)
+        valid = _mask(sq, kpos, sk, causal, window)[rows]
+        p = torch.where(valid, torch.exp(s - lse_h[:, :, rows, None]), torch.zeros_like(s))
+        dp = torch.einsum("bhid,bhjd->bhij", doh[:, :, rows], vh[:, :, keys])
+        return p, p * (dp - delta_h[:, :, rows, None])
+
+    # dK and dV: query head hh of the group is head hh of every KV head's group
+    q5, do5 = qf.view(b, hkv, g, sq, d), dof.view(b, hkv, g, sq, dv)
+    lse5, delta5 = lse_c.view(b, hkv, g, sq), delta.view(b, hkv, g, sq)
+    dk = torch.zeros((b, hkv, sk, d), dtype=ct, device=q.device)
+    dvv = torch.zeros((b, hkv, sk, dv), dtype=ct, device=q.device)
+    for kt, (t_begin, per_head) in enumerate(bwd_split_walks(sq, sk, causal, window)):
+        keys = slice(kt * t, min(kt * t + t, sk))
+        n = keys.stop - keys.start
+        total_k = total_v = None
+        for lo, hi in bwd_split_spans(g * per_head, parts):
+            part_k = torch.zeros((b, hkv, n, d), dtype=ct, device=q.device)
+            part_v = torch.zeros((b, hkv, n, dv), dtype=ct, device=q.device)
+            for idx in range(lo, hi):
+                hh, ti = divmod(idx, per_head)
+                rows = slice((t_begin + ti) * t, min((t_begin + ti) * t + t, sq))
+                qh, doh = q5[:, :, hh], do5[:, :, hh]
+                p, ds = probs(qh, doh, lse5[:, :, hh], delta5[:, :, hh], kf, vf, rows, keys)
+                part_v = part_v + torch.einsum("bhij,bhid->bhjd", operand(p), doh[:, :, rows])
+                part_k = part_k + torch.einsum("bhij,bhid->bhjd", operand(ds), qh[:, :, rows])
+            total_k = part_k if total_k is None else total_k + part_k
+            total_v = part_v if total_v is None else total_v + part_v
+        dk[:, :, keys] = total_k * scale
+        dvv[:, :, keys] = total_v
+
+    # dQ: every query head against its KV head's keys
+    kx, vx = kf.repeat_interleave(g, dim=1), vf.repeat_interleave(g, dim=1)
+    dq = torch.zeros((b, hq, sq, d), dtype=ct, device=q.device)
+    for qt, (kb, ke) in enumerate(bwd_dq_walks(sq, sk, causal, window)):
+        rows = slice(qt * t, min(qt * t + t, sq))
+        acc = torch.zeros((b, hq, rows.stop - rows.start, d), dtype=ct, device=q.device)
+        for kt in range(kb, ke):
+            keys = slice(kt * t, min(kt * t + t, sk))
+            _, ds = probs(qf, dof, lse_c, delta, kx, vx, rows, keys)
+            acc = acc + torch.einsum("bhij,bhjd->bhid", operand(ds), kx[:, :, keys])
+        dq[:, :, rows] = acc * scale
     return dq.to(q.dtype), dk.to(k.dtype), dvv.to(v.dtype)
 
 

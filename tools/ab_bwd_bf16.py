@@ -1,16 +1,22 @@
 """The bfloat16 flash backward of two checkouts in turns, on one NVIDIA card.
 
-    python3 tools/ab_bwd_bf16.py OTHER_CHECKOUT
+    python3 tools/ab_bwd_bf16.py OTHER_CHECKOUT [--hd256] [--parts N[,N...]]
 
 OTHER_CHECKOUT is another tree of this repository, for example a parent commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists
 (``build/``). Each run, in a process of its own in its own tree, builds that
 tree's ``flash_attention_fwd`` and ``flash_attention_bwd_bf16`` kernels and
-times ``flash_attention_bwd`` at qwen3-1.7b's train shape (q, dO (2,16,4096,128),
-k, v (2,8,4096,128), causal; chip_smoke.py's FLASH_BWD_BF16_TRAIN) by CUDA
-events over 20 launches, three times; the runs go other, this, this, other, so
-that both trees see the same card and host. It prints each run's times and,
-at the end, the two trees' means side by side with their ratio.
+times ``flash_attention_bwd`` by CUDA events over 20 launches, three times, then
+each of its launches' device time (``torch.profiler`` over 10 calls). The shape
+is qwen3-1.7b's train shape (q, dO (2,16,4096,128), k, v (2,8,4096,128), causal;
+chip_smoke.py's FLASH_BWD_BF16_TRAIN), or with ``--hd256`` recurrentgemma-9b's
+(q, dO (1,16,4096,256), k, v (1,1,4096,256), causal, window 2048;
+FLASH_BWD_HD256_TRAIN), which runs the split builds. ``--parts N,M,...`` times
+this tree's split builds with each key tile's walk cut into N parts, then M, ...
+instead of what ``flash_attention.bwd_split_plan`` chooses (the other tree runs
+as it is). The runs go other, this, this, other, so that both trees see the same
+card and host. It prints each run's times and, at the end, the two trees' means
+side by side with their ratio (one line for each number of parts).
 """
 
 from __future__ import annotations
@@ -24,31 +30,58 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 RUN = """
+import collections, torch
 import chip_smoke as cs
 from repro_torch.kernels import _build
 cs.phase_device()
 _build.build(["flash_attention_fwd", "flash_attention_bwd_bf16"])
-case = cs.FLASH_BWD_BF16_TRAIN
+case = cs.{case}
 q, k, v, dout, _, _ = cs._flash_bwd_inputs(cs._gen(7), case)
 masks = dict(causal=case[6], window=case[7])
 out, lse = cs.fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
-for _ in range(3):
-    ms = cs.time_ms(lambda: cs.fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks))
-    print(f"[ab] ms {ms:.4f}", flush=True)
+def call():
+    return cs.fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+plan = getattr(cs.fa, "bwd_split_plan", None)
+for parts in {parts}:
+    if parts:
+        cs.fa.bwd_split_plan = lambda *args: parts
+    for _ in range(3):
+        print(f"[ab] parts {{parts}} ms {{cs.time_ms(call):.4f}}", flush=True)
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    us = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "flash_bwd" in e.key:
+            us[re.search(r"flash_bwd\\w*", e.key).group(0)] += e.self_device_time_total / 10
+    print(
+        f"[ab] parts {{parts}} device us a call: "
+        + ", ".join(f"{{n}} {{t:.2f}}" for n, t in us.items()),
+        flush=True,
+    )
+    cs.fa.bwd_split_plan = plan
 """
 
 
-def run(tree: Path, label: str) -> list:
+def run(tree: Path, label: str, case: str, parts: list) -> dict:
+    """{parts: [ms, ...]} of one run in ``tree`` (parts 0: the tree's own plan)."""
     print(f"[ab] {label}: {tree}", flush=True)
+    code = "import re\n" + RUN.format(case=case, parts=parts)
     proc = subprocess.run(
-        [sys.executable, "-c", RUN], cwd=tree, capture_output=True, text=True, timeout=900
+        [sys.executable, "-c", code], cwd=tree, capture_output=True, text=True, timeout=900
     )
     print(proc.stdout, end="", flush=True)
     if proc.returncode != 0:
         print(proc.stderr[-8000:], file=sys.stderr)
         raise SystemExit(proc.returncode)
-    times = [float(x) for x in re.findall(r"^\[ab\] ms ([\d.]+)$", proc.stdout, re.M)]
-    if not times:
+    times = {n: [] for n in parts}
+    for n, ms in re.findall(r"^\[ab\] parts (\d+) ms ([\d.]+)$", proc.stdout, re.M):
+        times[int(n)].append(float(ms))
+    if not all(times.values()):
         raise SystemExit(f"[ab] {label}: no times in its output")
     return times
 
@@ -56,20 +89,35 @@ def run(tree: Path, label: str) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", type=Path, help="another checkout of this repository")
-    other = parser.parse_args().other.resolve()
+    parser.add_argument("--hd256", action="store_true", help="recurrentgemma-9b's train shape")
+    parser.add_argument(
+        "--parts", default="0", help="this tree's split builds' parts, a comma list (0: the plan)"
+    )
+    args = parser.parse_args()
+    parts = [int(x) for x in args.parts.split(",")]
+    other = args.other.resolve()
     if not (other / "chip_smoke.py").exists():
         raise SystemExit(f"{other} is no checkout of this repository")
-    times = {"other": [], "this": []}
+    case = "FLASH_BWD_HD256_TRAIN" if args.hd256 else "FLASH_BWD_BF16_TRAIN"
+    shape = "recurrentgemma-9b's" if args.hd256 else "qwen3-1.7b's"
+    other_ms, this_ms = [], {n: [] for n in parts}
     for label, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
-        times[label] += run(tree, label)
-    mean = {k: statistics.mean(v) for k, v in times.items()}
-    print(
-        f"[ab] flash_attention_bwd bf16 at qwen3-1.7b's train shape: other {mean['other']:.4f} "
-        f"ms (runs {', '.join(f'{x:.4f}' for x in times['other'])}), this {mean['this']:.4f} ms "
-        f"(runs {', '.join(f'{x:.4f}' for x in times['this'])}); this / other "
-        f"{mean['this'] / mean['other']:.4f}",
-        flush=True,
-    )
+        if label == "other":
+            other_ms += run(tree, label, case, [0])[0]
+        else:
+            for n, ms in run(tree, label, case, parts).items():
+                this_ms[n] += ms
+    base = statistics.mean(other_ms)
+    for n, ms in this_ms.items():
+        mean = statistics.mean(ms)
+        print(
+            f"[ab] flash_attention_bwd bf16 at {shape} train shape"
+            + (f" (this tree at {n} parts)" if n else "")
+            + f": other {base:.4f} ms (runs {', '.join(f'{x:.4f}' for x in other_ms)}), "
+            f"this {mean:.4f} ms (runs {', '.join(f'{x:.4f}' for x in ms)}); "
+            f"this / other {mean / base:.4f}",
+            flush=True,
+        )
     return 0
 
 

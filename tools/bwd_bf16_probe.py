@@ -42,7 +42,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "bwd_bf16_probe"
 DKDV = ("flash_bwd_bf16_dkdv_wgmma_kernel(const", "// dQ of OWN query rows of one head.")
-DQ = ("flash_bwd_bf16_dq_wgmma_kernel(const", "// A (B*H, rows, cols) bfloat16 tensor")
+DQ = ("flash_bwd_bf16_dq_wgmma_kernel(const", "// Split builds: dK and dV of 64 keys")
 # (what the cycles up to the mark went to, the line the stamp goes before)
 DKDV_MARKS = [
     ("tile tests", "    mbar_wait(full(s), (it / STAGES) & 1);"),
