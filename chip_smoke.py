@@ -85,7 +85,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    1 against row 0 of B = 4; at the train shape its time beside its plain
    version's and the bound; on every float32 case its error against float64
    autograd through ``ref.wkv6_ref`` at most twice the plain version's. The
-   dense family's prefill and decode
+   dense family's and granite-moe's prefill and decode
    shapes are among the flash and decode-attention cases. Each timed case
    prints the kernel's time, its plain version's, one PyTorch library call's
    where one computes the same function, and the least time the card could
@@ -128,29 +128,29 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    peak memory, and a profiled step's device time by kind and busy share;
    the AdamW is the train CLI's for 3 steps (``repro_torch.launch.train.opt_config``);
 5b. durable train, through the train CLI in processes of their own (``python -m
-   repro_torch.launch.train --arch serpytor-demo-100m --full --layers 4 --batch 4
-   --seq 4096 --steps 3 --checkpoint-every 2``: the demo's full width at 4 of its 8
+   repro_torch.launch.train --arch serpytor-demo-100m --full --layers 2 --batch 4
+   --seq 4096 --steps 3 --checkpoint-every 2``: the demo's full width at 2 of its 8
    layers, DEMO_CUT_LAYERS): run A journals rounds [0, 2) and [2, 3) with
    checkpoints ``step00000002`` and ``step00000003``, its heartbeat polled once
    while it runs; each step's journaled metrics digest equals that of a direct step
    at the same depth, which the train phase runs after its own, and the process ran
-   12 flash forward and 12 backward launches. Then the crash between the two halves of the last
+   6 flash forward and 6 backward launches. Then the crash between the two halves of the last
    checkpoint (``step00000003-opt`` deleted), and run B, the same command: it
    recovers from ``step00000002`` on the card, re-executes step 2 through the
    out-of-place verify twin against the journal, re-saves ``step00000003`` with
-   A's content digests, reports 1 step and 4 + 4 flash launches. Logs the steps'
+   A's content digests, reports 1 step and 2 + 2 flash launches. Logs the steps'
    ms through the trainer against the direct steps', each checkpoint save's
    seconds (params sync, ``-opt`` async), the restore's, the journal's size and
    the heartbeat's report;
 5c. distributed train, in a process of its own (this file run with
    ``--distributed``, set up as ``--train``): ``DistributedTrainer`` trains the
-   demo at 4 layers data-parallel through a ``ClusterExecutor`` over a ``Gateway`` of 2
+   demo at 2 layers data-parallel through a ``ClusterExecutor`` over a ``Gateway`` of 2
    in-process workers of capacity 1, 4 ``grad_shard`` tasks of 2 x 4096 tokens a
    step, 2 steps and one checkpoint pair (run A); then the same with w0 a
    ``FlakyWorker`` that dies at its second task start (run B). B ends at A's
    checkpoint digest with every ``grad@s#k`` and ``apply@s`` digest equal and a
    ``NODE_REQUEUE`` journaled; each run launched the flash forward and backward
-   4 layers x its ``grad_shard`` runs times (4 a step, one more for each shard w0
+   2 layers x its ``grad_shard`` runs times (4 a step, one more for each shard w0
    had started when it was evicted); no journal record holds an array; torch's CPU
    and CUDA RNG states are unchanged by a run. Step 0 computed directly on one
    thread (each shard's task in order, the mean, AdamW) gives A's ``grad@0#k``
@@ -192,7 +192,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    on the card equals the port's CPU path on a (1, 333, 4096) input within
    1e-4;
 10. dense: the dense family at full width in bfloat16 (``qwen3-1.7b``,
-   ``stablelm-1.6b``, ``yi-6b`` at full depth; ``qwen1.5-110b`` at 8 of its 80
+   ``stablelm-1.6b``, ``yi-6b`` at full depth; ``qwen1.5-110b`` at 4 of its 80
    layers, as 222.4 GB of weights do not fit the card), one after the other,
    each serving 8 requests of 32 new tokens (prompts 64-1000 tokens, seed 0)
    through ``ContinuousBatcher(slots=4, max_len=1536)``: the flash kernel
@@ -203,6 +203,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    busy share; then one full-width layer of a float32 copy on the card against
    the port's CPU path within 1e-4 on a (1, 777, d) input (with the tied
    unembed for qwen3-1.7b);
+10b. moe: ``granite-moe-3b-a800m`` at full width and depth (32 MoE layers of
+   40 experts, top 8; 3.30B params, bfloat16) serves 8 requests of 32 new
+   tokens (prompts 64-2000 tokens, seed 0: three above 1,024 tokens through
+   the einsum engine, five through the dropless sort engine) through
+   ``ContinuousBatcher(slots=4, max_len=2048)``: the flash kernel once per
+   layer per prefill, the decode kernel once per layer per decode step, no
+   other kernel, and each engine called once per layer of each prefill on its
+   side of 1,024 tokens (the sort engine in every decode step too); each
+   request's logits equal a teacher-forced run at the batcher's width bit for
+   bit and agree at batch 1 within LOGIT_TOL_MOE, with the decode steps'
+   routing flips between the two counted; ``moe_block`` twice on one input of
+   each engine with equal bits; tok/s, prefill and decode times beside their
+   bounds, peak memory, a profiled prefill and decode window, and the decode
+   step's device time split into attention, the router, the dispatch and
+   combine, and the experts' products; then one full-width float32 MoE layer
+   on the card against the port's CPU path on a (1, 777, d) input (routing
+   compared first: a token routed differently must sit on a float32 tie; the
+   output within 1e-4 of its scale, MOE_TOL, the cache within 1e-4), and both
+   engines on the CPU path's routing of 2,000 rows, each no further from a
+   float64 run than twice the CPU path;
 11. dense train, in a process of its own (this file run with
    ``--dense-train``, set up as ``--train``): ``qwen3-1.7b`` at full width and
    depth in bfloat16 with remat "full" takes 3 AdamW steps (the train CLI's)
@@ -308,7 +328,9 @@ from repro_torch.launch.gateway_serve import (  # noqa: E402
 )
 from repro_torch.launch.serve import drain, make_prompts, serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from repro_torch.models.layers import apply_norm, softcap  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
+from repro_torch.models.layers import apply_norm, dense, softcap  # noqa: E402
 from repro_torch.models.model import unembed_logits  # noqa: E402
 from repro_torch.models.transformer import apply_layer, layer_pattern, run_stack  # noqa: E402
 from repro_torch.optim.adamw import (  # noqa: E402
@@ -402,6 +424,10 @@ HYBRID_FLASH = [
 ]
 HYBRID_FLASH_JSON = (1, 16, 1, 3000, 3000, 256, True, 2048, "bfloat16", 256)
 HYBRID_FLASH_F32_JSON = (1, 16, 1, 3000, 3000, 256, True, 2048, "float32", 256)
+# granite-moe-3b-a800m's prefill at the moe phase's longest prompt (1711 tokens): 24 query
+# heads on 8 KV heads of 64, a GQA group of 3; its row times SDPA's flash backend with K/V
+# expanded beside the kernel
+GRANITE_FLASH_JSON = (1, 24, 8, 1711, 1711, 64, True, None, "bfloat16", 64)
 # (B, T, W, x dtype, with h0): recurrentgemma-9b's prefill (T up to 3000) and
 # decode (B = slots, T = 1) at lru_width 4096; a W that is no multiple of the
 # ring kernel's 16 channels; float32 x; then the two kernels' edges: T on both
@@ -467,9 +493,12 @@ DECODE_CASES = [
     (4, 32, 32, 1536, 64, None, "bfloat16", (1031, 5, 1535, 1600)),
     (4, 32, 4, 1536, 128, None, "bfloat16", (1031, 5, 1535, 1600)),
     (4, 64, 8, 1536, 128, None, "bfloat16", (1031, 5, 1535, 1600)),
+    # granite-moe-3b-a800m's at max_len 2048: 24 query heads on 8 KV heads of 64
+    (4, 24, 8, 2048, 64, None, "bfloat16", (1742, 1031, 5, 2047)),
 ]
 DECODE_DEMO_JSON, DECODE_JSON = DECODE_CASES[0], DECODE_CASES[1]
-DECODE_TIMED = (DECODE_DEMO_JSON, DECODE_JSON)
+DECODE_GRANITE_JSON = DECODE_CASES[-1]
+DECODE_TIMED = (DECODE_DEMO_JSON, DECODE_JSON, DECODE_GRANITE_JSON)
 DECODE_DETERMINISM = DECODE_TIMED
 # (B, H, T, K, V, dtype, with h0): WKV_CASES of tests/test_kernels.py, a ragged T,
 # rwkv6-7b's prefill (T up to 3000, 64 heads of 64; prefill passes the zero
@@ -648,10 +677,11 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=10, total_steps=TRAIN_STEPS)
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GNORM_RTOL = 1e-3
 TRAIN_GRAD_TOL = 1e-3
-# The durable and distributed phases train the demo at its full width and 4 of its 8 layers,
+# The durable and distributed phases train the demo at its full width and 2 of its 8 layers,
 # to keep the script inside its 1200 s on a slow host (their checkpoints' zlib on one host
-# thread is most of their time); their direct-step comparisons run at that depth too.
-DEMO_CUT_LAYERS = 4
+# thread and the gradients' hashing are most of their time; 4 layers until the script gained
+# the moe phase); their direct-step comparisons run at that depth.
+DEMO_CUT_LAYERS = 2
 DEMO_SEQ = (128, 777, 2048)
 JSON_SEQ = 777  # the demo prefill length whose times go into the kernels line
 N_REQUESTS, SLOTS, MAX_LEN, NEW_TOKENS = 8, 4, 1536, 32
@@ -697,6 +727,39 @@ RWKV_MAX_LEN = 3072
 # apart within 32 decode steps (tools/batch_invariance.py).
 LOGIT_TOL_RWKV = 0.66
 RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_MAX_LEN = 2048
+# the moe phase's prompts, make_prompts(8, vocab, 64, 2000, seed=0): 1711, 1297 and 1054
+# tokens go through the einsum engine (above moe.DROPLESS_TOKENS), the rest dropless
+# through the sort engine
+MOE_PROMPT_LENS = (64, 2000)
+# Batched and teacher-forced runs of bfloat16 granite-moe at batch 4 and batch 1 differ
+# only where cuBLAS sums a product in another order at 1 row than at 4 (q, k, v, o, the
+# router's logits, the experts' products at 1 or 4 rows an expert): the router's choice, the
+# combine, the norms and the decode-attention kernel are row-wise. A bfloat16 output then
+# differs by one unit in the last place, 2^-8 of its size. 32 layers each add an attention
+# and a MoE output to the residual stream: at most 64 * 2^-8 = 0.25 of its size, which the
+# final RMSNorm hands to the logits.
+# Logits here have a standard deviation of 0.02 * 0.88 * sqrt(1536) = 0.69 (the tied table),
+# and the largest of 49,155 is ~4.1 of those, 2.8: a bound of 0.25 * 2.8 = 0.70 on any logit.
+# It holds while each token keeps its experts in both runs: a flipped expert moves a layer's
+# output by a whole expert's share, so the phase counts the decode steps' routing flips at
+# batch 1, and a flip that takes a logit past the bound fails it.
+LOGIT_TOL_MOE = 0.70
+# rows of the float32 MoE layer's (1, S, d) input (the dropless sort engine) and of the
+# engines' own check on the CPU path's routing (the einsum engine drops at this size)
+MOE_LAYER_CHECK = 777
+MOE_ENGINE_CHECK = 2000
+# The float32 MoE layer on the card against the CPU path: both sum the same float32 products
+# in other orders, which moves a result by a few units in its last place, so the bound scales
+# with the output. The reference's init law draws each expert matrix with sigma 1/sqrt(E) (its
+# fan_in is the matrix's first axis, the experts), so the experts' outputs reach ~150 at full
+# width, where float32's unit in the last place is 1.5e-5, and the CPU path's own float32
+# result stands about 1e-4 from float64 (the engines' check prints both sides' distance),
+# past EXACT_TOL's absolute 1e-4. So the layer's output is held to EXACT_TOL of its largest
+# magnitude, ~50 units in the last place; a fault (a wrong expert, weight or slot) moves a
+# token's output by a whole expert's share, ~10% of the scale.
+MOE_TOL = EXACT_TOL
 
 
 # the WKV6 backward's kernels (both walks, the chunk pass, du), which ptxas must build with no
@@ -1022,7 +1085,7 @@ def _flash_rows(gen):
     cases.append((1, 2, 2, 64, 64, 48, True, None, "float32", 32))  # MLA head dims
     cases += EDGE_CASES + BF16_CASES + F32_CASES
     cases += [(1, 12, 4, s, s, 64, True, None, "float32", 64) for s in DEMO_SEQ]
-    cases += HYBRID_FLASH
+    cases += HYBRID_FLASH + [GRANITE_FLASH_JSON]
     rows, demo_err = {}, 0.0
     for case in cases:
         b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
@@ -1040,7 +1103,7 @@ def _flash_rows(gen):
             f"max |err| {err:.3e} (tol {TOL[dt]}), {100 * used:.1f}% used"
         )
         demo = (hq, hkv, d) == (12, 4, 64)
-        if not demo and case not in HYBRID_FLASH:
+        if not demo and case not in HYBRID_FLASH and case != GRANITE_FLASH_JSON:
             continue
         if demo:
             demo_err = max(demo_err, err)
@@ -1071,6 +1134,14 @@ def _flash_rows(gen):
             "max_abs_err": err,
         }
         library_msg = f"library_ms (SDPA {backend}, |err| {lib_err:.1e}) {row['library_ms']:.4f}"
+        if case == GRANITE_FLASH_JSON:  # the yardstick: SDPA's flash backend
+            row["library_default_ms"] = row["library_ms"]
+            row["library_ms"], flash_err = _flash_sdpa_ms(q, k, v, want)
+            library_msg = (
+                f"library_ms (SDPA flash, K/V expanded to {hq} heads, |err| {flash_err:.1e}) "
+                f"{row['library_ms']:.4f}, SDPA {backend} (dispatched, enable_gqa) "
+                f"{row['library_default_ms']:.4f}"
+            )
         if dtype == torch.float32:  # the yardstick: SDPA's memory-efficient backend
             row["library_default_ms"] = row["library_ms"]
             row["library_ms"], eff_err = _efficient_sdpa_ms(q, k, v, mask, want)
@@ -1115,6 +1186,24 @@ def _efficient_sdpa_ms(q, k, v, mask, want):
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
         err = (efficient().float() - want.float()).abs().max().item()
         return time_ms(efficient, iters=10), err
+
+
+def _flash_sdpa_ms(q, k, v, want):
+    """SDPA on its flash backend (causal), K and V expanded to q's heads beforehand (not
+    timed): its time in ms by CUDA events, and its max |err| against ``want``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    kx, vx = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+
+    def flash():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True, scale=q.shape[-1] ** -0.5
+        )
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        err = (flash().float() - want.float()).abs().max().item()
+        return time_ms(flash, iters=10), err
 
 
 def _flash_determinism(gen) -> None:
@@ -2217,6 +2306,7 @@ def _reset_launches() -> None:
     rg.rglru_bwd.launches = 0
     wk.wkv6_chunked.launches = 0
     wk.wkv6_bwd.launches = 0
+    moe_mod._moe_sort.calls = moe_mod._moe_einsum.calls = 0
 
 
 def _release() -> None:
@@ -3473,20 +3563,58 @@ def phase_hybrid() -> dict:
     return {"flash": flash_launches, "decode_attention": decode_launches, "rglru": rglru_launches}
 
 
-def _check_teacher_forced(tag, model, params, prompts, res, seen, tol, max_len=HYBRID_MAX_LEN):
+@contextlib.contextmanager
+def _decode_routes(rows: int, out: list):
+    """Record, into ``out``, the experts the MoE router picks for row 0 of each decode step
+    (a router call on ``rows`` tokens; prefills have a prompt's length), in call order."""
+    router = moe_mod._router
+
+    def recording(x_flat, *args):
+        weights, idx, aux = router(x_flat, *args)
+        if x_flat.shape[0] == rows:
+            out.append(idx[0])
+        return weights, idx, aux
+
+    moe_mod._router = recording
+    try:
+        yield out
+    finally:
+        moe_mod._router = router
+
+
+def _route_flips(alone: list, wide: list) -> int:
+    """Router calls (layers x decode steps) whose expert set differs between two runs."""
+    if len(alone) != len(wide):
+        raise AssertionError(f"router calls: {len(alone)} at batch 1, {len(wide)} wide")
+    if not alone:
+        return 0
+    a = torch.sort(torch.stack(alone), dim=-1).values
+    b = torch.sort(torch.stack(wide), dim=-1).values
+    return int((a != b).any(dim=-1).sum())
+
+
+def _check_teacher_forced(
+    tag, model, params, prompts, res, seen, tol, max_len=HYBRID_MAX_LEN, routes=False
+):
     """Each request's batched logits (prefill and every decode step) against a
     teacher-forced run of it alone, fed its batched tokens: at batch 1 within
-    ``tol``, at the batcher's width bit for bit (SAME_SHAPE_TOL)."""
+    ``tol``, at the batcher's width bit for bit (SAME_SHAPE_TOL). With ``routes``, the
+    decode steps' MoE routing flips between the two runs are counted and logged."""
     done = res["generations"]
-    worst, worst_wide, total, flips = 0.0, 0.0, 0, 0
+    worst, worst_wide, total, flips, route_flips = 0.0, 0.0, 0, 0, 0
     for i, prompt in enumerate(prompts):
         rid = f"r{i}"
         toks = done[rid].tokens
         if len(toks) != NEW_TOKENS:
             raise AssertionError(f"{tag} {rid}: {len(toks)} tokens, expected {NEW_TOKENS}")
         batched = [seen["prefill"][i]] + seen["decode"][rid]
-        forced = _teacher_forced(model, params, prompt, toks, rows=1, max_len=max_len)
-        wide = _teacher_forced(model, params, prompt, toks, rows=SLOTS, max_len=max_len)
+        alone_routes, wide_routes = [], []
+        with _decode_routes(1, alone_routes) if routes else contextlib.nullcontext():
+            forced = _teacher_forced(model, params, prompt, toks, rows=1, max_len=max_len)
+        with _decode_routes(SLOTS, wide_routes) if routes else contextlib.nullcontext():
+            wide = _teacher_forced(model, params, prompt, toks, rows=SLOTS, max_len=max_len)
+        flipped = _route_flips(alone_routes, wide_routes)
+        route_flips += flipped
         if not len(batched) == len(forced) == len(wide):
             raise AssertionError(f"{tag} {rid}: {len(batched)} logits, {len(forced)} sequential")
         errs = [(b_ - f_).abs().max().item() for b_, f_ in zip(batched, forced)]
@@ -3500,14 +3628,17 @@ def _check_teacher_forced(tag, model, params, prompts, res, seen, tol, max_len=H
                 f"{tag} {rid}: logits vs teacher-forced: {max(errs):.4f} at batch 1, "
                 f"{wide_err:.4e} at batch {SLOTS}"
             )
+        routed = f"; routing flips at batch 1 {flipped}/{len(alone_routes)}" if routes else ""
         log(
             f"{tag} {rid} (prompt {len(prompt)}): logits vs teacher-forced sequential max |err| "
             f"{max(errs):.4e}, mean of per-step max {np.mean(errs):.4e}, greedy tokens that "
-            f"differ {diff}/{len(toks)}; at the batcher's width {wide_err:.4e}"
+            f"differ {diff}/{len(toks)}; at the batcher's width {wide_err:.4e}{routed}"
         )
+    routed = f"; routing flips at batch 1 {route_flips}" if routes else ""
     log(
         f"{tag} all requests: max |err| {worst:.4e} (tol {tol}), greedy tokens that "
         f"differ {flips}/{total}; at the batcher's width {worst_wide:.4e} (tol {SAME_SHAPE_TOL})"
+        f"{routed}"
     )
 
 
@@ -3520,7 +3651,7 @@ def _check_unembed(tag, model, params, prompt) -> None:
     with torch.no_grad():
         h = params["embed"]["table"][ids].to(torch.bfloat16)
         positions = torch.arange(h.shape[1], device=DEV)
-        h, _ = run_stack(h, params, cfg, model.segments, positions=positions, mode="prefill")
+        h, _, _ = run_stack(h, params, cfg, model.segments, positions=positions, mode="prefill")
         w = params["embed"]["table"].t() if cfg.tie_embeddings else params["unembed"]
         if h.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
             raise AssertionError(f"{tag} unembed operands {h.dtype} and {w.dtype}, not bfloat16")
@@ -3747,10 +3878,10 @@ def phase_exactness() -> dict:
     for si, (unit, _) in enumerate(model.segments):
         kind = unit[0]
         lp = _index(params[f"seg{si}"]["u0"], 0)
-        got, got_cache = apply_layer(
+        got, got_cache, _ = apply_layer(
             torch.from_numpy(x).to(DEV), lp, cfg, kind, positions=positions.to(DEV), mode="prefill"
         )
-        want, want_cache = apply_layer(
+        want, want_cache, _ = apply_layer(
             torch.from_numpy(x), _to_cpu(lp), cfg, kind, positions=positions, mode="prefill"
         )
         errs = {"h": (got.cpu() - want).abs().max().item()}
@@ -3860,10 +3991,10 @@ def phase_rwkv_exactness() -> None:
     x = np.random.default_rng(3).normal(size=RWKV_LAYER_CHECK_SHAPE).astype(np.float32)
     positions = torch.arange(RWKV_LAYER_CHECK_SHAPE[1])
     lp = _index(params["seg0"]["u0"], 0)
-    got, got_cache = apply_layer(
+    got, got_cache, _ = apply_layer(
         torch.from_numpy(x).to(DEV), lp, cfg, "rwkv", positions=positions.to(DEV), mode="prefill"
     )
-    want, want_cache = apply_layer(
+    want, want_cache, _ = apply_layer(
         torch.from_numpy(x), _to_cpu(lp), cfg, "rwkv", positions=positions, mode="prefill"
     )
     errs = {"h": (got.cpu() - want).abs().max().item()}
@@ -3879,10 +4010,11 @@ def phase_rwkv_exactness() -> None:
 
 
 # The dense family at full width (src/repro_torch/configs/archs.py), served in bfloat16.
-# qwen1.5-110b runs 8 of its 80 layers: at full depth its 111.2B bfloat16 parameters
-# (222.4 GB) do not fit on one 80 GB card; the cut keeps every width.
+# qwen1.5-110b runs 4 of its 80 layers: at full depth its 111.2B bfloat16 parameters
+# (222.4 GB) do not fit on one 80 GB card; the cut keeps every width (8 layers until the moe
+# phase came and the script's time had to shrink).
 DENSE_ARCHS = ("qwen3-1.7b", "stablelm-1.6b", "yi-6b", "qwen1.5-110b")
-DENSE_DEPTH = {"qwen1.5-110b": 8}
+DENSE_DEPTH = {"qwen1.5-110b": 4}
 DENSE_LAYER_CHECK = 777  # rows of the float32 layer check's (1, S, d) input
 
 
@@ -3968,12 +4100,12 @@ def _dense_layer_check(tag, cfg) -> None:
     x = torch.from_numpy(x.astype(np.float32))
     positions = torch.arange(DENSE_LAYER_CHECK)
     _reset_launches()
-    got, got_cache = apply_layer(
+    got, got_cache, _ = apply_layer(
         x.to(DEV), lp, cfg32, "dense", positions=positions.to(DEV), mode="prefill"
     )
     if fa.flash_attention_fwd.launches != 1:
         raise AssertionError(f"{tag} float32 layer: {fa.flash_attention_fwd.launches} flash")
-    want, want_cache = apply_layer(
+    want, want_cache, _ = apply_layer(
         x, _to_cpu(lp), cfg32, "dense", positions=positions, mode="prefill"
     )
     errs = {"h": (got.cpu() - want).abs().max().item()}
@@ -3990,6 +4122,319 @@ def _dense_layer_check(tag, cfg) -> None:
         f"{fa.PATHS[torch.float32]} path) vs CPU path (plain) max |err| "
         f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {EXACT_TOL})"
     )
+
+
+def phase_moe() -> dict:
+    """Serve full-width granite-moe-3b-a800m at full depth (32 MoE layers, bfloat16): 8
+    requests through the 4-slot batcher at MOE_MAX_LEN, both engines; the launch and engine
+    gates, teacher-forced logits with routing flips counted, moe_block's bits twice in each
+    engine, serving numbers beside their bounds and profiles; then a float32 layer on the card
+    against the CPU path. Returns the flash and decode-attention launch counts."""
+    tag = "[moe]"
+    cfg = get_config(MOE_ARCH)
+    t0 = time.monotonic()
+    params = init_params(cfg, _gen(0), DEV)
+    model = build(cfg, DEV)
+    torch.cuda.synchronize()
+    weight_bytes = torch.cuda.memory_allocated()
+    log(
+        f"{tag} {cfg.name}: {cfg.num_layers} MoE layers, d={cfg.d_model}, {cfg.num_heads} heads "
+        f"on {cfg.num_kv_heads} KV heads of {cfg.head_dim}, {cfg.num_experts} experts top "
+        f"{cfg.num_experts_per_tok} of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size} (tied), "
+        f"moe_impl {cfg.moe_impl!r}; {cfg.param_count()} params ({cfg.active_param_count()} "
+        f"active) {cfg.param_dtype}, {weight_bytes} bytes on the card; drawn in "
+        f"{time.monotonic() - t0:.1f} s"
+    )
+    prompts = make_prompts(N_REQUESTS, cfg.vocab_size, *MOE_PROMPT_LENS, seed=0)
+    lens = [len(p) for p in prompts]
+    n_long = sum(n > moe_mod.DROPLESS_TOKENS for n in lens)
+    if not 0 < n_long < len(prompts) or max(lens) != GRANITE_FLASH_JSON[3]:
+        raise AssertionError(f"{tag} prompt lengths {lens}: both engines must serve")
+    log(
+        f"{tag} prompt lengths {lens}, {NEW_TOKENS} new tokens each: {n_long} above "
+        f"{moe_mod.DROPLESS_TOKENS} tokens (einsum engine), {len(prompts) - n_long} at or below "
+        "(dropless sort engine)"
+    )
+    res, seen, peak = _serve_recorded(model, params, prompts, MOE_MAX_LEN)
+    launches = {
+        "flash": fa.flash_attention_fwd.launches,
+        "decode_attention": da.decode_attention.launches,
+    }
+    engines = {"sort": moe_mod._moe_sort.calls, "einsum": moe_mod._moe_einsum.calls}
+    others = (
+        fa.flash_attention_bwd.launches,
+        rg.rglru_scan.launches,
+        rg.rglru_bwd.launches,
+        wk.wkv6_chunked.launches,
+        wk.wkv6_bwd.launches,
+    )
+    L, n_short = cfg.num_layers, len(prompts) - n_long
+    want = {"flash": L * len(prompts), "decode_attention": L * res["steps"]}
+    want_engines = {"sort": L * (n_short + res["steps"]), "einsum": L * n_long}
+    if launches != want or engines != want_engines or any(others):
+        raise AssertionError(
+            f"{tag} launches {launches}, expected {want}; engine calls {engines}, expected "
+            f"{want_engines}; flash backward, rglru, wkv6 launches {others}, expected 0"
+        )
+    log(
+        f"{tag} flash_attention_fwd launches {launches['flash']} = {L} layers x {len(prompts)} "
+        f"prefills ({fa.PATHS[torch.bfloat16]} path); decode_attention launches "
+        f"{launches['decode_attention']} = {L} layers x {res['steps']} decode steps; no other "
+        f"kernel; sort engine calls {engines['sort']} = {L} x ({n_short} prefills + "
+        f"{res['steps']} decode steps), einsum engine calls {engines['einsum']} = {L} x {n_long} "
+        "prefills"
+    )
+    _check_teacher_forced(
+        tag, model, params, prompts, res, seen, LOGIT_TOL_MOE, MOE_MAX_LEN, routes=True
+    )
+    _moe_block_bits(tag, cfg, params, (min(lens), max(lens)))
+    _log_serving(tag, res, peak)
+    _log_moe_bounds(tag, cfg, weight_bytes, lens, res)
+    _prefill_profile(model, params, tag, prompts[int(np.argmax(lens))], MOE_MAX_LEN)
+    _decode_profile(model, params, tag, MOE_MAX_LEN)
+    _moe_decode_split(model, params, tag, MOE_MAX_LEN)
+    del model, params, res, seen
+    _release()
+    _moe_layer_check(tag, cfg)
+    _release()
+    return launches
+
+
+def _moe_block_bits(tag, cfg, params, lengths) -> None:
+    """``moe_block`` of layer 0 twice on one input of each engine's side: equal bits."""
+    lp = _index(params["seg0"]["u0"], 0)["moe"]
+    gen = _gen(5)
+    for n in lengths:
+        x = torch.randn(1, n, cfg.d_model, generator=gen, device=DEV).to(torch.bfloat16)
+        moe_mod._moe_sort.calls = moe_mod._moe_einsum.calls = 0
+        (first, aux1), (again, aux2) = (moe_mod.moe_block(x, lp, cfg) for _ in range(2))
+        engine = "sort" if moe_mod._moe_sort.calls else "einsum"
+        differ = (first != again).sum().item()
+        if differ or not torch.equal(aux1, aux2) or not torch.isfinite(first).all():
+            raise AssertionError(f"{tag} moe_block twice on {n} tokens: {differ} elements differ")
+        log(f"{tag} moe_block twice on x(1, {n}, {cfg.d_model}) bf16 ({engine} engine): equal bits")
+
+
+def _moe_prefill_flops(cfg, n: int) -> float:
+    """FLOPs of one prefill of ``n`` tokens as the reference defines its work: the experts'
+    products over every slot row the engine dispatches (empty slots included), the attention
+    projections, the router, causal attention, the last row's unembed."""
+    E, k, d, ff = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model, cfg.moe_d_ff
+    if n <= moe_mod.DROPLESS_TOKENS:
+        slots = n  # dropless: every expert gets n slots
+    else:
+        groups = max(1, n // cfg.moe_group_size)
+        per = n // groups
+        slots = groups * max(1, int(per * k / E * cfg.moe_capacity_factor))
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    proj = 2 * n * d * (2 * hq * hd + 2 * hkv * hd)
+    attn = 4 * hq * hd * n * (n + 1) / 2
+    layer = 2 * E * slots * 3 * d * ff + proj + attn + 2 * n * d * E
+    return cfg.num_layers * layer + 2 * d * cfg.vocab_size
+
+
+def _log_moe_bounds(tag, cfg, weight_bytes, lens, res) -> None:
+    """The least time the card could take for the serving phase's work, beside the measured:
+    a decode step reads every weight (every expert gets slots), a prefill's FLOPs at the
+    bf16 peak or its weights' bytes, whichever is longer."""
+    decode_ms = 1e3 * weight_bytes / PEAK_HBM_BYTES
+    prefill = [
+        1e3 * max(_moe_prefill_flops(cfg, n) / PEAK_BF16_FLOPS, weight_bytes / PEAK_HBM_BYTES)
+        for n in lens
+    ]
+    experts = cfg.num_layers * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * 2  # bf16
+    log(
+        f"{tag} bounds: a decode step reads {weight_bytes} bytes of weights ({experts} of them "
+        f"the experts'): {decode_ms:.3f} ms at 3.35 TB/s against {res['decode_ms_per_step']:.3f} "
+        f"ms/step measured ({res['decode_ms_per_step'] / decode_ms:.1f}x); the prefills "
+        f"{', '.join(f'{n}: {b:.3f}' for n, b in zip(lens, prefill))} ms (the larger of FLOPs at "
+        f"989 TFLOP/s and the weights' bytes), mean {np.mean(prefill):.3f} against "
+        f"{res['prefill_ms_mean']:.3f} ms measured "
+        f"({res['prefill_ms_mean'] / np.mean(prefill):.1f}x)"
+    )
+
+
+MOE_RANGES = ("attention", "moe", "moe.router", "moe.experts")
+
+
+@contextlib.contextmanager
+def _moe_ranges():
+    """The MoE block, its router, its experts' products and the attention block wrapped in
+    ``torch.profiler.record_function`` ranges of MOE_RANGES' names (this file's patches: the
+    port's code carries none)."""
+    saved = [
+        (transformer_mod, "gqa_attention", "attention"),
+        (transformer_mod, "moe_block", "moe"),
+        (moe_mod, "_router", "moe.router"),
+        (moe_mod, "_expert_ffn", "moe.experts"),
+    ]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
+
+    def ranged(fn, label):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+
+        return call
+
+    for (mod, name, label), (_, _, fn) in zip(saved, originals):
+        setattr(mod, name, ranged(fn, label))
+    try:
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def _moe_decode_split(model, params, tag: str, max_len: int, steps: int = 5) -> None:
+    """A profiled window of 4-slot decode steps split by block: the device time of the
+    kernels launched inside the attention block, the MoE's router, its experts' products and
+    the rest of the MoE (the dispatch: slot tables, sorts, gathers; the combine), per step."""
+    cache = model.init_cache(SLOTS, max_len)
+    tok = torch.zeros(SLOTS, dtype=torch.long, device=DEV)
+    model.decode_step(params, cache, {"token": tok})
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with _moe_ranges(), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            model.decode_step(params, cache, {"token": tok})
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0) / steps
+    ranges = {name: 0.0 for name in MOE_RANGES}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in ranges:
+            ranges[e.name] += e.device_time_total / 1e3 / steps
+    kernels = [r for r in _device_rows(prof) if r[2] not in ranges]  # not the ranges' own
+    device_ms = sum(r[0] for r in kernels) / 1e3 / steps
+    if not device_ms or not ranges["moe"]:
+        log(f"{tag} decode split: no device time under the ranges (not measured)")
+        return
+    dispatch = ranges["moe"] - ranges["moe.router"] - ranges["moe.experts"]
+    parts = {
+        "attention block": ranges["attention"],
+        "MoE router": ranges["moe.router"],
+        "MoE dispatch and combine": dispatch,
+        "MoE experts' products": ranges["moe.experts"],
+    }
+    parts["the rest (norms, embed, unembed)"] = device_ms - sum(parts.values())
+    log(
+        f"{tag} decode step (4 slots) under the profiler with ranges: {wall_ms:.3f} ms wall, "
+        f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%); device ms a step: "
+        + "; ".join(f"{k} {v:.3f} ({100 * v / device_ms:.1f}%)" for k, v in parts.items())
+    )
+
+
+@contextlib.contextmanager
+def _router_calls(out: list):
+    """Record each MoE router call's input rows and expert ids into ``out``."""
+    router = moe_mod._router
+
+    def recording(x_flat, p, *args):
+        weights, idx, aux = router(x_flat, p, *args)
+        out.append((x_flat, p["router"], idx))
+        return weights, idx, aux
+
+    moe_mod._router = recording
+    try:
+        yield out
+    finally:
+        moe_mod._router = router
+
+
+def _moe_layer_check(tag, cfg) -> None:
+    """One full-width layer of a float32 copy on the card against the port's CPU path on a
+    (1, MOE_LAYER_CHECK, d) input: the routing first (a token whose top-k differ must sit on
+    a tie within the two sides' float32 rounding of its probabilities; counted and printed),
+    then the output of every other token within MOE_TOL of its scale and the cache within
+    EXACT_TOL. Then each engine on the CPU path's routing of MOE_ENGINE_CHECK rows."""
+    cfg32 = dataclasses.replace(cfg, num_layers=1, param_dtype="float32", compute_dtype="float32")
+    params = init_params(cfg32, _gen(1), DEV)
+    lp = _index(params["seg0"]["u0"], 0)
+    cpu = _to_cpu(lp)
+    x = np.random.default_rng(3).normal(size=(1, MOE_LAYER_CHECK, cfg.d_model))
+    x = torch.from_numpy(x.astype(np.float32))
+    positions = torch.arange(MOE_LAYER_CHECK)
+    card_calls, cpu_calls = [], []
+    _reset_launches()
+    with _router_calls(card_calls):
+        got, got_cache, _ = apply_layer(
+            x.to(DEV), lp, cfg32, "moe", positions=positions.to(DEV), mode="prefill"
+        )
+    if fa.flash_attention_fwd.launches != 1 or moe_mod._moe_sort.calls != 1:
+        raise AssertionError(f"{tag} float32 layer: {fa.flash_attention_fwd.launches} flash")
+    with _router_calls(cpu_calls):
+        want, want_cache, _ = apply_layer(x, cpu, cfg32, "moe", positions=positions, mode="prefill")
+    (xc, rc, ic), (xw, rw, iw) = card_calls[0], cpu_calls[0]
+    k = cfg.num_experts_per_tok
+    p_card = torch.softmax(dense(xc, rc).float(), dim=-1).cpu()
+    p_cpu = torch.softmax(dense(xw, rw).float(), dim=-1)
+    flipped = (torch.sort(ic.cpu(), -1).values != torch.sort(iw, -1).values).any(-1)
+    top = torch.sort(p_cpu, dim=-1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]  # the CPU's gap at the top-k boundary
+    noise = 2 * (p_card - p_cpu).abs().amax(-1)  # what the two roundings can move it
+    for t in flipped.nonzero().flatten().tolist():
+        log(
+            f"{tag} float32 layer: token {t} routed differently on the card; its top-{k} "
+            f"boundary gap {margin[t].item():.3e} against the sides' probability difference "
+            f"x 2 {noise[t].item():.3e}"
+        )
+        if margin[t] > noise[t]:
+            raise AssertionError(f"{tag} float32 layer: token {t} flipped without a tie")
+    keep = ~flipped
+    scale = want[0, keep].abs().max().item()
+    err_h = (got.cpu()[0, keep] - want[0, keep]).abs().max().item()
+    errs = {key: (got_cache[key].cpu().float() - leaf.float()).abs().max().item()
+            for key, leaf in want_cache.items()}
+    if not torch.isfinite(got).all() or err_h > MOE_TOL * scale or max(errs.values()) > EXACT_TOL:
+        raise AssertionError(
+            f"{tag} float32 layer card vs CPU path: h {err_h} (scale {scale}), {errs}"
+        )
+    log(
+        f"{tag} one float32 MoE layer on x(1, {MOE_LAYER_CHECK}, {cfg.d_model}) (sort engine, "
+        f"dropless): routing of {int(flipped.sum())} of {MOE_LAYER_CHECK} tokens differs "
+        f"(each a tie within rounding); the smallest top-{k} boundary gap "
+        f"{margin.min().item():.3e}; card vs CPU path max |err| h {err_h:.3e} of max |h| "
+        f"{scale:.2f} ({err_h / scale:.2e}, tol {MOE_TOL}), "
+        f"{', '.join(f'{k_} {v:.3e}' for k_, v in errs.items())} (tol {EXACT_TOL})"
+    )
+    _moe_engine_check(tag, cfg32, lp["moe"], cpu["moe"])
+
+
+def _moe_engine_check(tag, cfg32, p_card, p_cpu) -> None:
+    """Both engines (the sort engine with its capacity, no override) on MOE_ENGINE_CHECK rows
+    and the CPU path's routing of them: the card's float32 within MOE_TOL of the output's scale
+    of the CPU path's, and no further from the same engine run in float64 on the card (the
+    yardstick) than twice the CPU path is."""
+    x = np.random.default_rng(4).normal(size=(MOE_ENGINE_CHECK, cfg32.d_model))
+    x = torch.from_numpy(x.astype(np.float32))
+    weights, idx, _ = moe_mod._router(x, p_cpu, cfg32)
+    on_card = (x.to(DEV), weights.to(DEV), idx.to(DEV))
+    p64 = tree_map(lambda t: t.double(), p_card)
+    for name, engine in (("einsum", moe_mod._moe_einsum), ("sort", moe_mod._moe_sort)):
+        got = engine(*on_card, p_card, cfg32).cpu()
+        want = engine(x, weights, idx, p_cpu, cfg32)
+        as64 = (t.double() if t.is_floating_point() else t for t in on_card)
+        f64 = engine(*as64, p64, cfg32).cpu()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        err64 = {
+            side: (v.double() - f64).abs().max().item()
+            for side, v in (("card", got), ("cpu", want))
+        }
+        zero = int((want.abs().sum(-1) == 0).sum())
+        bad = err > MOE_TOL * scale or err64["card"] > 2 * err64["cpu"]
+        if not torch.isfinite(got).all() or bad:
+            raise AssertionError(
+                f"{tag} {name} engine card vs CPU path: max |err| {err:.3e} (scale {scale:.2f}), "
+                f"against float64 {err64}"
+            )
+        log(
+            f"{tag} {name} engine, float32, x({MOE_ENGINE_CHECK}, {cfg32.d_model}) on the CPU "
+            f"path's routing: card vs CPU path max |err| {err:.3e} of max |out| {scale:.2f} "
+            f"({err / scale:.2e}, tol {MOE_TOL}); against float64 on the card: card "
+            f"{err64['card']:.3e}, CPU path {err64['cpu']:.3e}; {zero} rows with no expert "
+            "output (dropped, or the einsum engine's tail)"
+        )
 
 
 DENSE_TRAIN_ARCH = "qwen3-1.7b"
@@ -4352,6 +4797,7 @@ def main() -> int:
     rwkv_launches = _timed("rwkv", phase_rwkv)
     _timed("rwkv exactness", phase_rwkv_exactness)
     _timed("dense", phase_dense)
+    moe = _timed("moe", phase_moe)
     dense_train = _timed("dense train", phase_dense_train)
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
     rwkv_train = _timed("rwkv train", phase_rwkv_train)
@@ -4444,6 +4890,23 @@ def main() -> int:
             demo["decode_attention"],
             decode_rows[DECODE_DEMO_JSON],
             "q(4,12,64) k,v cache(4,1536,4,64) float32, positions (1031,5,1535,1600)",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_granite",
+            flash_src,
+            flash_tpu,
+            moe["flash"],
+            flash_rows[GRANITE_FLASH_JSON],
+            "q(1,24,1711,64) k,v(1,8,1711,64) bfloat16 causal (granite-moe-3b-a800m's longest "
+            "prompt; library: SDPA flash, K/V expanded)",
+        ),
+        _kernel_entry(
+            "decode_attention_granite",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
+            moe["decode_attention"],
+            decode_rows[DECODE_GRANITE_JSON],
+            "q(4,24,64) k,v cache(4,2048,8,64) bfloat16, positions (1742,1031,5,2047)",
         ),
         _kernel_entry(
             "decode_attention_hd256",

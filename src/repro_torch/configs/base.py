@@ -133,6 +133,12 @@ class ModelConfig:
 
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters one token runs through: the routed experts at k/E of their size."""
+        from repro_torch.params import count_params
+
+        return count_params(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

@@ -8,9 +8,14 @@
         --slots 4 --max-len 3072 --max-prompt 3000
     python -m repro_torch.launch.serve --arch qwen3-1.7b --requests 8 \\
         --slots 4 --max-len 1536
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --requests 8 \\
+        --slots 4 --max-len 2048 --max-prompt 2000
 
 (``qwen3-1.7b``, ``stablelm-1.6b`` and ``yi-6b`` fit one 80 GB card at full
-depth; ``qwen1.5-110b``'s 222.4 GB of bfloat16 weights do not.)
+depth; ``qwen1.5-110b``'s 222.4 GB of bfloat16 weights do not.
+``granite-moe-3b-a800m``'s 6.60 GB do: prompts up to 1,024 tokens and every
+decode step go through its MoE's dropless sort engine, longer prompts through
+its einsum engine, as in the reference without a mesh.)
 
 Builds the architecture at its full registered size (``--smoke`` for the
 reduced variant), draws params from ``--seed``, submits ``--requests``

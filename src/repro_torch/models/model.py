@@ -5,8 +5,9 @@ Counterpart of ``repro.models.model`` for decoder LMs. Batch conventions
 (int tokens): train and prefill ``{"tokens": (B, S)}``, decode
 ``{"token": (B,)}`` plus the cache. ``loss_fn`` returns (loss, metrics): the
 next-token cross-entropy in float32 over the padded vocab plus
-``z_loss_coef``·mean(lse²), differentiable by autograd (the attention's
-gradient through the flash backward kernel on the card). ``prefill``
+``z_loss_coef``·mean(lse²) plus the MoE layers' load-balance loss (``aux_loss``),
+differentiable by autograd (the attention's gradient through the flash backward
+kernel on the card). ``prefill``
 returns (last-position logits, cache); ``decode_step`` consumes one token
 per sequence against the cache, which it updates in place and returns.
 MTP, encoder-decoder and VLM inputs come with later slices.
@@ -126,10 +127,11 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         tokens = batch["tokens"]
         h = embed_tokens(params, tokens)
         positions = torch.arange(h.shape[1], device=h.device)
-        h, _ = run_stack(h, params, cfg, segments, positions=positions, mode="train")
+        h, _, aux = run_stack(h, params, cfg, segments, positions=positions, mode="train")
         logits = unembed(params, h)  # (B, S, padded vocab) float32
         ce, z = _ce_loss(logits[:, :-1], tokens[:, 1:])
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)  # no MoE layers yet
+        # the MoE layers' load-balance losses, summed over the stack (zero without them)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
         loss = ce + cfg.z_loss_coef * z + aux
         return loss, {"ce": ce, "z_loss": z, "aux_loss": aux, "loss": loss}
 
@@ -137,7 +139,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         tokens = batch["tokens"]
         h = embed_tokens(params, tokens)
         positions = torch.arange(h.shape[1], device=h.device)
-        h, cache = run_stack(h, params, cfg, segments, positions=positions, mode="prefill")
+        h, cache, _ = run_stack(h, params, cfg, segments, positions=positions, mode="prefill")
         logits = unembed(params, h[:, -1:, :])[:, 0, : cfg.vocab_size]
         if pad_to:
             cache = _pad_cache(cache, pad_to, cfg, segments)
@@ -150,7 +152,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         tok = batch["token"]  # (B,)
         h = embed_tokens(params, tok[:, None])  # (B, 1, d)
         positions = _cache_pos(cache, tok.shape[0])[:, None]  # (B, 1) for rope
-        h, cache = run_stack(
+        h, cache, _ = run_stack(
             h, params, cfg, segments, positions=positions, mode="decode", cache=cache
         )
         logits = unembed(params, h[:, 0, :])[:, : cfg.vocab_size]

@@ -7,7 +7,7 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 ``lax.scan`` (the 8-layer demo), the port indexes the stacked params per
 repeat in a Python loop: both layouts run the same way.
 
-This port runs four kinds, in the modes ``prefill`` (build the cache),
+This port runs five kinds, in the modes ``prefill`` (build the cache),
 ``decode`` (one token against the cache, updated in place) and ``train``
 (the whole sequence, no cache, under autograd;
 ``cfg.remat`` "full" recomputes each repeat of a segment unit in the
@@ -21,8 +21,13 @@ outputs, raises and names its ROADMAP item):
           and its cache a ring of ``min(window, seq_len)`` slots
   rwkv  : RWKV6 time mix (WKV6) + channel mix; its cache is the O(1) state
           ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
+  moe   : dense with a Mixture-of-Experts block (``models/moe.py``) in place
+          of the MLP
 
-Every other kind raises ``NotImplementedError`` naming its ROADMAP item.
+Every layer returns (h, cache, aux): aux is the MoE router's load-balance loss
+(a float32 scalar; 0.0 for the other kinds), which ``run_stack`` sums over the
+layers as the reference does. The encoder-decoder kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch.utils import checkpoint as _ckpt
 
 from .attention import _project_qkv, gqa_attention, init_gqa, init_gqa_cache
 from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
+from .moe import init_moe, moe_block
 from .rglru import init_recurrent_block, init_rglru_state, recurrent_block
 from .rwkv import init_rwkv_layer, init_rwkv_state, rwkv_channel_mix, rwkv_time_mix
 
@@ -49,7 +55,6 @@ __all__ = [
 ]
 
 _NOT_PORTED = {
-    "moe": "ROADMAP Queue 1, MoE (models/moe.py)",
     "enc": "ROADMAP Queue 1, encoder-decoder and VLM",
     "xattn": "ROADMAP Queue 1, encoder-decoder and VLM",
 }
@@ -59,9 +64,9 @@ _MODES = ("train", "prefill", "decode")
 def _require_ported(cfg, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if kind not in ("dense", "rec", "attn", "rwkv"):
+    if kind not in ("dense", "rec", "attn", "rwkv", "moe"):
         raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.mla and kind in ("dense", "attn"):
+    if cfg.mla and kind in ("dense", "attn", "moe"):
         raise NotImplementedError("MLA attention is not ported yet: ROADMAP Queue 1, MLA + MTP")
 
 
@@ -129,7 +134,10 @@ def init_layer(store: ParamStore, cfg, kind: str) -> None:
     else:
         init_gqa(store, "attn", cfg)
     norm_param(store, "ln2", cfg.d_model, cfg.norm)
-    init_glu_mlp(store, "mlp", cfg.d_model, cfg.d_ff, cfg.glu)
+    if kind == "moe":
+        init_moe(store, "moe", cfg)
+    else:
+        init_glu_mlp(store, "mlp", cfg.d_model, cfg.d_ff, cfg.glu)
 
 
 def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) -> Dict[str, Any]:
@@ -170,9 +178,10 @@ def apply_layer(
     positions: torch.Tensor,
     mode: str,
     cache: Optional[Dict[str, Any]] = None,
-) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One layer. Returns (h, cache): the new cache in prefill, ``cache``
-    itself (updated in place) in decode, None in train."""
+) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
+    """One layer. Returns (h, cache, aux): the new cache in prefill, ``cache``
+    itself (updated in place) in decode, None in train; the MoE aux loss, 0.0
+    for a layer without experts."""
     _require_ported(cfg, kind)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r}: this port runs {', '.join(_MODES)}")
@@ -207,8 +216,12 @@ def apply_layer(
         elif mode == "train":
             new_cache = None
     x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
-    h = h + glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
-    return h, new_cache
+    aux = 0.0
+    if kind == "moe":
+        ffn_out, aux = moe_block(x2, lp["moe"], cfg, with_aux=mode == "train")
+    else:
+        ffn_out = glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
+    return h + ffn_out, new_cache, aux
 
 
 def _apply_rwkv(h, lp, cfg, *, mode, cache):
@@ -224,12 +237,12 @@ def _apply_rwkv(h, lp, cfg, *, mode, cache):
     cm_out, state = rwkv_channel_mix(x2, lp["rwkv"], cfg, state=state)
     h = h + cm_out
     if mode == "train":
-        return h, None
+        return h, None, 0.0
     if mode == "prefill":
-        return h, state  # tm_prev = x1[:, -1], cm_prev = x2[:, -1]
+        return h, state, 0.0  # tm_prev = x1[:, -1], cm_prev = x2[:, -1]
     for key in ("wkv", "tm_prev", "cm_prev"):
         cache[key].copy_(state[key])
-    return h, cache
+    return h, cache, 0.0
 
 
 # --------------------------------------------------------------------------
@@ -282,11 +295,13 @@ def _train_unit(h, unit, unit_params, cfg, positions):
     """One repeat of a segment unit in train mode, checkpointed as ``cfg.remat`` says."""
 
     def body(x):
+        aux = 0.0
         for uj, kind in enumerate(unit):
-            x, _ = apply_layer(
+            x, _, a = apply_layer(
                 x, unit_params[f"u{uj}"], cfg, kind, positions=positions, mode="train"
             )
-        return x
+            aux = aux + a
+        return x, aux
 
     if cfg.remat == "none":
         return body(h)
@@ -309,24 +324,28 @@ def run_stack(
     mode: str,
     cache: Optional[Dict[str, Any]] = None,
     prefix: str = "seg",
-) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run all segments in order. Returns (h, cache): a fresh stacked cache in
-    prefill, the given ``cache`` (updated in place) in decode, None in train."""
+) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
+    """Run all segments in order. Returns (h, cache, aux): a fresh stacked cache in
+    prefill, the given ``cache`` (updated in place) in decode, None in train; the
+    layers' MoE aux losses summed (0.0 without MoE layers outside train, a float32
+    scalar tensor in train)."""
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
     new_cache: Dict[str, Any] = {} if mode == "prefill" else cache
+    total_aux = 0.0
     for si, (unit, repeats) in enumerate(segments):
         seg_params = params[f"{prefix}{si}"]
         outs: Dict[str, list] = {f"u{uj}": [] for uj in range(len(unit))}
         for r in range(repeats):
             if mode == "train":
                 unit_params = {key: _index(p, r) for key, p in seg_params.items()}
-                h = _train_unit(h, unit, unit_params, cfg, positions)
+                h, aux = _train_unit(h, unit, unit_params, cfg, positions)
+                total_aux = total_aux + aux
                 continue
             for uj, kind in enumerate(unit):
                 key = f"u{uj}"
                 layer_cache = None if mode == "prefill" else _index(cache[f"{prefix}{si}"][key], r)
-                h, c_new = apply_layer(
+                h, c_new, aux = apply_layer(
                     h,
                     _index(seg_params[key], r),
                     cfg,
@@ -335,8 +354,9 @@ def run_stack(
                     mode=mode,
                     cache=layer_cache,
                 )
+                total_aux = total_aux + aux
                 if mode == "prefill":
                     outs[key].append(c_new)
         if mode == "prefill":
             new_cache[f"{prefix}{si}"] = {key: _stack(cs) for key, cs in outs.items()}
-    return h, new_cache
+    return h, new_cache, total_aux

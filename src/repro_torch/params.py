@@ -51,19 +51,27 @@ def init_params(
     return _draw(cfg, generator, resolve_device(device))
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Number of parameters in ``cfg``'s tree (shapes only, nothing drawn)."""
-    total = 0
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Number of parameters in ``cfg``'s tree (shapes only, nothing drawn).
 
-    def visit(tree):
-        nonlocal total
+    With ``active_only``, the routed experts' leaves (every leaf under an
+    ``experts`` key) count k/E of their size, those one token runs through, as the
+    reference's ``count_params_analytic(cfg, active_only=True)`` counts them.
+    """
+    total = routed = 0
+
+    def visit(tree, in_experts):
+        nonlocal total, routed
         if isinstance(tree, Mapping):
-            for v in tree.values():
-                visit(v)
+            for key, v in tree.items():
+                visit(v, in_experts or key == "experts")
         else:
             total += tree.numel()
+            routed += tree.numel() if in_experts else 0
 
-    visit(_draw(cfg, None, torch.device("meta")))
+    visit(_draw(cfg, None, torch.device("meta")), False)
+    if active_only and cfg.num_experts:
+        total = total - routed + routed * cfg.num_experts_per_tok // cfg.num_experts
     return total
 
 

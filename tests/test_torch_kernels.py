@@ -155,14 +155,18 @@ def test_non_causal_sq_greater_than_sk_is_accepted():
 
 def test_not_ported_kernels_name_their_roadmap_item():
     """Every Pallas kernel has a counterpart now (WKV6 was the last); what is not
-    ported yet is layer kinds, and each names its ROADMAP item."""
+    ported yet is layer kinds, and each names its ROADMAP item. The MoE kind is
+    ported (``models/moe.py``): its layer keeps the attention cache of a dense one."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_layer_cache
 
     cfg = get_config("serpytor-demo-100m")
-    for kind in ("moe", "enc", "xattn"):
+    for kind in ("enc", "xattn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_layer_cache(cfg, kind, 1, 8, torch.float32, "cpu")
+    moe = init_layer_cache(cfg, "moe", 1, 8, torch.float32, "cpu")
+    dense = init_layer_cache(cfg, "dense", 1, 8, torch.float32, "cpu")
+    assert {k: v.shape for k, v in moe.items()} == {k: v.shape for k, v in dense.items()}
     r = torch.zeros(1, 1, 1, 4)
     out, state = tops.wkv6(r, r, r, torch.ones(1, 1, 1, 4), torch.zeros(1, 4))
     assert out.shape == (1, 1, 1, 4) and state.shape == (1, 1, 4, 4)
