@@ -141,7 +141,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    A's content digests, reports 1 step and 2 + 2 flash launches. Logs the steps'
    ms through the trainer against the direct steps', each checkpoint save's
    seconds (params sync, ``-opt`` async), the restore's, the journal's size and
-   the heartbeat's report;
+   the heartbeat's report. Checkpoint shards are raw frames (the npz after a 0x00 tag);
 5c. distributed train, in a process of its own (this file run with
    ``--distributed``, set up as ``--train``): ``DistributedTrainer`` trains the
    demo at 2 layers data-parallel through a ``ClusterExecutor`` over a ``Gateway`` of 2
@@ -233,7 +233,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    runs it again in each layer's recompute); step ms, tokens/s, peak memory
    and a profiled step; step 0 with ``attn_impl="ref"`` agrees in loss, grad
    norm and every gradient leaf within DENSE_TRAIN_GAPS times the plain path's
-   own bfloat16-against-float32 gap;
+   own bfloat16-against-float32 gap; then 3 direct steps of the same model at 2 of its 28
+   layers (DENSE_DURABLE_LAYERS), with the content digests of the checkpoint pair the
+   durable trainer saves before step 2;
+11b. dense durable, through the train CLI in processes of their own (``python -m
+   repro_torch.launch.train --arch qwen3-1.7b --full --layers 2 --batch 2 --seq 4096
+   --steps 3 --checkpoint-every 2``: full width, 2 of 28 layers, 412M params in bfloat16,
+   a checkpoint pair of 4.1 GB): the durable phase's runs A and B and gates (journal
+   shape, step digests equal the direct steps', the crash between the halves of
+   ``step00000003``, B's restore through ``resolve()`` onto the card, step 2 re-executed
+   to the journal's digest, ``step00000003`` re-saved with A's refs), 12 + 6 and 4 + 2
+   flash launches; every param entry of the manifests says bfloat16; A's ``step00000002``
+   refs equal the direct steps' digests; that pair as the trainer restores it
+   (``restore_pair``) equals, under torch.equal leaf by leaf, the tree read from A's raw
+   shards with numpy alone; zlib at levels 1 and 6 on samples of A's params, m and v (the
+   ratio and rate the raw frames give up). Logs each save's seconds, bytes and MB/s, the
+   restore's seconds, the journal's size and each step's ms through the trainer beside
+   the direct step's;
 12. hybrid train, in a process of its own (this file run with
    ``--hybrid-train``, set up as ``--train``): ``recurrentgemma-9b`` at full
    width, layers 0-5 (rec, rec, attn) x 2, in bfloat16 with remat "full", takes
@@ -314,6 +330,8 @@ from repro_torch.core import (  # noqa: E402
     Journal,
     check_heartbeat,
 )
+from repro_torch.checkpoint import CheckpointStore  # noqa: E402
+from repro_torch.checkpoint.store import _flatten  # noqa: E402
 from repro_torch.data import DataConfig, TokenSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -348,7 +366,9 @@ from repro_torch.train import (  # noqa: E402
     make_opt_init,
     make_train_step,
 )
+from repro_torch.train.host import to_host  # noqa: E402
 from repro_torch.train.steps import value_and_grad  # noqa: E402
+from repro_torch.train.trainer import restore_pair  # noqa: E402
 from repro_torch.wire import payload_digest  # noqa: E402
 
 DEV = "cuda"
@@ -2675,13 +2695,11 @@ def _step_digest(params, state, metrics) -> str:
     return payload_digest(_host_tree(tree))
 
 
-def _train_batches(cfg):
+def _train_batches(cfg, batch_size: int = TRAIN_BATCH):
     """The train steps' batches on the card, and each batch's ``payload_digest`` (the
     trainer's ``data@`` digest)."""
     source = TokenSource(
-        DataConfig(
-            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0
-        )
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch_size, seed=0)
     )
     host = [source.batch_at(s) for s in range(TRAIN_STEPS)]
     batches = [{"tokens": torch.from_numpy(b["tokens"]).long().to(DEV)} for b in host]
@@ -2821,26 +2839,32 @@ def _demo_cut_config():
     return dataclasses.replace(get_config("serpytor-demo-100m"), num_layers=DEMO_CUT_LAYERS)
 
 
-def _direct_steps(cfg, opt) -> dict:
-    """TRAIN_STEPS direct steps of ``cfg`` from the train CLI's initial params on the train
-    phase's batches: each step's ms and metrics digest as the trainer journals it."""
+def _direct_steps(cfg, opt, batch_size=TRAIN_BATCH, tag="[train]", pair_at=None) -> dict:
+    """TRAIN_STEPS direct steps of ``cfg`` from the train CLI's initial params on TokenSource
+    batches of ``batch_size`` x TRAIN_SEQ: each step's ms and metrics digest as the trainer
+    journals it and, with ``pair_at``, the content digests of the checkpoint pair the trainer
+    saves before step ``pair_at`` (params, then AdamW state)."""
     model = build(cfg, DEV)
     params = init_params(cfg, _gen(0), DEV)
     state = make_opt_init(model, opt)(params)
     train_step = make_train_step(model, opt)
-    batches, data_digests = _train_batches(cfg)
-    step_ms, digests = [], []
+    batches, data_digests = _train_batches(cfg, batch_size)
+    step_ms, digests, pair = [], [], None
     for step in range(TRAIN_STEPS):
+        if step == pair_at:
+            pair = [CheckpointStore.content_digest(to_host(tree)) for tree in (params, state)]
         t0 = time.monotonic()
         params, state, metrics = train_step(params, state, batches[step])
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.monotonic() - t0))
         digests.append(_metrics_digest(metrics, step, data_digests[step]))
     log(
-        f"[train] {cfg.num_layers} of the demo's layers (the durable and distributed phases' "
-        f"depth): step ms {', '.join(f'{x:.3f}' for x in step_ms)}; metrics digests {digests}"
+        f"{tag} {cfg.num_layers} layers of {cfg.name} (a durable phase's depth), batches of "
+        f"{batch_size} x {TRAIN_SEQ}: step ms {', '.join(f'{x:.3f}' for x in step_ms)}; "
+        f"metrics digests {digests}"
+        + (f"; the checkpoint pair before step {pair_at}: {pair}" if pair else "")
     )
-    return {"step_digests": digests, "step_ms": step_ms}
+    return {"step_digests": digests, "step_ms": step_ms, "pair": pair}
 
 
 def _check_train_against_plain(cfg, model, params, state, batch, metrics, opt) -> None:
@@ -2913,16 +2937,25 @@ DURABLE_CMD = [
     "--steps", str(TRAIN_STEPS), "--checkpoint-every", "2",
 ]  # fmt: skip
 LAUNCHES_LINE = "kernel launches "  # the train CLI's last line
-# its counts of the kernels the demo's train steps do not run (it has no rec or rwkv layers)
+# its counts of the kernels the dense train steps do not run (no rec or rwkv layers)
 NO_LAUNCHES = {"rglru_scan": 0, "rglru_bwd": 0, "wkv6_chunked": 0, "wkv6_bwd": 0}
 
 
-def _run_trainer(tag: str, run_dir: Path) -> dict:
-    """One run of the train CLI in a process of its own, its output logged line by line;
-    its heartbeat is polled once, when the first round's step line comes. Returns the
-    launches the CLI reports, the heartbeat's report, the process's wall seconds and the
-    run's ``summary.json``."""
-    cmd = [sys.executable, *DURABLE_CMD, "--run-dir", str(run_dir)]
+def _cli_launches(cfg, steps: int) -> dict:
+    """The launches the train CLI reports for ``steps`` steps of ``cfg``, whose layers are all
+    attention layers: the flash backward once a layer, the forward once, or twice with remat
+    "full" (which runs it again in the layer's recompute)."""
+    n = len(layer_pattern(cfg)) * steps
+    fwd = 2 * n if cfg.remat == "full" else n
+    return {**NO_LAUNCHES, "flash_attention_fwd": fwd, "flash_attention_bwd": n}
+
+
+def _run_trainer(tag: str, run_dir: Path, cmd: list) -> dict:
+    """One run of the train CLI (``python`` with ``cmd``) in a process of its own, its output
+    logged line by line under ``tag`` with the seconds since the process started; its heartbeat is polled once, when the first round's
+    step line comes. Returns the launches the CLI reports, the heartbeat's report, the
+    process's wall seconds and the run's ``summary.json``."""
+    cmd = [sys.executable, *cmd, "--run-dir", str(run_dir)]
     path = [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in path if p))
     launches, address, beat = None, None, None
@@ -2930,18 +2963,18 @@ def _run_trainer(tag: str, run_dir: Path) -> dict:
     with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, cwd=ROOT, env=env) as proc:
         for line in proc.stdout:
             line = line.rstrip("\n")
-            log(f"[durable {tag}] {line}")
+            log(f"[{tag}] +{time.monotonic() - t0:.1f} s: {line}")
             if line.startswith("heartbeat at "):
                 address = line[len("heartbeat at ") :]
             elif line.startswith("step ") and address and beat is None:
                 beat = check_heartbeat(address, timeout=30.0)
                 if beat is None:
-                    raise AssertionError(f"[durable {tag}] the heartbeat at {address} is down")
+                    raise AssertionError(f"[{tag}] the heartbeat at {address} is down")
             elif line.startswith(LAUNCHES_LINE):
                 launches = json.loads(line[len(LAUNCHES_LINE) :])
     wall = time.monotonic() - t0
     if proc.returncode != 0 or launches is None:
-        raise AssertionError(f"[durable {tag}] the train CLI exited with code {proc.returncode}")
+        raise AssertionError(f"[{tag}] the train CLI exited with code {proc.returncode}")
     summary = json.loads((run_dir / "summary.json").read_text())
     return {"launches": launches, "heartbeat": beat, "wall_s": wall, "summary": summary}
 
@@ -2950,18 +2983,31 @@ def _journal(run_dir: Path) -> list:
     return list(Journal(str(run_dir / "journal.wal"), sync="never").records())
 
 
+def _raw_bytes(man: dict) -> int:
+    """The bytes of a checkpoint's arrays by its manifest: bfloat16 is 2 a value (numpy, which
+    has no bfloat16 on the card's machine, cannot be asked)."""
+    return sum(
+        (2 if e["dtype"] == "bfloat16" else np.dtype(e["dtype"]).itemsize)
+        * int(np.prod(e["shape"]))
+        for e in man["entries"].values()
+    )
+
+
+def _save_report(ckpt: Path, name: str, sec: float) -> str:
+    """A checkpoint save's seconds beside its bytes, raw and on disk, and its rate."""
+    raw = _raw_bytes(json.loads((ckpt / name / "manifest.json").read_text()))
+    disk = (ckpt / name / "shard-0.npz.zst").stat().st_size
+    return (
+        f"{sec:.3f} s for {raw} bytes raw, {disk} on disk (ratio {disk / raw:.4f}), "
+        f"{raw / sec / 1e6:.1f} MB/s of raw bytes"
+    )
+
+
 def _log_saves(tag: str, run_dir: Path, seconds: dict) -> None:
     """Each checkpoint save's seconds beside its bytes, raw and on disk."""
     for name, sec in sorted(seconds.items()):
-        man = json.loads((run_dir / "ckpt" / name / "manifest.json").read_text())
-        entries = man["entries"].values()
-        raw = sum(np.dtype(e["dtype"]).itemsize * int(np.prod(e["shape"])) for e in entries)
-        disk = (run_dir / "ckpt" / name / "shard-0.npz.zst").stat().st_size
         kind = "async" if name.endswith("-opt") else "sync"
-        log(
-            f"[durable {tag}] save {name} ({kind}): {sec:.3f} s for {raw} bytes raw, {disk} on "
-            f"disk (ratio {disk / raw:.4f}), {raw / sec / 1e6:.1f} MB/s of raw bytes"
-        )
+        log(f"[{tag}] save {name} ({kind}): {_save_report(run_dir / 'ckpt', name, sec)}")
 
 
 def _log_steps(tag: str, recs: list, direct_ms: list) -> None:
@@ -2975,93 +3021,100 @@ def _log_steps(tag: str, recs: list, direct_ms: list) -> None:
             s = int(r.node_id[5:])
             ms = 1e3 * (r.wall_time - start[r.node_id])
             log(
-                f"[durable {tag}] {r.node_id}: {ms:.3f} ms through the trainer (NODE_START to "
+                f"[{tag}] {r.node_id}: {ms:.3f} ms through the trainer (NODE_START to "
                 f"NODE_COMMIT), direct step {direct_ms[s]:.3f} ms: {ms - direct_ms[s]:+.3f} ms"
             )
         elif r.kind == "RUN_END":
-            log(f"[durable {tag}] {r.node_id}: {r.wall_time - start[r.node_id]:.3f} s of round")
+            log(f"[{tag}] {r.node_id}: {r.wall_time - start[r.node_id]:.3f} s of round")
+
+
+def _durable(name: str, cfg, cmd: list, run_dir: Path, direct: dict) -> dict:
+    """Train ``cfg`` through the durable trainer (the train CLI run with ``cmd``), crash
+    between the halves of its last checkpoint, restart and verify: run A, then run B, with
+    the gates both durable phases share. ``direct`` holds the digests and ms of the same
+    steps run directly at that depth. Returns both runs' results and A's CKPT refs."""
+    a = _run_trainer(f"{name} A", run_dir, cmd)
+    recs = _journal(run_dir)
+    wal_a = (run_dir / "journal.wal").stat().st_size
+    kinds = [r.kind for r in recs]
+    commits = {r.node_id: r for r in recs if r.kind == "NODE_COMMIT"}
+    want_nodes = {f"{k}@{s}" for k in ("data", "step") for s in range(TRAIN_STEPS)}
+    want_nodes |= {"ckpt@2", f"ckpt@{TRAIN_STEPS}"}
+    if (kinds.count("RUN_START"), kinds.count("RUN_END"), kinds.count("CKPT")) != (2, 2, 2):
+        raise AssertionError(f"[{name} A] journal kinds {sorted(set(kinds))}: {kinds}")
+    if set(commits) != want_nodes:
+        raise AssertionError(f"[{name} A] commits {sorted(commits)}, want {want_nodes}")
+    got = [commits[f"step@{s}"].output_digest for s in range(TRAIN_STEPS)]
+    if got != direct["step_digests"]:
+        raise AssertionError(
+            f"[{name} A] journaled step digests {got} != the direct steps' "
+            f"{direct['step_digests']}"
+        )
+    want_launches = _cli_launches(cfg, TRAIN_STEPS)
+    if a["launches"] != want_launches or a["summary"]["steps"] != TRAIN_STEPS:
+        raise AssertionError(
+            f"[{name} A] launches {a['launches']} (want {want_launches}), summary {a['summary']}"
+        )
+    beat = a["heartbeat"]
+    if beat is None or beat["devices"] != {"backend": "cuda", "count": 1}:
+        raise AssertionError(f"[{name} A] heartbeat {beat}")
+    log(
+        f"[{name} A] journaled step digests {got} equal the direct steps'; flash launches "
+        f"{a['launches']}; journal {wal_a} bytes, {len(recs)} records; CLI process "
+        f"{a['wall_s']:.1f} s, trainer wall {a['summary']['wall_s']:.3f} s"
+    )
+    log(
+        f"[{name} A] heartbeat: devices {beat['devices']}, worker {beat['worker']}, pid "
+        f"{beat['pid']}, cpu load1 {beat['cpu']['load1']} of {beat['cpu']['ncpu']}, memory "
+        f"used {beat['memory']['used_frac']:.4f}, uptime {beat['uptime_s']:.3f} s, probe "
+        f"{1e3 * beat['probe_latency_s']:.3f} ms"
+    )
+    _log_steps(f"{name} A", recs, direct["step_ms"])
+    _log_saves(f"{name} A", run_dir, a["summary"]["checkpoint_s"])
+    ckpt_refs = [r.ref for r in recs if r.kind == "CKPT"]
+
+    # the crash between the two halves of the last checkpoint
+    last = f"step{TRAIN_STEPS:08d}"
+    shutil.rmtree(run_dir / "ckpt" / f"{last}-opt")
+    log(f"[{name}] deleted {last}-opt: the newest complete pair is step00000002")
+
+    b = _run_trainer(f"{name} B", run_dir, cmd)
+    new = _journal(run_dir)[len(recs) :]
+    wal_b = (run_dir / "journal.wal").stat().st_size
+    starts = [r.node_id for r in new if r.kind == "RUN_START"]
+    ran = [r.node_id for r in new if r.kind == "NODE_START"]
+    step2 = [r.output_digest for r in new if r.kind == "NODE_COMMIT" and r.node_id == "step@2"]
+    refs = [r.ref for r in new if r.kind == "CKPT"]
+    want_launches = _cli_launches(cfg, 1)
+    if starts != ["round2"] or ran != ["step@2", f"ckpt@{TRAIN_STEPS}"]:
+        raise AssertionError(f"[{name} B] rounds {starts}, nodes run {ran}")
+    if step2 != [got[2]] or refs != [ckpt_refs[-1]]:
+        raise AssertionError(
+            f"[{name} B] step@2 {step2} (A: {got[2]}), CKPT {refs} (A: {ckpt_refs[-1]})"
+        )
+    if b["launches"] != want_launches or b["summary"]["steps"] != 1:
+        raise AssertionError(
+            f"[{name} B] launches {b['launches']} (want {want_launches}), summary {b['summary']}"
+        )
+    log(
+        f"[{name} B] recovered from step00000002 in {b['summary']['restore_s']:.3f} s "
+        f"(resolve with its content check, both shards, onto the card); step@2 re-executed "
+        f"through the verify twin: digest {step2[0]} equals the journal's; {last} re-saved as "
+        f"{refs[0]}, A's content digests; 1 step; flash launches {b['launches']}; journal "
+        f"{wal_b} bytes; CLI process {b['wall_s']:.1f} s"
+    )
+    _log_steps(f"{name} B", new, direct["step_ms"])
+    _log_saves(f"{name} B", run_dir, b["summary"]["checkpoint_s"])
+    return {"a": a, "b": b, "refs": ckpt_refs}
 
 
 def phase_durable(direct: dict) -> None:
     """Train through the durable trainer, crash between the halves of its last checkpoint,
     restart and verify (run A, then run B), at the demo's first DEMO_CUT_LAYERS layers;
     ``direct`` is the train phase's result, whose direct steps at that depth it checks."""
-    cfg = _demo_cut_config()
-    per_step = cfg.num_layers
-    direct = direct["cut"]
     shutil.rmtree(DURABLE_DIR, ignore_errors=True)
-    run_dir = DURABLE_DIR
     try:
-        a = _run_trainer("A", run_dir)
-        recs = _journal(run_dir)
-        wal_a = (run_dir / "journal.wal").stat().st_size
-        kinds = [r.kind for r in recs]
-        commits = {r.node_id: r for r in recs if r.kind == "NODE_COMMIT"}
-        want_nodes = {f"{k}@{s}" for k in ("data", "step") for s in range(TRAIN_STEPS)}
-        want_nodes |= {"ckpt@2", f"ckpt@{TRAIN_STEPS}"}
-        if (kinds.count("RUN_START"), kinds.count("RUN_END"), kinds.count("CKPT")) != (2, 2, 2):
-            raise AssertionError(f"[durable A] journal kinds {sorted(set(kinds))}: {kinds}")
-        if set(commits) != want_nodes:
-            raise AssertionError(f"[durable A] commits {sorted(commits)}, want {want_nodes}")
-        got = [commits[f"step@{s}"].output_digest for s in range(TRAIN_STEPS)]
-        if got != direct["step_digests"]:
-            raise AssertionError(
-                f"[durable A] journaled step digests {got} != the direct steps' "
-                f"{direct['step_digests']}"
-            )
-        n = per_step * 3
-        want_launches = {**NO_LAUNCHES, "flash_attention_fwd": n, "flash_attention_bwd": n}
-        if a["launches"] != want_launches or a["summary"]["steps"] != TRAIN_STEPS:
-            raise AssertionError(f"[durable A] launches {a['launches']}, summary {a['summary']}")
-        beat = a["heartbeat"]
-        if beat is None or beat["devices"] != {"backend": "cuda", "count": 1}:
-            raise AssertionError(f"[durable A] heartbeat {beat}")
-        log(
-            f"[durable A] journaled step digests {got} equal the direct steps'; flash launches "
-            f"{a['launches']}; journal {wal_a} bytes, {len(recs)} records; CLI process "
-            f"{a['wall_s']:.1f} s, trainer wall {a['summary']['wall_s']:.3f} s"
-        )
-        log(
-            f"[durable A] heartbeat: devices {beat['devices']}, worker {beat['worker']}, pid "
-            f"{beat['pid']}, cpu load1 {beat['cpu']['load1']} of {beat['cpu']['ncpu']}, memory "
-            f"used {beat['memory']['used_frac']:.4f}, uptime {beat['uptime_s']:.3f} s, probe "
-            f"{1e3 * beat['probe_latency_s']:.3f} ms"
-        )
-        _log_steps("A", recs, direct["step_ms"])
-        _log_saves("A", run_dir, a["summary"]["checkpoint_s"])
-        ckpt_refs = [r.ref for r in recs if r.kind == "CKPT"]
-
-        # the crash between the two halves of the last checkpoint
-        last = f"step{TRAIN_STEPS:08d}"
-        shutil.rmtree(run_dir / "ckpt" / f"{last}-opt")
-        log(f"[durable] deleted {last}-opt: the newest complete pair is step00000002")
-
-        b = _run_trainer("B", run_dir)
-        new = _journal(run_dir)[len(recs) :]
-        wal_b = (run_dir / "journal.wal").stat().st_size
-        starts = [r.node_id for r in new if r.kind == "RUN_START"]
-        ran = [r.node_id for r in new if r.kind == "NODE_START"]
-        step2 = [r.output_digest for r in new if r.kind == "NODE_COMMIT" and r.node_id == "step@2"]
-        refs = [r.ref for r in new if r.kind == "CKPT"]
-        n = per_step
-        want_launches = {**NO_LAUNCHES, "flash_attention_fwd": n, "flash_attention_bwd": n}
-        if starts != ["round2"] or ran != ["step@2", f"ckpt@{TRAIN_STEPS}"]:
-            raise AssertionError(f"[durable B] rounds {starts}, nodes run {ran}")
-        if step2 != [got[2]] or refs != [ckpt_refs[-1]]:
-            raise AssertionError(
-                f"[durable B] step@2 {step2} (A: {got[2]}), CKPT {refs} (A: {ckpt_refs[-1]})"
-            )
-        if b["launches"] != want_launches or b["summary"]["steps"] != 1:
-            raise AssertionError(f"[durable B] launches {b['launches']}, summary {b['summary']}")
-        log(
-            f"[durable B] recovered from step00000002 in {b['summary']['restore_s']:.3f} s "
-            f"(resolve with its content check, both shards, onto the card); step@2 re-executed "
-            f"through the verify twin: digest {step2[0]} equals the journal's; {last} re-saved as "
-            f"{refs[0]}, A's content digests; 1 step; flash launches {b['launches']}; journal "
-            f"{wal_b} bytes; CLI process {b['wall_s']:.1f} s"
-        )
-        _log_steps("B", new, direct["step_ms"])
-        _log_saves("B", run_dir, b["summary"]["checkpoint_s"])
+        _durable("durable", _demo_cut_config(), DURABLE_CMD, DURABLE_DIR, direct["cut"])
     finally:
         shutil.rmtree(DURABLE_DIR, ignore_errors=True)
 
@@ -3269,7 +3322,8 @@ def _dist_run(tag: str, cfg, run_dir: Path, smi: str, timers: _HostTimers, flaky
             f"{sec / DIST_STEPS:.3f} s a step ({smi})"
         )
     for name, sec in sorted(out["checkpoint_s"].items()):
-        log(f"[distributed {tag}] save {name}: {sec:.3f} s ({smi})")
+        report = _save_report(run_dir / "ckpt", name, sec)
+        log(f"[distributed {tag}] save {name}: {report} ({smi})")
     result = {
         "digest": digest,
         "step_s": step_s,
@@ -4469,8 +4523,14 @@ def _replay_differs(host, tree) -> dict:
 
 def _dense_train() -> dict:
     """qwen3-1.7b at full width and depth in bfloat16 (remat "full"), 3 AdamW steps on
-    TokenSource batches of DENSE_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`."""
-    return _bf16_train(get_config(DENSE_TRAIN_ARCH), DENSE_TRAIN_BATCH, "[dense train]")
+    TokenSource batches of DENSE_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`; then the same
+    steps directly at the dense durable phase's depth, with its first checkpoint pair's
+    digests."""
+    out = _bf16_train(get_config(DENSE_TRAIN_ARCH), DENSE_TRAIN_BATCH, "[dense train]")
+    _release()
+    opt = AdamWConfig(**TRAIN_OPT)
+    cut = _direct_steps(_dense_cut_config(), opt, DENSE_TRAIN_BATCH, "[dense train]", pair_at=2)
+    return {**out, "cut": cut}
 
 
 def _layer_launches(cfg, steps: int) -> dict:
@@ -4557,7 +4617,7 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     first, ms0 = run(0, params0, state0)
     host = tuple(tree_map(lambda x: x.cpu(), tree) for tree in first)
     del first  # its memory stays in the allocator's cache for the replay
-    # replay: step 0 again from the same state, equal bits (to_host refuses bfloat16: the
+    # replay: step 0 again from the same state, equal bits (the
     # trees are compared with torch.equal on the card)
     (params, state, metrics), ms_replay = run(0, params0, state0)
     diff = _replay_differs(host, (params, state, metrics))
@@ -4614,6 +4674,149 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     _check_bf16_train_against_plain(cfg, model, params0, batches[0], tag)
     log(f"{tag} the check against the plain path took {time.monotonic() - t_check:.1f} s")
     return {**launches, "step_ms": step_ms, "peak": peak}
+
+
+DENSE_DURABLE_LAYERS = 2  # of qwen3-1.7b's 28: a checkpoint pair of 4.1 GB, 412M params
+DENSE_DURABLE_DIR = ROOT / "build" / "dense_durable_train"  # build/ is not committed
+DENSE_DURABLE_CMD = [
+    "-m", "repro_torch.launch.train", "--arch", DENSE_TRAIN_ARCH, "--full",
+    "--layers", str(DENSE_DURABLE_LAYERS), "--batch", str(DENSE_TRAIN_BATCH),
+    "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--checkpoint-every", "2",
+]  # fmt: skip
+ZLIB_SAMPLE = 8 << 20  # bytes of a checkpoint member that zlib compresses in the sample
+
+
+def _dense_cut_config():
+    """qwen3-1.7b at full width and its first DENSE_DURABLE_LAYERS layers, as the train CLI's
+    ``--layers`` cuts it (the dense durable phase's model)."""
+    cfg = get_config(DENSE_TRAIN_ARCH)
+    n = DENSE_DURABLE_LAYERS
+    return dataclasses.replace(cfg, num_layers=n, block_pattern=cfg.block_pattern[:n])
+
+
+def phase_dense_durable(dense_train: dict, smi: str) -> dict:
+    """qwen3-1.7b in bfloat16 through the durable trainer at full width and its first
+    DENSE_DURABLE_LAYERS layers: :func:`_durable`'s runs A and B with their gates, every
+    param checkpointed as bfloat16, A's first pair holding the direct steps' state (its
+    content digests), the tree run B restores equal leaf by leaf to the one A saved, and
+    zlib's ratio and rate on these checkpoints. ``dense_train`` is the dense train phase's
+    result, whose direct steps at that depth it checks. Returns both runs' launches."""
+    cfg = _dense_cut_config()
+    direct = dense_train["cut"]
+    run_dir = DENSE_DURABLE_DIR
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    log(
+        f"[dense durable] {cfg.name}: {cfg.num_layers} of its layers at full width, "
+        f"{cfg.param_count()} params {cfg.param_dtype}, remat={cfg.remat}; "
+        f"{shutil.disk_usage(run_dir).free} bytes free on the run directory's disk ({smi})"
+    )
+    try:
+        runs = _durable("dense durable", cfg, DENSE_DURABLE_CMD, run_dir, direct)
+        ckpt = run_dir / "ckpt"
+        for tag in ("step00000002", f"step{TRAIN_STEPS:08d}"):
+            man = json.loads((ckpt / tag / "manifest.json").read_text())
+            dtypes = sorted({e["dtype"] for e in man["entries"].values()})
+            if dtypes != ["bfloat16"]:
+                raise AssertionError(f"[dense durable] {tag}'s params are {dtypes}")
+        want = "step00000002@{};step00000002-opt@{}".format(*direct["pair"])
+        if runs["refs"][0] != want:
+            raise AssertionError(
+                f"[dense durable A] CKPT {runs['refs'][0]}, the direct steps' state {want}"
+            )
+        log(
+            f"[dense durable] every param entry of step00000002 and step{TRAIN_STEPS:08d} "
+            f"says bfloat16; CKPT {want} holds the direct steps' params and AdamW state "
+            "(their content digests)"
+        )
+        _restored_bits(ckpt, cfg, smi)
+        _zlib_sample(ckpt, smi)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    a, b = runs["a"]["launches"], runs["b"]["launches"]
+    return {k: a[k] + b[k] for k in a}
+
+
+def _shard_on_card(path: Path) -> dict:
+    """A checkpoint's arrays read from its raw frame with numpy alone (the tag byte, then
+    ``np.load``; bfloat16 members by the manifest's dtype), as tensors on the card by path."""
+    entries = json.loads((path / "manifest.json").read_text())["entries"]
+    out = {}
+    with open(path / "shard-0.npz.zst", "rb") as fh:
+        if fh.read(1) != b"\x00":
+            raise AssertionError(f"[dense durable] {path.name}: not a raw frame")
+        with np.load(fh) as npz:
+            for member in npz.files:
+                key, arr = member.replace("|", "/"), npz[member]
+                t = torch.from_numpy(arr.view(np.int16) if arr.dtype == np.dtype("V2") else arr)
+                bf16 = entries[key]["dtype"] == "bfloat16"
+                out[key] = (t.view(torch.bfloat16) if bf16 else t).to(DEV)
+    return out
+
+
+def _restored_bits(ckpt: Path, cfg, smi: str) -> None:
+    """The pair run B restored (step00000002) restored again as the trainer restores it
+    (``restore_pair``: resolve with its content check, both shards, onto the card) against
+    the tree run A saved, read from its shards with numpy alone: torch.equal leaf by leaf
+    over params, m, v and step."""
+    from repro_torch.launch.train import opt_config
+
+    t0 = time.monotonic()
+    store = CheckpointStore(str(ckpt))
+    _, params, state = restore_pair(store, "step00000002", cfg, opt_config(TRAIN_STEPS), DEV)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    for tag, tree in (("step00000002", params), ("step00000002-opt", state)):
+        saved = _shard_on_card(ckpt / tag)
+        got = dict(_flatten(tree))  # the store's paths, its npz members' names
+        if set(got) != set(saved):
+            raise AssertionError(f"[dense durable] {tag}: paths {sorted(set(got) ^ set(saved))}")
+        differ = [
+            k for k in got if got[k].dtype != saved[k].dtype or not torch.equal(got[k], saved[k])
+        ]
+        if differ:
+            raise AssertionError(f"[dense durable] {tag} restored != saved at {differ[:5]}")
+        n = sum(t.numel() for t in got.values())
+        kinds = sorted({str(t.dtype).replace("torch.", "") for t in got.values()})
+        log(
+            f"[dense durable] {tag} as the trainer restores it equals the tree A saved, read "
+            f"with numpy alone: {len(got)} leaves, {n} elements ({', '.join(kinds)}), "
+            "torch.equal on the card"
+        )
+    log(f"[dense durable] restore_pair of step00000002 here: {restore_s:.3f} s ({smi})")
+
+
+def _zlib_sample(ckpt: Path, smi: str) -> None:
+    """zlib at levels 1 and 6 on one host thread on the first ZLIB_SAMPLE bytes of the largest
+    member of A's step00000002 params (bfloat16 after 2 steps) and of its m and v (float32):
+    the ratio and rate the raw frames give up."""
+    import zipfile
+    import zlib
+
+    for tag, prefix in (("step00000002", ""), ("step00000002-opt", "m/"), ("step00000002-opt", "v/")):
+        entries = json.loads((ckpt / tag / "manifest.json").read_text())["entries"]
+        key = max(
+            (k for k in entries if k.startswith(prefix)),
+            key=lambda k: int(np.prod(entries[k]["shape"])),
+        )
+        with open(ckpt / tag / "shard-0.npz.zst", "rb") as fh:
+            fh.read(1)  # the raw frame's tag
+            with zipfile.ZipFile(fh) as z, z.open(key.replace("/", "|") + ".npy") as member:
+                major, _ = np.lib.format.read_magic(member)
+                if major == 1:
+                    np.lib.format.read_array_header_1_0(member)
+                else:
+                    np.lib.format.read_array_header_2_0(member)
+                data = member.read(ZLIB_SAMPLE)
+        for level in (1, 6):
+            t0 = time.monotonic()
+            size = len(zlib.compress(data, level))
+            sec = time.monotonic() - t0
+            log(
+                f"[dense durable] zlib level {level} on {key} of {tag} ({entries[key]['dtype']}, "
+                f"its first {len(data)} bytes): ratio {size / len(data):.4f}, "
+                f"{len(data) / sec / 1e6:.1f} MB/s on one host thread ({smi})"
+            )
 
 
 HYBRID_TRAIN_ARCH = "recurrentgemma-9b"
@@ -4799,6 +5002,7 @@ def main() -> int:
     _timed("dense", phase_dense)
     moe = _timed("moe", phase_moe)
     dense_train = _timed("dense train", phase_dense_train)
+    dense_durable = _timed("dense durable", lambda: phase_dense_durable(dense_train, smi))
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
     rwkv_train = _timed("rwkv train", phase_rwkv_train)
 
@@ -4834,18 +5038,20 @@ def main() -> int:
             "flash_attention_fwd_bf16_train",
             flash_src,
             flash_tpu,
-            dense_train["flash"],
+            dense_train["flash"] + dense_durable["flash_attention_fwd"],
             bwd_rows["bf16"]["fwd"],
-            "q(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal, with the logsumexp",
+            "q(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal, with the logsumexp; launches "
+            "of the dense train and dense durable phases",
         ),
         _kernel_entry(
             "flash_attention_bwd_bf16",
             "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
             "src/repro/kernels/flash_attention.py:139",
-            dense_train["flash_bwd"],
+            dense_train["flash_bwd"] + dense_durable["flash_attention_bwd"],
             bwd_rows["bf16"]["bwd"],
             "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal; flash_bwd_bf16_delta_kernel, "
-            + ", ".join(BF16_WGMMA_KERNELS[:2]),
+            + ", ".join(BF16_WGMMA_KERNELS[:2])
+            + "; launches of the dense train and dense durable phases",
         ),
         _kernel_entry(
             "flash_attention_bwd_bf16_hd256",

@@ -13,9 +13,13 @@ complete checkpoint and re-executes, and verifies against the journal, every
 step after it. Runs on ``cuda`` unless ``--device cpu``, with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` unless it is set. The dense, hybrid
 and RWKV6 families train; the others raise where train mode refuses them
-(ROADMAP Queue 1 items 8–10). A bfloat16 config (``--full``) trains but is
-refused at the durable host boundary (``train/host.py``), which waits for
-ROADMAP Queue 1 item 7.
+(ROADMAP Queue 1 items 8–10). Their published configs (``--full``) are
+bfloat16 and train durably too: params and AdamW state cross the host
+boundary by their bits (``train/host.py``), and their checkpoints digest as
+the reference's do, e.g.
+
+    python -m repro_torch.launch.train --arch qwen3-1.7b --full --layers 2 --batch 2 \\
+        --seq 4096 --steps 3 --checkpoint-every 2 --run-dir runs/qwen3
 
 Prints the heartbeat's address, a line per ``--log-every`` steps (as the
 reference), and at the end the summary and the launches of every kernel a train

@@ -20,6 +20,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import DTYPES, ParamStore, norm_param
 from repro_torch.models.model import padded_vocab
 from repro_torch.models.transformer import init_stack, layer_pattern
+from repro_torch.wire.bfloat16 import BFloat16Array
 
 __all__ = ["init_params", "from_numpy_tree", "from_numpy_opt_state", "count_params"]
 
@@ -76,8 +77,10 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 def _tensor(x: Any) -> torch.Tensor:
+    if isinstance(x, BFloat16Array):  # the port's host form of bfloat16: its bits
+        return torch.from_numpy(x.bits().copy()).view(torch.bfloat16)
     arr = np.asarray(x)
-    if arr.dtype.name == "bfloat16":  # numpy has no bfloat16: move the bits
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' (numpy has no bfloat16): move the bits
         bits = np.ascontiguousarray(arr).view(np.uint16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True, order="C"))
@@ -85,8 +88,10 @@ def _tensor(x: Any) -> torch.Tensor:
 
 def from_numpy_tree(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """A nested dict of arrays (e.g. the JAX package's params through
-    ``np.asarray``) as the port's tree on ``device`` (default ``cuda``).
-    Names, shapes, layouts and dtypes are kept as they are."""
+    ``np.asarray``, or a tree ``repro_torch.train.host.to_host`` or the checkpoint
+    store gave) as the port's tree on ``device`` (default ``cuda``). Names, shapes,
+    layouts and dtypes are kept as they are; bfloat16, an ``ml_dtypes`` array or the
+    port's ``BFloat16Array``, is moved by its bits."""
     dev = resolve_device(device)
 
     def walk(t):
@@ -100,8 +105,8 @@ def from_numpy_tree(tree: Mapping[str, Any], device: DeviceLike = None) -> Dict[
 def from_numpy_opt_state(state: Mapping[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's AdamW state ``{"m": tree, "v": tree, "step": int32 scalar}`` (arrays,
     e.g. through ``np.asarray``) as the port's (``repro_torch.optim.adamw_init``'s layout) on
-    ``device``: m and v keep their dtype (float32, or bfloat16 moved by its bits), step
-    stays an int32 scalar."""
+    ``device``: m and v keep their dtype (float32, or bfloat16 moved by its bits, from
+    either host form), step stays an int32 scalar."""
     missing = {"m", "v", "step"} - set(state)
     if missing:
         raise ValueError(f"from_numpy_opt_state: no {sorted(missing)} in the state")

@@ -35,6 +35,9 @@ completes with the same gradients because ``grad_shard`` is a pure function
 of (params, step, shard). A killed run resumes from the newest complete
 checkpoint pair and verifies every re-executed step against the journal.
 
+A bfloat16 config is refused at construction: the shard mean of bfloat16
+gradients is the part of ROADMAP Queue 1 item 7 still to port.
+
 On the card each ``grad_shard`` runs the model's flash forward (with the
 logsumexp) and backward kernels. Its gradients must not depend on the worker
 or on the shards running beside it on the one card: the trainer runs under
@@ -169,6 +172,15 @@ class DistributedTrainer(Trainer):
         workers: Optional[List[Any]] = None,
         device: DeviceLike = None,
     ):
+        if cfg.param_dtype == "bfloat16":
+            # refused before anything is built: the reference's _mean_pytrees widens each
+            # shard's ml_dtypes gradients to float32 and rounds the mean back, and numpy
+            # alone has no bfloat16 to round to
+            raise NotImplementedError(
+                f"DistributedTrainer: {cfg.name} has bfloat16 params, and the bfloat16 shard "
+                "mean of their gradients waits for the rest of ROADMAP Queue 1 item 7; the "
+                "durable Trainer trains it on one device"
+            )
         super().__init__(cfg, tc, device)
         if tc.global_batch % tc.num_shards:
             raise ValueError(

@@ -61,7 +61,7 @@ from repro_torch.wire import canonical_digest, payload_digest
 from .host import to_host
 from .steps import make_donating_train_step, make_train_step
 
-__all__ = ["TrainConfig", "Trainer"]
+__all__ = ["TrainConfig", "Trainer", "restore_pair"]
 
 
 @dataclass
@@ -78,6 +78,26 @@ class TrainConfig:
     heartbeat: bool = True
     mesh_model_axis: int = 1
     opt: AdamWConfig = field(default_factory=AdamWConfig)
+
+
+def restore_pair(
+    store: CheckpointStore, tag: str, cfg: ModelConfig, opt: AdamWConfig, device: torch.device
+) -> Tuple[int, Any, Any]:
+    """(next_step, params, opt_state) of the checkpoint pair ``tag`` and ``tag-opt``.
+
+    Both shards restore through the digest-verified ``resolve()`` path, onto
+    ``device``: on-disk corruption or tampering that preserves shapes raises.
+    The trees a restore is shaped by come from the config on the ``meta``
+    device; nothing is drawn. bfloat16 leaves come back by their bits.
+    """
+    man = store.manifest(tag)
+    like_p = init_params(cfg, None, "meta")
+    params = store.resolve(f"{tag}@{man['digest']}", like_p)
+    params = from_numpy_tree(params, device)
+    man_o = store.manifest(tag + "-opt")
+    opt_state = store.resolve(f"{tag}-opt@{man_o['digest']}", adamw_init(like_p, opt))
+    opt_state = from_numpy_opt_state(opt_state, device)
+    return int(man["meta"]["next_step"]), params, opt_state
 
 
 class Trainer:
@@ -146,23 +166,15 @@ class Trainer:
         tag without its optimizer shard. Recovery falls back to the newest
         pair whose companion exists instead of failing on the missing shard.
 
-        Both shards restore through the digest-verified ``resolve()`` path,
-        onto ``self.device``: on-disk corruption or tampering that preserves
-        shapes aborts recovery loudly. The trees a restore is shaped by come
-        from the config on the ``meta`` device; nothing is drawn.
+        Both shards restore through :func:`restore_pair`: the digest-verified
+        ``resolve()`` path, onto ``self.device``.
         """
         tag = self.store.latest(companions=("-opt",))
         if tag is not None:
             t0 = time.monotonic()
-            man = self.store.manifest(tag)
-            start = int(man["meta"]["next_step"])
-            like_p = init_params(self.cfg, None, "meta")
-            params = self.store.resolve(f"{tag}@{man['digest']}", like_p)
-            params = from_numpy_tree(params, self.device)
-            like_o = adamw_init(like_p, self.tc.opt)
-            man_o = self.store.manifest(tag + "-opt")
-            opt_state = self.store.resolve(f"{tag}-opt@{man_o['digest']}", like_o)
-            opt_state = from_numpy_opt_state(opt_state, self.device)
+            start, params, opt_state = restore_pair(
+                self.store, tag, self.cfg, self.tc.opt, self.device
+            )
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.restore_s = time.monotonic() - t0

@@ -15,7 +15,9 @@ Normalization rules (applied before canonical encoding):
   - bytes / bytearray → lowercase hex string
   - objects with ``__array__`` (numpy arrays and scalars, CPU tensors) →
     nested lists of native scalars via ``np.asarray(x).tolist()``; a tensor
-    on a device raises (``host_array``)
+    on a device raises (``host_array``); bfloat16 (a ``BFloat16Array`` or a
+    CPU tensor) → its values as Python floats, which is what the reference's
+    ``tolist()`` of an ``ml_dtypes.bfloat16`` array gives
   - NaN / ±Inf floats → ``None``
   - str / int / float / bool / None pass through
 Anything else raises ``TypeError``.
@@ -29,6 +31,8 @@ import math
 from typing import Any, Mapping
 
 import numpy as np
+
+from .bfloat16 import BFloat16Array
 
 __all__ = [
     "DIGEST_HEX_LEN",
@@ -45,12 +49,15 @@ DIGEST_HEX_LEN = 16  # sha256 truncated to 64 bits of hex — the journal id wid
 
 
 def host_array(value: Any) -> np.ndarray:
-    """``np.asarray(value)``, refusing a tensor that numpy cannot read as it is.
+    """``np.asarray(value)``, refusing a tensor that numpy cannot read where it is.
 
-    A tensor on a device, or in bfloat16 (numpy has no such dtype), would
-    fail deep inside numpy with a ``TypeError`` that names neither the value
-    nor the way out; this names both.
+    A tensor on a device would fail deep inside numpy with a ``TypeError`` that
+    names neither the value nor the way out; this names both. bfloat16, which
+    numpy has no dtype for, comes back as a :class:`BFloat16Array` of its bits:
+    one given (as it is) or a CPU tensor's.
     """
+    if isinstance(value, BFloat16Array):
+        return value
     device = getattr(value, "device", None)
     if getattr(device, "type", "cpu") != "cpu":
         raise TypeError(
@@ -58,12 +65,9 @@ def host_array(value: Any) -> np.ndarray:
             "first with repro_torch.train.host.to_host"
         )
     if str(getattr(value, "dtype", "")) == "torch.bfloat16":
-        raise TypeError(
-            "a bfloat16 tensor cannot be digested or encoded (numpy has no bfloat16); the "
-            "durable host boundary for bfloat16 waits for ROADMAP Queue 1 item 7, as the "
-            "reference's bfloat16 checkpoints read back as |V2; "
-            "repro_torch.train.host.to_host refuses it too"
-        )
+        import torch  # the value is a tensor: torch is loaded
+
+        return BFloat16Array(value.detach().view(torch.int16).numpy())
     return np.asarray(value)
 
 
@@ -89,7 +93,10 @@ def normalize(value: Any) -> Any:
     if isinstance(value, (bytes, bytearray)):
         return bytes(value).hex()
     if hasattr(value, "__array__"):
-        return normalize(host_array(value).tolist())
+        arr = host_array(value)
+        if isinstance(arr, BFloat16Array):
+            arr = arr.float32()  # exact: the floats the reference's tolist() gives
+        return normalize(arr.tolist())
     raise TypeError(f"wire value of type {type(value)!r} is not serializable")
 
 

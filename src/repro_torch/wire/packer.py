@@ -12,12 +12,18 @@ call gives for the values journal records and payloads hold:
     dict's order);
   - through the reference's ``pack_default`` hook: objects with
     ``__array__`` as ext type 1 holding ``(dtype.str, shape, raw bytes)``,
-    complex as ext type 2, set / frozenset as a sorted array.
+    complex as ext type 2, set / frozenset as a sorted array. A bfloat16
+    leaf (:class:`~repro_torch.wire.bfloat16.BFloat16Array`, or a CPU
+    tensor) holds ``("<V2", shape, bits)``, as the reference packs an
+    ``ml_dtypes.bfloat16`` array.
 
 :func:`unpackb` reads what ``msgpack.unpackb(raw=False, strict_map_key=False,
 ext_hook=unpack_ext)`` reads: str as str, bin as bytes, arrays as lists,
 ext type 1 as a read-only ndarray, ext type 2 as complex; other ext types
-come back as :class:`ExtType`.
+come back as :class:`ExtType`. An array of ``"<V2"`` comes back as a
+``BFloat16Array``: the port has no other 2-byte void. The reference's
+``unpack_ext`` reads the same frame as a plain ``|V2`` array of the bits
+(``np.dtype("<V2")`` is a void), not as bfloat16.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Any, NamedTuple, Tuple
 import numpy as np
 
 from .base import host_array
+from .bfloat16 import WIRE_DTYPE, BFloat16Array, wire_dtype
 
 __all__ = ["EXT_NDARRAY", "EXT_COMPLEX", "ExtType", "packb", "unpackb"]
 
@@ -46,7 +53,7 @@ def _pack_default(obj: Any) -> Any:
     """The reference's ``pack_default`` hook: arrays/complex/sets → ExtType or a list."""
     if hasattr(obj, "__array__"):  # numpy arrays and scalars, CPU tensors
         arr = host_array(obj)
-        return ExtType(EXT_NDARRAY, packb((arr.dtype.str, arr.shape, arr.tobytes())))
+        return ExtType(EXT_NDARRAY, packb((wire_dtype(arr), arr.shape, arr.tobytes())))
     if isinstance(obj, complex):
         return ExtType(EXT_COMPLEX, packb((obj.real, obj.imag)))
     if isinstance(obj, (set, frozenset)):
@@ -239,7 +246,8 @@ class _Reader:
         data = self.take(n)
         if code == EXT_NDARRAY:
             dtype, shape, raw = unpackb(data)
-            return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+            arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+            return BFloat16Array(arr) if dtype == WIRE_DTYPE else arr
         if code == EXT_COMPLEX:
             re_, im = unpackb(data)
             return complex(re_, im)

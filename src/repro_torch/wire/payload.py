@@ -9,6 +9,8 @@ Either package decodes the other's frames.
 feeds sha256 directly from array buffers (no serialization round-trip), so
 it is compression- and codec-independent by construction. A tensor on a
 device raises: digest the host copy (``repro_torch.train.host.to_host``).
+A bfloat16 leaf hashes as the reference's ``ml_dtypes`` array with the same
+bits: ``"<V2"``, the shape, the bits (:mod:`repro_torch.wire.bfloat16`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, BinaryIO, Iterator, Mapping
 import numpy as np
 
 from .base import DIGEST_HEX_LEN, host_array
+from .bfloat16 import wire_dtype
 from .compress import compress, decompress
 from .packer import packb, unpackb
 
@@ -170,7 +173,7 @@ def payload_digest(obj: Any) -> str:
             h.update(b"]")
         elif hasattr(x, "__array__"):
             arr = host_array(x)
-            h.update(arr.dtype.str.encode())
+            h.update(wire_dtype(arr).encode())  # bfloat16: "<V2", the reference's dtype.str
             h.update(str(arr.shape).encode())
             h.update(np.ascontiguousarray(arr).tobytes())
         else:

@@ -138,14 +138,20 @@ def test_decoder_rejects_truncated_and_trailing_bytes():
 
 
 def test_tensors_that_numpy_cannot_read_raise_a_clear_error():
-    """A tensor on a device (the meta device stands in for the card here) or in bfloat16
-    is refused by name instead of failing inside numpy; to_host refuses bfloat16."""
-    for bad in (torch.ones(2, device="meta"), torch.ones(2, dtype=torch.bfloat16)):
-        for fn in (twire.payload_digest, twire.canonical_bytes, twire.encode_payload):
-            with pytest.raises(TypeError, match="to_host"):
-                fn({"x": bad})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        to_host({"w": torch.ones(2, dtype=torch.bfloat16)})
+    """A tensor on a device (the meta device stands in for the card here) is refused by name
+    instead of failing inside numpy. bfloat16, which numpy has no dtype for, digests,
+    encodes and comes to the host by its bits (``repro_torch.wire.bfloat16``)."""
+    bad = torch.ones(2, device="meta")
+    for fn in (twire.payload_digest, twire.canonical_bytes, twire.encode_payload):
+        with pytest.raises(TypeError, match="to_host"):
+            fn({"x": bad})
+    bf = torch.tensor([1.5, -2.25, 3.0], dtype=torch.bfloat16)
+    host = to_host({"w": bf})
+    assert type(host["w"]).__name__ == "BFloat16Array" and host["w"].shape == (3,)
+    assert twire.canonical_bytes({"w": bf}) == b'{"w":[1.5,-2.25,3.0]}'
+    assert twire.payload_digest({"w": bf}) == twire.payload_digest(host)
+    back = twire.decode_payload(twire.encode_payload(host))["w"]
+    assert back.bits().tolist() == bf.view(torch.int16).numpy().view(np.uint16).tolist()
     t = torch.arange(4.0)
     host = to_host({"w": t, "n": [t, 3]})
     t.add_(1)  # a copy: the host tree does not see later in-place updates

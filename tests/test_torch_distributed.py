@@ -371,7 +371,10 @@ def test_global_batch_must_divide_across_shards(tmp_path, small_cfg):
 def _cli(run_dir, *extra):
     cmd = [sys.executable, "-m", "repro_torch.launch.train_distributed", "--device", "cpu"]
     cmd += ["--steps", "4", "--shards", "2", "--workers", "2", "--run-dir", str(run_dir)]
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    # one intra-op thread: the smoke model runs thousands of small ops, and a pool as wide as
+    # the machine waits at each of them for threads that parallel test workers keep off the
+    # cores (the pair of runs took minutes under a full parallel test run, seconds alone)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         cmd + list(extra), capture_output=True, text=True, env=env, timeout=300
     )

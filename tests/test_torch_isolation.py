@@ -1,6 +1,6 @@
-"""The port stands alone: no JAX and nothing of ``repro`` in it, no ``msgpack`` or
-``orjson`` (the card's machine has neither) and ``zstandard`` only optionally, its own
-config copy, and no silent fall back to the CPU."""
+"""The port stands alone: no JAX and nothing of ``repro`` in it, no ``msgpack``,
+``orjson`` or ``ml_dtypes`` (the card's machine has none of them) and ``zstandard`` only
+optionally, its own config copy, and no silent fall back to the CPU."""
 
 import ast
 import dataclasses
@@ -18,7 +18,8 @@ import repro_torch.configs as tconfigs
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "repro"}
-NOT_ON_THE_CARD = {"msgpack", "orjson"}  # the port keeps its own encoder
+# the port keeps its own encoder, and its own host form of bfloat16 (wire/bfloat16.py)
+NOT_ON_THE_CARD = {"msgpack", "orjson", "ml_dtypes"}
 OPTIONAL = {"zstandard"}  # only inside try/except ImportError
 
 
@@ -57,6 +58,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.train.distributed",
         "repro_torch.launch.train_distributed",
         "repro_torch.optim.compression",
+        "repro_torch.wire.bfloat16",
     ):
         assert new in mods
     code = (
@@ -65,7 +67,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'repro',\n"
-        "                                     'msgpack', 'orjson'))\n"
+        "                                     'msgpack', 'orjson', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -490,8 +490,10 @@ def test_cli_trains_the_rwkv_smoke_config_through_the_durable_trainer(tmp_path):
 
 
 def test_bf16_rwkv_is_refused_by_name_at_the_durable_host_boundary(tmp_path):
-    """A bfloat16 config (as ``--full`` gives) trains through make_train_step but stops at the
-    trainer's first digest of its params, naming ROADMAP Queue 1 item 7."""
+    """Kept under its name from when the durable host boundary refused bfloat16: a bfloat16
+    config (as ``--full`` gives) now trains through the Trainer to its summary, its params
+    checkpointed as bfloat16 and its moments as float32."""
+    from repro_torch.checkpoint import CheckpointStore
     from repro_torch.train.trainer import TrainConfig, Trainer
 
     _, tcfg = _configs(param_dtype="bfloat16", compute_dtype="bfloat16")
@@ -501,7 +503,12 @@ def test_bf16_rwkv_is_refused_by_name_at_the_durable_host_boundary(tmp_path):
         checkpoint_every=1,
         global_batch=BATCH,
         seq_len=SEQ,
+        heartbeat=False,
         opt=tadamw.AdamWConfig(**OPT),
     )
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Trainer(tcfg, tc, device="cpu").train()
+    out = Trainer(tcfg, tc, device="cpu").train()
+    assert out["steps"] == 1 and np.isfinite(out["final_loss"])
+    store = CheckpointStore(str(tmp_path / "run" / "ckpt"))
+    dtypes = {e["dtype"] for e in store.manifest("step00000001")["entries"].values()}
+    opt_dtypes = {e["dtype"] for e in store.manifest("step00000001-opt")["entries"].values()}
+    assert dtypes == {"bfloat16"} and opt_dtypes == {"float32", "int32"}
