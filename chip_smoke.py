@@ -53,12 +53,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    kernels, up to head dim 128 and in the split builds above it, the build
    phase holds to no spills and no wgmma serialized in ptxas's report) against
    its plain version on the
-   cases of ``tests/test_torch_flash_bwd_bf16.py``, edges and qwen3-1.7b's
-   train shape (2, 16, 4096, 128) at BWD_BF16_TOL of each gradient's largest
+   cases of ``tests/test_torch_flash_bwd_bf16.py``, edges, qwen3-1.7b's
+   train shape (2, 16, 4096, 128) and granite-moe-3b-a800m's (1, 24, 4096, 64:
+   GQA group 3) at BWD_BF16_TOL of each gradient's largest
    entry, each case holding the bfloat16 forward's logsumexp against the plain
    one and its output bits unchanged by asking for it; its bits equal on two
-   launches and for B = 1 against row 0 of B = 4; at the train shape its time
-   against its plain version, SDPA's flash-backend backward and its bound, and
+   launches and for B = 1 against row 0 of B = 4 at groups 2 and 3; at both train
+   shapes its time (and the forward's, with and without the logsumexp) against
+   its plain version, SDPA's flash-backend backward and its bound, and
    its error against float64 at most twice SDPA's; the float32 backward at
    head dim 128 timed at that shape. The bfloat16 backward at head dim 256 (the
    split builds: each key tile's dK/dV walk cut into the parts of
@@ -104,12 +106,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    8 layers x 8 prefills times and the decode-attention kernel 8 x 8 x 32,
    both workers served; then r0 alone through the same route (the cost of
    one generation with nothing beside it); both heartbeats report the card;
-   the HTTP bodies of one ``generate`` through w0's ``run_task``; a trace
-   of round 1 (8 at once and r0 alone at 8 new tokens: a sampler of where
-   the handler threads stand, and under torch.profiler recording every
-   thread the device's busy share and the threads' time in ATen ops, in
-   ``.item()`` syncs and outside ops); every round logs the process's cores
-   busy;
+   the HTTP bodies of one ``generate`` through w0's ``run_task``; every
+   round logs the process's cores busy;
    round 2 crashes w1's application (its heartbeat answers, its app does
    not) and w0 serves 4 more requests with the same tokens. Logs tok/s
    beside the batcher's, each request's latency, the gateway's allocation
@@ -154,12 +152,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    had started when it was evicted); no journal record holds an array; torch's CPU
    and CUDA RNG states are unchanged by a run. Step 0 computed directly on one
    thread (each shard's task in order, the mean, AdamW) gives A's ``grad@0#k``
-   and ``apply@0`` digests. Three one-step graphs follow (warm, host timers,
-   ``torch.profiler``). Logs each step's seconds through the trainer beside the
-   train phase's direct step (tokens/s), peak memory, the host's seconds in
+   and ``apply@0`` digests. Logs each step's seconds through the trainer beside
+   the train phase's direct step (tokens/s), peak memory, the host's seconds in
    ``payload_digest``, in copies between the card and the host and in the fold
-   (timers the phase puts around those calls), the device's busy share and
-   each save's seconds;
+   (timers the phase puts around those calls) and each save's seconds;
 6. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
    10.4B params, bfloat16) serves 8 requests of prompts on both sides of
    its 2048 window through ``ContinuousBatcher(slots=4, max_len=3072)``;
@@ -246,8 +242,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    flash launches; every param entry of the manifests says bfloat16; A's ``step00000002``
    refs equal the direct steps' digests; that pair as the trainer restores it
    (``restore_pair``) equals, under torch.equal leaf by leaf, the tree read from A's raw
-   shards with numpy alone; zlib at levels 1 and 6 on samples of A's params, m and v (the
-   ratio and rate the raw frames give up). Logs each save's seconds, bytes and MB/s, the
+   shards with numpy alone. Logs each save's seconds, bytes and MB/s, the
    restore's seconds, the journal's size and each step's ms through the trainer beside
    the direct step's;
 12. hybrid train, in a process of its own (this file run with
@@ -269,7 +264,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    GEMMs, elementwise, optimizer); step 0 against attn_impl="ref" (autograd
    through the plain chunked WKV6) within DENSE_TRAIN_GAPS times the plain
    path's bf16-vs-f32 gap;
-14. the JSON line of kernels, the card's name and power limit, and last the
+14. moe train, in a process of its own (this file run with ``--moe-train``, set
+   up as ``--hybrid-train``): ``granite-moe-3b-a800m`` at full width and depth (32
+   MoE layers of 40 experts, top 8; 3.30B params), in bfloat16 with remat "full",
+   the same 3 AdamW steps on batches of 1 x 4096, every MoE layer through the
+   einsum engine (16 groups of 256 tokens, capacity 64, drops) and no call of the
+   sort engine, and the same gates: step 0 replayed with equal bits (the gathers'
+   gradients are gathers by inverse tables, in a fixed order), every step
+   launching the bf16 flash forward 2 x 32 times and its backward (head dim 64,
+   GQA group 3) 32 times; step ms, tokens/s, the aux loss, peak memory and a
+   profiled step; step 0 against attn_impl="ref" within DENSE_TRAIN_GAPS times the
+   plain path's bf16-vs-f32 gap, with the router's top-8 choices that differ
+   between the kernel path, the plain path and float32 counted;
+15. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
 Every model is freed before the next is built. It imports the port
@@ -306,10 +313,12 @@ DIST_ARG = "--distributed"  # the distributed phase's process, set up as the tra
 DENSE_TRAIN_ARG = "--dense-train"  # the dense train phase's process, set up the same way
 HYBRID_TRAIN_ARG = "--hybrid-train"  # the hybrid train phase's process, set up the same way
 RWKV_TRAIN_ARG = "--rwkv-train"  # the rwkv train phase's process, set up as the hybrid's
-_TRAIN_ARGS = (TRAIN_ARG, DIST_ARG, DENSE_TRAIN_ARG, HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG)
+MOE_TRAIN_ARG = "--moe-train"  # the moe train phase's process, set up as the hybrid's
+_BIG_TRAIN_ARGS = (HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG, MOE_TRAIN_ARG)
+_TRAIN_ARGS = (TRAIN_ARG, DIST_ARG, DENSE_TRAIN_ARG, *_BIG_TRAIN_ARGS)
 if sys.argv[1:] in ([arg] for arg in _TRAIN_ARGS):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-if sys.argv[1:] in ([HYBRID_TRAIN_ARG], [RWKV_TRAIN_ARG]):
+if sys.argv[1:] in ([arg] for arg in _BIG_TRAIN_ARGS):
     # two copies of params, m and v (the out-of-place step) fill ~75 GB of the card: blocks
     # that grow in place keep the allocator's free pieces from splitting it further
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
@@ -608,10 +617,15 @@ FLASH_BWD_F32_HD128 = (2, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "float32
 # 64-row walk tiles: ragged Sq and Sk with GQA and a window crossing tile edges, walks of one
 # tile, Sq = 1, D != Dv at head dims up to 64 and on either side of 64: the kernels built for
 # 1 or 2 chunks of 64 columns of each) and more edges: stablelm-1.6b's heads, a group of 16,
-# window 1, one query row.
+# window 1, one query row. Last, granite-moe-3b-a800m's train shape (1 x 4096 tokens, 24 query
+# heads on 8 KV heads of 64, causal: a GQA group of 3 at head dim 64).
 DENSE_TRAIN_BATCH = 2
 FLASH_BWD_BF16_TRAIN = (
     DENSE_TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "bfloat16", 128
+)
+MOE_TRAIN_BATCH = 1  # train_4k's 4096 tokens, its batch cut to one sequence on one card
+FLASH_BWD_BF16_GRANITE = (
+    MOE_TRAIN_BATCH, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 64, True, None, "bfloat16", 64
 )
 FLASH_BWD_BF16_CASES = [
     (1, 2, 2, 64, 64, 64, True, None, "bfloat16", 64),
@@ -631,6 +645,7 @@ FLASH_BWD_BF16_CASES = [
     (2, 6, 2, 1, 130, 128, True, None, "bfloat16", 128),
     (1, 4, 2, 200, 333, 128, True, 100, "bfloat16", 128),
     FLASH_BWD_BF16_TRAIN,
+    FLASH_BWD_BF16_GRANITE,
 ]
 # The bfloat16 backward against its plain version (float32 throughout, the gradients rounded
 # once): the kernels round P and dS to bfloat16 where they enter a product, and the CPU model
@@ -640,8 +655,12 @@ BWD_BF16_TOL = 2.0**-6
 # The bfloat16 forward's logsumexp against the plain one: both float32 over the same
 # bfloat16 products (sums in other orders, exp2 against exp): 1e-4, rtol = atol.
 LSE_BF16_TOL = 1e-4
-# the bfloat16 backward's same bits on two launches and for B = 1 against row 0 of B = 4
-FLASH_BWD_BF16_DETERMINISM = (4, 16, 8, 1024, 1024, 128, True, None, "bfloat16", 128)
+# the bfloat16 backward's same bits on two launches and for B = 1 against row 0 of B = 4: at
+# head dim 128 with a group of 2, and at granite's head dim 64 with a group of 3
+FLASH_BWD_BF16_DETERMINISM = (
+    (4, 16, 8, 1024, 1024, 128, True, None, "bfloat16", 128),
+    (4, 24, 8, 1024, 1024, 64, True, None, "bfloat16", 64),
+)
 # flash_bwd_bf16_<part>_kernel: the bfloat16 backward's launches, up to head dim 128 and in
 # the split builds above it (the reduction runs where a key tile's walk is cut into parts)
 BF16_KERNEL_PARTS = ("delta", "dkdv_wgmma", "dq_wgmma")
@@ -1416,14 +1435,18 @@ def _flash_bwd_bf16_rows(gen):
     """The bfloat16 backward against its plain version on every case (the plain forward's
     output and logsumexp as inputs), at BWD_BF16_TOL of each gradient's largest entry; each
     case also holds the bfloat16 forward's logsumexp against the plain one and its output
-    with the logsumexp equal bit for bit to its output without. At qwen3-1.7b's train shape:
-    the times and the float64 yardstick. Returns the rows of the kernels line."""
+    with the logsumexp equal bit for bit to its output without. At qwen3-1.7b's and
+    granite-moe-3b-a800m's train shapes: the times and the float64 yardstick. Returns the
+    rows of the kernels line (granite's under "granite")."""
     rows = {}
     for case in FLASH_BWD_BF16_CASES:
         q, k, v, dout, err, out_err = _flash_bwd_bf16_case(gen, case)
         if case == FLASH_BWD_BF16_TRAIN:
-            rows = _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err)
-    _flash_bwd_determinism(gen, FLASH_BWD_BF16_DETERMINISM)
+            rows.update(_flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, "qwen3-1.7b"))
+        elif case == FLASH_BWD_BF16_GRANITE:
+            rows["granite"] = _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, MOE_ARCH)
+    for case in FLASH_BWD_BF16_DETERMINISM:
+        _flash_bwd_determinism(gen, case)
     rows["f32_hd128"] = _flash_bwd_f32_hd128(gen)
     return rows
 
@@ -1556,12 +1579,12 @@ def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
     return row
 
 
-def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err):
-    """qwen3-1.7b's train shape: the bfloat16 forward with and without its logsumexp; the
-    backward (on the kernel forward's output and logsumexp, as training runs it) against its
-    plain version, SDPA's flash-backend backward and the bound; then the float64 yardstick:
-    the kernel's and SDPA's errors against float64 autograd of the dense oracle on batch row
-    0's first KV group, the kernel held to twice SDPA's."""
+def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, name):
+    """A model's train shape (``name``'s): the bfloat16 forward with and without its
+    logsumexp; the backward (on the kernel forward's output and logsumexp, as training runs
+    it) against its plain version, SDPA's flash-backend backward and the bound; then the
+    float64 yardstick: the kernel's and SDPA's errors against float64 autograd of the dense
+    oracle on batch row 0's first KV group, the kernel held to twice SDPA's."""
     b, hq, hkv, sq, sk, d, causal, window, _, dv = case
     masks = dict(causal=causal, window=window)
     out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
@@ -1601,18 +1624,23 @@ def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err):
         "max_abs_err": out_err,
     }
     parts = ", ".join(f"{n} {bwd[n + '_us']:.2f}" for n in BF16_KERNEL_PARTS)
+    before = ""
+    if case == FLASH_BWD_BF16_TRAIN:
+        before = (
+            f"; the mma.sync kernel it replaced {BWD_BF16_MMA_SYNC_MS} ms, "
+            f"{BWD_BF16_MMA_SYNC_MS / bwd['ms']:.2f}x this one's"
+        )
     log(
-        f"[kernels]   qwen3-1.7b train shape q{tuple(q.shape)} bfloat16: backward kernel_ms "
+        f"[kernels]   {name} train shape q{tuple(q.shape)} bfloat16: backward kernel_ms "
         f"{bwd['ms']:.4f} (device {bwd['device_us']:.2f} us a call: {parts}), plain_ms "
         f"{bwd['plain_ms']:.4f}, library_ms (SDPA flash backend backward alone, K/V expanded "
         f"to {hq} heads) {bwd['library_ms']:.4f} (kernel "
         f"{'faster' if bwd['ms'] < bwd['library_ms'] else 'NOT faster'}), bound_ms "
         f"{bound:.5f} ({bound_by}, bf16 tensor cores: 5 products at 989 TFLOP/s), "
-        f"kernel/bound {bwd['ms'] / bound:.1f}; the mma.sync kernel it replaced "
-        f"{BWD_BF16_MMA_SYNC_MS} ms, {BWD_BF16_MMA_SYNC_MS / bwd['ms']:.2f}x this one's"
+        f"kernel/bound {bwd['ms'] / bound:.1f}{before}"
     )
     log(
-        f"[kernels]   qwen3-1.7b train shape forward (bfloat16, wgmma): with lse "
+        f"[kernels]   {name} train shape forward (bfloat16, wgmma): with lse "
         f"{fwd['ms']:.4f} ms, without {fwd['ms_without_lse']:.4f} ms; plain_ms "
         f"{fwd['plain_ms']:.4f}, library_ms (SDPA flash backend, K/V expanded) "
         f"{fwd['library_ms']:.4f}, bound_ms {fwd_bound:.5f} ({fwd_bound_by})"
@@ -2444,135 +2472,6 @@ def _log_latency(tag, wall, latency, tokens):
     )
 
 
-GATEWAY_TRACE_TOKENS = 8  # new tokens a request in the rounds that trace round 1's host time
-GATEWAY_SAMPLE_S = 0.002  # the stack sampler's period
-SYNC_OP = "aten::_local_scalar_dense"  # the copy and stream sync under int(tok[0])
-
-
-def _stack_site(frame):
-    """Where a thread inside a ``generate`` task stands: its innermost frame and the innermost
-    frame of the port's own code, or None for a thread outside a task."""
-    port, f = None, frame
-    while f is not None:
-        code = f.f_code
-        if port is None and "repro_torch" in code.co_filename:
-            port = f"{Path(code.co_filename).name}:{f.f_lineno} {code.co_name}"
-        if code.co_name == "generate" and code.co_filename.endswith("gateway_serve.py"):
-            inner = frame.f_code
-            site = f"{Path(inner.co_filename).name}:{frame.f_lineno} {inner.co_name}"
-            return site if site == port else f"{site} <- {port}"
-        f = f.f_back
-    return None
-
-
-def _sampled_round(tag, gw, cfg, prompts, want) -> None:
-    """A round with a thread that takes every handler thread's stack each
-    ``GATEWAY_SAMPLE_S``. A sample is taken with the interpreter lock held, so every handler
-    thread stands where it last gave the lock up: inside a call that releases it (a sync, a
-    ctypes launch, a lock) or at a forced switch in its Python."""
-    sites, stop = collections.Counter(), threading.Event()
-
-    def sample():
-        while not stop.wait(GATEWAY_SAMPLE_S):
-            for tid, frame in sys._current_frames().items():
-                site = _stack_site(frame) if tid != threading.get_ident() else None
-                if site is not None:
-                    sites[site] += 1
-
-    sampler = threading.Thread(target=sample, name="stack-sampler")
-    sampler.start()
-    try:
-        _gateway_round(tag, gw, cfg, prompts, want, GATEWAY_TRACE_TOKENS)
-    finally:
-        stop.set()
-        sampler.join()
-    total = sum(sites.values())
-    top = "; ".join(
-        f"{site} {n} ({100 * n / total:.1f}%)" for site, n in sites.most_common(10)
-    )
-    log(f"[gateway] {tag}: {total} thread samples in generate tasks; where they stood: {top}")
-
-
-def _thread_breakdown(prof):
-    """For each thread that ran ``.item()`` syncs (the handler threads): (its span from its
-    first CPU event to its last, the time inside CPU events (the union of ATen ops and runtime
-    calls), the time inside the syncs (``aten::_local_scalar_dense``), the syncs), in us."""
-    by_thread = collections.defaultdict(list)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CPU:
-            by_thread[e.thread].append(e)
-    rows = []
-    for events in by_thread.values():
-        syncs = [e.time_range.elapsed_us() for e in events if e.name == SYNC_OP]
-        if not syncs:
-            continue
-        spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-        inside, (lo, hi) = 0.0, spans[0]
-        for start, end in spans[1:]:
-            if start > hi:
-                inside, lo = inside + hi - lo, start
-            hi = max(hi, end)
-        inside += hi - lo
-        span = max(end for _, end in spans) - spans[0][0]
-        rows.append((span, inside, sum(syncs), len(syncs)))
-    return rows
-
-
-def _profiled_round(tag, gw, cfg, prompts, want) -> None:
-    """A round under torch.profiler, every thread's CPU ops recorded: the device's busy share
-    of the round's wall, and how the handler threads' spans split into ATen ops, ``.item()``
-    syncs and the rest (Python, and waiting for the interpreter lock), a step (a prefill or a
-    decode step) at a time."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
-    with torch.profiler.profile(activities=acts, experimental_config=config) as prof:
-        t0 = time.monotonic()
-        _, _, tokens = _gateway_round(tag, gw, cfg, prompts, want, GATEWAY_TRACE_TOKENS)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0)
-    rows = _device_rows(prof)
-    if not rows:
-        log(f"[gateway] {tag}: no device time recorded (busy share not measured)")
-    else:
-        kinds, launches = _device_kinds(rows)
-        busy = sum(kinds.values())
-        by_kind = "; ".join(
-            f"{k} {ms:.3f} ms ({launches[k]} launches)"
-            for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
-        )
-        log(
-            f"[gateway] {tag} profiled: {tokens} tokens in {wall_ms:.3f} ms wall, device busy "
-            f"{busy:.3f} ms ({100 * busy / wall_ms:.2f}%), {sum(launches.values())} kernels: "
-            f"{by_kind}"
-        )
-    threads = _thread_breakdown(prof)
-    if not threads:
-        log(f"[gateway] {tag}: no handler thread's ops recorded (host time not measured)")
-        return
-    span, inside, sync, n_sync = (sum(col) for col in zip(*threads))
-    steps = len(prompts) * (GATEWAY_TRACE_TOKENS + 1)
-    ops = inside - sync
-    log(
-        f"[gateway] {tag} profiled: {len(threads)} handler threads, spans {span / 1e3:.3f} ms "
-        f"in all: ATen ops and runtime calls {ops / 1e3:.3f} ms ({100 * ops / span:.1f}%), "
-        f".item() syncs {sync / 1e3:.3f} ms ({100 * sync / span:.1f}%, {n_sync} syncs), "
-        f"outside ops (Python, waiting for the interpreter lock) {(span - inside) / 1e3:.3f} ms "
-        f"({100 * (span - inside) / span:.1f}%); a step (prefill or decode, {steps} steps): "
-        f"ops {ops / steps / 1e3:.3f} ms, syncs {sync / steps / 1e3:.3f} ms, outside "
-        f"{(span - inside) / steps / 1e3:.3f} ms"
-    )
-
-
-def _trace_round_1(gw, cfg, prompts, want) -> None:
-    """Where round 1's time goes: its 8 requests at ``GATEWAY_TRACE_TOKENS`` new tokens with
-    the stack sampler, then profiled; then r0 alone profiled."""
-    n, t0 = len(prompts), time.monotonic()
-    _sampled_round(f"trace, {n} at once, sampled", gw, cfg, prompts, want)
-    _profiled_round(f"trace, {n} at once", gw, cfg, prompts, want)
-    _profiled_round("trace, r0 alone", gw, cfg, prompts[:1], want)
-    log(f"[gateway] the trace's rounds and their profiles: {time.monotonic() - t0:.1f} s")
-
-
 def _wire_bytes(client, ctx, inputs, want_tokens):
     """The HTTP bodies of one ``generate`` through ``client.run_task``, as ``urlopen`` sends
     and reads them (the gateway idle, so no other task is in flight): (request, response)."""
@@ -2606,7 +2505,7 @@ def phase_gateway(serving: dict) -> None:
     sharing its one param tree. Round 1: 8 requests, tokens equal the demo phase's sequential
     ones, 64 flash and 2,048 decode-attention launches, both workers served; then r0 alone
     (the cost of one generation with nothing beside it); both heartbeats report the card;
-    one request's HTTP bodies; the trace of round 1 (``_trace_round_1``). Round 2: w1's
+    one request's HTTP bodies. Round 2: w1's
     application crashed (its heartbeat answers, its app does not), 4 more requests all served
     by w0 with the same tokens."""
     cfg, model, params = serving["cfg"], serving["model"], serving["params"]
@@ -2660,7 +2559,6 @@ def phase_gateway(serving: dict) -> None:
                 f"w0's run_task): HTTP request body {request} bytes, response body {response} "
                 f"bytes"
             )
-            _trace_round_1(gw, cfg, prompts, want)
 
             servers[1].crash_application()
             if clients[1].heartbeat() is None:
@@ -3382,57 +3280,9 @@ def _direct_step0(cfg, smi: str) -> dict:
     }
 
 
-def _dist_profile(cfg, state: dict, smi: str, timers: _HostTimers) -> None:
-    """Steps 1-3 of the round from the direct step 0's state, each a one-step graph of
-    the trainer's (its checkpoint node dropped) on a ClusterExecutor over a Gateway and
-    DIST_WORKERS in-process workers, with no journal: step 1 warms the new worker threads,
-    step 2 gives the host's seconds by kind, step 3 runs under torch.profiler for the
-    device's busy share."""
-    tr = DistributedTrainer(cfg, _dist_config(DIST_DIR / "profile"), device=DEV)
-    with Gateway(tr.workers, heartbeat_interval_s=0.1, name="profile-gateway") as gw:
-        ex = ClusterExecutor(gw, speculative=False)
-
-        def step(s):
-            g = tr._round_graph(s, s + 1, state, {})
-            del g.nodes[f"ckpt@{s + 1}"]
-            t0 = time.monotonic()
-            ex.run(g)
-            torch.cuda.synchronize()
-            return time.monotonic() - t0
-
-        step(1)
-        timers.reset()
-        wall = step(2)
-        for kind, (sec, n) in timers.snapshot().items():
-            log(
-                f"[distributed] step 2 host {kind}: {sec:.3f} s in {n} calls, "
-                f"{100 * sec / wall:.1f}% of the step's {wall:.3f} s wall ({smi})"
-            )
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            wall = step(3)
-    rows = _device_rows(prof)
-    if not rows:
-        log("[distributed] step 3 profiled: no device time recorded (busy share not measured)")
-    else:
-        kinds, launches = _device_kinds(rows)
-        busy = sum(kinds.values())
-        by_kind = "; ".join(
-            f"{k} {ms:.3f} ms ({launches[k]} launches)"
-            for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
-        )
-        log(
-            f"[distributed] step 3 profiled: {1e3 * wall:.3f} ms wall, device busy {busy:.3f} ms "
-            f"({100 * busy / (1e3 * wall):.2f}%), {sum(launches.values())} kernels and copies: "
-            f"{by_kind} ({smi})"
-        )
-    del tr
-    _release()
-
-
 def dist_main() -> int:
-    """The distributed process: run A, run B with a worker killed, step 0 directly, the
-    profiled steps; checks A against B and against the direct step."""
+    """The distributed process: run A, run B with a worker killed, step 0 directly; checks A
+    against B and against the direct step."""
     smi = phase_device()
     cfg = _demo_cut_config()
     torch.use_deterministic_algorithms(True)
@@ -3465,7 +3315,6 @@ def dist_main() -> int:
                 f"[distributed] step 0 directly gives run A's grad@0#k digests and its apply@0 "
                 f"metrics digest {direct['apply']}"
             )
-            _dist_profile(cfg, direct.pop("state"), smi, timers)
     finally:
         shutil.rmtree(DIST_DIR, ignore_errors=True)
     result = {
@@ -4521,6 +4370,12 @@ def _replay_differs(host, tree) -> dict:
     }
 
 
+def _pinned(tree):
+    """The tree's tensors copied into page-locked host memory: the copies back to the card
+    run at the link's rate, where pageable ones run at ~1.6 GB/s (PERF.md §6, PR 30)."""
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x), tree)
+
+
 def _dense_train() -> dict:
     """qwen3-1.7b at full width and depth in bfloat16 (remat "full"), 3 AdamW steps on
     TokenSource batches of DENSE_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`; then the same
@@ -4536,10 +4391,11 @@ def _dense_train() -> dict:
 def _layer_launches(cfg, steps: int) -> dict:
     """The kernel launches of ``steps`` train steps of ``cfg`` with remat "full", which runs
     each layer's forward again in its backward: the flash forward twice and its backward
-    once an attention layer, the RG-LRU forward twice and its backward once a rec layer, the
-    WKV6 chunk forward twice and its backward once an rwkv layer."""
+    once an attention layer (a dense, attn or moe layer), the RG-LRU forward twice and its
+    backward once a rec layer, the WKV6 chunk forward twice and its backward once an rwkv
+    layer."""
     kinds = layer_pattern(cfg)
-    attn = sum(kind in ("dense", "attn") for kind in kinds)
+    attn = sum(kind in ("dense", "attn", "moe") for kind in kinds)
     rec = sum(kind == "rec" for kind in kinds)
     rwkv = sum(kind == "rwkv" for kind in kinds)
     return {
@@ -4608,27 +4464,33 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
             raise AssertionError(f"{tag} step {step}: metrics {vals}")
         log(
             f"{tag} step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
-            f"{vals['z_loss']:.4f} grad_norm {vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
+            f"{vals['z_loss']:.4f} aux_loss {vals['aux_loss']:.6f} grad_norm "
+            f"{vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
             f"{ms:.3f} ms, {tokens / ms * 1e3:.1f} tokens/s (host clock after a sync); "
             f"max_memory_allocated so far {torch.cuda.max_memory_allocated()} bytes"
         )
         return (params, state, metrics), ms
 
     first, ms0 = run(0, params0, state0)
-    host = tuple(tree_map(lambda x: x.cpu(), tree) for tree in first)
+    t_host = time.monotonic()
+    host = tuple(_pinned(tree) for tree in first)
+    t_host = time.monotonic() - t_host
     del first  # its memory stays in the allocator's cache for the replay
     # replay: step 0 again from the same state, equal bits (the
     # trees are compared with torch.equal on the card)
     (params, state, metrics), ms_replay = run(0, params0, state0)
+    t_diff = time.monotonic()
     diff = _replay_differs(host, (params, state, metrics))
+    t_diff = time.monotonic() - t_diff
     if any(diff.values()):
         raise AssertionError(f"{tag} step 0 replayed: elements that differ {diff}")
     n = sum(x.numel() for x in tree_leaves(params))
     log(
         f"{tag} step 0 run again from the same state: params ({n} elements), AdamW m, "
-        "v and step, and metrics equal bit for bit (torch.equal on the card)"
+        "v and step, and metrics equal bit for bit (torch.equal on the card); step 0's "
+        f"result to pinned host memory {t_host:.1f} s, the comparison {t_diff:.1f} s"
     )
-    params0 = tree_map(lambda x: x.cpu(), params0)
+    params0 = _pinned(params0)
     del host, state0, metrics
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -4683,7 +4545,6 @@ DENSE_DURABLE_CMD = [
     "--layers", str(DENSE_DURABLE_LAYERS), "--batch", str(DENSE_TRAIN_BATCH),
     "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS), "--checkpoint-every", "2",
 ]  # fmt: skip
-ZLIB_SAMPLE = 8 << 20  # bytes of a checkpoint member that zlib compresses in the sample
 
 
 def _dense_cut_config():
@@ -4698,8 +4559,8 @@ def phase_dense_durable(dense_train: dict, smi: str) -> dict:
     """qwen3-1.7b in bfloat16 through the durable trainer at full width and its first
     DENSE_DURABLE_LAYERS layers: :func:`_durable`'s runs A and B with their gates, every
     param checkpointed as bfloat16, A's first pair holding the direct steps' state (its
-    content digests), the tree run B restores equal leaf by leaf to the one A saved, and
-    zlib's ratio and rate on these checkpoints. ``dense_train`` is the dense train phase's
+    content digests), and the tree run B restores equal leaf by leaf to the one A saved.
+    ``dense_train`` is the dense train phase's
     result, whose direct steps at that depth it checks. Returns both runs' launches."""
     cfg = _dense_cut_config()
     direct = dense_train["cut"]
@@ -4730,7 +4591,6 @@ def phase_dense_durable(dense_train: dict, smi: str) -> dict:
             "(their content digests)"
         )
         _restored_bits(ckpt, cfg, smi)
-        _zlib_sample(ckpt, smi)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     a, b = runs["a"]["launches"], runs["b"]["launches"]
@@ -4786,39 +4646,6 @@ def _restored_bits(ckpt: Path, cfg, smi: str) -> None:
     log(f"[dense durable] restore_pair of step00000002 here: {restore_s:.3f} s ({smi})")
 
 
-def _zlib_sample(ckpt: Path, smi: str) -> None:
-    """zlib at levels 1 and 6 on one host thread on the first ZLIB_SAMPLE bytes of the largest
-    member of A's step00000002 params (bfloat16 after 2 steps) and of its m and v (float32):
-    the ratio and rate the raw frames give up."""
-    import zipfile
-    import zlib
-
-    for tag, prefix in (("step00000002", ""), ("step00000002-opt", "m/"), ("step00000002-opt", "v/")):
-        entries = json.loads((ckpt / tag / "manifest.json").read_text())["entries"]
-        key = max(
-            (k for k in entries if k.startswith(prefix)),
-            key=lambda k: int(np.prod(entries[k]["shape"])),
-        )
-        with open(ckpt / tag / "shard-0.npz.zst", "rb") as fh:
-            fh.read(1)  # the raw frame's tag
-            with zipfile.ZipFile(fh) as z, z.open(key.replace("/", "|") + ".npy") as member:
-                major, _ = np.lib.format.read_magic(member)
-                if major == 1:
-                    np.lib.format.read_array_header_1_0(member)
-                else:
-                    np.lib.format.read_array_header_2_0(member)
-                data = member.read(ZLIB_SAMPLE)
-        for level in (1, 6):
-            t0 = time.monotonic()
-            size = len(zlib.compress(data, level))
-            sec = time.monotonic() - t0
-            log(
-                f"[dense durable] zlib level {level} on {key} of {tag} ({entries[key]['dtype']}, "
-                f"its first {len(data)} bytes): ratio {size / len(data):.4f}, "
-                f"{len(data) / sec / 1e6:.1f} MB/s on one host thread ({smi})"
-            )
-
-
 HYBRID_TRAIN_ARCH = "recurrentgemma-9b"
 # two (rec, rec, attn) periods of its 38 layers: 3.41B params, 40.9 GB of params, gradients and
 # AdamW state at full depth would be 125 GB
@@ -4867,6 +4694,66 @@ def _rwkv_train() -> dict:
     return _bf16_train(cfg, RWKV_TRAIN_BATCH, "[rwkv train]")
 
 
+MOE_TRAIN_RESULT = "[moe train] launches "  # the process's line of launch counts and times
+
+
+def phase_moe_train() -> dict:
+    """Run the moe train phase in a process of its own (this file with ``--moe-train``);
+    returns its launch counts, step ms and peak memory."""
+    return _in_process(MOE_TRAIN_ARG, MOE_TRAIN_RESULT, "[moe train]")
+
+
+def _moe_train() -> dict:
+    """granite-moe-3b-a800m at full width and depth (32 MoE layers), in bfloat16 (remat
+    "full"), 3 AdamW steps on TokenSource batches of MOE_TRAIN_BATCH x TRAIN_SEQ: every MoE
+    layer through the einsum engine (16 groups of 256, capacity 64, drops);
+    :func:`_bf16_train`."""
+    cfg = get_config(MOE_ARCH)
+    if cfg.moe_impl not in ("einsum", "a2a") or MOE_TRAIN_BATCH * TRAIN_SEQ <= 1024:
+        raise AssertionError(f"[moe train] {cfg.moe_impl} at {MOE_TRAIN_BATCH} x {TRAIN_SEQ}")
+    moe_mod._moe_sort.calls = moe_mod._moe_einsum.calls = 0
+    out = _bf16_train(cfg, MOE_TRAIN_BATCH, "[moe train]")
+    engines = {"sort": moe_mod._moe_sort.calls, "einsum": moe_mod._moe_einsum.calls}
+    log(f"[moe train] engine calls over the phase {engines}")
+    if engines["sort"] or not engines["einsum"]:
+        raise AssertionError(f"[moe train] engine calls {engines}: the einsum engine alone")
+    return out
+
+
+@contextlib.contextmanager
+def _routes(out: list):
+    """Record, into ``out``, the experts the MoE router picks in each call, in call order
+    (the expert ids alone: ``_router_calls``' inputs would hold each layer's rows, 0.8 GB a
+    run of granite's train step, where the plain path's step has none to spare)."""
+    router = moe_mod._router
+
+    def recording(x_flat, *args):
+        weights, idx, aux = router(x_flat, *args)
+        out.append(idx.detach().clone())
+        return weights, idx, aux
+
+    moe_mod._router = recording
+    try:
+        yield out
+    finally:
+        moe_mod._router = router
+
+
+def _route_changes(a: list, b: list) -> str:
+    """Router calls of two runs compared call by call: tokens whose top-k set differs and
+    choices (expert slots) that differ, of all."""
+    if len(a) != len(b):
+        raise AssertionError(f"router calls: {len(a)} against {len(b)}")
+    tokens = choices = total = 0
+    for x, y in zip(a, b):
+        x, y = torch.sort(x, dim=-1).values, torch.sort(y, dim=-1).values
+        tokens += int((x != y).any(dim=-1).sum())
+        same = (x[:, :, None] == y[:, None, :]).any(-1).sum()
+        choices += int(x.numel() - same)
+        total += x.numel()
+    return f"{tokens} tokens, {choices} of {total} choices"
+
+
 def _grad_run(model, params, batch):
     (loss, _), grads = value_and_grad(model.loss_fn, params, batch)
     return float(loss), grads
@@ -4897,17 +4784,30 @@ def _check_bf16_train_against_plain(cfg, model, params, batch, tag) -> None:
     between this bfloat16 run and a float32 run of the same params (upcast) on the same
     batch: the loss, the global grad norm and every gradient leaf."""
     plain = build(dataclasses.replace(cfg, attn_impl="ref"), DEV)
-    loss, grads = _grad_run(model, params, batch)
-    plain_loss, plain_grads = _grad_run(plain, params, batch)
+    routes = {"kernel": [], "plain": [], "float32": []}
+    with _routes(routes["kernel"]):
+        loss, grads = _grad_run(model, params, batch)
+    with _routes(routes["plain"]):
+        plain_loss, plain_grads = _grad_run(plain, params, batch)
     del plain
     _release()
     cfg32 = dataclasses.replace(
         cfg, attn_impl="ref", param_dtype="float32", compute_dtype="float32"
     )
     params32 = tree_map(lambda x: x.float(), params)
-    loss32, grads32 = _grad_run(build(cfg32, DEV), params32, batch)
+    with _routes(routes["float32"]):
+        loss32, grads32 = _grad_run(build(cfg32, DEV), params32, batch)
     del params32
     _release()
+    if routes["kernel"]:  # the MoE router's top-k at step 0: a flip moves an expert's gradient
+        log(
+            f"{tag} step 0 routing over {len(routes['kernel'])} router calls (each MoE layer "
+            f"and its recompute): kernel path vs plain path "
+            f"{_route_changes(routes['kernel'], routes['plain'])} differ; plain path vs float32 "
+            f"{_route_changes(routes['plain'], routes['float32'])}; kernel path vs float32 "
+            f"{_route_changes(routes['kernel'], routes['float32'])}"
+        )
+    del routes
 
     def gnorm(tree):
         return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree))).item()
@@ -5005,6 +4905,7 @@ def main() -> int:
     dense_durable = _timed("dense durable", lambda: phase_dense_durable(dense_train, smi))
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
     rwkv_train = _timed("rwkv train", phase_rwkv_train)
+    moe_train = _timed("moe train", phase_moe_train)
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
@@ -5107,6 +5008,26 @@ def main() -> int:
             "prompt; library: SDPA flash, K/V expanded)",
         ),
         _kernel_entry(
+            "flash_attention_fwd_bf16_granite_train",
+            flash_src,
+            flash_tpu,
+            moe_train["flash"],
+            bwd_rows["bf16"]["granite"]["fwd"],
+            "q(1,24,4096,64) k,v(1,8,4096,64) bfloat16 causal, with the logsumexp "
+            "(granite-moe-3b-a800m's train shape); launches of the moe train phase",
+        ),
+        _kernel_entry(
+            "flash_attention_bwd_bf16_granite",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+            "src/repro/kernels/flash_attention.py:139",
+            moe_train["flash_bwd"],
+            bwd_rows["bf16"]["granite"]["bwd"],
+            "q,dO(1,24,4096,64) k,v(1,8,4096,64) bfloat16 causal (GQA group 3); "
+            "flash_bwd_bf16_delta_kernel, "
+            + ", ".join(BF16_WGMMA_KERNELS[:2])
+            + "; launches of the moe train phase",
+        ),
+        _kernel_entry(
             "decode_attention_granite",
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
@@ -5168,4 +5089,6 @@ if __name__ == "__main__":
         sys.exit(_process_main(HYBRID_TRAIN_RESULT, _hybrid_train))
     if sys.argv[1:] == [RWKV_TRAIN_ARG]:
         sys.exit(_process_main(RWKV_TRAIN_RESULT, _rwkv_train))
+    if sys.argv[1:] == [MOE_TRAIN_ARG]:
+        sys.exit(_process_main(MOE_TRAIN_RESULT, _moe_train))
     sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

@@ -24,10 +24,16 @@ Two rules keep the results those of the reference, and the same on every run:
 - ties: the router picks its k experts by a stable descending sort, so among
   equal probabilities the lower expert id wins, as with ``jax.lax.top_k``
   (``torch.topk`` promises no order for ties);
-- the combine: each token's k weighted expert outputs are gathered and added
-  in float32 one after another in ascending expert id, the order in which the
-  reference's scatter applies them. No atomic float scatter is used anywhere,
-  so the bits do not change from run to run.
+- the order of every sum: each token's k weighted expert outputs are gathered
+  and added in float32 one after another in ascending expert id, the order in
+  which the reference's scatter applies them. The gathers' gradients are
+  gathers too (``_GatherRows``): a token's gradient adds its kept slots'
+  gradients in float32 in ascending expert id and rounds once, as the
+  reference's one-hot contraction accumulates them; a slot's gradient is its
+  one assignment's; the router weights' permutation is undone by its inverse.
+  Only the dropless combine keeps ``index_select``, whose gradient writes
+  each row once. So no sum is left to the order of a scatter, forward or
+  backward, on the CPU or on the card.
 
 ``_moe_sort.calls`` and ``_moe_einsum.calls`` count each engine's calls;
 callers read and reset them directly.
@@ -132,16 +138,48 @@ def _slots(e: torch.Tensor, E: int, cap: int) -> Tuple[torch.Tensor, torch.Tenso
     return pos, pos < cap, src
 
 
-def _dispatch(xg: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
-    """Rows of each expert's slots: ``xg`` (G, S, d) and ``tok`` (G, E, cap), the token of
-    each slot (S where empty) -> (E, G·cap, d), group-major within an expert (row g·cap +
-    c), zero rows in empty slots."""
-    G, S, d = xg.shape
-    E, cap = tok.shape[1], tok.shape[2]
-    x_pad = torch.cat([xg.reshape(G * S, d), xg.new_zeros(1, d)])  # row G·S is zero
-    base = S * torch.arange(G, device=xg.device)[:, None, None]
-    flat = torch.where(tok < S, tok + base, G * S).transpose(0, 1).reshape(E * G * cap)
-    return x_pad.index_select(0, flat).reshape(E, G * cap, d)
+class _GatherRows(torch.autograd.Function):
+    """``x[table]``, a zero row where an entry is ``len(x)``, whose gradient is a gather by
+    the inverse table ``inv`` (R, J): row r of x's gradient adds rows ``inv[r, 0]``,
+    ``inv[r, 1]``, ... of the output's gradient in that order (an entry ``len(table)`` adds
+    nothing), in float32, and rounds once to x's dtype. ``index_select``'s gradient would
+    scatter instead, its adds to a row in an order of the device's choosing."""
+
+    @staticmethod
+    def forward(ctx, x, table, inv):
+        ctx.save_for_backward(inv)
+        return _rows(x, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        rows = _rows(grad, inv.reshape(-1)).reshape(*inv.shape, grad.shape[-1])
+        if inv.shape[1] == 1:
+            return rows[:, 0], None, None
+        acc = rows[:, 0].float()
+        for j in range(1, inv.shape[1]):
+            acc = acc + rows[:, j].float()
+        return acc.to(grad.dtype), None, None
+
+
+def _rows(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of x (R, d) by ``table``, a zero row where an entry is R."""
+    return torch.cat([x, x.new_zeros(1, x.shape[-1])]).index_select(0, table)
+
+
+def _expert_order(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each token's k assignments in ascending expert id, as flat tables over N·k: ``perm``,
+    the assignment t·k + r at each place t·k + j of that order, and ``place``, its inverse."""
+    N, k = idx.shape
+    base = k * torch.arange(N, device=idx.device)[:, None]
+    order = torch.argsort(idx, dim=-1)  # a token's k experts are distinct
+    return (base + order).reshape(-1), (base + torch.argsort(order, dim=-1)).reshape(-1)
+
+
+def _in_expert_order(weights, perm, place) -> torch.Tensor:
+    """The router weights (N, k) in each token's ascending expert id; their gradient is put
+    back in the router's order by the inverse permutation."""
+    return _GatherRows.apply(weights.reshape(-1, 1), perm, place[:, None]).reshape(weights.shape)
 
 
 def _group_base(G: int, cap: int, device) -> torch.Tensor:
@@ -149,25 +187,48 @@ def _group_base(G: int, cap: int, device) -> torch.Tensor:
     return (cap * torch.arange(G, device=device))[:, None, None]
 
 
-def _combine(h, row, keep, weights, idx, round_products: bool, dtype):
+def _dispatch_combine(x_rows, asg, row, keep, weights, idx, p, cfg, round_products):
+    """Dispatch, the experts, and the combine of one capacity-bounded engine.
+
+    ``x_rows`` (N, d): the tokens; ``asg`` (G, E, cap): the assignment t·k + r each slot
+    holds (N·k where empty); ``row``, ``keep`` (N, k): each assignment's row of the experts'
+    (E, G·cap) slots and whether it was kept (a dropped one points at a kept row and gets a
+    zero weight, as the reference's one-hot combine). Returns (N, d) in x's dtype.
+    """
+    N, d = x_rows.shape
+    k = idx.shape[1]
+    perm, place = _expert_order(idx)
+    row, keep = row.reshape(-1)[perm].reshape(N, k), keep.reshape(-1)[perm].reshape(N, k)
+    slots = asg.transpose(0, 1).reshape(-1)  # expert-major, as the experts' rows
+    # each slot's token, gathered; a token's gradient gathers its kept rows in expert order
+    xs = _GatherRows.apply(x_rows, slots // k, torch.where(keep, row, slots.numel()))
+    h = _expert_ffn(xs.reshape(cfg.num_experts, -1, d), p["experts"], cfg)
+    held = torch.cat([place, place.new_full((1,), N * k)])[slots]  # a row's assignment, sorted
+    w = _in_expert_order(weights, perm, place)
+    return _combine(h, row, w * keep.to(w.dtype), held, round_products, x_rows.dtype)
+
+
+def _combine(h, row, w, held, round_products: bool, dtype):
     """Each token's weighted expert outputs, added in float32 in ascending expert id.
 
-    ``h`` (E, R, d): the experts' outputs; ``row``, ``keep``, ``weights``, ``idx`` (N, k):
-    each assignment's row of ``h`` flattened to (E·R, d), whether it was kept (None: all
-    were), its router weight and its expert. A dropped assignment adds a row times a zero
-    weight, as the reference's one-hot combine does. With ``round_products`` each product
-    of a row and its weight is rounded to ``dtype`` before the float32 sum (the sort
-    engine's multiply in the activation dtype); without, it is exact (the einsum engine's
-    float32 contraction). Returns (N, d) in ``dtype``.
+    ``h`` (E, R, d): the experts' outputs; ``row``, ``w`` (N, k): each assignment's row of
+    ``h`` flattened to (E·R, d) and its router weight (zero where dropped), in ascending
+    expert id; ``held`` (E·R,): the place t·k + j of the one kept assignment each row holds
+    (N·k where none), by which a row's gradient is gathered, or None where no two
+    assignments share a row (the dropless path: ``index_select``'s gradient then writes
+    each row once). With ``round_products`` each product of a row and its weight is rounded
+    to ``dtype`` before the float32 sum (the sort engine's multiply in the activation
+    dtype); without, it is exact (the einsum engine's float32 contraction). Returns (N, d)
+    in ``dtype``.
     """
     d = h.shape[-1]
-    N, k = idx.shape
-    order = torch.argsort(idx, dim=-1)  # a token's k experts are distinct
-    row, w = row.gather(-1, order), weights.gather(-1, order)
-    if keep is not None:
-        w = w * keep.gather(-1, order).to(w.dtype)
-    rows = h.reshape(-1, d).index_select(0, row.reshape(-1)).reshape(N, k, d)
-    w = w.reshape(N, k, 1)
+    N, k = row.shape
+    flat = h.reshape(-1, d)
+    if held is None:
+        rows = flat.index_select(0, row.reshape(-1))
+    else:
+        rows = _GatherRows.apply(flat, row.reshape(-1), held[:, None])
+    rows, w = rows.reshape(N, k, d), w.reshape(N, k, 1)
     contrib = (rows * w).float() if round_products else rows.float() * w.float()
     out = contrib[:, 0]
     for j in range(1, k):
@@ -187,18 +248,18 @@ def _moe_einsum(x_flat, weights, idx, p, cfg):
     G = max(1, T // cfg.moe_group_size)
     S = T // G
     cap = max(1, int(S * k / E * cfg.moe_capacity_factor))
-    xg = x_flat[: G * S].reshape(G, S, d)
-    ig = idx[: G * S].reshape(G, S, k)
+    n = G * S
+    ig = idx[:n].reshape(G, S, k)
     # the reference fills every expert's slots with rank 0 of all tokens, then rank 1, ...
     pos, keep, src = _slots(ig.transpose(1, 2).reshape(G, k * S), E, cap)
     pos, keep = (t.reshape(G, k, S).transpose(1, 2) for t in (pos, keep))  # (G, S, k)
-    h = _expert_ffn(_dispatch(xg, torch.where(src < k * S, src % S, S)), p["experts"], cfg)
     row = ig * (G * cap) + _group_base(G, cap, x_flat.device) + torch.where(keep, pos, 0)
-    n = G * S
-    wg, ig, row, keep = (t.reshape(n, k) for t in (weights[:n], ig, row, keep))
-    out = _combine(h, row, keep, wg, ig, round_products=False, dtype=x_flat.dtype)
-    if G * S < T:  # the tail past G·S gets no expert output
-        out = torch.cat([out, x_flat.new_zeros(T - G * S, d)])
+    # slot a = r·S + s of group g holds assignment (g·S + s)·k + r
+    tok = S * torch.arange(G, device=x_flat.device)[:, None, None] + src % S
+    asg = torch.where(src < k * S, tok * k + src // S, n * k)
+    out = _dispatch_combine(x_flat[:n], asg, row, keep, weights[:n], idx[:n], p, cfg, False)
+    if n < T:  # the tail past G·S gets no expert output
+        out = torch.cat([out, x_flat.new_zeros(T - n, d)])
     return out
 
 
@@ -228,15 +289,17 @@ def _moe_sort(x_flat, weights, idx, p, cfg, cap_override: int = 0):
         # is the same product as in its sorted slot (each row of a product is its own), and
         # the other rows are never read. The products' shape is the reference's, (E, T, d).
         h = _expert_ffn(x_flat.expand(E, T, d), p["experts"], cfg)
+        perm, place = _expert_order(idx)
         tokens = torch.arange(T, device=x_flat.device)[:, None]
-        return _combine(h, idx * T + tokens, None, weights, idx, True, x_flat.dtype)
+        row = (idx * T + tokens).reshape(-1)[perm].reshape(T, k)
+        return _combine(h, row, _in_expert_order(weights, perm, place), None, True, x_flat.dtype)
     ig = idx.reshape(G, S, k)
     pos, keep, src = _slots(ig.reshape(G, S * k), E, cap)  # slots filled token by token
     pos, keep = pos.reshape(G, S, k), keep.reshape(G, S, k)
-    tok = torch.where(src < S * k, src // k, S)
-    h = _expert_ffn(_dispatch(x_flat.reshape(G, S, d), tok), p["experts"], cfg)
     row = ig * (G * cap) + _group_base(G, cap, x_flat.device) + torch.where(keep, pos, 0)
-    return _combine(h, row.reshape(T, k), keep.reshape(T, k), weights, idx, True, x_flat.dtype)
+    # slot a = s·k + r of group g holds assignment g·S·k + a
+    asg = torch.where(src < S * k, src + _group_base(G, S * k, x_flat.device), T * k)
+    return _dispatch_combine(x_flat, asg, row, keep, weights, idx, p, cfg, True)
 
 
 _moe_sort.calls = 0

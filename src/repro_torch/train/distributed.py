@@ -35,8 +35,9 @@ completes with the same gradients because ``grad_shard`` is a pure function
 of (params, step, shard). A killed run resumes from the newest complete
 checkpoint pair and verifies every re-executed step against the journal.
 
-A bfloat16 config is refused at construction: the shard mean of bfloat16
-gradients is the part of ROADMAP Queue 1 item 7 still to port.
+A bfloat16 model's shard gradients come to the host as ``BFloat16Array`` bits; the
+mean widens them to float32 and rounds once, as the reference's does its ``ml_dtypes``
+arrays, so both give the same bits.
 
 On the card each ``grad_shard`` runs the model's flash forward (with the
 logsumexp) and backward kernels. Its gradients must not depend on the worker
@@ -71,6 +72,7 @@ from repro_torch.models import Model
 from repro_torch.optim.adamw import adamw_update, tree_map
 from repro_torch.params import from_numpy_tree
 from repro_torch.wire import Digested, payload_digest
+from repro_torch.wire.bfloat16 import BFloat16Array, from_float32
 
 from .host import to_host
 from .steps import value_and_grad
@@ -111,7 +113,8 @@ def build_grad_registry(model: Model, data_cfg: DataConfig) -> TaskRegistry:
     on any worker. The shard batch is regenerated locally from (seed, step,
     shard): workers never ship training data, only gradients. Loss and
     gradients are computed on ``model.device``; the gradients come back as
-    host float32 arrays, so their digests do not depend on the transport.
+    host arrays in the params' dtype (bfloat16 as ``BFloat16Array`` bits), so
+    their digests do not depend on the transport.
 
     A deployment calls this on each worker host to register the task with
     its :class:`~repro_torch.core.WorkerServer`; in-proc workers share one
@@ -142,13 +145,23 @@ def build_grad_registry(model: Model, data_cfg: DataConfig) -> TaskRegistry:
 
 
 def _mean_pytrees(trees: Sequence[Any]) -> Any:
-    """Leaf-wise mean in *list order* — bit-deterministic shard aggregation."""
+    """Leaf-wise mean in *list order* — bit-deterministic shard aggregation: each
+    shard's leaf widened to float32, added in list order, divided by the count, and the
+    mean rounded once to the leaf's dtype (a bfloat16 leaf, a ``BFloat16Array``, to
+    nearest even, as the reference's ``ml_dtypes`` cast)."""
     n = len(trees)
 
+    def wide(leaf):
+        if isinstance(leaf, BFloat16Array):
+            return leaf.float32()
+        return np.asarray(leaf, dtype=np.float32)
+
     def mean_leaf(*leaves):
-        acc = np.asarray(leaves[0], dtype=np.float32).copy()
+        acc = wide(leaves[0]).copy()
         for leaf in leaves[1:]:
-            acc += np.asarray(leaf, dtype=np.float32)
+            acc += wide(leaf)
+        if isinstance(leaves[0], BFloat16Array):
+            return from_float32(acc / n)
         return (acc / n).astype(np.asarray(leaves[0]).dtype)
 
     return tree_map(mean_leaf, *trees)
@@ -172,15 +185,6 @@ class DistributedTrainer(Trainer):
         workers: Optional[List[Any]] = None,
         device: DeviceLike = None,
     ):
-        if cfg.param_dtype == "bfloat16":
-            # refused before anything is built: the reference's _mean_pytrees widens each
-            # shard's ml_dtypes gradients to float32 and rounds the mean back, and numpy
-            # alone has no bfloat16 to round to
-            raise NotImplementedError(
-                f"DistributedTrainer: {cfg.name} has bfloat16 params, and the bfloat16 shard "
-                "mean of their gradients waits for the rest of ROADMAP Queue 1 item 7; the "
-                "durable Trainer trains it on one device"
-            )
         super().__init__(cfg, tc, device)
         if tc.global_batch % tc.num_shards:
             raise ValueError(

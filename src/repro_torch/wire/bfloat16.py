@@ -21,7 +21,15 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["BFLOAT16", "BITS", "WIRE_DTYPE", "BFloat16Array", "dtype_name", "wire_dtype"]
+__all__ = [
+    "BFLOAT16",
+    "BITS",
+    "WIRE_DTYPE",
+    "BFloat16Array",
+    "dtype_name",
+    "from_float32",
+    "wire_dtype",
+]
 
 BFLOAT16 = "bfloat16"  # str(dtype) of the reference's arrays: its checkpoint digests and manifests
 BITS = np.dtype("V2")  # the host form's dtype, as np.load reads a bfloat16 npz member
@@ -59,6 +67,17 @@ class BFloat16Array(np.ndarray):
         wide = self.bits().astype(np.uint32)
         wide <<= 16  # in place: a 0-d array stays an array
         return wide.view(np.float32)
+
+
+def from_float32(values: Any) -> BFloat16Array:
+    """float32 values rounded once to the nearest bfloat16, ties to even, as
+    ``ml_dtypes``' cast rounds them: subnormals kept, ±inf kept, past the largest finite
+    value to ±inf, and a NaN the quiet NaN of its sign."""
+    x = np.asarray(values, dtype=np.float32, order="C")
+    bits = x.view(np.uint32)
+    rounded = (bits + (np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1)))) >> 16
+    quiet = ((bits >> 16) & np.uint32(0x8000)) | np.uint32(0x7FC0)
+    return BFloat16Array(np.where(np.isnan(x), quiet, rounded).astype(np.uint16))
 
 
 def dtype_name(arr: np.ndarray) -> str:

@@ -8,7 +8,8 @@ reference's; the port resolves its own bfloat16 checkpoints and the reference's,
 reference itself does not (its ``np.load`` reads the member back as ``|V2``). Shards are
 raw frames that both packages read. A bfloat16 smoke model trains through the port's
 ``Trainer``, crashes between the halves of a checkpoint pair, recovers and re-executes to
-the journal's digests; ``DistributedTrainer`` refuses a bfloat16 config by name.
+the journal's digests. The shard mean of bfloat16 gradients equals the reference's bit for
+bit, and a bfloat16 ``DistributedTrainer`` round reduces to it.
 
 Tolerance: none. Everything here is compared bit for bit (digests, bytes, ``torch.equal``).
 """
@@ -16,7 +17,6 @@ Tolerance: none. Everything here is compared bit for bit (digests, bytes, ``torc
 import dataclasses
 import io
 import json
-import os
 import shutil
 import zipfile
 
@@ -35,7 +35,7 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core import Journal
 from repro_torch.data.pipeline import DataConfig, TokenSource
 from repro_torch.models import build
-from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, tree_leaves
 from repro_torch.params import from_numpy_opt_state, from_numpy_tree, init_params
 from repro_torch.train import DistributedTrainer, DistTrainConfig, make_opt_init
 from repro_torch.train import make_train_step
@@ -341,10 +341,99 @@ def test_bf16_restore_reads_the_host_form_and_the_references_state():
 # (h) ----------------------------------------------------------------------------------
 
 
-def test_distributed_trainer_refuses_a_bfloat16_config_by_name(tmp_path):
+def _mean_cases(n, seed):
+    """n shards of bfloat16 bits: random values; pairs whose float32 mean falls halfway
+    between two bfloat16 (ties, to even both ways); subnormals and their halves; ±inf
+    (inf - inf gives NaN); a NaN; the largest finite value twice (its float32 sum overflows to
+inf, in both packages)."""
+    rng = np.random.default_rng(seed)
+    shards = [rng.integers(0, 1 << 16, size=(64,), dtype=np.uint16) for _ in range(n)]
+    edges = [
+        (0x3F80, 0x3F81),  # 1 and the next bfloat16: the mean 0x3F808000 ties, to 0x3F80
+        (0x3F81, 0x3F82),  # ties up to the even 0x3F82
+        (0xBF81, 0xBF82),
+        (0x0001, 0x0000),  # the least subnormal and zero: a subnormal tie
+        (0x007F, 0x0001),
+        (0x8003, 0x8000),
+        (0x7F80, 0x3F80),  # +inf
+        (0xFF80, 0x3F80),  # -inf
+        (0x7F80, 0xFF80),  # NaN
+        (0x7FC0, 0x3F80),  # NaN
+        (0x7F7F, 0x7F7F),  # the largest finite
+    ]
+    for i, pair in enumerate(edges):
+        for k, shard in enumerate(shards):
+            shard[i] = pair[k % 2]
+    return shards
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_bf16_shard_mean_is_bit_equal_to_the_references(n):
+    """The port's ``_mean_pytrees`` on ``BFloat16Array`` leaves against the reference's on
+    ``ml_dtypes`` arrays of the same bits, beside a float32 leaf: every bit equal (NaN
+    included: the quiet NaN of its sign), the payload digests equal, the types kept."""
+    from repro.train.distributed import _mean_pytrees as jmean_pytrees
+    from repro_torch.train.distributed import _mean_pytrees
+
+    rng = np.random.default_rng(n)
+    bits = _mean_cases(n, seed=n)
+    f32 = [rng.standard_normal((3, 5)).astype(np.float32) for _ in range(n)]
+    got = _mean_pytrees([{"w": BFloat16Array(b), "f": f} for b, f in zip(bits, f32)])
+    want = jmean_pytrees([{"w": b.view(ml_dtypes.bfloat16), "f": f} for b, f in zip(bits, f32)])
+    _same_bits(got["w"], want["w"])
+    assert np.array_equal(got["f"].view(np.uint32), np.asarray(want["f"]).view(np.uint32))
+    assert twire.payload_digest(got) == jwire.payload_digest(
+        {k: np.asarray(v) for k, v in want.items()}
+    )
+    values = got["w"].float32()
+    assert np.isnan(values[9]) and np.isinf(values[6:8]).all()
+    assert np.isinf(values[10]) == (n > 1)
+    if n % 2 == 0:  # each pair's mean is its two values': ties, to even both ways; inf - inf
+        assert got["w"].bits()[:3].tolist() == [0x3F80, 0x3F82, 0xBF82]
+        assert np.isnan(values[8])
+
+
+def test_a_bfloat16_distributed_round_reduces_to_the_shard_mean(tmp_path):
+    """A bfloat16 smoke model through ``DistributedTrainer`` (2 shards on 2 in-process
+    workers, 1 step): the checkpointed params equal, bit for bit, AdamW's step on the
+    bfloat16 mean of the two shards' gradients computed here by the ``grad_shard`` task
+    and the port's ``_mean_pytrees``, whose leaves are bfloat16."""
+    from repro_torch.core import Context
+    from repro_torch.train.distributed import _mean_pytrees, build_grad_registry
+
     cfg = _bf16_smoke("qwen3-1.7b")
-    tc = DistTrainConfig(run_dir=str(tmp_path / "run"), global_batch=2, num_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7") as err:
-        DistributedTrainer(cfg, tc, device="cpu")
-    assert "bfloat16 shard mean" in str(err.value) and cfg.name in str(err.value)
-    assert not os.path.exists(tmp_path / "run")  # refused before anything was built
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    tc = DistTrainConfig(
+        run_dir=str(tmp_path / "run"),
+        num_steps=1,
+        checkpoint_every=1,
+        log_every=100,
+        global_batch=2,
+        seq_len=SEQ,
+        heartbeat=False,
+        num_shards=2,
+        num_workers=2,
+        opt=opt,
+    )
+    trainer = DistributedTrainer(cfg, tc, device="cpu")
+    assert trainer.train()["steps"] == 1
+    _, params, _ = restore_pair(trainer.store, "step00000001", cfg, opt, torch.device("cpu"))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        model = build(cfg, "cpu")
+        params0 = init_params(cfg, torch.Generator().manual_seed(tc.seed), "cpu")
+        task = build_grad_registry(model, trainer.data_cfg).get("grad_shard")
+        sync = {"step": 0, "params": to_host(params0)}
+        shards = [
+            task(Context.origin({"shard": k, "num_shards": 2}), sync)["grads"] for k in (0, 1)
+        ]
+        mean = _mean_pytrees(shards)
+        assert all(isinstance(x, BFloat16Array) for x in tree_leaves(mean))
+        state0 = make_opt_init(model, opt)(params0)
+        with torch.no_grad():
+            want, _, _ = adamw_update(params0, from_numpy_tree(mean, "cpu"), state0, opt)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for got, w in zip(tree_leaves(params), tree_leaves(want), strict=True):
+        assert got.dtype == w.dtype == torch.bfloat16 and torch.equal(got, w)
