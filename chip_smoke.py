@@ -12,7 +12,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    flash attention on the cases of ``tests/test_kernels.py`` (FLASH_CASES
    and the MLA 48/32 case), on edge cases, on bfloat16 cases of the
    wgmma path (head dims 64, 128, 256 and one no multiple of 8, ragged Sq,
-   Sq < Sk, window 1), on float32 cases of the 3xTF32 path (head dims 16
+   Sq < Sk, window 1) and at deepseek-v3-671b's MLA prefill (128 heads, key
+   head dim 192, value head dim 128, explicit scale; S = 1711 and 128: bits
+   on two launches and across a batch of 3, timed beside SDPA as
+   dispatched), on float32 cases of the 3xTF32 path (head dims 16
    to 256, one no multiple of 4, walks cut into pieces), on the demo
    model's prefill shapes and at recurrentgemma-9b's head dim 256 (MQA,
    window 2048, float32 and bfloat16), each case logging the path that
@@ -188,8 +191,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    on the card equals the port's CPU path on a (1, 333, 4096) input within
    1e-4;
 10. dense: the dense family at full width in bfloat16 (``qwen3-1.7b``,
-   ``stablelm-1.6b``, ``yi-6b`` at full depth; ``qwen1.5-110b`` at 4 of its 80
-   layers, as 222.4 GB of weights do not fit the card), one after the other,
+   ``stablelm-1.6b``, ``yi-6b`` at half their depth, DENSE_DEPTH, for time;
+   ``qwen1.5-110b`` at 4 of its 80 layers, as 222.4 GB of weights do not fit
+   the card), one after the other,
    each serving 8 requests of 32 new tokens (prompts 64-1000 tokens, seed 0)
    through ``ContinuousBatcher(slots=4, max_len=1536)``: the flash kernel
    launched once per layer per prefill and the decode kernel once per layer
@@ -199,8 +203,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    busy share; then one full-width layer of a float32 copy on the card against
    the port's CPU path within 1e-4 on a (1, 777, d) input (with the tied
    unembed for qwen3-1.7b);
-10b. moe: ``granite-moe-3b-a800m`` at full width and depth (32 MoE layers of
-   40 experts, top 8; 3.30B params, bfloat16) serves 8 requests of 32 new
+10b. moe: ``granite-moe-3b-a800m`` at full width, 16 of its 32 MoE layers
+   (MOE_SERVE_LAYERS; 40 experts, top 8; bfloat16) serves 8 requests of 32 new
    tokens (prompts 64-2000 tokens, seed 0: three above 1,024 tokens through
    the einsum engine, five through the dropless sort engine) through
    ``ContinuousBatcher(slots=4, max_len=2048)``: the flash kernel once per
@@ -219,6 +223,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    output within 1e-4 of its scale, MOE_TOL, the cache within 1e-4), and both
    engines on the CPU path's routing of 2,000 rows, each no further from a
    float64 run than twice the CPU path;
+10c. deepseek: ``deepseek-v3-671b`` at full width, 4 of its 61 layers (the 3
+   first_k_dense layers and 1 MoE layer of 256 experts, top 8, one shared
+   expert; MLA with 128 heads, q_lora 1536, kv_lora 512, qk 128 + 64, v 128;
+   an untied vocabulary of 129,280; 15.8B params with the MTP subtree, drawn
+   and not run, bfloat16) serves the moe phase's 8 requests through
+   ``ContinuousBatcher(slots=4, max_len=2048)``: the flash kernel at key head
+   dim 192 and value head dim 128 once per layer per prefill, no decode
+   kernel (decode is MLA's absorbed form in float32 plain torch), each engine
+   once per MoE layer of each prefill on its side of 1,024 tokens and of each
+   decode step; each request's logits equal a teacher-forced run at the
+   batcher's width bit for bit and agree at batch 1 within LOGIT_TOL_DEEPSEEK
+   on every decode step whose routing did not flip, a flipped step held to
+   the flip's terms (a top-8 boundary gap within the runs' rounding, the
+   router's input within ROUTER_INPUT_TOL), the boundary gaps logged; the
+   unembed at 7168 x 129,536; tok/s, prefill and decode times beside their
+   bounds, peak memory, a profiled prefill and decode step by kind and split
+   by block (the MLA block, the absorbed decode, the dense MLPs, the router,
+   the dispatch and combine, the experts); then a float32 MLA layer on the
+   card against the CPU path (a 777-token prefill and its latent cache, 4
+   absorbed decode steps) and its decode steps against a fresh prefill, and
+   a float32 MoE layer (46 GB) against the CPU path on a 64-token prefill
+   and 2 decode steps, routing compared first;
 11. dense train, in a process of its own (this file run with
    ``--dense-train``, set up as ``--train``): ``qwen3-1.7b`` at full width and
    depth in bfloat16 with remat "full" takes 3 AdamW steps (the train CLI's)
@@ -354,12 +380,18 @@ from repro_torch.launch.gateway_serve import (  # noqa: E402
     http_workers,
 )
 from repro_torch.launch.serve import drain, make_prompts, serve  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
-from repro_torch.models.layers import apply_norm, dense, softcap  # noqa: E402
+from repro_torch.models.layers import ParamStore, apply_norm, dense, softcap  # noqa: E402
 from repro_torch.models.model import unembed_logits  # noqa: E402
-from repro_torch.models.transformer import apply_layer, layer_pattern, run_stack  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    apply_layer,
+    init_layer,
+    layer_pattern,
+    run_stack,
+)
 from repro_torch.optim.adamw import (  # noqa: E402
     AdamWConfig,
     adamw_update,
@@ -457,6 +489,13 @@ HYBRID_FLASH_F32_JSON = (1, 16, 1, 3000, 3000, 256, True, 2048, "float32", 256)
 # heads on 8 KV heads of 64, a GQA group of 3; its row times SDPA's flash backend with K/V
 # expanded beside the kernel
 GRANITE_FLASH_JSON = (1, 24, 8, 1711, 1711, 64, True, None, "bfloat16", 64)
+# deepseek-v3-671b's MLA prefill: 128 heads, key head dim 192 (128 nope + 64 rope), value head
+# dim 128, the explicit scale 192^-0.5; at the deepseek phase's longest prompt (1711 tokens, its
+# row in the kernels line) and at 128. D = 192 runs the DC = 4 build, whose fourth 64-column
+# chunk of Q and K lies wholly past D (TMA fills it with zeros)
+MLA_SCALE = (128 + 64) ** -0.5
+MLA_FLASH_JSON = (1, 128, 128, 1711, 1711, 192, True, None, "bfloat16", 128)
+MLA_FLASH_CASES = (MLA_FLASH_JSON, (1, 128, 128, 128, 128, 192, True, None, "bfloat16", 128))
 # (B, T, W, x dtype, with h0): recurrentgemma-9b's prefill (T up to 3000) and
 # decode (B = slots, T = 1) at lru_width 4096; a W that is no multiple of the
 # ring kernel's 16 channels; float32 x; then the two kernels' edges: T on both
@@ -799,6 +838,38 @@ MOE_ENGINE_CHECK = 2000
 # magnitude, ~50 units in the last place; a fault (a wrong expert, weight or slot) moves a
 # token's output by a whole expert's share, ~10% of the scale.
 MOE_TOL = EXACT_TOL
+# granite-moe-3b-a800m is served at 16 of its 32 layers since the deepseek phase came, to keep
+# the script's phases inside the time limit: every gate of the moe phase holds at any depth, and
+# granite's kernel rows keep their shapes (its training stays at full depth)
+MOE_SERVE_LAYERS = 16
+DEEPSEEK_ARCH = "deepseek-v3-671b"
+# of its 61 layers: the 3 first_k_dense layers and 1 MoE layer of 256 experts, so that every
+# layer kind runs at full width: 15,801,029,632 params with the MTP subtree (drawn, not run),
+# 31.6 GB in bfloat16 (the 61 layers hold 671.7B and fit on no one card)
+DEEPSEEK_LAYERS = 4
+# Batched and teacher-forced runs of the bfloat16 deepseek cut at batch 4 and batch 1 differ
+# only where cuBLAS sums a product in another order at 1 row than at 4 (the MLA projections and
+# the absorbed decode's float32 products, the dense MLPs, the router's logits, the experts' and
+# the shared expert's products); the norms, the combine and the router's choice are row-wise. A
+# bfloat16 output then differs by one unit in the last place, 2^-8 of its size. 4 layers each add
+# an attention and an FFN output to the residual stream: at most 8 * 2^-8 = 0.031 of its size,
+# which the final RMSNorm hands to the logits. Logits here have a standard deviation of
+# 0.02 * 0.88 * sqrt(7168) = 1.49 (the untied unembed), and the largest of 129,280 is ~4.5 of
+# those, 6.7: a bound of 0.031 * 6.7 = 0.21 on any logit. It holds while each token keeps its
+# experts in both runs: a flipped expert moves the MoE layer's output by an expert's share. The
+# MoE layer is the last layer, so a flip moves that decode step's logits alone (nothing after
+# it is cached), and such a step is held instead to the flip's own terms (_flip_steps): the
+# router's input within ROUTER_INPUT_TOL of the wide run's, and the batch-1 run's top-8
+# boundary gap within what the two runs' rounding moves the probabilities. A fault (a cache row
+# in the wrong slot, a lost position) moves the router's input by its own size, and the logits
+# of every later step by several units.
+LOGIT_TOL_DEEPSEEK = 0.21
+# the router's input (the MoE layer's normed stream) at batch 1 against the batcher's width,
+# max |a - b| over max |b|: 3 dense layers and the MoE layer's attention add 7 outputs, each up
+# to one bfloat16 unit of its size
+ROUTER_INPUT_TOL = 7 * 2**-8
+DEEPSEEK_LAYER_CHECK = 777  # rows of the float32 MLA layer's prefill, then 4 decode steps
+DEEPSEEK_MOE_CHECK = 64  # rows of the float32 MoE layer's prefill, then 2 decode steps
 
 
 # the WKV6 backward's kernels (both walks, the chunk pass, du), which ptxas must build with no
@@ -2329,7 +2400,78 @@ def phase_kernels():
     rglru_rows["bwd"] = _rglru_bwd_rows(gen)
     wkv6_rows = _wkv6_rows(gen)
     wkv6_rows["bwd"] = _wkv6_bwd_rows(gen)
+    flash_rows.update(_mla_flash_rows(gen))
     return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows
+
+
+def _mla_flash_rows(gen) -> dict:
+    """The bfloat16 flash forward at MLA's shapes (MLA_FLASH_CASES: key head dim 192, value
+    head dim 128, 128 heads, the explicit scale): against its plain version at the bfloat16
+    tolerance with the share of it used; equal bits on two launches and for a batch row alone
+    as within a batch of 3; kernel ms, device us a call, plain ms, SDPA's ms on the backend
+    its dispatcher picks for Dv != D (named), the bound and the DC = 4 build's own floor (its
+    QK^T over 256 columns)."""
+    rows = {}
+    for case in MLA_FLASH_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+        q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.bfloat16)
+
+        def kernel(q=q, k=k, v=v):
+            return fa.flash_attention_fwd(q, k, v, causal=True, scale=MLA_SCALE)
+
+        got = kernel()
+        want = ref.flash_attention_ref(q, k, v, causal=True, scale=MLA_SCALE)
+        shape = f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} {dt} causal scale 192^-0.5"
+        err = _check(f"flash_attention_fwd {shape}", got, want, TOL[dt])
+        used = _tol_used(got, want, TOL[dt])
+        q3, k3, v3 = _inputs(gen, 3, hq, hkv, sq, sk, d, dv, torch.bfloat16)
+        first = fa.flash_attention_fwd(q3, k3, v3, causal=True, scale=MLA_SCALE)
+        again = fa.flash_attention_fwd(q3, k3, v3, causal=True, scale=MLA_SCALE)
+        alone = fa.flash_attention_fwd(q3[:1], k3[:1], v3[:1], causal=True, scale=MLA_SCALE)
+        relaunch, batch = (first != again).sum().item(), (alone != first[:1]).sum().item()
+        if relaunch or batch:
+            raise AssertionError(
+                f"[kernels] flash_attention_fwd {shape}: {relaunch} elements differ between two "
+                f"launches, {batch} between B=1 and row 0 of B=3"
+            )
+        del q3, k3, v3, first, again, alone
+
+        def library(q=q, k=k, v=v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=MLA_SCALE
+            )
+
+        backend = _sdpa_backend(q, k, v, None, True)
+        lib_err = (library().float() - want.float()).abs().max().item()
+        bound, bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, True, None, 2)
+        floor = attention_bound_ms(b, hq, hkv, sq, sk, 256, dv, True, None, 2)[0]
+        row = {
+            "ms": time_ms(kernel),
+            "device_us": device_us(kernel, launches=20),
+            "plain_ms": time_ms(
+                lambda q=q, k=k, v=v: ref.flash_attention_ref(
+                    q, k, v, causal=True, scale=MLA_SCALE
+                ),
+                iters=5,
+            ),
+            "library_ms": time_ms(library, iters=10),
+            "library_backend": backend,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": err,
+        }
+        rows[case] = row
+        log(
+            f"[kernels] flash_attention_fwd {shape} (MLA, {fa.PATHS[torch.bfloat16]} path, the "
+            f"DC = 4 build): max |err| {err:.3e} (tol {TOL[dt]}), {100 * used:.1f}% used; two "
+            f"launches equal bit for bit, B=1 equals row 0 of B=3 bit for bit; kernel_ms "
+            f"{row['ms']:.4f} (device {row['device_us']:.2f} us a call), plain_ms "
+            f"{row['plain_ms']:.4f}, library_ms (SDPA {backend}, dispatched for Dv != D, |err| "
+            f"{lib_err:.1e}) {row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}, bf16 "
+            f"tensor cores), the DC = 4 build's floor (QK^T over 256 columns) {floor:.5f}, "
+            f"kernel/bound {row['ms'] / bound:.1f}"
+        )
+    return rows
 
 
 def _sequential(model, params, prompt, n, max_len):
@@ -3485,6 +3627,57 @@ def _decode_routes(rows: int, out: list):
         moe_mod._router = router
 
 
+@contextlib.contextmanager
+def _decode_router_rows(rows: int, out: list):
+    """Record, into ``out``, row 0 of each router call on ``rows`` tokens (the decode steps;
+    prefills have a prompt's length), in call order: its input in float32, its probabilities
+    over the experts (recomputed with the router's own product on the call's whole input, so
+    with its bits) and the expert ids it picked."""
+    router = moe_mod._router
+
+    def recording(x_flat, p, *args):
+        weights, idx, aux = router(x_flat, p, *args)
+        if x_flat.shape[0] == rows:
+            probs = torch.softmax(dense(x_flat, p["router"]).float(), dim=-1)[0]
+            out.append((x_flat[0].float(), probs, idx[0]))
+        return weights, idx, aux
+
+    moe_mod._router = recording
+    try:
+        yield out
+    finally:
+        moe_mod._router = router
+
+
+def _flip_steps(tag, rid, alone: list, wide: list, k: int):
+    """The decode steps (one MoE layer: router call j is step j) whose experts differ between
+    the batch-1 and the wide run, each held to a flip's terms: the router's input within
+    ROUTER_INPUT_TOL of the wide run's (max |a - b| over max |b|), and the batch-1 run's top-k
+    boundary gap no larger than twice the largest difference of the two runs' probabilities
+    (the most two rounding paths can move a boundary). Returns (flipped steps, every step's
+    boundary gap at batch 1)."""
+    if len(alone) != len(wide):
+        raise AssertionError(f"{tag} {rid} router calls: {len(alone)} at batch 1, {len(wide)} wide")
+    steps, gaps = set(), []
+    for j, ((xa, pa, ia), (xw, pw, iw)) in enumerate(zip(alone, wide)):
+        top = torch.sort(pa, descending=True).values
+        gap = (top[k - 1] - top[k]).item()
+        gaps.append(gap)
+        if torch.equal(torch.sort(ia).values, torch.sort(iw).values):
+            continue
+        noise = 2 * (pa - pw).abs().max().item()
+        drift = ((xa - xw).abs().max() / xw.abs().max()).item()
+        log(
+            f"{tag} {rid} decode step {j}: routing flipped at batch 1; top-{k} boundary gap "
+            f"{gap:.3e} against the runs' probability difference x 2 {noise:.3e}; router input "
+            f"drift {drift:.3e} of its scale (tol {ROUTER_INPUT_TOL:.4f})"
+        )
+        if gap > noise or drift > ROUTER_INPUT_TOL:
+            raise AssertionError(f"{tag} {rid} decode step {j}: routing flipped without a tie")
+        steps.add(j)
+    return steps, gaps
+
+
 def _route_flips(alone: list, wide: list) -> int:
     """Router calls (layers x decode steps) whose expert set differs between two runs."""
     if len(alone) != len(wide):
@@ -3497,14 +3690,19 @@ def _route_flips(alone: list, wide: list) -> int:
 
 
 def _check_teacher_forced(
-    tag, model, params, prompts, res, seen, tol, max_len=HYBRID_MAX_LEN, routes=False
+    tag, model, params, prompts, res, seen, tol, max_len=HYBRID_MAX_LEN, routes=False,
+    flip_steps=False,
 ):
     """Each request's batched logits (prefill and every decode step) against a
     teacher-forced run of it alone, fed its batched tokens: at batch 1 within
     ``tol``, at the batcher's width bit for bit (SAME_SHAPE_TOL). With ``routes``, the
-    decode steps' MoE routing flips between the two runs are counted and logged."""
+    decode steps' MoE routing flips between the two runs are counted and logged. With
+    ``flip_steps`` (one MoE layer, the last), a decode step whose routing flips is held to
+    the flip's terms (_flip_steps) in place of ``tol``, and the top-k boundary gaps are
+    logged."""
     done = res["generations"]
     worst, worst_wide, total, flips, route_flips = 0.0, 0.0, 0, 0, 0
+    all_gaps = []
     for i, prompt in enumerate(prompts):
         rid = f"r{i}"
         toks = done[rid].tokens
@@ -3512,34 +3710,57 @@ def _check_teacher_forced(
             raise AssertionError(f"{tag} {rid}: {len(toks)} tokens, expected {NEW_TOKENS}")
         batched = [seen["prefill"][i]] + seen["decode"][rid]
         alone_routes, wide_routes = [], []
-        with _decode_routes(1, alone_routes) if routes else contextlib.nullcontext():
+        record = _decode_router_rows if flip_steps else _decode_routes
+        with record(1, alone_routes) if routes else contextlib.nullcontext():
             forced = _teacher_forced(model, params, prompt, toks, rows=1, max_len=max_len)
-        with _decode_routes(SLOTS, wide_routes) if routes else contextlib.nullcontext():
+        with record(SLOTS, wide_routes) if routes else contextlib.nullcontext():
             wide = _teacher_forced(model, params, prompt, toks, rows=SLOTS, max_len=max_len)
-        flipped = _route_flips(alone_routes, wide_routes)
+        if flip_steps:
+            skip, gaps = _flip_steps(
+                tag, rid, alone_routes, wide_routes, model.cfg.num_experts_per_tok
+            )
+            if len(gaps) != len(toks):
+                raise AssertionError(f"{tag} {rid}: {len(gaps)} router calls, {len(toks)} steps")
+            flipped = len(skip)
+            all_gaps += gaps
+        else:
+            skip, flipped = set(), _route_flips(alone_routes, wide_routes)
         route_flips += flipped
         if not len(batched) == len(forced) == len(wide):
             raise AssertionError(f"{tag} {rid}: {len(batched)} logits, {len(forced)} sequential")
         errs = [(b_ - f_).abs().max().item() for b_, f_ in zip(batched, forced)]
+        held = [e for i, e in enumerate(errs) if i - 1 not in skip]  # logits i: decode step i-1
         wide_err = max((b_ - w_).abs().max().item() for b_, w_ in zip(batched, wide))
         finite = all(torch.isfinite(b_).all() for b_ in batched)
         diff = sum(int(torch.argmax(f_)) != t for f_, t in zip(forced, toks))
-        worst, total, flips = max(worst, max(errs)), total + len(toks), flips + diff
+        worst, total, flips = max(worst, max(held)), total + len(toks), flips + diff
         worst_wide = max(worst_wide, wide_err)
-        if not finite or max(errs) > tol or wide_err > SAME_SHAPE_TOL:
+        if not finite or max(held) > tol or wide_err > SAME_SHAPE_TOL:
             raise AssertionError(
                 f"{tag} {rid}: logits vs teacher-forced: {max(errs):.4f} at batch 1, "
                 f"{wide_err:.4e} at batch {SLOTS}"
             )
         routed = f"; routing flips at batch 1 {flipped}/{len(alone_routes)}" if routes else ""
+        if skip:
+            routed += (
+                f" (steps {sorted(skip)}: logits max |err| "
+                f"{max(errs[j + 1] for j in skip):.4e}, held to the flip's terms)"
+            )
         log(
             f"{tag} {rid} (prompt {len(prompt)}): logits vs teacher-forced sequential max |err| "
             f"{max(errs):.4e}, mean of per-step max {np.mean(errs):.4e}, greedy tokens that "
             f"differ {diff}/{len(toks)}; at the batcher's width {wide_err:.4e}{routed}"
         )
     routed = f"; routing flips at batch 1 {route_flips}" if routes else ""
+    if all_gaps:
+        g = np.asarray(all_gaps)
+        routed += (
+            f" in {len(g)} router calls; top-k boundary gaps at batch 1: min {g.min():.3e}, "
+            f"median {np.median(g):.3e}, {int((g < 1e-4).sum())} below 1e-4"
+        )
+    held_at = "; steps without a flip" if flip_steps else ""
     log(
-        f"{tag} all requests: max |err| {worst:.4e} (tol {tol}), greedy tokens that "
+        f"{tag} all requests: max |err| {worst:.4e} (tol {tol}{held_at}), greedy tokens that "
         f"differ {flips}/{total}; at the batcher's width {worst_wide:.4e} (tol {SAME_SHAPE_TOL})"
         f"{routed}"
     )
@@ -3915,9 +4136,11 @@ def phase_rwkv_exactness() -> None:
 # The dense family at full width (src/repro_torch/configs/archs.py), served in bfloat16.
 # qwen1.5-110b runs 4 of its 80 layers: at full depth its 111.2B bfloat16 parameters
 # (222.4 GB) do not fit on one 80 GB card; the cut keeps every width (8 layers until the moe
-# phase came and the script's time had to shrink).
+# phase came and the script's time had to shrink). The other three run half their layers
+# since the deepseek phase came, for the same reason: every gate holds at any depth (one
+# host ran the script's phases 9% slower than another, 1049.6 s against 959.0 s).
 DENSE_ARCHS = ("qwen3-1.7b", "stablelm-1.6b", "yi-6b", "qwen1.5-110b")
-DENSE_DEPTH = {"qwen1.5-110b": 4}
+DENSE_DEPTH = {"qwen3-1.7b": 14, "stablelm-1.6b": 12, "yi-6b": 16, "qwen1.5-110b": 4}
 DENSE_LAYER_CHECK = 777  # rows of the float32 layer check's (1, S, d) input
 
 
@@ -4028,20 +4251,21 @@ def _dense_layer_check(tag, cfg) -> None:
 
 
 def phase_moe() -> dict:
-    """Serve full-width granite-moe-3b-a800m at full depth (32 MoE layers, bfloat16): 8
-    requests through the 4-slot batcher at MOE_MAX_LEN, both engines; the launch and engine
-    gates, teacher-forced logits with routing flips counted, moe_block's bits twice in each
-    engine, serving numbers beside their bounds and profiles; then a float32 layer on the card
-    against the CPU path. Returns the flash and decode-attention launch counts."""
+    """Serve full-width granite-moe-3b-a800m at MOE_SERVE_LAYERS of its 32 MoE layers
+    (bfloat16): 8 requests through the 4-slot batcher at MOE_MAX_LEN, both engines; the launch
+    and engine gates, teacher-forced logits with routing flips counted, moe_block's bits twice
+    in each engine, serving numbers beside their bounds and profiles; then a float32 layer on
+    the card against the CPU path. Returns the flash and decode-attention launch counts."""
     tag = "[moe]"
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_SERVE_LAYERS)
     t0 = time.monotonic()
     params = init_params(cfg, _gen(0), DEV)
     model = build(cfg, DEV)
     torch.cuda.synchronize()
     weight_bytes = torch.cuda.memory_allocated()
     log(
-        f"{tag} {cfg.name}: {cfg.num_layers} MoE layers, d={cfg.d_model}, {cfg.num_heads} heads "
+        f"{tag} {cfg.name}: {cfg.num_layers} of its 32 MoE layers, d={cfg.d_model}, "
+        f"{cfg.num_heads} heads "
         f"on {cfg.num_kv_heads} KV heads of {cfg.head_dim}, {cfg.num_experts} experts top "
         f"{cfg.num_experts_per_tok} of d_ff {cfg.moe_d_ff}, vocab {cfg.vocab_size} (tied), "
         f"moe_impl {cfg.moe_impl!r}; {cfg.param_count()} params ({cfg.active_param_count()} "
@@ -4118,17 +4342,21 @@ def _moe_block_bits(tag, cfg, params, lengths) -> None:
         log(f"{tag} moe_block twice on x(1, {n}, {cfg.d_model}) bf16 ({engine} engine): equal bits")
 
 
+def _moe_slots(cfg, n: int) -> int:
+    """Slot rows of each expert in one MoE layer's prefill of ``n`` tokens, empty ones
+    included: n under the dropless path, else the einsum engine's groups x capacity."""
+    if n <= moe_mod.DROPLESS_TOKENS:
+        return n
+    groups = max(1, n // cfg.moe_group_size)
+    cap = int((n // groups) * cfg.num_experts_per_tok / cfg.num_experts * cfg.moe_capacity_factor)
+    return groups * max(1, cap)
+
+
 def _moe_prefill_flops(cfg, n: int) -> float:
     """FLOPs of one prefill of ``n`` tokens as the reference defines its work: the experts'
     products over every slot row the engine dispatches (empty slots included), the attention
     projections, the router, causal attention, the last row's unembed."""
-    E, k, d, ff = cfg.num_experts, cfg.num_experts_per_tok, cfg.d_model, cfg.moe_d_ff
-    if n <= moe_mod.DROPLESS_TOKENS:
-        slots = n  # dropless: every expert gets n slots
-    else:
-        groups = max(1, n // cfg.moe_group_size)
-        per = n // groups
-        slots = groups * max(1, int(per * k / E * cfg.moe_capacity_factor))
+    E, d, ff, slots = cfg.num_experts, cfg.d_model, cfg.moe_d_ff, _moe_slots(cfg, n)
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     proj = 2 * n * d * (2 * hq * hd + 2 * hkv * hd)
     attn = 4 * hq * hd * n * (n + 1) / 2
@@ -4158,19 +4386,26 @@ def _log_moe_bounds(tag, cfg, weight_bytes, lens, res) -> None:
 
 
 MOE_RANGES = ("attention", "moe", "moe.router", "moe.experts")
+MLA_RANGES = MOE_RANGES + ("attention.absorbed", "mlp")
 
 
 @contextlib.contextmanager
-def _moe_ranges():
+def _moe_ranges(mla=False):
     """The MoE block, its router, its experts' products and the attention block wrapped in
     ``torch.profiler.record_function`` ranges of MOE_RANGES' names (this file's patches: the
-    port's code carries none)."""
+    port's code carries none); with ``mla``, the attention block is MLA's and the absorbed
+    decode inside it and the dense layers' MLPs get ranges of their own (MLA_RANGES)."""
     saved = [
-        (transformer_mod, "gqa_attention", "attention"),
+        (transformer_mod, "mla_attention" if mla else "gqa_attention", "attention"),
         (transformer_mod, "moe_block", "moe"),
         (moe_mod, "_router", "moe.router"),
         (moe_mod, "_expert_ffn", "moe.experts"),
     ]
+    if mla:
+        saved += [
+            (attention_mod, "_mla_absorbed", "attention.absorbed"),
+            (transformer_mod, "glu_mlp", "mlp"),
+        ]
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
 
     def ranged(fn, label):
@@ -4189,41 +4424,71 @@ def _moe_ranges():
             setattr(mod, name, fn)
 
 
-def _moe_decode_split(model, params, tag: str, max_len: int, steps: int = 5) -> None:
+def _moe_decode_split(model, params, tag: str, max_len: int, steps: int = 5, mla=False) -> None:
     """A profiled window of 4-slot decode steps split by block: the device time of the
     kernels launched inside the attention block, the MoE's router, its experts' products and
     the rest of the MoE (the dispatch: slot tables, sorts, gathers; the combine), per step."""
     cache = model.init_cache(SLOTS, max_len)
     tok = torch.zeros(SLOTS, dtype=torch.long, device=DEV)
-    model.decode_step(params, cache, {"token": tok})
+
+    def step():
+        model.decode_step(params, cache, {"token": tok})
+
+    step()
+    _moe_split(tag, "decode step (4 slots)", step, steps, mla)
+
+
+def _moe_prefill_split(model, params, tag: str, prompt, max_len: int) -> None:
+    """One prefill of ``prompt`` as the batcher runs it, split by block as a decode step is."""
+    ids = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
+
+    def prefill():
+        model.prefill(params, {"tokens": ids}, pad_to=max_len)
+
+    prefill()
+    _moe_split(tag, f"prefill of {len(prompt)} tokens", prefill, 1, mla=True)
+
+
+def _moe_split(tag: str, label: str, run, steps: int, mla: bool) -> None:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with _moe_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with _moe_ranges(mla), torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
-            model.decode_step(params, cache, {"token": tok})
+            run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0) / steps
-    ranges = {name: 0.0 for name in MOE_RANGES}
+    ranges = {name: 0.0 for name in (MLA_RANGES if mla else MOE_RANGES)}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.name in ranges:
             ranges[e.name] += e.device_time_total / 1e3 / steps
     kernels = [r for r in _device_rows(prof) if r[2] not in ranges]  # not the ranges' own
     device_ms = sum(r[0] for r in kernels) / 1e3 / steps
     if not device_ms or not ranges["moe"]:
-        log(f"{tag} decode split: no device time under the ranges (not measured)")
+        log(f"{tag} {label} split: no device time under the ranges (not measured)")
         return
     dispatch = ranges["moe"] - ranges["moe.router"] - ranges["moe.experts"]
-    parts = {
-        "attention block": ranges["attention"],
-        "MoE router": ranges["moe.router"],
-        "MoE dispatch and combine": dispatch,
-        "MoE experts' products": ranges["moe.experts"],
-    }
+    if mla:
+        parts = {
+            "MLA block without the absorbed decode": ranges["attention"]
+            - ranges["attention.absorbed"],
+            "absorbed decode": ranges["attention.absorbed"],
+            "dense layers' MLPs": ranges["mlp"],
+        }
+    else:
+        parts = {"attention block": ranges["attention"]}
+    parts.update(
+        {
+            "MoE router": ranges["moe.router"],
+            "MoE dispatch and combine": dispatch,
+            "MoE experts' products": ranges["moe.experts"],
+        }
+    )
     parts["the rest (norms, embed, unembed)"] = device_ms - sum(parts.values())
+    per = "a step" if steps > 1 else "in all"
     log(
-        f"{tag} decode step (4 slots) under the profiler with ranges: {wall_ms:.3f} ms wall, "
-        f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%); device ms a step: "
+        f"{tag} {label} under the profiler with ranges: {wall_ms:.3f} ms wall, "
+        f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%); device ms {per}: "
         + "; ".join(f"{k} {v:.3f} ({100 * v / device_ms:.1f}%)" for k, v in parts.items())
     )
 
@@ -4268,22 +4533,8 @@ def _moe_layer_check(tag, cfg) -> None:
         raise AssertionError(f"{tag} float32 layer: {fa.flash_attention_fwd.launches} flash")
     with _router_calls(cpu_calls):
         want, want_cache, _ = apply_layer(x, cpu, cfg32, "moe", positions=positions, mode="prefill")
-    (xc, rc, ic), (xw, rw, iw) = card_calls[0], cpu_calls[0]
     k = cfg.num_experts_per_tok
-    p_card = torch.softmax(dense(xc, rc).float(), dim=-1).cpu()
-    p_cpu = torch.softmax(dense(xw, rw).float(), dim=-1)
-    flipped = (torch.sort(ic.cpu(), -1).values != torch.sort(iw, -1).values).any(-1)
-    top = torch.sort(p_cpu, dim=-1, descending=True).values
-    margin = top[:, k - 1] - top[:, k]  # the CPU's gap at the top-k boundary
-    noise = 2 * (p_card - p_cpu).abs().amax(-1)  # what the two roundings can move it
-    for t in flipped.nonzero().flatten().tolist():
-        log(
-            f"{tag} float32 layer: token {t} routed differently on the card; its top-{k} "
-            f"boundary gap {margin[t].item():.3e} against the sides' probability difference "
-            f"x 2 {noise[t].item():.3e}"
-        )
-        if margin[t] > noise[t]:
-            raise AssertionError(f"{tag} float32 layer: token {t} flipped without a tie")
+    flipped, margin = _flipped_tokens(f"{tag} float32 layer", card_calls[0], cpu_calls[0], k)
     keep = ~flipped
     scale = want[0, keep].abs().max().item()
     err_h = (got.cpu()[0, keep] - want[0, keep]).abs().max().item()
@@ -4302,6 +4553,29 @@ def _moe_layer_check(tag, cfg) -> None:
         f"{', '.join(f'{k_} {v:.3e}' for k_, v in errs.items())} (tol {EXACT_TOL})"
     )
     _moe_engine_check(tag, cfg32, lp["moe"], cpu["moe"])
+
+
+def _flipped_tokens(label, card_call, cpu_call, k: int):
+    """The tokens of one router call that the card routed otherwise than the CPU path, each of
+    which must sit on a tie: the CPU's top-k boundary gap within twice the largest difference
+    of the two sides' probabilities (what two roundings can move it). Returns (flipped mask,
+    the CPU's boundary gap of every token)."""
+    (xc, rc, ic), (xw, rw, iw) = card_call, cpu_call
+    p_card = torch.softmax(dense(xc, rc).float(), dim=-1).cpu()
+    p_cpu = torch.softmax(dense(xw, rw).float(), dim=-1)
+    flipped = (torch.sort(ic.cpu(), -1).values != torch.sort(iw, -1).values).any(-1)
+    top = torch.sort(p_cpu, dim=-1, descending=True).values
+    margin = top[:, k - 1] - top[:, k]  # the CPU's gap at the top-k boundary
+    noise = 2 * (p_card - p_cpu).abs().amax(-1)  # what the two roundings can move it
+    for t in flipped.nonzero().flatten().tolist():
+        log(
+            f"{label}: token {t} routed differently on the card; its top-{k} boundary gap "
+            f"{margin[t].item():.3e} against the sides' probability difference x 2 "
+            f"{noise[t].item():.3e}"
+        )
+        if margin[t] > noise[t]:
+            raise AssertionError(f"{label}: token {t} flipped without a tie")
+    return flipped, margin
 
 
 def _moe_engine_check(tag, cfg32, p_card, p_cpu) -> None:
@@ -4338,6 +4612,296 @@ def _moe_engine_check(tag, cfg32, p_card, p_cpu) -> None:
             f"{err64['card']:.3e}, CPU path {err64['cpu']:.3e}; {zero} rows with no expert "
             "output (dropped, or the einsum engine's tail)"
         )
+
+
+def phase_deepseek() -> dict:
+    """Serve deepseek-v3-671b at full width, DEEPSEEK_LAYERS of its 61 layers (3 dense, 1 MoE
+    of 256 experts; MLA; bfloat16): 8 requests through the 4-slot batcher at MOE_MAX_LEN, both
+    MoE engines; the launch and engine gates (the flash forward at key head dim 192 and value
+    head dim 128 in every prefill layer, no decode-attention kernel: decode is the absorbed
+    form), teacher-forced logits with routing flips held to their terms, the unembed, serving
+    numbers beside their bounds, profiles split by block; then a float32 MLA layer (prefill,
+    absorbed decode against the CPU path and against a fresh prefill) and a float32 MoE layer
+    on the card against the CPU path. Returns the flash and decode-attention launch counts."""
+    tag = "[deepseek]"
+    cfg = dataclasses.replace(get_config(DEEPSEEK_ARCH), num_layers=DEEPSEEK_LAYERS)
+    pattern = layer_pattern(cfg)
+    if pattern != ("dense",) * cfg.first_k_dense + ("moe",):
+        raise AssertionError(f"{tag} layer pattern {pattern}: expected 3 dense layers, 1 MoE")
+    t0 = time.monotonic()
+    params = init_params(cfg, _gen(0), DEV)
+    model = build(cfg, DEV)
+    torch.cuda.synchronize()
+    weight_bytes = torch.cuda.memory_allocated()
+    served = {k: v for k, v in params.items() if k not in ("mtp", "embed")}
+    read_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(served))
+    log(
+        f"{tag} {cfg.name}: {cfg.num_layers} of its 61 layers {pattern}, d={cfg.d_model}, MLA "
+        f"with {cfg.num_heads} heads (q_lora {cfg.q_lora_rank}, kv_lora {cfg.kv_lora_rank}, qk "
+        f"{cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, v {cfg.v_head_dim}), d_ff "
+        f"{cfg.d_ff}, {cfg.num_experts} experts top {cfg.num_experts_per_tok} of "
+        f"{cfg.moe_d_ff} and {cfg.num_shared_experts} shared, vocab {cfg.vocab_size} (untied), "
+        f"moe_impl {cfg.moe_impl!r}; {cfg.param_count()} params ({cfg.active_param_count()} "
+        f"active; the MTP subtree drawn, not run) {cfg.param_dtype}, {weight_bytes} bytes on "
+        f"the card; drawn in {time.monotonic() - t0:.1f} s"
+    )
+    prompts = make_prompts(N_REQUESTS, cfg.vocab_size, *MOE_PROMPT_LENS, seed=0)
+    lens = [len(p) for p in prompts]
+    n_long = sum(n > moe_mod.DROPLESS_TOKENS for n in lens)
+    if not 0 < n_long < len(prompts) or max(lens) != MLA_FLASH_JSON[3]:
+        raise AssertionError(f"{tag} prompt lengths {lens}: both engines must serve")
+    log(
+        f"{tag} prompt lengths {lens}, {NEW_TOKENS} new tokens each: {n_long} above "
+        f"{moe_mod.DROPLESS_TOKENS} tokens (einsum engine), {len(prompts) - n_long} at or below "
+        "(dropless sort engine)"
+    )
+    res, seen, peak = _serve_recorded(model, params, prompts, MOE_MAX_LEN)
+    launches = {
+        "flash": fa.flash_attention_fwd.launches,
+        "decode_attention": da.decode_attention.launches,
+    }
+    engines = {"sort": moe_mod._moe_sort.calls, "einsum": moe_mod._moe_einsum.calls}
+    others = (
+        fa.flash_attention_bwd.launches,
+        rg.rglru_scan.launches,
+        rg.rglru_bwd.launches,
+        wk.wkv6_chunked.launches,
+        wk.wkv6_bwd.launches,
+    )
+    L, n_moe, n_short = cfg.num_layers, pattern.count("moe"), len(prompts) - n_long
+    want = {"flash": L * len(prompts), "decode_attention": 0}
+    want_engines = {"sort": n_moe * (n_short + res["steps"]), "einsum": n_moe * n_long}
+    if launches != want or engines != want_engines or any(others):
+        raise AssertionError(
+            f"{tag} launches {launches}, expected {want}; engine calls {engines}, expected "
+            f"{want_engines}; flash backward, rglru, wkv6 launches {others}, expected 0"
+        )
+    log(
+        f"{tag} flash_attention_fwd launches {launches['flash']} = {L} layers x {len(prompts)} "
+        f"prefills ({fa.PATHS[torch.bfloat16]} path, D 192, Dv 128); decode_attention launches 0 "
+        f"(the absorbed decode, plain torch in float32); no other kernel; sort engine calls "
+        f"{engines['sort']} = {n_moe} x ({n_short} prefills + {res['steps']} decode steps), "
+        f"einsum engine calls {engines['einsum']} = {n_moe} x {n_long} prefills"
+    )
+    _check_teacher_forced(
+        tag, model, params, prompts, res, seen, LOGIT_TOL_DEEPSEEK, MOE_MAX_LEN, routes=True,
+        flip_steps=True,
+    )
+    _check_unembed(tag, model, params, min(prompts, key=len))
+    _log_serving(tag, res, peak)
+    longest = prompts[int(np.argmax(lens))]
+    prefill = [
+        1e3 * max(_deepseek_prefill_flops(cfg, n) / PEAK_BF16_FLOPS, read_bytes / PEAK_HBM_BYTES)
+        for n in lens
+    ]
+    decode_ms = 1e3 * read_bytes / PEAK_HBM_BYTES
+    log(
+        f"{tag} bounds: a decode step reads {read_bytes} bytes of weights (every layer, all "
+        f"{cfg.num_experts} experts under the dropless path, the unembed; not the embedding "
+        f"table or the MTP subtree): {decode_ms:.3f} ms at 3.35 TB/s against "
+        f"{res['decode_ms_per_step']:.3f} ms/step measured "
+        f"({res['decode_ms_per_step'] / decode_ms:.1f}x); the prefills "
+        f"{', '.join(f'{n}: {b:.3f}' for n, b in zip(lens, prefill))} ms (the larger of FLOPs "
+        f"at 989 TFLOP/s and the weights' bytes), mean {np.mean(prefill):.3f} against "
+        f"{res['prefill_ms_mean']:.3f} ms measured "
+        f"({res['prefill_ms_mean'] / np.mean(prefill):.1f}x)"
+    )
+    _prefill_profile(model, params, tag, longest, MOE_MAX_LEN)
+    _moe_prefill_split(model, params, tag, longest, MOE_MAX_LEN)
+    _decode_profile(model, params, tag, MOE_MAX_LEN)
+    _moe_decode_split(model, params, tag, MOE_MAX_LEN, mla=True)
+    del model, params, served, res, seen
+    _release()
+    _mla_layer_check(tag, cfg)
+    _release()
+    _deepseek_moe_layer_check(tag, cfg)
+    _release()
+    return launches
+
+
+def _deepseek_prefill_flops(cfg, n: int) -> float:
+    """FLOPs of one prefill of ``n`` tokens as the reference defines its work: MLA's
+    projections (the latent expanded to per-head K and V), causal attention over 192 + 128
+    columns, the dense MLPs, the MoE layer's experts over every slot row the engine dispatches,
+    its shared expert and router, the last row's unembed."""
+    d, h = cfg.d_model, cfg.num_heads
+    qn, qr, vh, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    proj = d * cfg.q_lora_rank + cfg.q_lora_rank * h * (qn + qr) + d * (r + qr)
+    proj += r * h * (qn + vh) + h * vh * d
+    mla = 2 * n * proj + 2 * h * (n * (n + 1) / 2) * (qn + qr + vh)
+    E, ff, slots = cfg.num_experts, cfg.moe_d_ff, _moe_slots(cfg, n)
+    moe = 2 * E * slots * 3 * d * ff + 2 * n * 3 * d * ff * cfg.num_shared_experts + 2 * n * d * E
+    dense_mlp = 2 * n * 3 * d * cfg.d_ff
+    n_moe = layer_pattern(cfg).count("moe")
+    layers = cfg.num_layers * mla + (cfg.num_layers - n_moe) * dense_mlp + n_moe * moe
+    return layers + 2 * d * cfg.vocab_size
+
+
+def _grow_cache(cache, size: int):
+    """One layer's prefill cache with its ckv and krope grown to ``size`` slots (zeros after)."""
+    out = dict(cache)
+    for key in ("ckv", "krope"):
+        x = cache[key]
+        out[key] = torch.nn.functional.pad(x, (0, 0, 0, size - x.shape[1]))
+    return out
+
+
+def _float32_layer(cfg32, kind: str, seed: int):
+    """One layer of ``kind`` drawn on the card in bfloat16 and taken to float32 leaf by leaf: a
+    float32 draw of the MoE layer's 11.3B expert params would need its float32 temporaries
+    beside them (past 80 GB); the values are bfloat16's, the arithmetic float32."""
+    store = ParamStore(_gen(seed), torch.bfloat16, torch.device(DEV))
+    init_layer(store, cfg32, kind)
+
+    def up(tree):
+        return {k: up(v) if isinstance(v, dict) else v.float() for k, v in tree.items()}
+
+    return up(store.params)
+
+
+def _to_host_staged(tree, chunk: int = 1 << 28):
+    """A float32 tree's tensors copied to pageable host memory through one page-locked staging
+    buffer of ``chunk`` elements (1 GiB): a pageable copy from the card runs at ~1.6 GB/s
+    (27.9 s for the float32 MoE layer's 46 GB), and page-locking the whole tree would keep
+    46 GB of host memory in torch's pinned cache for the rest of the run."""
+    staging = torch.empty(chunk, dtype=torch.float32, pin_memory=True)
+
+    def copy(x):
+        if x.dtype != torch.float32:
+            raise TypeError(f"_to_host_staged: {x.dtype}, expected float32")
+        out = torch.empty(x.shape, dtype=x.dtype)
+        src, dst = x.reshape(-1), out.view(-1)
+        for i in range(0, src.numel(), chunk):
+            n = min(chunk, src.numel() - i)
+            staging[:n].copy_(src[i : i + n])
+            dst[i : i + n].copy_(staging[:n])
+        return out
+
+    return tree_map(copy, tree)
+
+
+def _mla_layer_check(tag, cfg) -> None:
+    """A full-width float32 MLA layer (dense kind) on the card against the port's CPU path: a
+    DEEPSEEK_LAYER_CHECK-token prefill (the flash kernel at D 192, Dv 128 in float32) and its
+    cache (ckv, krope), then 4 absorbed decode steps; and the card's decode steps against a
+    fresh prefill of all the tokens on the card (the absorbed form against the expanded one),
+    each within EXACT_TOL."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    lp = _float32_layer(cfg32, "dense", 1)
+    cpu = _to_cpu(lp)
+    s, steps = DEEPSEEK_LAYER_CHECK, 4
+    x = np.random.default_rng(3).normal(size=(1, s + steps, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(x)
+    pos = torch.arange(s)
+    _reset_launches()
+    got, got_cache, _ = apply_layer(
+        x[:, :s].to(DEV), lp, cfg32, "dense", positions=pos.to(DEV), mode="prefill"
+    )
+    if fa.flash_attention_fwd.launches != 1:
+        raise AssertionError(f"{tag} float32 MLA layer: {fa.flash_attention_fwd.launches} flash")
+    want, want_cache, _ = apply_layer(x[:, :s], cpu, cfg32, "dense", positions=pos, mode="prefill")
+    errs = {"h": (got.cpu() - want).abs().max().item()}
+    for key, leaf in want_cache.items():
+        errs[key] = (got_cache[key].cpu().float() - leaf.float()).abs().max().item()
+    got_cache, want_cache = _grow_cache(got_cache, s + steps), _grow_cache(want_cache, s + steps)
+    decoded = []
+    for j in range(steps):
+        xt, at = x[:, s + j : s + j + 1], torch.tensor([[s + j]])
+        g, got_cache, _ = apply_layer(
+            xt.to(DEV), lp, cfg32, "dense", positions=at.to(DEV), mode="decode", cache=got_cache
+        )
+        w, want_cache, _ = apply_layer(
+            xt, cpu, cfg32, "dense", positions=at, mode="decode", cache=want_cache
+        )
+        errs[f"decode {j}"] = (g.cpu() - w).abs().max().item()
+        decoded.append(g)
+    fresh, _, _ = apply_layer(
+        x.to(DEV), lp, cfg32, "dense", positions=torch.arange(s + steps, device=DEV),
+        mode="prefill",
+    )
+    absorbed = (torch.cat(decoded, dim=1) - fresh[:, s:]).abs().max().item()
+    if not torch.isfinite(got).all() or max(errs.values()) > EXACT_TOL or absorbed > EXACT_TOL:
+        raise AssertionError(f"{tag} float32 MLA layer: {errs}, absorbed vs fresh {absorbed}")
+    log(
+        f"{tag} one float32 MLA layer (dense kind) on x(1, {s}, {cfg.d_model}), then {steps} "
+        f"absorbed decode steps: card (flash kernel, D 192, Dv 128, {fa.PATHS[torch.float32]}) "
+        f"vs CPU path (plain) max |err| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} "
+        f"(tol {EXACT_TOL}); the card's decode steps vs a fresh prefill of {s + steps} tokens "
+        f"(absorbed vs expanded) max |err| {absorbed:.3e} (tol {EXACT_TOL})"
+    )
+
+
+def _deepseek_moe_layer_check(tag, cfg) -> None:
+    """A full-width float32 MoE layer (MLA, 256 experts, the shared expert; 46 GB) on the card
+    against the port's CPU path: a DEEPSEEK_MOE_CHECK-token prefill (dropless sort engine) and
+    2 decode steps. Routing is compared first: a token routed differently must sit on a float32
+    tie (``_moe_layer_check``'s rule); the other tokens' outputs are held within MOE_TOL of the
+    output's scale, the cache within EXACT_TOL."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    lp = _float32_layer(cfg32, "moe", 2)
+    n_params = sum(x.numel() for x in tree_leaves(lp))
+    t0 = time.monotonic()
+    cpu = _to_host_staged(lp)
+    copy_s = time.monotonic() - t0
+    s, steps, k = DEEPSEEK_MOE_CHECK, 2, cfg.num_experts_per_tok
+    x = np.random.default_rng(4).normal(size=(1, s + steps, cfg.d_model)).astype(np.float32)
+    x = torch.from_numpy(x)
+    card_calls, cpu_calls = [], []
+
+    def run(params, dev, calls):
+        """The prefill and the decode steps on one side: (label, output) each."""
+        with _router_calls(calls):
+            out, cache, _ = apply_layer(
+                x[:, :s].to(dev), params, cfg32, "moe", positions=torch.arange(s, device=dev),
+                mode="prefill",
+            )
+            outs, cache = [("prefill", out)], _grow_cache(cache, s + steps)
+            first = {key: v.clone() for key, v in cache.items()}
+            for j in range(steps):
+                xt, at = x[:, s + j : s + j + 1].to(dev), torch.tensor([[s + j]], device=dev)
+                out, cache, _ = apply_layer(
+                    xt, params, cfg32, "moe", positions=at, mode="decode", cache=cache
+                )
+                outs.append((f"decode {j}", out))
+        return outs, first
+
+    _reset_launches()
+    t0 = time.monotonic()
+    got, got_cache = run(lp, DEV, card_calls)
+    counts = (fa.flash_attention_fwd.launches, moe_mod._moe_sort.calls)
+    if counts != (1, 1 + steps):
+        raise AssertionError(f"{tag} float32 MoE layer: flash launches, sort engine calls {counts}")
+    want, want_cache = run(cpu, "cpu", cpu_calls)
+    run_s = time.monotonic() - t0
+    errs = {key: (got_cache[key].cpu().float() - leaf.float()).abs().max().item()
+            for key, leaf in want_cache.items()}
+    parts = [(label, g, w) for (label, g), (_, w) in zip(got, want)]
+    worst, n_flipped, min_gap = 0.0, 0, float("inf")
+    for (label, g, w), card_call, cpu_call in zip(parts, card_calls, cpu_calls):
+        flipped, margin = _flipped_tokens(
+            f"{tag} float32 MoE layer {label}", card_call, cpu_call, k
+        )
+        keep = ~flipped
+        n_flipped, min_gap = n_flipped + int(flipped.sum()), min(min_gap, margin.min().item())
+        if keep.any():
+            scale = w[0, keep].abs().max().item()
+            err = (g.cpu()[0, keep] - w[0, keep]).abs().max().item()
+            if not torch.isfinite(g).all() or err > MOE_TOL * scale:
+                raise AssertionError(f"{tag} float32 MoE layer {label}: {err} (scale {scale})")
+            errs[label] = err / scale
+            worst = max(worst, err / scale)
+    if max(v for key, v in errs.items() if key in want_cache) > EXACT_TOL:
+        raise AssertionError(f"{tag} float32 MoE layer cache: {errs}")
+    log(
+        f"{tag} one float32 MoE layer ({n_params} params on the card, {copy_s:.1f} s to copy to "
+        f"the host) on x(1, {s}, {cfg.d_model}) (dropless sort engine), then {steps} decode "
+        f"steps, card and CPU path in {run_s:.1f} s: routing of {n_flipped} of {s + steps} tokens "
+        f"differs (each a tie within rounding); the smallest top-{k} boundary gap {min_gap:.3e}; "
+        f"card vs CPU path max |err| over max |out| "
+        f"{', '.join(f'{k_} {v:.3e}' for k_, v in errs.items() if k_ not in want_cache)} (tol "
+        f"{MOE_TOL}), cache {', '.join(f'{k_} {errs[k_]:.3e}' for k_ in want_cache)} (tol "
+        f"{EXACT_TOL})"
+    )
 
 
 DENSE_TRAIN_ARCH = "qwen3-1.7b"
@@ -4901,6 +5465,7 @@ def main() -> int:
     _timed("rwkv exactness", phase_rwkv_exactness)
     _timed("dense", phase_dense)
     moe = _timed("moe", phase_moe)
+    deepseek = _timed("deepseek", phase_deepseek)
     dense_train = _timed("dense train", phase_dense_train)
     dense_durable = _timed("dense durable", lambda: phase_dense_durable(dense_train, smi))
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
@@ -5006,6 +5571,16 @@ def main() -> int:
             flash_rows[GRANITE_FLASH_JSON],
             "q(1,24,1711,64) k,v(1,8,1711,64) bfloat16 causal (granite-moe-3b-a800m's longest "
             "prompt; library: SDPA flash, K/V expanded)",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_mla",
+            flash_src,
+            flash_tpu,
+            deepseek["flash"],
+            flash_rows[MLA_FLASH_JSON],
+            "q,k(1,128,1711,192) v(1,128,1711,128) bfloat16 causal, scale 192^-0.5 "
+            "(deepseek-v3-671b's MLA prefill at its longest prompt, the DC = 4 build; library: "
+            f"SDPA {flash_rows[MLA_FLASH_JSON]['library_backend']}, as dispatched)",
         ),
         _kernel_entry(
             "flash_attention_fwd_bf16_granite_train",

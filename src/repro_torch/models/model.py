@@ -10,7 +10,8 @@ differentiable by autograd (the attention's gradient through the flash backward
 kernel on the card). ``prefill``
 returns (last-position logits, cache); ``decode_step`` consumes one token
 per sequence against the cache, which it updates in place and returns.
-MTP, encoder-decoder and VLM inputs come with later slices.
+The MTP loss, encoder-decoder and VLM inputs come with later slices (an MTP
+config prefills and decodes; its ``loss_fn`` raises).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from .transformer import _window, derive_segments, init_stack_cache, layer_patte
 __all__ = ["Model", "build", "padded_vocab", "unembed_logits"]
 
 _NEG_INF = -1e30
+# the sequence axis of each cache leaf that grows with the length, as the reference's _PAD_AXIS
+_PAD_AXIS = {"k": -3, "v": -3, "ckv": -2, "krope": -2}
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -172,7 +175,8 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
 def _pad_cache(cache, pad_to: int, cfg, segments):
     """Grow a prefill cache to the decode cache's size (decode appends after S).
 
-    A global layer's k/v grow to ``pad_to`` slots. A windowed layer's grow
+    A global layer's k/v (an MLA layer's ckv/krope) grow to ``pad_to`` slots along
+    their sequence axis (``_PAD_AXIS``). A windowed layer's grow
     to ``min(window, pad_to)`` and never past the window, which is the size
     of the batcher's cache for that layer (``init_layer_cache``); a ring
     (a prompt longer than the window) is already that size and stays as it
@@ -184,11 +188,13 @@ def _pad_cache(cache, pad_to: int, cfg, segments):
     no longer local.
     """
 
-    def grow(x, target):  # x: (L, B, S, KV, hd), grown along S
-        if x.shape[-3] >= target:
+    def grow(x, target, axis):  # x: (L, B, S, KV, hd) or (L, B, S, r), grown along S
+        if x.shape[axis] >= target:
             return x
-        out = x.new_zeros(x.shape[:-3] + (target,) + x.shape[-2:])
-        out.narrow(-3, 0, x.shape[-3]).copy_(x)
+        shape = list(x.shape)
+        shape[axis] = target
+        out = x.new_zeros(shape)
+        out.narrow(axis, 0, x.shape[axis]).copy_(x)
         return out
 
     out = {}
@@ -199,7 +205,8 @@ def _pad_cache(cache, pad_to: int, cfg, segments):
             window = _window(cfg, kind)
             target = min(window, pad_to) if window else pad_to
             out[f"seg{si}"][f"u{uj}"] = {
-                k: (grow(v, target) if k in ("k", "v") else v) for k, v in seg[f"u{uj}"].items()
+                k: (grow(v, target, _PAD_AXIS[k]) if k in _PAD_AXIS else v)
+                for k, v in seg[f"u{uj}"].items()
             }
     return out
 

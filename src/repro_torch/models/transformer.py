@@ -15,7 +15,7 @@ backward through ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` around its unit body; "dots", which keeps the matmul
 outputs, raises and names its ROADMAP item):
 
-  dense : GQA self-attention + GLU MLP
+  dense : self-attention (GQA, or MLA where ``cfg.mla``) + GLU MLP
   rec   : Griffin recurrent block (conv1d + RG-LRU) + GLU MLP
   attn  : dense inside a hybrid pattern; its attention is local (``cfg.window``)
           and its cache a ring of ``min(window, seq_len)`` slots
@@ -23,6 +23,9 @@ outputs, raises and names its ROADMAP item):
           ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
   moe   : dense with a Mixture-of-Experts block (``models/moe.py``) in place
           of the MLP
+
+An MLA layer (``cfg.mla``, DeepSeek-V3) caches the normed latent ``ckv`` and the
+rotated shared rope key ``krope`` in place of k and v (``models/attention.py``).
 
 Every layer returns (h, cache, aux): aux is the MoE router's load-balance loss
 (a float32 scalar; 0.0 for the other kinds), which ``run_stack`` sums over the
@@ -37,7 +40,16 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from .attention import _project_qkv, gqa_attention, init_gqa, init_gqa_cache
+from .attention import (
+    _mla_latent,
+    _project_qkv,
+    gqa_attention,
+    init_gqa,
+    init_gqa_cache,
+    init_mla,
+    init_mla_cache,
+    mla_attention,
+)
 from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
 from .moe import init_moe, moe_block
 from .rglru import init_recurrent_block, init_rglru_state, recurrent_block
@@ -66,8 +78,6 @@ def _require_ported(cfg, kind: str) -> None:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
     if kind not in ("dense", "rec", "attn", "rwkv", "moe"):
         raise ValueError(f"unknown layer kind {kind!r}")
-    if cfg.mla and kind in ("dense", "attn", "moe"):
-        raise NotImplementedError("MLA attention is not ported yet: ROADMAP Queue 1, MLA + MTP")
 
 
 # --------------------------------------------------------------------------
@@ -131,6 +141,8 @@ def init_layer(store: ParamStore, cfg, kind: str) -> None:
     norm_param(store, "ln1", cfg.d_model, cfg.norm)
     if kind == "rec":
         init_recurrent_block(store, "rec", cfg)
+    elif cfg.mla:
+        init_mla(store, "attn", cfg)
     else:
         init_gqa(store, "attn", cfg)
     norm_param(store, "ln2", cfg.d_model, cfg.norm)
@@ -148,17 +160,23 @@ def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) ->
         return init_rglru_state(cfg, batch, dtype, device)
     window = _window(cfg, kind)
     size = min(window, seq_len) if window else seq_len
+    if cfg.mla:
+        return init_mla_cache(cfg, batch, size, dtype, device)
     return init_gqa_cache(cfg, batch, size, dtype, device)
 
 
 def _prefill_cache_from_full(h_in, lp, cfg, kind, positions, seq_len):
-    """Recompute k/v once more to build the cache, as the reference does.
+    """Recompute k/v (MLA: the normed latent and the rotated rope key) once more to build
+    the cache, as the reference does.
 
     A windowed layer longer than its window keeps the last ``window`` keys
     in ring order: slot i holds the key of position p with p % window == i.
     """
     b = h_in.shape[0]
     pos_vec = torch.full((b,), seq_len, dtype=torch.int32, device=h_in.device)
+    if cfg.mla:
+        ckv, krope = _mla_latent(h_in, lp["attn"], cfg, positions)
+        return {"ckv": ckv.contiguous(), "krope": krope.contiguous(), "pos": pos_vec}
     _, k, v = _project_qkv(h_in, lp["attn"], cfg, positions)
     k = k.transpose(1, 2)  # (B, S, KV, hd)
     v = v.transpose(1, 2)
@@ -202,14 +220,20 @@ def apply_layer(
             cache["conv"].copy_(state["conv"])
             new_cache = cache
     else:
-        attn_out, new_cache = gqa_attention(
-            x1,
-            lp["attn"],
-            cfg,
-            positions=positions,
-            cache=cache if mode == "decode" else None,
-            window=_window(cfg, kind),
-        )
+        layer_cache = cache if mode == "decode" else None
+        if cfg.mla:
+            attn_out, new_cache = mla_attention(
+                x1, lp["attn"], cfg, positions=positions, cache=layer_cache
+            )
+        else:
+            attn_out, new_cache = gqa_attention(
+                x1,
+                lp["attn"],
+                cfg,
+                positions=positions,
+                cache=layer_cache,
+                window=_window(cfg, kind),
+            )
         h = h + attn_out
         if mode == "prefill":
             new_cache = _prefill_cache_from_full(x1, lp, cfg, kind, positions, h.shape[1])

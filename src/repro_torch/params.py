@@ -2,8 +2,10 @@
 
 The tree has the reference's names and layouts (``embed/table``,
 ``seg{i}/u{j}/attn/wq`` or ``seg{i}/u{j}/rwkv/time_mix/wr`` stacked on
-axis 0, ``final_norm/scale``, ``unembed``), so a tree of numpy arrays taken from ``repro``'s
-``model.init`` loads with :func:`from_numpy_tree` as it is, without
+axis 0, ``final_norm/scale``, ``unembed``; with ``cfg.mtp`` the ``mtp``
+subtree of DeepSeek-V3's multi-token prediction: ``norm_h``, ``norm_e``,
+``proj`` (2d, d) and one dense ``layer``, unstacked), so a tree of numpy
+arrays taken from ``repro``'s ``model.init`` loads with :func:`from_numpy_tree` as it is, without
 renaming or transposing anything, and the reference's AdamW state (``m``,
 ``v``, ``step``) with :func:`from_numpy_opt_state`.
 """
@@ -19,16 +21,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import DTYPES, ParamStore, norm_param
 from repro_torch.models.model import padded_vocab
-from repro_torch.models.transformer import init_stack, layer_pattern
+from repro_torch.models.transformer import init_layer, init_stack, layer_pattern
 from repro_torch.wire.bfloat16 import BFloat16Array
 
 __all__ = ["init_params", "from_numpy_tree", "from_numpy_opt_state", "count_params"]
 
 
 def _draw(cfg: ModelConfig, generator: Optional[torch.Generator], device: torch.device):
-    if cfg.is_encdec or cfg.frontend != "none" or cfg.mtp:
+    if cfg.is_encdec or cfg.frontend != "none":
         raise NotImplementedError(
-            "encoder, frontend and MTP params are not ported yet: ROADMAP Queue 1"
+            "encoder and frontend params are not ported yet: ROADMAP Queue 1"
         )
     vpad = padded_vocab(cfg)
     store = ParamStore(generator, DTYPES[cfg.param_dtype], device)
@@ -37,6 +39,12 @@ def _draw(cfg: ModelConfig, generator: Optional[torch.Generator], device: torch.
     norm_param(store, "final_norm", cfg.d_model, cfg.norm)
     if not cfg.tie_embeddings:
         store.param("unembed", (cfg.d_model, vpad), scale=0.02)
+    if cfg.mtp:  # drawn in the reference's order; only the MTP loss runs it
+        mtp = store.sub("mtp")
+        norm_param(mtp, "norm_h", cfg.d_model, cfg.norm)
+        norm_param(mtp, "norm_e", cfg.d_model, cfg.norm)
+        mtp.param("proj", (2 * cfg.d_model, cfg.d_model))
+        init_layer(mtp.sub("layer"), cfg, "dense")
     return store.params
 
 
