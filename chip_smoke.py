@@ -77,7 +77,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    parts, the busiest SM's walk tiles in the planner's model); its time and
    each launch's beside the earlier split builds', its plain version's, SDPA's
    backward with the window as a mask and the bound, and the float64
-   yardstick. The RG-LRU backward
+   yardstick. At deepseek-v3-671b's train shape (1, 128, 4096, 192/128, a group
+   of 1, explicit scale) the forward with the logsumexp and the bf16 backward's
+   split build <4, 2> at one part a key tile, and an edge at the MTP layer's
+   ragged 4,094 rows, against the plain versions (the backward also against
+   ``ref.flash_attention_bwd_split_ref``); bits on two launches and for B = 1
+   against row 0 of B = 2; each launch's device time, the split plain version's
+   time, SDPA's as dispatched for Dv != D, the bounds, the split design's floors,
+   the dS^T scratch's bytes, the float64 yardstick. The RG-LRU backward
    (``csrc/rglru_bwd.cu``) against ``ref.rglru_bwd_ref`` bit for bit at the
    hybrid's train shape (1, 4096, 4096) in bf16 and f32, with and without h0,
    at T = 1 and 32, ragged W, and the a = 1 edge; its bits on two launches and
@@ -282,26 +289,39 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    backward, GEMMs, elementwise, optimizer); step 0 against attn_impl="ref"
    within DENSE_TRAIN_GAPS times the plain path's bf16-vs-f32 gap;
 13. rwkv train, in a process of its own (this file run with ``--rwkv-train``,
-   set up as ``--hybrid-train``): ``rwkv6-7b`` at full width, layers 0-7, in
+   set up as ``--hybrid-train``): ``rwkv6-7b`` at full width, layers 0-3, in
    bfloat16 with remat "full", the same 3 AdamW steps on batches of 1 x 4096
    and the same gates: step 0 replayed with equal bits, every step launching
-   the WKV6 chunk forward 2 x 8 times and its backward 8 times; step ms,
+   the WKV6 chunk forward 2 x 4 times and its backward 4 times; step ms,
    tokens/s, peak memory and a profiled step (WKV6 forward and backward,
    GEMMs, elementwise, optimizer); step 0 against attn_impl="ref" (autograd
    through the plain chunked WKV6) within DENSE_TRAIN_GAPS times the plain
    path's bf16-vs-f32 gap;
 14. moe train, in a process of its own (this file run with ``--moe-train``, set
-   up as ``--hybrid-train``): ``granite-moe-3b-a800m`` at full width and depth (32
-   MoE layers of 40 experts, top 8; 3.30B params), in bfloat16 with remat "full",
+   up as ``--hybrid-train``): ``granite-moe-3b-a800m`` at full width, 16 of its
+   32 MoE layers of 40 experts, top 8, in bfloat16 with remat "full",
    the same 3 AdamW steps on batches of 1 x 4096, every MoE layer through the
    einsum engine (16 groups of 256 tokens, capacity 64, drops) and no call of the
    sort engine, and the same gates: step 0 replayed with equal bits (the gathers'
    gradients are gathers by inverse tables, in a fixed order), every step
-   launching the bf16 flash forward 2 x 32 times and its backward (head dim 64,
-   GQA group 3) 32 times; step ms, tokens/s, the aux loss, peak memory and a
+   launching the bf16 flash forward 2 x 16 times and its backward (head dim 64,
+   GQA group 3) 16 times; step ms, tokens/s, the aux loss, peak memory and a
    profiled step; step 0 against attn_impl="ref" within DENSE_TRAIN_GAPS times the
    plain path's bf16-vs-f32 gap, with the router's top-8 choices that differ
    between the kernel path, the plain path and float32 counted;
+14b. deepseek train, in a process of its own (this file run with
+   ``--deepseek-train``, set up as ``--hybrid-train``): ``deepseek-v3-671b`` at
+   full width, its 3 dense MLA layers plus the MTP module (4,293,743,616 params),
+   in bfloat16 with remat "full", the same 3 AdamW steps with m and v in bfloat16
+   (the reference's memory mode for this config) on batches of 1 x 4096, the loss
+   with the MTP term, and the same gates: step 0 replayed with equal bits, every
+   step launching the flash forward (with the lse, key head dim 192, value head
+   dim 128) 2 x 3 + 1 times and its backward (the split build <4, 2>) 3 + 1 times
+   (the MTP layer, outside the remat, at 4,094 rows), no MoE engine call; ce,
+   z_loss, aux_loss and mtp_loss a step, step ms, tokens/s, peak memory and a
+   profiled step with the MTP head's forward and backward device time; step 0
+   against attn_impl="ref" within DENSE_TRAIN_GAPS times the plain path's
+   bf16-vs-f32 gap on the batch's first DEEPSEEK_PLAIN_SEQ tokens;
 15. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
@@ -315,6 +335,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -340,7 +361,8 @@ DENSE_TRAIN_ARG = "--dense-train"  # the dense train phase's process, set up the
 HYBRID_TRAIN_ARG = "--hybrid-train"  # the hybrid train phase's process, set up the same way
 RWKV_TRAIN_ARG = "--rwkv-train"  # the rwkv train phase's process, set up as the hybrid's
 MOE_TRAIN_ARG = "--moe-train"  # the moe train phase's process, set up as the hybrid's
-_BIG_TRAIN_ARGS = (HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG, MOE_TRAIN_ARG)
+DEEPSEEK_TRAIN_ARG = "--deepseek-train"  # the deepseek train phase's process, set up the same
+_BIG_TRAIN_ARGS = (HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG, MOE_TRAIN_ARG, DEEPSEEK_TRAIN_ARG)
 _TRAIN_ARGS = (TRAIN_ARG, DIST_ARG, DENSE_TRAIN_ARG, *_BIG_TRAIN_ARGS)
 if sys.argv[1:] in ([arg] for arg in _TRAIN_ARGS):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -354,6 +376,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 import repro_torch.core.executor as executor_mod  # noqa: E402
+import repro_torch.models.model as model_mod  # noqa: E402
 import repro_torch.train.distributed as dist_mod  # noqa: E402
 import repro_torch.wire.payload as payload_mod  # noqa: E402
 from repro_torch.core import (  # noqa: E402
@@ -496,6 +519,12 @@ GRANITE_FLASH_JSON = (1, 24, 8, 1711, 1711, 64, True, None, "bfloat16", 64)
 MLA_SCALE = (128 + 64) ** -0.5
 MLA_FLASH_JSON = (1, 128, 128, 1711, 1711, 192, True, None, "bfloat16", 128)
 MLA_FLASH_CASES = (MLA_FLASH_JSON, (1, 128, 128, 128, 128, 192, True, None, "bfloat16", 128))
+# deepseek-v3-671b's train shape (1 x 4096 tokens, 128 heads with a group of 1, key head dim
+# 192, value head dim 128, causal, the explicit scale): the forward with the logsumexp and the
+# bf16 backward's split build <4, 2> (one part a key tile: no reduction launch); then an edge of
+# the MTP layer's ragged 4,094 rows at a few heads, small enough for the plain versions
+MLA_TRAIN = (1, 128, 128, 4096, 4096, 192, True, None, "bfloat16", 128)
+MLA_TRAIN_EDGE = (1, 2, 2, 4094, 4094, 192, True, None, "bfloat16", 128)
 # (B, T, W, x dtype, with h0): recurrentgemma-9b's prefill (T up to 3000) and
 # decode (B = slots, T = 1) at lru_width 4096; a W that is no multiple of the
 # ring kernel's 16 channels; float32 x; then the two kernels' edges: T on both
@@ -2401,6 +2430,7 @@ def phase_kernels():
     wkv6_rows = _wkv6_rows(gen)
     wkv6_rows["bwd"] = _wkv6_bwd_rows(gen)
     flash_rows.update(_mla_flash_rows(gen))
+    bwd_rows["mla_train"] = _mla_train_rows(gen)
     return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows
 
 
@@ -2472,6 +2502,206 @@ def _mla_flash_rows(gen) -> dict:
             f"kernel/bound {row['ms'] / bound:.1f}"
         )
     return rows
+
+
+def _mla_train_case(gen, case):
+    """One case at MLA's head dims with the explicit scale: the bfloat16 forward with the
+    logsumexp against the plain one (its output equal bit for bit to its output without),
+    then the backward on the plain forward's output and logsumexp against
+    ``ref.flash_attention_bwd_ref`` and against ``ref.flash_attention_bwd_split_ref`` (the
+    kernels' decomposition at the planned parts), each at BWD_BF16_TOL of each gradient's
+    largest entry. Returns q, k, v, dO, the errors against the split plain version (the
+    gradients' max |err|, the forward output's) and the split plain version's ms."""
+    b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+    masks = dict(causal=True, scale=MLA_SCALE)
+    q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.bfloat16)
+    dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV).to(torch.bfloat16)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **masks)
+    got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
+    parts = fa.bwd_split_plan(sq, sk, hq, hkv, True, None)
+    label = (
+        f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} bfloat16 "
+        f"causal scale 192^-0.5 ({fa.bwd_path(d, dv, q.dtype)} path, the split build <4, 2>, "
+        f"{parts} part{'s' if parts > 1 else ''} a key tile)"
+    )
+    if not same:
+        raise AssertionError(f"[kernels] {label}: the bfloat16 forward's output moved with lse")
+    out_err = _check(f"{label} out", got_out, out, TOL["bfloat16"])
+    lse_err = _check(f"{label} lse", got_lse, lse, LSE_BF16_TOL)
+    lse_used = _tol_used(got_lse, lse, LSE_BF16_TOL)
+    del got_out, got_lse
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    if any(g.dtype != torch.bfloat16 or not torch.isfinite(g.float()).all() for g in grads):
+        raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
+    report, errs = [], None
+    for name, plain in (
+        ("flash_attention_bwd_ref", ref.flash_attention_bwd_ref),
+        ("flash_attention_bwd_split_ref", functools.partial(
+            ref.flash_attention_bwd_split_ref, parts=parts
+        )),
+    ):
+        t0 = time.monotonic()
+        want = plain(q, k, v, out, lse, dout, **masks)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.monotonic() - t0)
+        shares = [_share_of_largest(g, w, BWD_BF16_TOL) for g, w in zip(grads, want)]
+        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+        del want
+        if max(shares) > 1.0:
+            raise AssertionError(
+                f"[kernels] {label} vs {name}: max |err| {errs}, "
+                f"{[f'{100 * x:.1f}%' for x in shares]} of {BWD_BF16_TOL} x each gradient's "
+                "largest entry"
+            )
+        report.append(
+            f"vs {name} max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
+            f"{100 * max(shares):.1f}% of the tolerance"
+        )
+    log(
+        f"[kernels] {label}: {'; '.join(report)} ({BWD_BF16_TOL:.4g} x each gradient's largest "
+        f"entry); forward out max |err| {out_err:.3e} (tol {TOL['bfloat16']}), lse "
+        f"{lse_err:.3e} (tol {LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse "
+        "equal bit for bit"
+    )
+    return q, k, v, dout, max(errs), out_err, plain_ms
+
+
+def _mla_train_rows(gen) -> dict:
+    """The bfloat16 forward with the logsumexp and the backward (the split build <4, 2>) at
+    deepseek-v3-671b's train shape MLA_TRAIN, then at MLA_TRAIN_EDGE, against their plain
+    versions (:func:`_mla_train_case`); at the train shape equal bits on two launches and for
+    batch row 0 alone against row 0 of a batch of 2, each launch's device us, kernel ms
+    beside the plain versions', SDPA's as dispatched for Dv != D (the backend named), the
+    bounds, the split design's floors and the dS^T scratch's bytes, and the float64
+    yardstick. Returns the rows of the kernels line."""
+    b, hq, hkv, sq, sk, d, causal, window, dt, dv = MLA_TRAIN
+    if sq != TRAIN_SEQ or fa.bwd_split_plan(sq, sk, hq, hkv, True, None) != 1:
+        raise AssertionError(f"[kernels] MLA_TRAIN {MLA_TRAIN}: not the one-part train shape")
+    masks = dict(causal=True, scale=MLA_SCALE)
+    _mla_train_case(gen, MLA_TRAIN_EDGE)
+    q, k, v, dout, err, out_err, split_ms = _mla_train_case(gen, MLA_TRAIN)
+    _mla_train_determinism(gen)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+
+    backend = _sdpa_backend(q, k, v, None, True)
+    sdpa = _sdpa_bwd(q, k, v, dout, None)
+    bound, bound_by, bytes_ms = attention_bwd_bound_ms(b, hq, hkv, sq, sk, d, dv, True, None, 2)
+    pairs = 2.0 * b * hq * _kept_pairs(sq, sk, True, None)
+    split_floor = 1e3 * pairs * (4 * d + 3 * dv) / PEAK_BF16_FLOPS  # S and dP twice
+    padded_floor = 1e3 * pairs * (4 * 256 + 3 * dv) / PEAK_BF16_FLOPS  # D padded to 4 chunks
+    ds_bytes = b * hq * fa.bwd_ds_offsets(sq, sk, True, None)[-1] * fa.BWD_SPLIT_TILE**2 * 2
+    walks = [n for _, n in fa.bwd_split_walks(sq, sk, True, None)]
+    row = {
+        "ms": time_ms(kernel, iters=10),
+        "device_us": device_us(kernel, launches=10),
+        **{
+            f"{n}_us": device_us(kernel, f"flash_bwd_bf16_{n}", launches=10)
+            for n in BF16_SPLIT_PARTS
+        },
+        "plain_ms": split_ms,
+        "library_ms": time_ms(sdpa["backward"], iters=10),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "max_abs_err": err,
+    }
+    plain_ref_ms = time_ms(
+        lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks), iters=2, warmup=1
+    )
+    launches = ", ".join(f"{n} {row[n + '_us']:.2f}" for n in BF16_SPLIT_PARTS)
+    log(
+        f"[kernels]   deepseek-v3-671b train shape: dK/dV grid {len(walks) * hkv * b} blocks "
+        f"({len(walks)} key tiles x 1 part x {hkv} KV heads x B {b}; walks of 1 to "
+        f"{max(walks)} tiles), the busiest of {fa.BWD_SPLIT_SMS} SMs "
+        f"{fa.bwd_split_longest(walks, 1, hkv)} walk tiles (even share "
+        f"{sum(walks) * hkv / fa.BWD_SPLIT_SMS:.1f}); dQ grid {-(-sq // 128) * hq * b} blocks; "
+        f"the dS^T scratch {ds_bytes} bytes"
+    )
+    log(
+        f"[kernels]   deepseek-v3-671b train shape q{tuple(q.shape)} k{tuple(k.shape)} "
+        f"v{tuple(v.shape)} bfloat16 causal scale 192^-0.5: backward kernel_ms {row['ms']:.4f} "
+        f"(device {row['device_us']:.2f} us a call: {launches}), plain_ms (the split plain "
+        f"version, one call by the host clock) {split_ms:.4f}, flash_attention_bwd_ref "
+        f"{plain_ref_ms:.4f}, library_ms (SDPA backward alone as dispatched for Dv != D, "
+        f"backend {backend}) {row['library_ms']:.4f} (kernel "
+        f"{'faster' if row['ms'] < row['library_ms'] else 'NOT faster'}), bound_ms "
+        f"{bound:.5f} ({bound_by}, bf16 tensor cores: 5 products, {pairs * (3 * d + 2 * dv):.4g} "
+        f"FLOPs at 989 TFLOP/s; bytes alone {bytes_ms:.5f}), the split design's floor (S and dP "
+        f"twice) {split_floor:.5f}, with D padded to 256 {padded_floor:.5f}, kernel/bound "
+        f"{row['ms'] / bound:.2f}"
+    )
+    _flash_bwd_bf16_yardstick(q, k, v, dout, out, lse, sdpa, dict(causal=True, window=None))
+    del sdpa
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=MLA_SCALE
+        )
+
+    fwd_bound, fwd_bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, True, None, 2)
+    floor = attention_bound_ms(b, hq, hkv, sq, sk, 256, dv, True, None, 2)[0]
+    fwd = {
+        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **masks), iters=10),
+        "device_us": device_us(
+            lambda: fa.flash_attention_fwd(q, k, v, return_lse=True, **masks), launches=10
+        ),
+        "ms_without_lse": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **masks), iters=10),
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_ref(q, k, v, return_lse=True, **masks), iters=3, warmup=1
+        ),
+        "library_ms": time_ms(library, iters=10),
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_bound_by,
+        "max_abs_err": out_err,
+    }
+    log(
+        f"[kernels]   deepseek-v3-671b train shape forward (bfloat16, wgmma, the DC = 4 build): "
+        f"with lse {fwd['ms']:.4f} ms (device {fwd['device_us']:.2f} us a call), without "
+        f"{fwd['ms_without_lse']:.4f} ms; plain_ms {fwd['plain_ms']:.4f}, library_ms (SDPA "
+        f"{backend}, dispatched for Dv != D) {fwd['library_ms']:.4f}, bound_ms {fwd_bound:.5f} "
+        f"({fwd_bound_by}), the DC = 4 build's floor (QK^T over 256 columns) {floor:.5f}, "
+        f"kernel/bound {fwd['ms'] / fwd_bound:.2f}"
+    )
+    return {"bwd": row, "fwd": fwd}
+
+
+def _mla_train_determinism(gen) -> None:
+    """At MLA_TRAIN's heads and length in a batch of 2: the forward with the logsumexp and the
+    backward on it each equal bit for bit on two launches, and batch row 0 alone equal to row
+    0 of the batch."""
+    _, hq, hkv, sq, sk, d, _, _, _, dv = MLA_TRAIN
+    masks = dict(causal=True, scale=MLA_SCALE)
+    q, k, v = _inputs(gen, 2, hq, hkv, sq, sk, d, dv, torch.bfloat16)
+    dout = torch.randn(2, hq, sq, dv, generator=gen, device=DEV).to(torch.bfloat16)
+    first = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    again = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    alone = fa.flash_attention_fwd(q[:1], k[:1], v[:1], return_lse=True, **masks)
+    out, lse = first
+    bwd = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    bwd_again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
+    bwd_alone = fa.flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1], dout[:1], **masks)
+    torch.cuda.synchronize()
+
+    def differ(xs, ys, row0=False):
+        return sum(((x[:1] if row0 else x) != y).sum().item() for x, y in zip(xs, ys))
+
+    counts = {
+        "forward relaunch": differ(first, again),
+        "forward B=1": differ(first, alone, row0=True),
+        "backward relaunch": differ(bwd, bwd_again),
+        "backward B=1": differ(bwd, bwd_alone, row0=True),
+    }
+    label = f"q(2,{hq},{sq},{d}) v(2,{hkv},{sk},{dv}) bfloat16 causal scale 192^-0.5"
+    if any(counts.values()):
+        raise AssertionError(f"[kernels] MLA train shape {label}: elements that differ {counts}")
+    log(
+        f"[kernels] MLA train shape {label}: the forward with the lse and the backward (split "
+        "build <4, 2>) each equal bit for bit on two launches; B=1 equals row 0 of B=2 bit for "
+        "bit"
+    )
 
 
 def _sequential(model, params, prompt, n, max_len):
@@ -2939,7 +3169,7 @@ def _train_profile(model, params, state, batch, opt, tag="[train]") -> None:
     the device's busy share of the two windows' host wall."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof_grad:
+    with _mtp_range(model.cfg.mtp), torch.profiler.profile(activities=acts) as prof_grad:
         t0 = time.monotonic()
         _, grads = value_and_grad(model.loss_fn, params, batch)
         torch.cuda.synchronize()
@@ -2949,7 +3179,7 @@ def _train_profile(model, params, state, batch, opt, tag="[train]") -> None:
         adamw_update(params, grads, state, opt)
         torch.cuda.synchronize()
         opt_ms = 1e3 * (time.monotonic() - t0)
-    grad_rows = _device_rows(prof_grad)
+    grad_rows = [r for r in _device_rows(prof_grad) if r[2] != MTP_RANGE]  # not the range's own
     kinds, n_grad = _device_kinds(grad_rows)
     opt_kinds, n_opt = _device_kinds(_device_rows(prof_opt))
     if not kinds or not opt_kinds:
@@ -2968,6 +3198,71 @@ def _train_profile(model, params, state, batch, opt, tag="[train]") -> None:
     )
     top = "; ".join(f"{k[:70]} {us / 1e3:.3f} ms x{n}" for us, n, k in grad_rows[:8])
     log(f"{tag} profiled step: the gradient window's top kernels by device time: {top}")
+    if model.cfg.mtp:
+        head = _mtp_head_ms(prof_grad)
+        grad_busy = busy - kinds["optimizer"]
+        if head is None or not sum(head):
+            log(f"{tag} profiled step: no device time under the MTP head's range (not measured)")
+        else:
+            log(
+                f"{tag} profiled step: the MTP head (its norms, proj, dense layer, unembed and "
+                f"CE): forward {head[0]:.3f} ms, backward {head[1]:.3f} ms of device time, "
+                f"{100 * sum(head) / grad_busy:.1f}% of the gradient window's {grad_busy:.3f} ms"
+            )
+
+
+MTP_RANGE = "mtp head"
+
+
+@contextlib.contextmanager
+def _mtp_range(on: bool):
+    """With ``on``, the port's MTP loss (``models.model._mtp_loss``, which ``loss_fn`` looks
+    up when it runs) wrapped in a ``torch.profiler.record_function`` range named MTP_RANGE
+    (this file's patch: the port's code carries none)."""
+    fn = model_mod._mtp_loss
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(MTP_RANGE):
+            return fn(*args, **kwargs)
+
+    if on:
+        model_mod._mtp_loss = ranged
+    try:
+        yield
+    finally:
+        model_mod._mtp_loss = fn
+
+
+def _mtp_head_ms(prof):
+    """Device ms of the MTP head in a profiled gradient: (forward, backward). The forward is
+    the kernels under MTP_RANGE; the backward the autograd nodes its forward ops made,
+    matched by their sequence numbers on the forward thread (each node's
+    ``evaluate_function`` event carries the number of the op that made it). None without
+    the range."""
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = [e for e in events if e.name == MTP_RANGE and e.device_type == cpu]
+    if not ranges:
+        return None
+    head = ranges[0]
+
+    def under(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p is head:
+                return True
+            p = p.cpu_parent
+        return False
+
+    seqs = {e.sequence_nr for e in events if e.sequence_nr >= 0 and under(e)}
+    bwd = sum(
+        e.device_time_total
+        for e in events
+        if e.name.startswith("autograd::engine::evaluate_function")
+        and e.sequence_nr in seqs
+        and getattr(e, "fwd_thread", head.thread) == head.thread
+    )
+    return head.device_time_total / 1e3, bwd / 1e3
 
 
 DURABLE_DIR = ROOT / "build" / "durable_train"  # the runs' directory; build/ is not committed
@@ -4957,14 +5252,16 @@ def _layer_launches(cfg, steps: int) -> dict:
     each layer's forward again in its backward: the flash forward twice and its backward
     once an attention layer (a dense, attn or moe layer), the RG-LRU forward twice and its
     backward once a rec layer, the WKV6 chunk forward twice and its backward once an rwkv
-    layer."""
+    layer; the MTP module's dense layer runs outside the remat, as the reference runs it
+    outside ``jax.checkpoint``: its flash forward and backward once each."""
     kinds = layer_pattern(cfg)
     attn = sum(kind in ("dense", "attn", "moe") for kind in kinds)
     rec = sum(kind == "rec" for kind in kinds)
     rwkv = sum(kind == "rwkv" for kind in kinds)
+    mtp = int(cfg.mtp)
     return {
-        "flash": 2 * attn * steps,
-        "flash_bwd": attn * steps,
+        "flash": (2 * attn + mtp) * steps,
+        "flash_bwd": (attn + mtp) * steps,
         "rglru": 2 * rec * steps,
         "rglru_bwd": rec * steps,
         "wkv6": 2 * rwkv * steps,
@@ -4972,13 +5269,17 @@ def _layer_launches(cfg, steps: int) -> dict:
     }
 
 
-def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
-    """``cfg`` (bfloat16, remat "full") takes 3 AdamW steps (the train CLI's) on TokenSource
-    batches of batch_size x TRAIN_SEQ, deterministically: the launch gates, step 0 replayed
-    with equal bits, a profiled step, step 0 against attn_impl="ref". Step 0's result waits
-    on the host while its replay runs (params, m and v of two states take most of the card),
-    training goes on from the replay's, and the first params wait on the host over steps 1
-    and 2 for the check against the plain path at the end."""
+def _bf16_train(
+    cfg, batch_size: int, tag: str, state_dtype: str = "float32", plain_seq=None
+) -> dict:
+    """``cfg`` (bfloat16, remat "full") takes 3 AdamW steps (the train CLI's, with m and v in
+    ``state_dtype``) on TokenSource batches of batch_size x TRAIN_SEQ, deterministically: the
+    launch gates, step 0 replayed with equal bits, a profiled step, step 0 against
+    attn_impl="ref" (on the first ``plain_seq`` tokens of its batch where given, the
+    gradients waiting on the host during the float32 run). Step 0's result waits on the host
+    while its replay runs (params, m and v of two states take most of the card), training
+    goes on from the replay's, and the first params wait on the host over steps 1 and 2 for
+    the check against the plain path at the end."""
     from repro_torch.launch.train import opt_config
 
     if (cfg.param_dtype, cfg.compute_dtype, cfg.remat) != ("bfloat16", "bfloat16", "full"):
@@ -4986,9 +5287,10 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     t_set_up = time.monotonic()
     model = build(cfg, DEV)
     params0 = init_params(cfg, _gen(0), DEV)
-    opt = AdamWConfig(**TRAIN_OPT)
-    if opt != opt_config(TRAIN_STEPS):
-        raise AssertionError(f"{tag} {opt} is not the CLI's {opt_config(TRAIN_STEPS)}")
+    opt = AdamWConfig(**TRAIN_OPT, state_dtype=state_dtype)
+    cli = dataclasses.replace(opt_config(TRAIN_STEPS), state_dtype=state_dtype)
+    if opt != cli:
+        raise AssertionError(f"{tag} {opt} is not the CLI's {cli}")
     state0 = make_opt_init(model, opt)(params0)
     train_step = make_train_step(model, opt)
     source = TokenSource(
@@ -5006,6 +5308,14 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
         if cfg.family == "ssm"
         else f"{cfg.num_heads} heads on {cfg.num_kv_heads} KV heads of {cfg.head_dim}"
     )
+    if cfg.mla:
+        heads = (
+            f"MLA with {cfg.num_heads} heads (q_lora {cfg.q_lora_rank}, kv_lora "
+            f"{cfg.kv_lora_rank}, qk {cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim}, v "
+            f"{cfg.v_head_dim}), d_ff {cfg.d_ff}"
+        )
+    if cfg.mtp:
+        pattern += f"; the MTP module (a dense layer; mtp_coef {cfg.mtp_coef})"
     log(
         f"{tag} {cfg.name}: {cfg.num_layers} layers ({pattern}), d={cfg.d_model}, {heads}"
         + (f", window {cfg.window}" if cfg.block_pattern else "")
@@ -5026,9 +5336,10 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
         vals = {key: float(x) for key, x in metrics.items()}
         if not all(np.isfinite(list(vals.values()))):
             raise AssertionError(f"{tag} step {step}: metrics {vals}")
+        mtp = f" mtp_loss {vals['mtp_loss']:.6f}" if "mtp_loss" in vals else ""
         log(
             f"{tag} step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
-            f"{vals['z_loss']:.4f} aux_loss {vals['aux_loss']:.6f} grad_norm "
+            f"{vals['z_loss']:.4f} aux_loss {vals['aux_loss']:.6f}{mtp} grad_norm "
             f"{vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
             f"{ms:.3f} ms, {tokens / ms * 1e3:.1f} tokens/s (host clock after a sync); "
             f"max_memory_allocated so far {torch.cuda.max_memory_allocated()} bytes"
@@ -5082,8 +5393,14 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     steady = sum(step_ms[1:]) / (len(step_ms) - 1)
     path = ""
     if want["flash_bwd"]:
-        bwd_path = fa.bwd_path(cfg.head_dim, cfg.head_dim, torch.bfloat16)
-        path = f"; flash backward on the {bwd_path} path"
+        d, dv = cfg.head_dim, cfg.head_dim
+        if cfg.mla:
+            d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+        path = f"; flash backward on the {fa.bwd_path(d, dv, torch.bfloat16)} path"
+        if max(d, dv) > 128:
+            h = cfg.num_heads
+            parts = fa.bwd_split_plan(TRAIN_SEQ, TRAIN_SEQ, h, h, True, None)
+            path += f" (the split builds at D {d}, Dv {dv}, {parts} part a key tile)"
     log(
         f"{tag} kernels launched {launches} over {steps} steps (0, its replay, 1, 2; remat full "
         f"runs each layer's forward again in its recompute: {want} expected{path}); step ms "
@@ -5097,7 +5414,12 @@ def _bf16_train(cfg, batch_size: int, tag: str) -> dict:
     _release()
     params0 = tree_map(lambda x: x.to(DEV), params0)
     t_check = time.monotonic()
-    _check_bf16_train_against_plain(cfg, model, params0, batches[0], tag)
+    plain_batch = batches[0]
+    if plain_seq:
+        plain_batch = {"tokens": batches[0]["tokens"][:, :plain_seq].contiguous()}
+    _check_bf16_train_against_plain(
+        cfg, model, params0, plain_batch, tag, grads_to_host=bool(plain_seq)
+    )
     log(f"{tag} the check against the plain path took {time.monotonic() - t_check:.1f} s")
     return {**launches, "step_ms": step_ms, "peak": peak}
 
@@ -5237,10 +5559,12 @@ def _hybrid_train() -> dict:
 
 
 RWKV_TRAIN_ARCH = "rwkv6-7b"
-# layers 0-7 of its 32: 2.32B params, a peak of 54.3 GB on an H100 80GB HBM3 (params,
-# gradients, AdamW state and the out-of-place step's second copy: ~23 bytes a parameter, as the
-# hybrid train phase's); 12 layers would need ~74 GB
-RWKV_TRAIN_LAYERS = 8
+# layers 0-3 of its 32 since the deepseek train phase came, to keep the script's phases inside
+# the time limit (layers 0-7 before: 2.32B params, a peak of 54.3 GB on an H100 80GB HBM3;
+# params, gradients, AdamW state and the out-of-place step's second copy take ~23 bytes a
+# parameter, as the hybrid train phase's; 12 layers would need ~74 GB). Every gate holds at any
+# depth, and the WKV6 rows keep their shapes.
+RWKV_TRAIN_LAYERS = 4
 RWKV_TRAIN_BATCH = 1  # train_4k's 4096 tokens, its batch cut to one sequence on one card
 RWKV_TRAIN_RESULT = "[rwkv train] launches "  # the process's line of launch counts and times
 
@@ -5252,13 +5576,18 @@ def phase_rwkv_train() -> dict:
 
 
 def _rwkv_train() -> dict:
-    """rwkv6-7b at full width, layers 0-7, in bfloat16 (remat "full"), 3 AdamW steps on
+    """rwkv6-7b at full width, layers 0-3, in bfloat16 (remat "full"), 3 AdamW steps on
     TokenSource batches of RWKV_TRAIN_BATCH x TRAIN_SEQ: :func:`_bf16_train`."""
     cfg = dataclasses.replace(get_config(RWKV_TRAIN_ARCH), num_layers=RWKV_TRAIN_LAYERS)
     return _bf16_train(cfg, RWKV_TRAIN_BATCH, "[rwkv train]")
 
 
 MOE_TRAIN_RESULT = "[moe train] launches "  # the process's line of launch counts and times
+# granite-moe-3b-a800m is trained at 16 of its 32 layers since the deepseek train phase came, to
+# keep the script's phases inside the time limit (its full depth: 3,299,575,296 params, a peak of
+# 75.9 GB, 1,160.7-1,204.0 ms a step; PERF.md §5): every gate holds at any depth, and granite's
+# train-shape kernel rows keep their shapes
+MOE_TRAIN_LAYERS = 16
 
 
 def phase_moe_train() -> dict:
@@ -5268,11 +5597,11 @@ def phase_moe_train() -> dict:
 
 
 def _moe_train() -> dict:
-    """granite-moe-3b-a800m at full width and depth (32 MoE layers), in bfloat16 (remat
-    "full"), 3 AdamW steps on TokenSource batches of MOE_TRAIN_BATCH x TRAIN_SEQ: every MoE
-    layer through the einsum engine (16 groups of 256, capacity 64, drops);
-    :func:`_bf16_train`."""
-    cfg = get_config(MOE_ARCH)
+    """granite-moe-3b-a800m at full width and MOE_TRAIN_LAYERS of its 32 MoE layers, in
+    bfloat16 (remat "full"), 3 AdamW steps on TokenSource batches of MOE_TRAIN_BATCH x
+    TRAIN_SEQ: every MoE layer through the einsum engine (16 groups of 256, capacity 64,
+    drops); :func:`_bf16_train`."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
     if cfg.moe_impl not in ("einsum", "a2a") or MOE_TRAIN_BATCH * TRAIN_SEQ <= 1024:
         raise AssertionError(f"[moe train] {cfg.moe_impl} at {MOE_TRAIN_BATCH} x {TRAIN_SEQ}")
     moe_mod._moe_sort.calls = moe_mod._moe_einsum.calls = 0
@@ -5281,6 +5610,56 @@ def _moe_train() -> dict:
     log(f"[moe train] engine calls over the phase {engines}")
     if engines["sort"] or not engines["einsum"]:
         raise AssertionError(f"[moe train] engine calls {engines}: the einsum engine alone")
+    return out
+
+
+DEEPSEEK_TRAIN_RESULT = "[deepseek train] launches "  # the process's line of launches and times
+# deepseek-v3-671b trains at full width on its 3 first_k_dense layers (MLA and the dense MLP of
+# 18,432) plus the MTP module (proj 14,336 x 7,168, two norms, a dense MLA layer): 4,293,743,616
+# params, 34.4 GB for params, gradients and bfloat16 m and v. The transformer builds the
+# first_k_dense dense layers whatever num_layers says (as the reference's layer_pattern does):
+# num_layers=1 gives the same 3 layers, so num_layers is set to 3. A MoE layer of 256 experts
+# holds 11.27B params, 90 GB at 8 bytes a param: it trains on no one card.
+DEEPSEEK_TRAIN_LAYERS = 3
+DEEPSEEK_TRAIN_PARAMS = 4_293_743_616
+DEEPSEEK_TRAIN_BATCH = 1  # train_4k's 4096 tokens, its batch cut to one sequence on one card
+# The plain-path gate runs on the first 2048 tokens of step 0's batch: at 4096 its float32 run
+# holds 17.2 GB of float32 params, as many gradients, and the plain attention's saved scores
+# and probabilities ((1, 128, 4096, 512) float32 blocks, ~25 GB a layer) for the MTP layer,
+# which runs outside the remat, beside those of a recomputed layer: ~91 GB by count. The steps,
+# the replay and the launch gates run at TRAIN_SEQ.
+DEEPSEEK_PLAIN_SEQ = 2048
+
+
+def phase_deepseek_train() -> dict:
+    """Run the deepseek train phase in a process of its own (this file with
+    ``--deepseek-train``); returns its launch counts, step ms and peak memory."""
+    return _in_process(DEEPSEEK_TRAIN_ARG, DEEPSEEK_TRAIN_RESULT, "[deepseek train]")
+
+
+def _deepseek_train() -> dict:
+    """deepseek-v3-671b at full width, its 3 dense MLA layers and the MTP module, in bfloat16
+    (remat "full"), 3 AdamW steps with bfloat16 m and v (the reference's memory mode for this
+    config, ``repro.launch.dryrun.arch_run_defaults``) on TokenSource batches of
+    DEEPSEEK_TRAIN_BATCH x TRAIN_SEQ: the MTP loss, the flash forward (with the lse) and the
+    bf16 backward's split build at key head dim 192 and value head dim 128 in every layer
+    (the MTP layer's at 4,094 rows); :func:`_bf16_train`. No MoE layer runs: 0 engine calls."""
+    from repro_torch.params import count_params
+
+    tag = "[deepseek train]"
+    cfg = dataclasses.replace(get_config(DEEPSEEK_ARCH), num_layers=DEEPSEEK_TRAIN_LAYERS)
+    if layer_pattern(cfg) != ("dense",) * 3 or not cfg.mtp:
+        raise AssertionError(f"{tag} layer pattern {layer_pattern(cfg)}, mtp {cfg.mtp}")
+    if count_params(cfg) != DEEPSEEK_TRAIN_PARAMS:
+        raise AssertionError(f"{tag} {count_params(cfg)} params, not {DEEPSEEK_TRAIN_PARAMS}")
+    moe_mod._moe_sort.calls = moe_mod._moe_einsum.calls = 0
+    out = _bf16_train(
+        cfg, DEEPSEEK_TRAIN_BATCH, tag, state_dtype="bfloat16", plain_seq=DEEPSEEK_PLAIN_SEQ
+    )
+    engines = {"sort": moe_mod._moe_sort.calls, "einsum": moe_mod._moe_einsum.calls}
+    if any(engines.values()):
+        raise AssertionError(f"{tag} MoE engine calls {engines}: no MoE layer runs")
+    log(f"{tag} MoE engine calls over the phase {engines}")
     return out
 
 
@@ -5342,17 +5721,24 @@ def _named_leaves(tree, prefix=""):
     return [(prefix.lstrip("/"), tree)]
 
 
-def _check_bf16_train_against_plain(cfg, model, params, batch, tag) -> None:
+def _check_bf16_train_against_plain(
+    cfg, model, params, batch, tag, grads_to_host=False
+) -> None:
     """Step 0's gradient through the kernels against attn_impl="ref" (plain attention under
     autograd, the same bfloat16 GEMMs), within DENSE_TRAIN_GAPS times the plain path's gap
     between this bfloat16 run and a float32 run of the same params (upcast) on the same
-    batch: the loss, the global grad norm and every gradient leaf."""
+    batch: the loss, the global grad norm and every gradient leaf. With ``grads_to_host``
+    both bfloat16 runs' gradients wait in pinned host memory during the float32 run."""
     plain = build(dataclasses.replace(cfg, attn_impl="ref"), DEV)
     routes = {"kernel": [], "plain": [], "float32": []}
+    park = _pinned if grads_to_host else (lambda tree: tree)
+    torch.cuda.reset_peak_memory_stats()
     with _routes(routes["kernel"]):
         loss, grads = _grad_run(model, params, batch)
+        grads = park(grads)
     with _routes(routes["plain"]):
         plain_loss, plain_grads = _grad_run(plain, params, batch)
+        plain_grads = park(plain_grads)
     del plain
     _release()
     cfg32 = dataclasses.replace(
@@ -5363,6 +5749,14 @@ def _check_bf16_train_against_plain(cfg, model, params, batch, tag) -> None:
         loss32, grads32 = _grad_run(build(cfg32, DEV), params32, batch)
     del params32
     _release()
+    if grads_to_host:
+        peak32 = torch.cuda.max_memory_allocated()
+        grads, plain_grads = (tree_map(lambda x: x.to(DEV), t) for t in (grads, plain_grads))
+        log(
+            f"{tag} the plain-path gate on {batch['tokens'].shape[1]} tokens, both bfloat16 "
+            f"runs' gradients on the host during the float32 run; max_memory_allocated "
+            f"{peak32} bytes"
+        )
     if routes["kernel"]:  # the MoE router's top-k at step 0: a flip moves an expert's gradient
         log(
             f"{tag} step 0 routing over {len(routes['kernel'])} router calls (each MoE layer "
@@ -5471,6 +5865,7 @@ def main() -> int:
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
     rwkv_train = _timed("rwkv train", phase_rwkv_train)
     moe_train = _timed("moe train", phase_moe_train)
+    deepseek_train = _timed("deepseek train", phase_deepseek_train)
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
@@ -5603,6 +5998,29 @@ def main() -> int:
             + "; launches of the moe train phase",
         ),
         _kernel_entry(
+            "flash_attention_fwd_bf16_mla_train",
+            flash_src,
+            flash_tpu,
+            deepseek_train["flash"],
+            bwd_rows["mla_train"]["fwd"],
+            "q,k(1,128,4096,192) v(1,128,4096,128) bfloat16 causal, scale 192^-0.5, with the "
+            "logsumexp (deepseek-v3-671b's train shape, the DC = 4 build; library: SDPA as "
+            "dispatched); launches of the deepseek train phase (the MTP layer's at 4094 rows)",
+        ),
+        _kernel_entry(
+            "flash_attention_bwd_bf16_mla",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+            "src/repro/kernels/flash_attention.py:139",
+            deepseek_train["flash_bwd"],
+            bwd_rows["mla_train"]["bwd"],
+            "q,k(1,128,4096,192) v,dO(1,128,4096,128) bfloat16 causal, scale 192^-0.5 "
+            "(deepseek-v3-671b's train shape, group 1); the split build <4, 2> at one part a key "
+            "tile: flash_bwd_bf16_delta_kernel, "
+            + ", ".join(BF16_WGMMA_KERNELS[2:])
+            + "; plain: ref.flash_attention_bwd_split_ref; library: SDPA's backward as "
+            "dispatched; launches of the deepseek train phase",
+        ),
+        _kernel_entry(
             "decode_attention_granite",
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
@@ -5666,4 +6084,6 @@ if __name__ == "__main__":
         sys.exit(_process_main(RWKV_TRAIN_RESULT, _rwkv_train))
     if sys.argv[1:] == [MOE_TRAIN_ARG]:
         sys.exit(_process_main(MOE_TRAIN_RESULT, _moe_train))
+    if sys.argv[1:] == [DEEPSEEK_TRAIN_ARG]:
+        sys.exit(_process_main(DEEPSEEK_TRAIN_RESULT, _deepseek_train))
     sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

@@ -6,12 +6,12 @@ Counterpart of ``repro.models.model`` for decoder LMs. Batch conventions
 ``{"token": (B,)}`` plus the cache. ``loss_fn`` returns (loss, metrics): the
 next-token cross-entropy in float32 over the padded vocab plus
 ``z_loss_coef``·mean(lse²) plus the MoE layers' load-balance loss (``aux_loss``),
-differentiable by autograd (the attention's gradient through the flash backward
-kernel on the card). ``prefill``
+plus, for an MTP config, ``mtp_coef`` times DeepSeek-V3's depth-1 multi-token
+prediction loss (``mtp_loss``, :func:`_mtp_loss`), differentiable by autograd (the
+attention's gradient through the flash backward kernel on the card). ``prefill``
 returns (last-position logits, cache); ``decode_step`` consumes one token
 per sequence against the cache, which it updates in place and returns.
-The MTP loss, encoder-decoder and VLM inputs come with later slices (an MTP
-config prefills and decodes; its ``loss_fn`` raises).
+Encoder-decoder and VLM inputs come with a later slice.
 """
 
 from __future__ import annotations
@@ -24,8 +24,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-from .layers import DTYPES, apply_norm, softcap
-from .transformer import _window, derive_segments, init_stack_cache, layer_pattern, run_stack
+from .layers import DTYPES, apply_norm, dense, softcap
+from .transformer import (
+    _window,
+    apply_layer,
+    derive_segments,
+    init_stack_cache,
+    layer_pattern,
+    run_stack,
+)
 
 __all__ = ["Model", "build", "padded_vocab", "unembed_logits"]
 
@@ -96,6 +103,28 @@ def _ce_loss(logits: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor,
     return torch.mean(lse - gold), torch.mean(torch.square(lse))
 
 
+def _embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"]["table"][tokens].to(DTYPES[cfg.compute_dtype])
+
+
+def _mtp_loss(params, h: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeek-V3's depth-1 multi-token prediction, as the reference's ``_mtp_loss``:
+    token t+2 predicted from the stack's output at t (``h``, before the final norm) and
+    the embedding of token t+1, each behind its own norm, joined by ``proj`` and run
+    through one dense layer at positions 0..S-3, then the shared final norm and unembed.
+    Returns the cross-entropy alone. The layer runs outside the stack's remat, as the
+    reference runs it outside ``jax.checkpoint``."""
+    mp = params["mtp"]
+    hh = apply_norm(h[:, :-2], mp["norm_h"], cfg.norm, cfg.norm_eps)
+    ee = _embed_tokens(params, tokens[:, 1:-1], cfg)
+    ee = apply_norm(ee, mp["norm_e"], cfg.norm, cfg.norm_eps)
+    x = dense(torch.cat([hh, ee], dim=-1), mp["proj"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, _ = apply_layer(x, mp["layer"], cfg, "dense", positions=positions, mode="train")
+    ce, _ = _ce_loss(unembed_logits(params, x, cfg), tokens[:, 2:])
+    return ce
+
+
 @dataclass
 class Model:
     cfg: ModelConfig
@@ -118,17 +147,12 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     segments = derive_segments(layer_pattern(cfg))
     cdtype = DTYPES[cfg.compute_dtype]
 
-    def embed_tokens(params, tokens):
-        return params["embed"]["table"][tokens].to(cdtype)
-
     def unembed(params, h):
         return unembed_logits(params, h, cfg)
 
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if cfg.mtp:
-            raise NotImplementedError("the MTP loss is not ported yet: ROADMAP Queue 1 item 9")
         tokens = batch["tokens"]
-        h = embed_tokens(params, tokens)
+        h = _embed_tokens(params, tokens, cfg)
         positions = torch.arange(h.shape[1], device=h.device)
         h, _, aux = run_stack(h, params, cfg, segments, positions=positions, mode="train")
         logits = unembed(params, h)  # (B, S, padded vocab) float32
@@ -136,11 +160,17 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         # the MoE layers' load-balance losses, summed over the stack (zero without them)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
         loss = ce + cfg.z_loss_coef * z + aux
-        return loss, {"ce": ce, "z_loss": z, "aux_loss": aux, "loss": loss}
+        metrics = {"ce": ce, "z_loss": z, "aux_loss": aux, "loss": loss}
+        if cfg.mtp:  # the reference's key order: "loss" keeps its place, "mtp_loss" after it
+            mtp_loss = _mtp_loss(params, h, tokens, cfg)
+            loss = loss + cfg.mtp_coef * mtp_loss
+            metrics["mtp_loss"] = mtp_loss
+            metrics["loss"] = loss
+        return loss, metrics
 
     def prefill(params, batch, pad_to: int = 0) -> Tuple[torch.Tensor, Dict]:
         tokens = batch["tokens"]
-        h = embed_tokens(params, tokens)
+        h = _embed_tokens(params, tokens, cfg)
         positions = torch.arange(h.shape[1], device=h.device)
         h, cache, _ = run_stack(h, params, cfg, segments, positions=positions, mode="prefill")
         logits = unembed(params, h[:, -1:, :])[:, 0, : cfg.vocab_size]
@@ -153,7 +183,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
 
     def decode_step(params, cache, batch) -> Tuple[torch.Tensor, Dict]:
         tok = batch["token"]  # (B,)
-        h = embed_tokens(params, tok[:, None])  # (B, 1, d)
+        h = _embed_tokens(params, tok[:, None], cfg)  # (B, 1, d)
         positions = _cache_pos(cache, tok.shape[0])[:, None]  # (B, 1) for rope
         h, cache, _ = run_stack(
             h, params, cfg, segments, positions=positions, mode="decode", cache=cache

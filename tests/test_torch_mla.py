@@ -15,7 +15,7 @@ sequential decoding, a bfloat16 copy within twice the reference's own
 bfloat16-against-float32 gap; the param tree (``mtp`` included) with the
 reference's keys and shapes; the full config's parameter counts, whole and at
 the 4 layers the chip smoke serves; the flash wrapper's CPU path at MLA's head
-dims with an explicit scale; ``loss_fn`` still refusing the MTP loss.
+dims with an explicit scale. The MTP loss and training are in ``tests/test_torch_mtp.py``.
 """
 
 import dataclasses
@@ -301,12 +301,6 @@ def test_bf16_copy_matches_the_reference_bf16_run(what):
     print(f"{ARCH} {what} logits: |port - ref bf16| {err:.3e}, ref gap bf16 vs f32 {gap:.3e}")
     assert gap > 0
     assert err <= 2 * gap, f"{what}: {err} > 2 x {gap}"
-
-
-def test_loss_still_refuses_the_mtp_loss():
-    _, _, _, _, tmodel, tparams = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        tmodel.loss_fn(tparams, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
 
 
 @pytest.mark.parametrize("layers", [None, CUT_LAYERS], ids=["full", "cut"])

@@ -367,10 +367,9 @@ def test_sharded_loader_resumes_at_any_step():
         # rwkv layers train since the WKV6 backward (tests/test_torch_rwkv_train.py); their
         # train mode refuses what every kind's does
         ("rwkv6-7b", {"remat": "dots"}, "ROADMAP Queue 1 item 13"),
-        (ARCH, {"mtp": True}, "ROADMAP Queue 1 item 9"),
         (ARCH, {"remat": "dots"}, "ROADMAP Queue 1 item 13"),
     ],
-    ids=["rwkv", "mtp", "remat_dots"],
+    ids=["rwkv", "remat_dots"],
 )
 def test_train_mode_refuses_what_is_not_ported(arch, changes, match):
     cfg = dataclasses.replace(tsmoke(tconfigs.get_config(arch)), **changes)
@@ -379,6 +378,6 @@ def test_train_mode_refuses_what_is_not_ported(arch, changes, match):
     from repro_torch.params import init_params
 
     gen = torch.Generator().manual_seed(0)
-    params = init_params(dataclasses.replace(cfg, mtp=False), gen, "cpu")
+    params = init_params(cfg, gen, "cpu")
     with pytest.raises(NotImplementedError, match=match):
         model.loss_fn(params, {"tokens": tokens})
