@@ -98,7 +98,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    version's and the bound; on every float32 case its error against float64
    autograd through ``ref.wkv6_ref`` at most twice the plain version's. The
    dense family's and granite-moe's prefill and decode
-   shapes are among the flash and decode-attention cases. Each timed case
+   shapes are among the flash and decode-attention cases, and so are the
+   prefill and decode shapes of seamless-m4t-large-v2's decoder and
+   internvl2-2b, each timed. The bfloat16 flash forward without a mask at
+   seamless-m4t-large-v2's encoder (4, 16, 4096, 64), its decode step's
+   cross-attention (one query row against 4,096 keys) and a ragged prefill's
+   (37 rows against 1,000): bits on two launches and for batch row 0 alone,
+   timed beside SDPA as dispatched; edges at Sq != Sk (1 against 333, 100
+   against 40); each of these held within SCALED_RTOL |want| + TOL times the
+   output's RMS, and each shown to fail a planted fault (a dropped last key
+   tile, padding keys folded into the softmax). Each timed case
    prints the kernel's time, its plain version's, one PyTorch library call's
    where one computes the same function, and the least time the card could
    take;
@@ -166,12 +175,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the train phase's direct step (tokens/s), peak memory, the host's seconds in
    ``payload_digest``, in copies between the card and the host and in the fold
    (timers the phase puts around those calls) and each save's seconds;
-6. hybrid: ``recurrentgemma-9b`` at full width and depth (38 layers,
-   10.4B params, bfloat16) serves 8 requests of prompts on both sides of
-   its 2048 window through ``ContinuousBatcher(slots=4, max_len=3072)``;
-   the flash kernel ran in the 12 attention layers of every prefill, the
-   decode-attention kernel in them at every decode step, and the RG-LRU
-   kernel in the 26 recurrent layers of every prefill and decode step;
+6. hybrid: ``recurrentgemma-9b`` at full width, 19 of its 38 layers
+   (HYBRID_SERVE_LAYERS: 13 rec, 6 attn, bfloat16) serves 8 requests of
+   prompts on both sides of its 2048 window through
+   ``ContinuousBatcher(slots=4, max_len=3072)``; the flash kernel ran in the
+   attention layers of every prefill, the decode-attention kernel in them at
+   every decode step, and the RG-LRU kernel in the recurrent layers of every
+   prefill and decode step;
    each request's logits agree with a teacher-forced
    sequential run (fed the batched tokens) within LOGIT_TOL_BF16, and with
    the same run at the batcher's width bit for bit; a profiled prefill of
@@ -184,10 +194,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    in that run; decode across the window equals a fresh prefill within
    1e-4; one rec and one attn layer on the card equal the port's CPU path
    on a (1, 2100, 4096) input within 1e-4;
-8. rwkv: ``rwkv6-7b`` at full width and depth (32 layers, 7.66B params,
+8. rwkv: ``rwkv6-7b`` at full width, 16 of its 32 layers (RWKV_SERVE_LAYERS,
    bfloat16) serves 8 requests (prompts up to 3000 tokens, one shorter than
    a WKV chunk) through ``ContinuousBatcher(slots=4, max_len=3072)``; the
-   WKV6 kernel ran in the 32 layers of every prefill and decode step and no
+   WKV6 kernel ran in every layer of every prefill and decode step and no
    other kernel ran; each request's logits equal a teacher-forced run at the
    batcher's width bit for bit and agree with it at batch 1 within
    LOGIT_TOL_RWKV; a profiled prefill of one prompt gives the device time by
@@ -252,6 +262,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    absorbed decode steps) and its decode steps against a fresh prefill, and
    a float32 MoE layer (46 GB) against the CPU path on a 64-token prefill
    and 2 decode steps, routing compared first;
+10c. seamless: ``seamless-m4t-large-v2`` at full width and depth (24 encoder
+   and 24 decoder layers, 1.63B params, bfloat16) through ``build(cfg).prefill``
+   and greedy ``decode_step``, the reference's loop (its batcher takes tokens
+   alone): a batch of 4 at 4,096 source frames and two requests alone at 1,000
+   and 333, 32 tokens each; the flash kernel 72 times a prefill (the encoder
+   without a mask, causal self-attention, cross-attention) and 24 times a
+   decode step (the cross-attention at Sq = 1), the decode-attention kernel 24
+   times a step, nothing else, counted by block; decode steps 0, 7, 15 and 31
+   within min(TEACHER_GAPS times a fresh prefill's gap to a float32 copy,
+   LOGIT_TOL_BF16); prefill
+   and decode times beside their bounds, tok/s, peak memory, the encoder's share
+   of a prefill and the cross-attention's of a decode step; a float32 enc layer
+   and an xattn layer (prefill, decode through the grown cache) on the card
+   against the CPU path;
+10d. internvl: ``internvl2-2b`` at full width and depth (24 layers, 1.90B params,
+   bfloat16, 256 patch embeddings before each text prompt) the same way, 4
+   requests alone: 24 flash launches a prefill and 24 decode launches a step;
+   a float32 copy cut to one layer (the frontend and the layer's prefill)
+   against the CPU path;
 11. dense train, in a process of its own (this file run with
    ``--dense-train``, set up as ``--train``): ``qwen3-1.7b`` at full width and
    depth in bfloat16 with remat "full" takes 3 AdamW steps (the train CLI's)
@@ -421,7 +450,7 @@ from repro_torch.optim.adamw import (  # noqa: E402
     tree_leaves,
     tree_map,
 )
-from repro_torch.params import init_params  # noqa: E402
+from repro_torch.params import count_params, init_params  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.serve.batcher import _splice_cache  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -595,7 +624,15 @@ DECODE_CASES = [
 ]
 DECODE_DEMO_JSON, DECODE_JSON = DECODE_CASES[0], DECODE_CASES[1]
 DECODE_GRANITE_JSON = DECODE_CASES[-1]
-DECODE_TIMED = (DECODE_DEMO_JSON, DECODE_JSON, DECODE_GRANITE_JSON)
+# the last decode step of seamless-m4t-large-v2's batch-4 request (16 heads of 64, no grouping,
+# a cache of its 4-token prompt + 32) and of internvl2-2b's longest request (16 on 8 KV heads of
+# 128, a cache of 256 patches + 513 tokens + 32)
+DECODE_SEAMLESS_JSON = (4, 16, 16, 36, 64, None, "bfloat16", (35, 35, 35, 35))
+DECODE_INTERNVL_JSON = (1, 16, 8, 801, 128, None, "bfloat16", (800,))
+DECODE_CASES += [DECODE_SEAMLESS_JSON, DECODE_INTERNVL_JSON]
+DECODE_TIMED = (
+    DECODE_DEMO_JSON, DECODE_JSON, DECODE_GRANITE_JSON, DECODE_SEAMLESS_JSON, DECODE_INTERNVL_JSON
+)
 DECODE_DETERMINISM = DECODE_TIMED
 # (B, H, T, K, V, dtype, with h0): WKV_CASES of tests/test_kernels.py, a ragged T,
 # rwkv6-7b's prefill (T up to 3000, 64 heads of 64; prefill passes the zero
@@ -834,6 +871,12 @@ RWKV_MAX_LEN = 3072
 # apart within 32 decode steps (tools/batch_invariance.py).
 LOGIT_TOL_RWKV = 0.66
 RWKV_LAYER_CHECK_SHAPE = (1, 333, 4096)  # ragged: a last WKV chunk of 13 rows
+# recurrentgemma-9b and rwkv6-7b are served at half depth since the seamless and internvl
+# phases came, to keep the script's phases inside the time limit (they took 71.0 s and 64.1 s
+# at full depth): the hybrid's first 19 layers keep its (rec, rec, attn) pattern with 6 attn
+# layers; every gate holds at any depth, and the kernel rows keep their shapes
+HYBRID_SERVE_LAYERS = 19
+RWKV_SERVE_LAYERS = 16
 MOE_ARCH = "granite-moe-3b-a800m"
 MOE_MAX_LEN = 2048
 # the moe phase's prompts, make_prompts(8, vocab, 64, 2000, seed=0): 1711, 1297 and 1054
@@ -899,6 +942,67 @@ LOGIT_TOL_DEEPSEEK = 0.21
 ROUTER_INPUT_TOL = 7 * 2**-8
 DEEPSEEK_LAYER_CHECK = 777  # rows of the float32 MLA layer's prefill, then 4 decode steps
 DEEPSEEK_MOE_CHECK = 64  # rows of the float32 MoE layer's prefill, then 2 decode steps
+# The encoder-decoder and VLM serving phases (the reference serves these two only through its
+# Model API: prefill, then greedy decode_step, as tests/test_archs_smoke.py does).
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+INTERNVL_ARCH = "internvl2-2b"
+# (batch, source frames, prompt tokens) of each seamless request: a batch of 4 at the
+# reference's source_len_for_decode with equal 4-token prompts, then two requests alone at
+# ragged lengths (a last key tile of 1000 % 64 = 40 and 333 % 64 = 13 rows; a 37-token prompt
+# and a 1-token one)
+SEAMLESS_REQUESTS = ((4, 4096, 4), (1, 1000, 37), (1, 333, 1))
+INTERNVL_REQUESTS = 4  # prompts of make_prompts(4, vocab, 16, 600, seed=0), each alone
+INTERNVL_PROMPT_LENS = (16, 600)
+TEACHER_STEPS = (0, 7, 15, 31)  # decode steps held against a fresh prefill
+# A decode step against a fresh prefill over the prompt and the tokens fed so far, both in
+# bfloat16 at the same batch: the encoder (seamless) and the vision prefix (internvl) see the
+# same inputs at the same shapes and give the same bits; the decoder's products run at other
+# row counts (cuBLAS may sum in another order) and its attention runs the decode kernel in
+# place of the flash one, so its bfloat16 roundings fall elsewhere, and each layer's rounding
+# moves the next layer's input. So each step is held within TEACHER_GAPS times the fresh
+# prefill's own bfloat16 rounding: its distance to the same prefill run by a float32 copy of
+# the same weights (max |a - b| over the logits, as the CPU tests hold a bfloat16 copy). As
+# |decode - fresh| <= |decode - float32| + |fresh - float32|, a step within twice the gap
+# rounds no more than the prefill does. The decode kernel takes P.V with P in bfloat16 hi/lo
+# halves where the flash kernel rounds P to bfloat16 once, so decode lands nearer float32 and
+# its distance to the prefill is about the prefill's own gap (1.00-1.35 of it; NVIDIA H100
+# 80GB HBM3, 700 W). LOGIT_TOL_BF16 caps the limit, so that a fault that widened the gap itself
+# (in the bfloat16 prefill or in the float32 copy) cannot widen the limit past it. A fault (a
+# cross key in the wrong slot, a lost position, a cache too short for the patches: decode then
+# writes every new key into the last slot) moves logits past any rounding.
+TEACHER_GAPS = 2.0
+# the float32 layer checks of the seamless phase: source rows, decoder rows, decode steps
+SEAMLESS_LAYER_CHECK = (333, 37, 2)
+# seamless's flash shapes without a mask, each timed: the encoder's self-attention at the
+# batch-4 prefill (16 heads of 64, no GQA), a decode step's cross-attention, one query row
+# against the 4,096 source rows, and a ragged request's prefill cross-attention (37 rows against
+# 1,000); then edges small enough for the plain version: a decode step against 333, and more
+# queries than keys
+ENCODER_FLASH_JSON = (4, 16, 16, 4096, 4096, 64, False, None, "bfloat16", 64)
+CROSS_DECODE_JSON = (4, 16, 16, 1, 4096, 64, False, None, "bfloat16", 64)
+CROSS_PREFILL_JSON = (1, 16, 16, 37, 1000, 64, False, None, "bfloat16", 64)
+ENCDEC_FLASH_TIMED = (ENCODER_FLASH_JSON, CROSS_DECODE_JSON, CROSS_PREFILL_JSON)
+ENCDEC_FLASH_EDGES = (
+    (1, 16, 16, 1, 333, 64, False, None, "bfloat16", 64),
+    (1, 16, 16, 100, 40, 64, False, None, "bfloat16", 64),
+)
+# These rows are held tighter than TOL's rtol = atol = 2e-2. At N(0, 1) inputs the outputs are
+# about sqrt(e / Sk) in size (0.026 at 4,096 keys), so an atol of 2e-2 would pass a key tile
+# dropped from the walk. Both sides round the output to bfloat16 once and may differ by one unit
+# in its last place, at most 2^-7 of the value; the kernel's P, rounded to bfloat16 before P.V,
+# adds noise well below TOL times the output's RMS. So |got - want| <= SCALED_RTOL |want| +
+# TOL * rms(want), and each row shows that planted faults fail that limit: the walk's last key
+# tile dropped, and a ragged last tile's padding keys (zeros, as TMA fills them) folded into the
+# softmax (_planted_faults).
+SCALED_RTOL = 2.0**-7
+KEY_TILE = 64  # the bfloat16 forward's key tile at head dim 64
+# the prefills' self-attention of the other serving paths of this slice, timed beside their
+# kernels-line entries: seamless's decoder at the 37-token request (causal, group 1) and
+# internvl2-2b's at its longest request, 256 patch tokens and a 513-token prompt (16 heads on 8
+# KV heads of 128); the phases check that they ran at these lengths
+SEAMLESS_SELF_FLASH_JSON = (1, 16, 16, 37, 37, 64, True, None, "bfloat16", 64)
+INTERNVL_FLASH_JSON = (1, 16, 8, 769, 769, 128, True, None, "bfloat16", 128)
+SERVE_FLASH_TIMED = (SEAMLESS_SELF_FLASH_JSON, INTERNVL_FLASH_JSON)
 
 
 # the WKV6 backward's kernels (both walks, the chunk pass, du), which ptxas must build with no
@@ -1219,12 +1323,13 @@ def _window_mask(sq, sk, window):
 
 
 def _flash_rows(gen):
-    """Flash kernel vs plain on every case; times at the demo and hybrid shapes."""
+    """Flash kernel vs plain on every case; times at the demo's, the hybrid's, granite's and
+    the prefill shapes of SERVE_FLASH_TIMED."""
     cases = [c + (c[5],) for c in FLASH_CASES]  # Dv = D
     cases.append((1, 2, 2, 64, 64, 48, True, None, "float32", 32))  # MLA head dims
     cases += EDGE_CASES + BF16_CASES + F32_CASES
     cases += [(1, 12, 4, s, s, 64, True, None, "float32", 64) for s in DEMO_SEQ]
-    cases += HYBRID_FLASH + [GRANITE_FLASH_JSON]
+    cases += HYBRID_FLASH + [GRANITE_FLASH_JSON, *SERVE_FLASH_TIMED]
     rows, demo_err = {}, 0.0
     for case in cases:
         b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
@@ -1242,7 +1347,7 @@ def _flash_rows(gen):
             f"max |err| {err:.3e} (tol {TOL[dt]}), {100 * used:.1f}% used"
         )
         demo = (hq, hkv, d) == (12, 4, 64)
-        if not demo and case not in HYBRID_FLASH and case != GRANITE_FLASH_JSON:
+        if not demo and case not in (*HYBRID_FLASH, GRANITE_FLASH_JSON, *SERVE_FLASH_TIMED):
             continue
         if demo:
             demo_err = max(demo_err, err)
@@ -2430,6 +2535,7 @@ def phase_kernels():
     wkv6_rows = _wkv6_rows(gen)
     wkv6_rows["bwd"] = _wkv6_bwd_rows(gen)
     flash_rows.update(_mla_flash_rows(gen))
+    flash_rows.update(_encdec_flash_rows(gen))
     bwd_rows["mla_train"] = _mla_train_rows(gen)
     return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows
 
@@ -2500,6 +2606,118 @@ def _mla_flash_rows(gen) -> dict:
             f"{lib_err:.1e}) {row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}, bf16 "
             f"tensor cores), the DC = 4 build's floor (QK^T over 256 columns) {floor:.5f}, "
             f"kernel/bound {row['ms'] / bound:.1f}"
+        )
+    return rows
+
+
+def _scaled_used(got, want) -> float:
+    """The largest |got - want| / (SCALED_RTOL |want| + TOL * rms(want)) over the elements: 1 is
+    at the limit the flash rows without a mask are held to."""
+    w = want.float()
+    limit = SCALED_RTOL * w.abs() + TOL["bfloat16"] * w.square().mean().sqrt()
+    return ((got.float() - w).abs() / limit).max().item()
+
+
+def _planted_faults(q, k, v, want) -> dict:
+    """The share of the scaled limit that each planted fault of a walk without a mask reads,
+    by name: the plain version with the walk's last key tile dropped (walks of more than one
+    tile), and with the ragged last tile's padding keys and values, zeros, folded into the
+    softmax (Sk no multiple of KEY_TILE)."""
+    sk = k.shape[2]
+    tail = sk - KEY_TILE * ((sk - 1) // KEY_TILE)  # keys in the walk's last tile
+    faults = {}
+    if sk > KEY_TILE:
+        kept = sk - tail
+        faults["last key tile dropped"] = (k[:, :, :kept], v[:, :, :kept])
+    if tail < KEY_TILE:
+        pad = (0, 0, 0, KEY_TILE - tail)
+        faults["padding keys folded in"] = (
+            torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        )
+    return {
+        name: _scaled_used(ref.flash_attention_ref(q, kf, vf, causal=False), want)
+        for name, (kf, vf) in faults.items()
+    }
+
+
+def _encdec_flash_rows(gen) -> dict:
+    """The bfloat16 flash forward without a mask at seamless-m4t-large-v2's shapes: its
+    encoder's self-attention at the batch-4 prefill (ENCODER_FLASH_JSON), the cross-attention
+    of a decode step, one query row against 4,096 source rows (CROSS_DECODE_JSON), and a ragged
+    request's prefill cross-attention (CROSS_PREFILL_JSON), then the edges ENCDEC_FLASH_EDGES:
+    each against its plain version within SCALED_RTOL |want| + TOL * rms(want), with the share
+    of that limit used, and with the share each planted fault reads (each must fail it). The
+    timed rows also give equal bits on two launches and for batch row 0 alone as within the
+    batch, kernel ms, device us a call, plain ms, SDPA's ms on the backend its dispatcher picks
+    (named) and the bound."""
+    rows = {}
+    for case in (*ENCDEC_FLASH_TIMED, *ENCDEC_FLASH_EDGES):
+        b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+        q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.bfloat16)
+
+        def kernel(q=q, k=k, v=v):
+            return fa.flash_attention_fwd(q, k, v, causal=False)
+
+        got = kernel()
+        want = ref.flash_attention_ref(q, k, v, causal=False)
+        shape = f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} {dt} no mask"
+        err = (got.float() - want.float()).abs().max().item()
+        used, rms = _scaled_used(got, want), want.float().square().mean().sqrt().item()
+        faults = _planted_faults(q, k, v, want)
+        limit = f"2^-7 |want| + {TOL[dt]} x rms {rms:.4f}"
+        if not torch.isfinite(got.float()).all() or used > 1.0:
+            raise AssertionError(
+                f"[kernels] flash_attention_fwd {shape}: max |err| {err:.3e}, {100 * used:.1f}% "
+                f"of the limit {limit}"
+            )
+        if min(faults.values()) <= 1.0:
+            raise AssertionError(
+                f"[kernels] flash_attention_fwd {shape}: a planted fault passes the limit "
+                f"{limit}: {faults}"
+            )
+        msg = (
+            f"[kernels] flash_attention_fwd {shape} ({fa.PATHS[torch.bfloat16]} path): max |err| "
+            f"{err:.3e}, {100 * used:.1f}% of the limit {limit}; planted faults read "
+            + ", ".join(f"{name} {x:.1f}x the limit" for name, x in faults.items())
+        )
+        if case in ENCDEC_FLASH_EDGES:
+            log(msg)
+            continue
+        again, alone = kernel(), fa.flash_attention_fwd(q[:1], k[:1], v[:1], causal=False)
+        relaunch, batch = (got != again).sum().item(), (alone != got[:1]).sum().item()
+        if relaunch or batch:
+            raise AssertionError(
+                f"[kernels] flash_attention_fwd {shape}: {relaunch} elements differ between two "
+                f"launches, {batch} between B=1 and row 0 of B={b}"
+            )
+
+        def library(q=q, k=k, v=v):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=False)
+
+        backend = _sdpa_backend(q, k, v, None, False)
+        lib_err = (library().float() - want.float()).abs().max().item()
+        bound, bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, False, None, 2)
+        row = {
+            "ms": time_ms(kernel),
+            "device_us": device_us(kernel, launches=20),
+            "plain_ms": time_ms(
+                lambda q=q, k=k, v=v: ref.flash_attention_ref(q, k, v, causal=False), iters=5
+            ),
+            "library_ms": time_ms(library, iters=10),
+            "library_backend": backend,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": err,
+        }
+        rows[case] = row
+        blocks = b * hq * -(-sq // 128)
+        log(
+            f"{msg}; two launches equal bit for bit, B=1 equals row 0 of B={b} bit for bit; "
+            f"kernel_ms {row['ms']:.4f} (device {row['device_us']:.2f} us a call, {blocks} blocks "
+            f"of 128 query rows, each walking {-(-sk // KEY_TILE)} key tiles), plain_ms "
+            f"{row['plain_ms']:.4f}, library_ms (SDPA {backend}, dispatched, |err| {lib_err:.1e}) "
+            f"{row['library_ms']:.4f}, bound_ms {bound:.5f} ({bound_by}, bf16 tensor cores, "
+            f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s), kernel/bound {row['ms'] / bound:.1f}"
         )
     return rows
 
@@ -3858,8 +4076,14 @@ def _layer_counts(cfg):
 
 
 def phase_hybrid() -> dict:
-    """Serve full-width recurrentgemma-9b; returns launch counts and serving numbers."""
-    cfg = get_config("recurrentgemma-9b")
+    """Serve full-width recurrentgemma-9b at HYBRID_SERVE_LAYERS of its 38 layers; returns
+    launch counts and serving numbers."""
+    base = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(
+        base,
+        num_layers=HYBRID_SERVE_LAYERS,
+        block_pattern=base.block_pattern[:HYBRID_SERVE_LAYERS],
+    )
     n_rec, n_attn = _layer_counts(cfg)
     t0 = time.monotonic()
     params = init_params(cfg, _gen(0), DEV)
@@ -4153,90 +4377,28 @@ def _device_kinds(rows):
 
 
 def _prefill_profile(model, params, tag: str, prompt, max_len: int) -> None:
-    """One prefill of ``prompt`` as the batcher runs it (padded to ``max_len``): host
-    time, then under torch.profiler the device time by kind of kernel."""
+    """One prefill of ``prompt`` as the batcher runs it (padded to ``max_len``), warmed once,
+    through ``_profile``."""
     ids = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
 
     def prefill():
         model.prefill(params, {"tokens": ids}, pad_to=max_len)
 
     prefill()
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    prefill()
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.monotonic() - t0)
-    peak = torch.cuda.max_memory_allocated()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        prefill()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0)
-    rows = _device_rows(prof)
-    if not rows:
-        log(f"{tag} prefill profile: no device time recorded (not measured)")
-        return
-    kinds, launches = _device_kinds(rows)
-    device_ms = sum(kinds.values())
-    by_kind = "; ".join(
-        f"{k} {ms:.3f} ms ({100 * ms / device_ms:.1f}%, {launches[k]} launches)"
-        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
-    )
-    top = "; ".join(f"{k[:60]} {us / 1e3:.3f} ms x{n}" for us, n, k in rows[:6])
-    log(
-        f"{tag} prefill of {len(prompt)} tokens: {plain_ms:.3f} ms host wall, peak memory "
-        f"{peak} bytes ({peak - held} above the {held} held before it); under the "
-        f"profiler {wall_ms:.3f} ms wall, device busy {device_ms:.3f} ms "
-        f"({100 * device_ms / wall_ms:.1f}%), {sum(launches.values())} kernels; device time "
-        f"by kind: {by_kind}; top kernels: {top}"
-    )
+    _profile(tag, f"prefill of {len(prompt)} tokens", prefill, host=True)
 
 
 def _decode_profile(model, params, tag: str, max_len: int, steps: int = 5) -> None:
-    """Host time of a 4-slot decode step, and under torch.profiler the device's
-    busy share and the kernels that take most of its time."""
+    """A 4-slot decode step, warmed twice, through ``_profile``."""
     cache = model.init_cache(SLOTS, max_len)
     tok = torch.zeros(SLOTS, dtype=torch.long, device=DEV)
+
+    def step():
+        model.decode_step(params, cache, {"token": tok})
+
     for _ in range(2):
-        model.decode_step(params, cache, {"token": tok})
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    for _ in range(steps):
-        model.decode_step(params, cache, {"token": tok})
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.monotonic() - t0) / steps
-    peak = torch.cuda.max_memory_allocated()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        for _ in range(steps):
-            model.decode_step(params, cache, {"token": tok})
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.monotonic() - t0)
-    rows = _device_rows(prof)
-    device_us = sum(r[0] for r in rows)
-    if not rows:
-        log(f"{tag} decode profile: no device time recorded (busy share not measured)")
-        return
-    top = "; ".join(f"{k[:60]} {us / steps:.0f} us x{n // steps}" for us, n, k in rows[:6])
-    ours = "; ".join(  # the port's own kernels: device time of one launch at decode
-        f"{name} {us / n:.2f} us a launch x{n // steps}"
-        for us, n, k in rows
-        for name in PORT_KERNEL_SYMBOLS
-        if name in k
-    )
-    log(
-        f"{tag} decode step (4 slots): {plain_ms:.3f} ms host wall, peak memory {peak} bytes "
-        f"({peak - held} above the {held} held before it); under the profiler "
-        f"{wall_us / 1e3 / steps:.3f} ms wall, device busy {device_us / 1e3 / steps:.3f} ms "
-        f"({100 * device_us / wall_us:.1f}%), {sum(r[1] for r in rows) // steps} kernels a step; "
-        f"top by device time per step: {top}; the port's kernels: {ours or 'none'}"
-    )
+        step()
+    _profile(tag, "decode step (4 slots)", step, steps, host=True)
 
 
 def phase_exactness() -> dict:
@@ -4325,8 +4487,9 @@ def rwkv_prompts(vocab: int, seed: int = 0):
 
 
 def phase_rwkv() -> int:
-    """Serve full-width rwkv6-7b; returns the WKV6 kernel's launch count."""
-    cfg = get_config("rwkv6-7b")
+    """Serve full-width rwkv6-7b at RWKV_SERVE_LAYERS of its 32 layers; returns the WKV6
+    kernel's launch count."""
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=RWKV_SERVE_LAYERS)
     t0 = time.monotonic()
     params = init_params(cfg, _gen(0), DEV)
     model = build(cfg, DEV)
@@ -5199,6 +5362,670 @@ def _deepseek_moe_layer_check(tag, cfg) -> None:
     )
 
 
+@contextlib.contextmanager
+def _encdec_ranges(counts: dict, spans=None):
+    """Profiler ranges around an encoder-decoder's encoder stack ("encoder": ``run_stack`` in
+    train mode inside prefill) and each ``xattn`` layer's cross-attention block ("cross"),
+    this file's patches (the port's code carries none), each counting into ``counts`` the flash
+    launches made inside it: "encoder", "cross prefill", "cross decode". With ``spans``, CUDA
+    events recorded in the stream before and after each call go into ``spans[label]``."""
+    run_stack, cross = model_mod.run_stack, transformer_mod._cross_attention
+
+    def launched(label, fn, *args, **kwargs):
+        n0 = fa.flash_attention_fwd.launches
+        events = () if spans is None else [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+        with torch.profiler.record_function(label.split()[0]):
+            for e in events[:1]:
+                e.record()
+            out = fn(*args, **kwargs)
+            for e in events[1:]:
+                e.record()
+        counts[label] = counts.get(label, 0) + fa.flash_attention_fwd.launches - n0
+        if events:
+            spans.setdefault(label, []).append(events)
+        return out
+
+    def ranged_stack(*args, **kwargs):
+        if kwargs.get("mode") != "train":
+            return run_stack(*args, **kwargs)
+        return launched("encoder", run_stack, *args, **kwargs)
+
+    def ranged_cross(h, lp, cfg, mode, *rest):
+        return launched(f"cross {mode}", cross, h, lp, cfg, mode, *rest)
+
+    model_mod.run_stack, transformer_mod._cross_attention = ranged_stack, ranged_cross
+    try:
+        yield
+    finally:
+        model_mod.run_stack, transformer_mod._cross_attention = run_stack, cross
+
+
+def _profile(tag: str, label: str, run, steps: int = 1, ranges=(), host: bool = False) -> dict:
+    """``run`` ``steps`` times under torch.profiler: wall ms a step, device busy ms a step and
+    its share, the device ms by kind of kernel, the longest kernels, the port's kernels' device
+    us a launch, and the device ms under each profiler range in ``ranges`` (whose patches the
+    caller holds); with ``host``, first ``steps`` runs without the profiler: host wall ms a step
+    and the peak memory above what was held before them. Logged, and returned by name."""
+    note = ""
+    torch.cuda.synchronize()
+    if host:
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        note = (
+            f"{1e3 * (time.monotonic() - t0) / steps:.3f} ms host wall, peak memory {peak} bytes "
+            f"({peak - held} above the {held} held before it); "
+        )
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.monotonic() - t0) / steps
+    spans = {name: 0.0 for name in ranges}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in spans:
+            spans[e.name] += e.device_time_total / 1e3 / steps
+    rows = [r for r in _device_rows(prof) if r[2] not in spans]
+    if not rows:
+        log(f"{tag} {label}: {note}profiler: no device time recorded (not measured)")
+        return {}
+    kinds, launches = _device_kinds(rows)
+    device_ms = sum(kinds.values()) / steps
+    by_kind = "; ".join(
+        f"{k} {ms / steps:.3f} ms ({100 * ms / steps / device_ms:.1f}%, {launches[k] // steps} "
+        "launches)"
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])
+    )
+    top = "; ".join(f"{k[:60]} {us / steps / 1e3:.3f} ms x{n // steps}" for us, n, k in rows[:6])
+    ours = "; ".join(
+        f"{name} {us / n:.2f} us a launch x{n // steps}"
+        for us, n, k in rows
+        for name in PORT_KERNEL_SYMBOLS
+        if name in k
+    )
+    named = "".join(
+        f"; under the range {name!r} {ms:.3f} ms ({100 * ms / device_ms:.1f}% of the device's)"
+        for name, ms in spans.items()
+    )
+    per = "a step" if steps > 1 else "in all"
+    log(
+        f"{tag} {label}: {note}under the profiler {wall_ms:.3f} ms wall {per}, device busy "
+        f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
+        f"{sum(launches.values()) // steps} kernels; device ms by kind: {by_kind}; top kernels: "
+        f"{top}; the port's kernels: {ours or 'none'}{named}"
+    )
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "kinds": kinds, **spans}
+
+
+def _pad_to(batch, new_tokens: int) -> int:
+    """The decode cache's length for ``batch``: a VLM's patch tokens, the prompt, the new ones."""
+    patches = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    return patches + batch["tokens"].shape[1] + new_tokens
+
+
+def _greedy(model, params, batch, new_tokens: int, keep=TEACHER_STEPS):
+    """The reference's loop: prefill padded to ``_pad_to``, then greedy decode steps. Returns
+    the tokens fed (B, new_tokens) on the host, the logits of the decode steps in ``keep``
+    (float32, on the host), prefill ms and decode ms a step (host wall, synced)."""
+    pad_to = _pad_to(batch, new_tokens)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = model.prefill(params, batch, pad_to=pad_to)
+    tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    toks, kept = [], {}
+    for j in range(new_tokens):
+        toks.append(tok)
+        logits, cache = model.decode_step(params, cache, {"token": tok})
+        if j in keep:
+            kept[j] = logits.float().clone()
+        tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    tokens = torch.stack(toks, dim=1).cpu()
+    kept = {j: x.cpu() for j, x in kept.items()}
+    return tokens, kept, 1e3 * (t1 - t0), 1e3 * (t2 - t1) / new_tokens
+
+
+def _teacher_forced_steps(tag, models, batch, tokens, kept) -> tuple:
+    """Each kept decode step's logits against the last position of a fresh prefill over the
+    inputs and the prompt plus the tokens fed up to that step (the reference's
+    test_prefill_decode_consistency), within min(TEACHER_GAPS times that prefill's distance to
+    the same prefill by the float32 copy, LOGIT_TOL_BF16); the greedy tokens that differ from
+    the fresh prefills' argmax. ``models`` is ((model, params), (float32 model, float32
+    params)). Returns (max |err|, the largest err / gap, the gaps' range, the largest share of
+    the limit used, tokens that differ)."""
+    (model, params), (model32, params32) = models
+    worst, ratio, gaps, used, differ = 0.0, 0.0, [], 0.0, 0
+    dev_tokens = tokens.to(DEV)
+    for j, got in kept.items():
+        seq = torch.cat([batch["tokens"], dev_tokens[:, : j + 1]], dim=1)
+        fresh, _ = model.prefill(params, {**batch, "tokens": seq})
+        fresh = fresh.float().cpu()
+        exact = model32.prefill(params32, {**batch, "tokens": seq})[0].cpu()
+        err, gap = (got - fresh).abs().max().item(), (fresh - exact).abs().max().item()
+        limit = min(TEACHER_GAPS * gap, LOGIT_TOL_BF16)
+        if not torch.isfinite(got).all() or err > limit:
+            raise AssertionError(
+                f"{tag} decode step {j} vs a fresh prefill: max |err| {err:.4f}, the prefill's "
+                f"own gap to float32 {gap:.4f}, limit {limit:.4f}"
+            )
+        worst, ratio, used = max(worst, err), max(ratio, err / gap), max(used, err / limit)
+        gaps.append(gap)
+        if j + 1 < tokens.shape[1]:
+            differ += int((fresh.argmax(dim=-1) != tokens[:, j + 1]).sum())
+    return worst, ratio, (min(gaps), max(gaps)), used, differ
+
+
+def _float32_copy(cfg, params):
+    """``cfg`` and ``params`` in float32 (the bfloat16 weights' values), built on the card."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    return build(cfg32, DEV), tree_map(lambda x: x.float(), params)
+
+
+def _weights_bytes(tree, skip=()) -> int:
+    """Bytes of the leaves of ``tree`` but those whose path ends in one of ``skip``'s
+    (parent, name) pairs."""
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return sum(walk(v, path + (k,)) for k, v in t.items())
+        return 0 if path[-2:] in skip else t.numel() * t.element_size()
+
+    return walk(tree, ())
+
+
+def _dense_flops(cfg, n: int) -> float:
+    """FLOPs of one self-attention layer's projections and MLP over ``n`` rows."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return 2.0 * n * (2 * d * h * hd + 2 * d * kv * hd + (3 if cfg.glu else 2) * d * cfg.d_ff)
+
+
+def _encdec_prefill_flops(cfg, b: int, s_src: int, s_tgt: int) -> float:
+    """FLOPs of one seamless prefill as the reference defines its work: the frontend
+    projection, the encoder's layers (projections, MLP, attention without a mask), each decoder
+    layer's self-attention (causal), cross K/V over the source rows, cross q/o and the
+    cross-attention, its MLP, the last row's unembed."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    enc = _dense_flops(cfg, b * s_src) + 4.0 * b * h * s_src * s_src * hd
+    dec = _dense_flops(cfg, b * s_tgt) + 4.0 * b * h * _kept_pairs(s_tgt, s_tgt, True, None) * hd
+    dec += 2.0 * b * s_src * 2 * d * kv * hd + 2.0 * b * s_tgt * 2 * d * h * hd
+    dec += 4.0 * b * h * s_tgt * s_src * hd
+    front = 2.0 * b * s_src * cfg.frontend_dim * d
+    return front + cfg.encoder_layers * enc + cfg.num_layers * dec + 2.0 * b * d * cfg.vocab_size
+
+
+def phase_seamless() -> dict:
+    """Serve seamless-m4t-large-v2 at full width and depth (24 encoder and 24 decoder layers,
+    bfloat16) through ``build(cfg).prefill`` and greedy ``decode_step``, the reference's loop:
+    a batch of 4 at 4,096 source frames and two requests alone at ragged lengths
+    (SEAMLESS_REQUESTS), 32 tokens each; the launch gates (the flash forward 72 times a prefill
+    and 24 a decode step, decode_attention 24 a decode step, nothing else), decode steps 0, 7,
+    15, 31 against a fresh prefill, serving numbers beside their bounds, a profiled prefill
+    with the encoder's share and a profiled decode window with the cross-attention's; then a
+    float32 enc layer and an xattn layer (prefill and decode through the grown cache) on the
+    card against the CPU path. Returns the flash launches by block (the encoder, the
+    cross-attention at prefill and at decode, the decoder's self-attention) and the
+    decode-attention launches."""
+    tag = "[seamless]"
+    cfg = get_config(SEAMLESS_ARCH)
+    t0 = time.monotonic()
+    params = init_params(cfg, _gen(0), DEV)
+    model = build(cfg, DEV)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    log(
+        f"{tag} {cfg.name}: {cfg.encoder_layers} encoder and {cfg.num_layers} decoder layers, "
+        f"d={cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim} ({cfg.num_kv_heads} KV), "
+        f"{cfg.act} MLP of {cfg.d_ff} (glu {cfg.glu}), {cfg.norm}, vocab {cfg.vocab_size} "
+        f"(untied), remat {cfg.remat!r}; {count_params(cfg)} params {cfg.param_dtype}, {held} "
+        f"bytes on the card; segments {model.enc_segments} + {model.segments}; drawn in "
+        f"{time.monotonic() - t0:.1f} s"
+    )
+    gen = _gen(11)
+
+    def request(b, s_src, n_tok):
+        frames = torch.randn(b, s_src, cfg.frontend_dim, generator=gen, device=DEV)
+        toks = torch.randint(0, cfg.vocab_size, (b, n_tok), generator=gen, device=DEV)
+        return {"frames": frames.to(torch.bfloat16), "tokens": toks}
+
+    batches = [request(*r) for r in SEAMLESS_REQUESTS]
+    L, E, counts = cfg.num_layers, cfg.encoder_layers, {}
+    _, s_src, n_tok = SEAMLESS_REQUESTS[1]
+    timed = {
+        "cross prefill": CROSS_PREFILL_JSON[3:5],
+        "self prefill": SEAMLESS_SELF_FLASH_JSON[3:5],
+        "decode cache": DECODE_SEAMLESS_JSON[3:4],
+    }
+    path = {
+        "cross prefill": (n_tok, s_src),
+        "self prefill": (n_tok, n_tok),
+        "decode cache": (SEAMLESS_REQUESTS[0][2] + NEW_TOKENS,),
+    }
+    if timed != path:
+        raise AssertionError(f"{tag} the kernel rows' shapes {timed} are not the path's {path}")
+    with torch.no_grad():
+        _greedy(model, params, request(1, 64, 4), 2, keep=())  # load the kernels, warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        runs = []
+        t0 = time.monotonic()
+        with _encdec_ranges(counts):
+            for batch in batches:
+                runs.append(_greedy(model, params, batch, NEW_TOKENS))
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {
+            "flash": fa.flash_attention_fwd.launches,
+            "decode_attention": da.decode_attention.launches,
+        }
+        others = (
+            fa.flash_attention_bwd.launches,
+            rg.rglru_scan.launches,
+            rg.rglru_bwd.launches,
+            wk.wkv6_chunked.launches,
+            wk.wkv6_bwd.launches,
+        )
+        n_pre, n_steps = len(batches), len(batches) * NEW_TOKENS
+        want = {"flash": (E + 2 * L) * n_pre + L * n_steps, "decode_attention": L * n_steps}
+        want_split = {"encoder": E * n_pre, "cross prefill": L * n_pre, "cross decode": L * n_steps}
+        if launches != want or counts != want_split or any(others):
+            raise AssertionError(
+                f"{tag} launches {launches} (expected {want}), by block {counts} (expected "
+                f"{want_split}); flash backward, rglru, wkv6 launches {others}, expected 0"
+            )
+        log(
+            f"{tag} flash_attention_fwd launches {launches['flash']} = {n_pre} prefills x ({E} "
+            f"encoder + {L} self + {L} cross) + {n_steps} decode steps x {L} cross at Sq = 1 "
+            f"({fa.PATHS[torch.bfloat16]} path; by block {counts}); decode_attention launches "
+            f"{launches['decode_attention']} = {n_steps} decode steps x {L} layers; no other "
+            "kernel"
+        )
+        models = ((model, params), _float32_copy(cfg, params))
+        worst, worst_ratio, differ = 0.0, 0.0, 0
+        for (b, s_src, n_tok), batch, (tokens, kept, pre_ms, dec_ms) in zip(
+            SEAMLESS_REQUESTS, batches, runs
+        ):
+            err, ratio, gaps, used, diff = _teacher_forced_steps(tag, models, batch, tokens, kept)
+            worst, worst_ratio, differ = max(worst, err), max(worst_ratio, ratio), differ + diff
+            log(
+                f"{tag} request B={b} Ssrc={s_src} prompt {n_tok}: prefill {pre_ms:.3f} ms, decode "
+                f"{dec_ms:.3f} ms/step over {NEW_TOKENS} steps; decode steps {list(kept)} vs a "
+                f"fresh prefill max |err| {err:.4e}, {ratio:.3f} of the prefill's own gap to "
+                f"float32 ({gaps[0]:.4e}-{gaps[1]:.4e}), {100 * used:.1f}% of the limit "
+                f"min({TEACHER_GAPS} x gap, {LOGIT_TOL_BF16}); greedy tokens that differ "
+                f"{diff}/{b * (len(kept) - 1)}"
+            )
+        del models
+        n_tokens = sum(b * NEW_TOKENS for b, _, _ in SEAMLESS_REQUESTS)
+        log(
+            f"{tag} all requests: {n_tokens} tokens in {wall:.4f} s: {n_tokens / wall:.2f} tok/s "
+            f"(host wall, each prefill and decode loop synced); max_memory_allocated {peak} "
+            f"bytes ({peak - held} above the weights); decode vs fresh prefill max |err| "
+            f"{worst:.4e}, at most {worst_ratio:.3f} of the prefill's own gap to float32, greedy "
+            f"tokens that differ {differ}"
+        )
+        _seamless_bounds(tag, cfg, params, runs[0])
+        _seamless_profiles(tag, model, params, batches[0])
+    del model, params, batches, runs
+    _release()
+    with torch.no_grad():
+        _seamless_layer_checks(tag, cfg)
+    _release()
+    return {
+        "flash_encoder": counts["encoder"],
+        "flash_cross_prefill": counts["cross prefill"],
+        "flash_cross_decode": counts["cross decode"],
+        "flash_self": launches["flash"] - sum(counts.values()),
+        "decode_attention": launches["decode_attention"],
+    }
+
+
+def _seamless_bounds(tag, cfg, params, run) -> None:
+    """The batch-4 request's prefill and decode step beside their bounds: the prefill's FLOPs
+    at the bfloat16 peak; a decode step's bytes (the decoder's weights but the cross K/V
+    projections, the final norm, the unembed, the cross K/V caches, the self caches) at
+    3.35 TB/s."""
+    b, s_src, n_tok = SEAMLESS_REQUESTS[0]
+    _, _, pre_ms, dec_ms = run
+    itemsize = 2
+    kv, hd, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    cross_kv = tuple(("xattn", name) for name in ("wk", "wv", "bk", "bv"))  # prefill's alone
+    weights = _weights_bytes(params["seg0"], skip=cross_kv) + _weights_bytes(
+        {k: params[k] for k in ("final_norm", "unembed")}
+    )
+    cross = 2 * L * b * kv * s_src * hd * itemsize
+    self_cache = 2 * L * b * (n_tok + NEW_TOKENS) * kv * hd * itemsize
+    nbytes = weights + cross + self_cache
+    decode_bound = 1e3 * nbytes / PEAK_HBM_BYTES
+    flops = _encdec_prefill_flops(cfg, b, s_src, n_tok)
+    pre_bound = 1e3 * max(flops / PEAK_BF16_FLOPS, _weights_bytes(params) / PEAK_HBM_BYTES)
+    log(
+        f"{tag} bounds at B={b}, Ssrc={s_src}: a decode step reads {nbytes} bytes ({weights} of "
+        f"weights, {cross} of cross K/V, {self_cache} of self caches): {decode_bound:.4f} ms at "
+        f"3.35 TB/s against {dec_ms:.4f} ms/step measured ({dec_ms / decode_bound:.2f}x); the "
+        f"prefill's {flops:.4e} FLOPs: {pre_bound:.3f} ms at 989 TFLOP/s against {pre_ms:.3f} ms "
+        f"measured ({pre_ms / pre_bound:.2f}x)"
+    )
+
+
+def _seamless_profiles(tag, model, params, batch) -> None:
+    """The encoder's share of a prefill of ``batch``, by CUDA events around its stack and
+    around the whole prefill; the prefill under the profiler by kind of kernel; and a
+    profiled window of 5 decode steps at its batch with the cross-attention's share. The
+    profiler's ranges count the kernels PyTorch launches inside them, not the port's own
+    (launched through ctypes), which it lists apart by name: a decode step's flash launches
+    are all the cross-attention's (the launch gate), so its share adds them to the range's."""
+    b, s_src = batch["frames"].shape[:2]
+    pad_to = _pad_to(batch, NEW_TOKENS)
+    spans = {}
+    whole = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with _encdec_ranges({}, spans):
+        torch.cuda.synchronize()
+        whole[0].record()
+        model.prefill(params, batch, pad_to=pad_to)
+        whole[1].record()
+        torch.cuda.synchronize()
+    total = whole[0].elapsed_time(whole[1])
+    share = {k: sum(a.elapsed_time(z) for a, z in v) for k, v in spans.items()}
+    log(
+        f"{tag} prefill (B={b}, Ssrc={s_src}) by CUDA events: {total:.3f} ms from its first "
+        f"launch to its last kernel's end; the encoder's stack {share['encoder']:.3f} ms of it "
+        f"({100 * share['encoder'] / total:.1f}%), the 24 cross-attention blocks "
+        f"{share['cross prefill']:.3f} ms ({100 * share['cross prefill'] / total:.1f}%)"
+    )
+    prefill = functools.partial(model.prefill, params, batch, pad_to=pad_to)
+    _profile(tag, f"prefill (B={b}, Ssrc={s_src})", prefill, 1)
+    _, cache = model.prefill(params, batch, pad_to=pad_to)
+    tok = torch.zeros(b, dtype=torch.long, device=DEV)
+    with _encdec_ranges({}):
+        prof = _profile(
+            tag,
+            f"decode step (B={b}, Ssrc={s_src})",
+            lambda: model.decode_step(params, cache, {"token": tok}),
+            5,
+            ("cross",),
+        )
+    if prof:
+        flash = prof["kinds"].get("flash", 0.0) / 5
+        cross = prof["cross"] + flash
+        log(
+            f"{tag} decode step (B={b}, Ssrc={s_src}): the cross-attention {cross:.3f} ms of the "
+            f"device's {prof['device_ms']:.3f} ms a step ({100 * cross / prof['device_ms']:.1f}%): "
+            f"its flash kernel at Sq = 1 {flash:.3f} ms (24 launches), its projections and norm "
+            f"{prof['cross']:.3f} ms"
+        )
+
+
+def _seamless_layer_checks(tag, cfg) -> None:
+    """Full-width float32 layers on the card against the port's CPU path, within EXACT_TOL:
+    an enc layer (train mode, as the encoder runs) on x(1, 333, 1024); an xattn layer's prefill
+    of 37 decoder rows against 333 source rows, its cache (self k, v; cross_k, cross_v); its
+    decode steps through the cache grown by ``_pad_cache`` (the float32 flash at Sq = 1 for the
+    cross-attention, decode_attention for the self-attention), each also against a fresh
+    prefill on the card."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    s_src, s_tgt, steps = SEAMLESS_LAYER_CHECK
+    rng = np.random.default_rng(3)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    lp = _float32_layer(cfg32, "enc", 1)
+    x, pos = normal(1, s_src, cfg.d_model), torch.arange(s_src)
+    _reset_launches()
+    got, _, _ = apply_layer(x.to(DEV), lp, cfg32, "enc", positions=pos.to(DEV), mode="train")
+    if fa.flash_attention_fwd.launches != 1:
+        raise AssertionError(f"{tag} float32 enc layer: {fa.flash_attention_fwd.launches} flash")
+    want, _, _ = apply_layer(x, _to_cpu(lp), cfg32, "enc", positions=pos, mode="train")
+    err = (got.cpu() - want).abs().max().item()
+    if not torch.isfinite(got).all() or err > EXACT_TOL:
+        raise AssertionError(f"{tag} float32 enc layer card vs CPU path: max |err| {err:.3e}")
+    log(
+        f"{tag} one float32 enc layer on x(1, {s_src}, {cfg.d_model}): card (flash kernel, no "
+        f"mask, {fa.PATHS[torch.float32]} path) vs CPU path (plain) max |err| {err:.3e} (tol "
+        f"{EXACT_TOL})"
+    )
+
+    lp = _float32_layer(cfg32, "xattn", 2)
+    cpu = _to_cpu(lp)
+    enc, x = normal(1, s_src, cfg.d_model), normal(1, s_tgt + steps, cfg.d_model)
+    segments = [(("xattn",), 1)]
+
+    def run(params, dev):
+        out, cache, _ = apply_layer(
+            x[:, :s_tgt].to(dev), params, cfg32, "xattn", positions=torch.arange(s_tgt, device=dev),
+            mode="prefill", enc_out=enc.to(dev),
+        )
+        first = {k: v for k, v in cache.items() if k != "self"} | {
+            f"self {k}": v for k, v in cache["self"].items() if k != "pos"
+        }
+        first = {k: v.cpu().clone() for k, v in first.items()}
+        grown = model_mod._pad_cache({"seg0": {"u0": cache}}, s_tgt + steps, cfg32, segments)
+        cache, outs = grown["seg0"]["u0"], [out.cpu()]
+        for j in range(steps):
+            xt = x[:, s_tgt + j : s_tgt + j + 1].to(dev)
+            at = torch.tensor([[s_tgt + j]], device=dev)
+            out, cache, _ = apply_layer(
+                xt, params, cfg32, "xattn", positions=at, mode="decode", cache=cache
+            )
+            outs.append(out.cpu())
+        return outs, first
+
+    _reset_launches()
+    got, got_cache = run(lp, DEV)
+    counts = (fa.flash_attention_fwd.launches, da.decode_attention.launches)
+    if counts != (2 + steps, steps):
+        raise AssertionError(f"{tag} float32 xattn layer: flash, decode_attention {counts}")
+    want, want_cache = run(cpu, "cpu")
+    errs = {"prefill h": (got[0] - want[0]).abs().max().item()}
+    errs.update({k: (got_cache[k] - v).abs().max().item() for k, v in want_cache.items()})
+    errs.update({f"decode {j}": (g - w).abs().max().item() for j, (g, w) in
+                 enumerate(zip(got[1:], want[1:]))})
+    fresh, _, _ = apply_layer(
+        x.to(DEV), lp, cfg32, "xattn", positions=torch.arange(s_tgt + steps, device=DEV),
+        mode="prefill", enc_out=enc.to(DEV),
+    )
+    vs_fresh = (torch.cat(got[1:], dim=1) - fresh[:, s_tgt:].cpu()).abs().max().item()
+    finite = all(torch.isfinite(g).all() for g in got)
+    if not finite or max(errs.values()) > EXACT_TOL or vs_fresh > EXACT_TOL:
+        raise AssertionError(f"{tag} float32 xattn layer: {errs}, decode vs fresh {vs_fresh}")
+    log(
+        f"{tag} one float32 xattn layer: prefill of {s_tgt} rows against {s_src} source rows "
+        f"(flash causal self and cross without a mask, {fa.PATHS[torch.float32]}), then {steps} "
+        f"decode steps through the grown cache (cross: the flash at Sq = 1; self: "
+        f"decode_attention); flash {counts[0]}, decode_attention {counts[1]} launches; card vs "
+        f"CPU path max |err| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol "
+        f"{EXACT_TOL}); the card's decode steps vs a fresh prefill of {s_tgt + steps} rows "
+        f"{vs_fresh:.3e} (tol {EXACT_TOL})"
+    )
+
+
+def phase_internvl() -> dict:
+    """Serve internvl2-2b at full width and depth (24 layers, 16 heads on 8 KV heads of 128,
+    the vision stub's 256 patch tokens of 1,024; bfloat16) through ``build(cfg).prefill`` and
+    greedy ``decode_step``, the reference's loop: 4 requests alone, each with its own patch
+    embeddings and a text prompt of make_prompts, 32 tokens each; the launch gates (the flash
+    forward 24 times a prefill, decode_attention 24 times a decode step, nothing else), decode
+    steps 0, 7, 15, 31 against a fresh prefill, serving numbers beside their bounds, a profiled
+    prefill and decode window; then a float32 copy cut to one layer on the card against the CPU
+    path: the frontend's output and the layer's prefill. Returns the launch counts."""
+    tag = "[internvl]"
+    cfg = get_config(INTERNVL_ARCH)
+    t0 = time.monotonic()
+    params = init_params(cfg, _gen(0), DEV)
+    model = build(cfg, DEV)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    log(
+        f"{tag} {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {cfg.num_heads} heads on "
+        f"{cfg.num_kv_heads} KV heads of {cfg.head_dim}, {cfg.act} GLU of {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (untied), the vision stub's {cfg.num_frontend_tokens} patch tokens of "
+        f"{cfg.frontend_dim}; {count_params(cfg)} params {cfg.param_dtype}, {held} bytes on the "
+        f"card; drawn in {time.monotonic() - t0:.1f} s"
+    )
+    prompts = make_prompts(INTERNVL_REQUESTS, cfg.vocab_size, *INTERNVL_PROMPT_LENS, seed=0)
+    gen = _gen(12)
+
+    def request(prompt):
+        shape = (1, cfg.num_frontend_tokens, cfg.frontend_dim)
+        patches = torch.randn(*shape, generator=gen, device=DEV)
+        toks = torch.as_tensor(prompt, dtype=torch.long, device=DEV)[None]
+        return {"patch_embeds": patches.to(torch.bfloat16), "tokens": toks}
+
+    batches = [request(p) for p in prompts]
+    L = cfg.num_layers
+    with torch.no_grad():
+        _greedy(model, params, request(prompts[0][:8]), 2, keep=())  # load the kernels, warm up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.monotonic()
+        runs = [_greedy(model, params, batch, NEW_TOKENS) for batch in batches]
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {
+            "flash": fa.flash_attention_fwd.launches,
+            "decode_attention": da.decode_attention.launches,
+        }
+        others = (
+            fa.flash_attention_bwd.launches,
+            rg.rglru_scan.launches,
+            rg.rglru_bwd.launches,
+            wk.wkv6_chunked.launches,
+            wk.wkv6_bwd.launches,
+        )
+        n_steps = len(batches) * NEW_TOKENS
+        want = {"flash": L * len(batches), "decode_attention": L * n_steps}
+        if launches != want or any(others):
+            raise AssertionError(
+                f"{tag} launches {launches} (expected {want}); flash backward, rglru, wkv6 "
+                f"launches {others}, expected 0"
+            )
+        log(
+            f"{tag} prompt lengths {[len(p) for p in prompts]} after {cfg.num_frontend_tokens} "
+            f"patch tokens; flash_attention_fwd launches {launches['flash']} = {len(batches)} "
+            f"prefills x {L} layers ({fa.PATHS[torch.bfloat16]} path, causal, GQA "
+            f"{cfg.num_heads // cfg.num_kv_heads}); decode_attention launches "
+            f"{launches['decode_attention']} = {n_steps} decode steps x {L} layers; no other kernel"
+        )
+        models = ((model, params), _float32_copy(cfg, params))
+        worst, worst_ratio, differ = 0.0, 0.0, 0
+        for prompt, batch, (tokens, kept, pre_ms, dec_ms) in zip(prompts, batches, runs):
+            err, ratio, gaps, used, diff = _teacher_forced_steps(tag, models, batch, tokens, kept)
+            worst, worst_ratio, differ = max(worst, err), max(worst_ratio, ratio), differ + diff
+            log(
+                f"{tag} request of {cfg.num_frontend_tokens} + {len(prompt)} tokens: prefill "
+                f"{pre_ms:.3f} ms, decode {dec_ms:.3f} ms/step over {NEW_TOKENS} steps; decode "
+                f"steps {list(kept)} vs a fresh prefill max |err| {err:.4e}, {ratio:.3f} of the "
+                f"prefill's own gap to float32 ({gaps[0]:.4e}-{gaps[1]:.4e}), {100 * used:.1f}% "
+                f"of the limit min({TEACHER_GAPS} x gap, {LOGIT_TOL_BF16}); greedy tokens that "
+                f"differ {diff}/{len(kept) - 1}"
+            )
+        del models
+        n_tokens = len(batches) * NEW_TOKENS
+        served = {k: v for k, v in params.items() if k not in ("embed", "frontend")}
+        nbytes = _weights_bytes(served)
+        cache = 2 * L * (cfg.num_frontend_tokens + max(map(len, prompts)) + NEW_TOKENS)
+        cache *= cfg.num_kv_heads * cfg.head_dim * 2
+        decode_bound = 1e3 * (nbytes + cache) / PEAK_HBM_BYTES
+        n = cfg.num_frontend_tokens + max(map(len, prompts))
+        if (n, n + NEW_TOKENS) != (INTERNVL_FLASH_JSON[3], DECODE_INTERNVL_JSON[3]):
+            raise AssertionError(
+                f"{tag} the kernel rows' lengths {INTERNVL_FLASH_JSON[3]}, "
+                f"{DECODE_INTERNVL_JSON[3]} are not the longest request's {n}, {n + NEW_TOKENS}"
+            )
+        pairs = _kept_pairs(n, n, True, None)
+        flops = L * (_dense_flops(cfg, n) + 4.0 * cfg.num_heads * pairs * cfg.head_dim)
+        flops += 2.0 * cfg.num_frontend_tokens * (cfg.frontend_dim + cfg.d_model) * cfg.d_model
+        flops += 2.0 * cfg.d_model * cfg.vocab_size
+        pre_bound = 1e3 * max(flops / PEAK_BF16_FLOPS, _weights_bytes(params) / PEAK_HBM_BYTES)
+        longest = int(np.argmax([len(p) for p in prompts]))
+        log(
+            f"{tag} all requests: {n_tokens} tokens in {wall:.4f} s: {n_tokens / wall:.2f} tok/s "
+            f"(host wall, each prefill and decode loop synced); max_memory_allocated {peak} "
+            f"bytes ({peak - held} above the weights); decode vs fresh prefill max |err| "
+            f"{worst:.4e}, at most {worst_ratio:.3f} of the prefill's own gap to float32, greedy "
+            f"tokens that differ {differ}; bounds: a decode step reads "
+            f"{nbytes + cache} bytes (the layers, final norm and unembed; the longest request's "
+            f"K/V cache), {decode_bound:.4f} ms at 3.35 TB/s against "
+            f"{np.mean([r[3] for r in runs]):.4f} ms/step measured (mean of the requests); the "
+            f"longest prefill ({n} tokens, {flops:.4e} FLOPs) {pre_bound:.3f} ms against "
+            f"{runs[longest][2]:.3f} ms measured"
+        )
+        batch = batches[longest]
+        pad_to = _pad_to(batch, NEW_TOKENS)
+        _profile(tag, f"prefill of {n} tokens", lambda: model.prefill(
+            params, batch, pad_to=pad_to), 1)
+        _, cache = model.prefill(params, batch, pad_to=pad_to)
+        tok = torch.zeros(1, dtype=torch.long, device=DEV)
+        _profile(tag, "decode step (B=1)", lambda: model.decode_step(
+            params, cache, {"token": tok}), 5)
+    del model, params, batches, runs, cache
+    _release()
+    with torch.no_grad():
+        _internvl_float32_check(tag, cfg, prompts[longest])
+    _release()
+    return launches
+
+
+def _internvl_float32_check(tag, cfg, prompt) -> None:
+    """A float32 copy of internvl2-2b cut to one layer, drawn on the card: a prefill of the
+    256 patch embeddings and ``prompt`` on the card and on the CPU path with the same params;
+    the frontend's output (proj1, tanh-GELU, proj2: the first 256 rows that the stack takes),
+    the layer's cache and the last position's logits within EXACT_TOL."""
+    cfg32 = dataclasses.replace(
+        cfg, num_layers=1, param_dtype="float32", compute_dtype="float32"
+    )
+    params = init_params(cfg32, _gen(1), DEV)
+    rng = np.random.default_rng(5)
+    patches = rng.normal(size=(1, cfg.num_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    batch = {
+        "patch_embeds": torch.from_numpy(patches),
+        "tokens": torch.as_tensor(prompt)[None].long(),
+    }
+    seen = []
+    run_stack = model_mod.run_stack
+
+    def recording(h, *args, **kwargs):
+        seen.append(h[:, : cfg.num_frontend_tokens].cpu())
+        return run_stack(h, *args, **kwargs)
+
+    model_mod.run_stack = recording
+    try:
+        _reset_launches()
+        got, got_cache = build(cfg32, DEV).prefill(
+            params, {k: v.to(DEV) for k, v in batch.items()}
+        )
+        if (fa.flash_attention_fwd.launches, da.decode_attention.launches) != (1, 0):
+            raise AssertionError(f"{tag} float32 layer: {fa.flash_attention_fwd.launches} flash")
+        want, want_cache = build(cfg32, "cpu").prefill(_to_cpu(params), batch)
+    finally:
+        model_mod.run_stack = run_stack
+    errs = {"frontend": (seen[0] - seen[1]).abs().max().item()}
+    for k in ("k", "v"):
+        got_k, want_k = got_cache["seg0"]["u0"][k].cpu(), want_cache["seg0"]["u0"][k]
+        errs[k] = (got_k - want_k).abs().max().item()
+    errs["logits"] = (got.cpu() - want).abs().max().item()
+    if not torch.isfinite(got).all() or max(errs.values()) > EXACT_TOL:
+        raise AssertionError(f"{tag} float32 one-layer prefill card vs CPU path: {errs}")
+    log(
+        f"{tag} float32 copy cut to one layer ({count_params(cfg32)} params), prefill of "
+        f"{cfg.num_frontend_tokens} patches + {len(prompt)} tokens: card (flash kernel, "
+        f"{fa.PATHS[torch.float32]} path) vs CPU path (plain) max |err| "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {EXACT_TOL}); the frontend "
+        f"on x(1, {cfg.num_frontend_tokens}, {cfg.frontend_dim})"
+    )
+
+
 DENSE_TRAIN_ARCH = "qwen3-1.7b"
 DENSE_TRAIN_RESULT = "[dense train] launches "  # the process's line of launch counts and times
 
@@ -5860,6 +6687,8 @@ def main() -> int:
     _timed("dense", phase_dense)
     moe = _timed("moe", phase_moe)
     deepseek = _timed("deepseek", phase_deepseek)
+    seamless = _timed("seamless", phase_seamless)
+    internvl = _timed("internvl", phase_internvl)
     dense_train = _timed("dense train", phase_dense_train)
     dense_durable = _timed("dense durable", lambda: phase_dense_durable(dense_train, smi))
     hybrid_train = _timed("hybrid train", phase_hybrid_train)
@@ -5976,6 +6805,76 @@ def main() -> int:
             "q,k(1,128,1711,192) v(1,128,1711,128) bfloat16 causal, scale 192^-0.5 "
             "(deepseek-v3-671b's MLA prefill at its longest prompt, the DC = 4 build; library: "
             f"SDPA {flash_rows[MLA_FLASH_JSON]['library_backend']}, as dispatched)",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_encoder",
+            flash_src,
+            flash_tpu,
+            seamless["flash_encoder"],
+            flash_rows[ENCODER_FLASH_JSON],
+            "q,k,v(4,16,4096,64) bfloat16, no mask (seamless-m4t-large-v2's encoder at its "
+            "batch-4 prefill; library: SDPA "
+            f"{flash_rows[ENCODER_FLASH_JSON]['library_backend']}, as dispatched); launches of "
+            "the seamless phase's encoder",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_cross_prefill",
+            flash_src,
+            flash_tpu,
+            seamless["flash_cross_prefill"],
+            flash_rows[CROSS_PREFILL_JSON],
+            "q(1,16,37,64) k,v(1,16,1000,64) bfloat16, no mask (seamless-m4t-large-v2's "
+            "cross-attention in the prefill of its 37-token request against 1,000 frames; "
+            f"library: SDPA {flash_rows[CROSS_PREFILL_JSON]['library_backend']}, as dispatched); "
+            "launches of the seamless phase's prefills' cross-attention",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_cross_decode",
+            flash_src,
+            flash_tpu,
+            seamless["flash_cross_decode"],
+            flash_rows[CROSS_DECODE_JSON],
+            "q(4,16,1,64) k,v(4,16,4096,64) bfloat16, no mask (seamless-m4t-large-v2's "
+            "cross-attention in a batch-4 decode step; library: SDPA "
+            f"{flash_rows[CROSS_DECODE_JSON]['library_backend']}, as dispatched); launches of the "
+            "seamless phase's decode steps",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_seamless_self",
+            flash_src,
+            flash_tpu,
+            seamless["flash_self"],
+            flash_rows[SEAMLESS_SELF_FLASH_JSON],
+            "q,k,v(1,16,37,64) bfloat16 causal (seamless-m4t-large-v2's decoder self-attention "
+            "in the prefill of its 37-token request); launches of the seamless phase's prefills' "
+            "self-attention",
+        ),
+        _kernel_entry(
+            "decode_attention_seamless",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
+            seamless["decode_attention"],
+            decode_rows[DECODE_SEAMLESS_JSON],
+            "q(4,16,64) k,v cache(4,36,16,64) bfloat16, positions (35,35,35,35) "
+            "(seamless-m4t-large-v2's last decode step at batch 4); launches of the seamless phase",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_internvl",
+            flash_src,
+            flash_tpu,
+            internvl["flash"],
+            flash_rows[INTERNVL_FLASH_JSON],
+            "q(1,16,769,128) k,v(1,8,769,128) bfloat16 causal (internvl2-2b's prefill of 256 "
+            "patches and its longest prompt, 513 tokens); launches of the internvl phase",
+        ),
+        _kernel_entry(
+            "decode_attention_internvl",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "none: src/repro/models/attention.py:107 (cached decode in plain jnp)",
+            internvl["decode_attention"],
+            decode_rows[DECODE_INTERNVL_JSON],
+            "q(1,16,128) k,v cache(1,801,8,128) bfloat16, position 800 (internvl2-2b's last "
+            "decode step of its longest request); launches of the internvl phase",
         ),
         _kernel_entry(
             "flash_attention_fwd_bf16_granite_train",

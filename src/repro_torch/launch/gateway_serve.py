@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs, smoke_variant
+from repro_torch.launch import require_token_inputs
 from repro_torch.core import (
     Context,
     Gateway,
@@ -158,8 +159,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
-    if cfg.family in ("vlm", "audio"):
-        raise SystemExit("the gateway serve CLI takes text decoder archs")
+    require_token_inputs(cfg, "repro_torch.launch.gateway_serve")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
     model = build(cfg, dev)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, list_archs, smoke_variant
+from repro_torch.launch import require_token_inputs
 from repro_torch.device import resolve_device
 from repro_torch.models import build
 from repro_torch.params import init_params
@@ -104,6 +105,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    require_token_inputs(cfg, "repro_torch.launch.serve")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
     model = build(cfg, dev)

@@ -35,6 +35,7 @@ import os
 from typing import List, Optional
 
 from repro_torch.configs import SHAPES, get_config, list_archs, smoke_variant
+from repro_torch.launch import require_token_inputs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru as rg
 from repro_torch.kernels import wkv6 as wk
@@ -91,6 +92,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     cfg = get_config(args.arch)
+    require_token_inputs(cfg, "repro_torch.launch.train")
     shape = SHAPES[args.shape]
     if args.reduced:
         cfg = smoke_variant(cfg)

@@ -31,6 +31,7 @@ import tempfile
 from typing import List, Optional
 
 from repro_torch.configs import get_config, smoke_variant
+from repro_torch.launch import require_token_inputs
 from repro_torch.core import FlakyWorker, InProcWorker, Journal
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train import DistributedTrainer, DistTrainConfig
@@ -72,6 +73,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         cfg = dataclasses.replace(smoke_variant(get_config(ARCH)), name="serpytor-demo-smoke")
         batch, seq = args.batch or args.shards, args.seq or 32
         opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=args.steps)
+    require_token_inputs(cfg, "repro_torch.launch.train_distributed")
     tc = DistTrainConfig(
         run_dir=run_dir,
         num_steps=args.steps,

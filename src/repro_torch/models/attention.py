@@ -15,6 +15,9 @@ form in float32 plain torch (the reference has no kernel for it).
 
 Cache layout per layer: GQA {"k": (B, S, Hkv, D), "v": (B, S, Hkv, D), "pos": (B,)};
 MLA {"ckv": (B, S, kv_lora_rank), "krope": (B, S, qk_rope_head_dim), "pos": (B,)}.
+Cross attention (an encoder-decoder's ``xattn`` layer) takes the encoder's keys and
+values as given, (B, Hkv, Ssrc, D), which is the flash kernel's layout, and keeps no cache
+of its own: ``models/transformer.py`` keeps them beside the self-attention's.
 The decode step writes the new entries into the cache IN PLACE (the
 reference's batcher donates the cache, so no caller keeps the old one) and
 advances ``pos`` in place too, returning the same dict.
@@ -92,11 +95,29 @@ def gqa_attention(
     cache: Optional[Dict[str, Any]] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (out (B,S,d), updated cache). With ``cache``: one-token decode
-    (S == 1); without: full-sequence self attention."""
+    """Returns (out (B,S,d), updated cache). With ``cross_kv``: encoder-decoder cross
+    attention, no cache; with ``cache``: one-token decode (S == 1); with neither:
+    full-sequence self attention."""
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
+    if cross_kv is not None:
+        # k, v (B, Hkv, Ssrc, hd), the layer's own projections of the encoder's output: no
+        # norm on k and no rope on either side, every source row seen (Sq = 1 in decode)
+        k, v = cross_kv
+        q = dense(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        out = ops.flash_attention(
+            q.transpose(1, 2).contiguous(),
+            k.contiguous(),
+            v.contiguous(),
+            causal=False,
+            impl=cfg.attn_impl,
+        )
+        return dense(out.transpose(1, 2).reshape(b, s, h * hd), p["wo"]), None
+
     q, k, v = _project_qkv(x, p, cfg, positions)
 
     if cache is None:

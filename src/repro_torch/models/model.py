@@ -1,17 +1,22 @@
 """Public model API: build(cfg, device) -> Model with loss_fn / prefill / decode_step /
 init_cache.
 
-Counterpart of ``repro.models.model`` for decoder LMs. Batch conventions
-(int tokens): train and prefill ``{"tokens": (B, S)}``, decode
-``{"token": (B,)}`` plus the cache. ``loss_fn`` returns (loss, metrics): the
+Counterpart of ``repro.models.model``. Batch conventions (int tokens):
+train and prefill ``{"tokens": (B, S)}`` for a decoder LM, plus
+``"patch_embeds"`` (B, Nv, frontend_dim) for a VLM (``frontend="vision_stub"``:
+projected by ``frontend/proj1``, tanh-GELU, ``proj2`` and put before the
+tokens, positions over the whole sequence) or ``"frames"`` (B, Ssrc,
+frontend_dim) for an encoder-decoder (``frontend_proj``, the bidirectional
+encoder stack, its final norm: the decoder's ``xattn`` layers attend to
+that); decode ``{"token": (B,)}`` plus the cache. ``loss_fn`` returns (loss, metrics): the
 next-token cross-entropy in float32 over the padded vocab plus
 ``z_loss_coef``·mean(lse²) plus the MoE layers' load-balance loss (``aux_loss``),
 plus, for an MTP config, ``mtp_coef`` times DeepSeek-V3's depth-1 multi-token
 prediction loss (``mtp_loss``, :func:`_mtp_loss`), differentiable by autograd (the
 attention's gradient through the flash backward kernel on the card). ``prefill``
 returns (last-position logits, cache); ``decode_step`` consumes one token
-per sequence against the cache, which it updates in place and returns.
-Encoder-decoder and VLM inputs come with a later slice.
+per sequence against the cache, which it updates in place and returns. The
+loss is taken over the text positions alone.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-from .layers import DTYPES, apply_norm, dense, softcap
+from .layers import _ACTS, DTYPES, apply_norm, dense, softcap
 from .transformer import (
     _window,
     apply_layer,
@@ -38,6 +43,7 @@ __all__ = ["Model", "build", "padded_vocab", "unembed_logits"]
 
 _NEG_INF = -1e30
 # the sequence axis of each cache leaf that grows with the length, as the reference's _PAD_AXIS
+# (an xattn layer's cross_k and cross_v keep the source's length)
 _PAD_AXIS = {"k": -3, "v": -3, "ckv": -2, "krope": -2}
 
 
@@ -134,27 +140,44 @@ class Model:
     decode_step: Callable[..., Tuple[torch.Tensor, Dict]]
     init_cache: Callable[..., Dict]
     segments: Any
+    enc_segments: Any = None
 
 
 def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     """The model's functions for ``cfg`` on ``device`` (default ``cuda``; raises without one)."""
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            "encoder-decoder and frontend inputs are not ported yet: "
-            "ROADMAP Queue 1, encoder-decoder and VLM"
-        )
     dev = resolve_device(device)
     segments = derive_segments(layer_pattern(cfg))
+    enc_segments = derive_segments(("enc",) * cfg.encoder_layers) if cfg.is_encdec else None
     cdtype = DTYPES[cfg.compute_dtype]
 
     def unembed(params, h):
         return unembed_logits(params, h, cfg)
 
-    def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def build_inputs(params, batch):
+        """-> (h (B, S, d), positions (S,), enc_out (B, Ssrc, d) or None, tokens)."""
+        enc_out = None
+        if cfg.is_encdec:  # the encoder runs whole in train mode, as the reference's
+            ep = params["encoder"]
+            eh = dense(batch["frames"].to(cdtype), ep["frontend_proj"])
+            pos_e = torch.arange(eh.shape[1], device=eh.device)
+            eh, _, _ = run_stack(eh, ep, cfg, enc_segments, positions=pos_e, mode="train")
+            enc_out = apply_norm(eh, ep["final_norm"], cfg.norm, cfg.norm_eps)
         tokens = batch["tokens"]
         h = _embed_tokens(params, tokens, cfg)
+        if cfg.frontend == "vision_stub":
+            fr = params["frontend"]
+            vis = dense(batch["patch_embeds"].to(cdtype), fr["proj1"])
+            vis = dense(_ACTS["gelu"](vis), fr["proj2"])
+            h = torch.cat([vis, h], dim=1)
         positions = torch.arange(h.shape[1], device=h.device)
-        h, _, aux = run_stack(h, params, cfg, segments, positions=positions, mode="train")
+        return h, positions, enc_out, tokens
+
+    def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        h, positions, enc_out, tokens = build_inputs(params, batch)
+        h, _, aux = run_stack(
+            h, params, cfg, segments, positions=positions, mode="train", enc_out=enc_out
+        )
+        h = h[:, -tokens.shape[1] :]  # the text positions: a VLM's patches are no targets
         logits = unembed(params, h)  # (B, S, padded vocab) float32
         ce, z = _ce_loss(logits[:, :-1], tokens[:, 1:])
         # the MoE layers' load-balance losses, summed over the stack (zero without them)
@@ -169,17 +192,18 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         return loss, metrics
 
     def prefill(params, batch, pad_to: int = 0) -> Tuple[torch.Tensor, Dict]:
-        tokens = batch["tokens"]
-        h = _embed_tokens(params, tokens, cfg)
-        positions = torch.arange(h.shape[1], device=h.device)
-        h, cache, _ = run_stack(h, params, cfg, segments, positions=positions, mode="prefill")
+        h, positions, enc_out, _ = build_inputs(params, batch)
+        h, cache, _ = run_stack(
+            h, params, cfg, segments, positions=positions, mode="prefill", enc_out=enc_out
+        )
         logits = unembed(params, h[:, -1:, :])[:, 0, : cfg.vocab_size]
         if pad_to:
             cache = _pad_cache(cache, pad_to, cfg, segments)
         return logits, cache
 
-    def init_cache(batch_size: int, seq_len: int) -> Dict:
-        return init_stack_cache(cfg, segments, batch_size, seq_len, cdtype, dev)
+    def init_cache(batch_size: int, seq_len: int, *, src_len: int = 0) -> Dict:
+        src = (src_len or cfg.source_len_for_decode) if cfg.is_encdec else 0
+        return init_stack_cache(cfg, segments, batch_size, seq_len, cdtype, dev, src_len=src)
 
     def decode_step(params, cache, batch) -> Tuple[torch.Tensor, Dict]:
         tok = batch["token"]  # (B,)
@@ -199,6 +223,7 @@ def build(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         decode_step=decode_step,
         init_cache=init_cache,
         segments=segments,
+        enc_segments=enc_segments,
     )
 
 
@@ -212,7 +237,9 @@ def _pad_cache(cache, pad_to: int, cfg, segments):
     (a prompt longer than the window) is already that size and stays as it
     is. So slot i of a window-sized cache always holds the position p with
     p % window == i, and decode masks it as a ring. Every other leaf (``pos``,
-    the RG-LRU and RWKV states) is O(1) in the length and stays as it is.
+    the RG-LRU and RWKV states) is O(1) in the length and stays as it is, and so do an
+    ``xattn`` layer's ``cross_k`` and ``cross_v``, whose length is the source's: the
+    walk recurses into its ``self`` subtree, as the reference's does.
     The reference pads a windowed cache shorter than the window to
     ``pad_to``: the batcher then cannot splice it, and decode through it is
     no longer local.
@@ -227,6 +254,14 @@ def _pad_cache(cache, pad_to: int, cfg, segments):
         out.narrow(axis, 0, x.shape[axis]).copy_(x)
         return out
 
+    def walk(tree, target):
+        return {
+            k: walk(v, target)
+            if isinstance(v, dict)
+            else (grow(v, target, _PAD_AXIS[k]) if k in _PAD_AXIS else v)
+            for k, v in tree.items()
+        }
+
     out = {}
     for si, (unit, _) in enumerate(segments):
         seg = cache[f"seg{si}"]
@@ -234,10 +269,7 @@ def _pad_cache(cache, pad_to: int, cfg, segments):
         for uj, kind in enumerate(unit):
             window = _window(cfg, kind)
             target = min(window, pad_to) if window else pad_to
-            out[f"seg{si}"][f"u{uj}"] = {
-                k: (grow(v, target, _PAD_AXIS[k]) if k in _PAD_AXIS else v)
-                for k, v in seg[f"u{uj}"].items()
-            }
+            out[f"seg{si}"][f"u{uj}"] = walk(seg[f"u{uj}"], target)
     return out
 
 

@@ -7,7 +7,7 @@ Where the reference runs a segment unrolled (repeats <= 4) or as one
 ``lax.scan`` (the 8-layer demo), the port indexes the stacked params per
 repeat in a Python loop: both layouts run the same way.
 
-This port runs five kinds, in the modes ``prefill`` (build the cache),
+This port runs seven kinds, in the modes ``prefill`` (build the cache),
 ``decode`` (one token against the cache, updated in place) and ``train``
 (the whole sequence, no cache, under autograd;
 ``cfg.remat`` "full" recomputes each repeat of a segment unit in the
@@ -23,14 +23,21 @@ outputs, raises and names its ROADMAP item):
           ``wkv`` (B, H, K, V) float32, ``tm_prev`` and ``cm_prev`` (B, d)
   moe   : dense with a Mixture-of-Experts block (``models/moe.py``) in place
           of the MLP
+  enc   : an encoder layer: dense with bidirectional self-attention
+  xattn : an encoder-decoder's decoder layer: causal self-attention, then
+          cross-attention (``ln_x``, ``xattn``) over the encoder's output, then
+          the MLP; its cache is ``{"self": the self-attention's cache, "cross_k",
+          "cross_v": (B, Hkv, Ssrc, D)}``, the cross keys and values projected
+          once in prefill and read by every decode step
 
 An MLA layer (``cfg.mla``, DeepSeek-V3) caches the normed latent ``ckv`` and the
 rotated shared rope key ``krope`` in place of k and v (``models/attention.py``).
 
 Every layer returns (h, cache, aux): aux is the MoE router's load-balance loss
 (a float32 scalar; 0.0 for the other kinds), which ``run_stack`` sums over the
-layers as the reference does. The encoder-decoder kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+layers as the reference does. An encoder's stack runs in mode ``train`` (no cache)
+inside prefill too, as the reference's does; without autograd (``torch.no_grad``,
+serving) ``cfg.remat`` checkpoints nothing.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from .attention import (
     init_mla_cache,
     mla_attention,
 )
-from .layers import ParamStore, apply_norm, glu_mlp, init_glu_mlp, norm_param
+from .layers import ParamStore, apply_norm, dense, glu_mlp, init_glu_mlp, norm_param
 from .moe import init_moe, moe_block
 from .rglru import init_recurrent_block, init_rglru_state, recurrent_block
 from .rwkv import init_rwkv_layer, init_rwkv_state, rwkv_channel_mix, rwkv_time_mix
@@ -66,17 +73,12 @@ __all__ = [
     "run_stack",
 ]
 
-_NOT_PORTED = {
-    "enc": "ROADMAP Queue 1, encoder-decoder and VLM",
-    "xattn": "ROADMAP Queue 1, encoder-decoder and VLM",
-}
+_KINDS = ("dense", "rec", "attn", "rwkv", "moe", "enc", "xattn")
 _MODES = ("train", "prefill", "decode")
 
 
-def _require_ported(cfg, kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
-    if kind not in ("dense", "rec", "attn", "rwkv", "moe"):
+def _check_kind(kind: str) -> None:
+    if kind not in _KINDS:
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -132,7 +134,7 @@ def _window(cfg, kind: str) -> Optional[int]:
 
 
 def init_layer(store: ParamStore, cfg, kind: str) -> None:
-    _require_ported(cfg, kind)
+    _check_kind(kind)
     if kind == "rwkv":  # the reference's order: both norms, then the block
         norm_param(store, "ln1", cfg.d_model, cfg.norm)
         norm_param(store, "ln2", cfg.d_model, cfg.norm)
@@ -145,6 +147,9 @@ def init_layer(store: ParamStore, cfg, kind: str) -> None:
         init_mla(store, "attn", cfg)
     else:
         init_gqa(store, "attn", cfg)
+    if kind == "xattn":
+        norm_param(store, "ln_x", cfg.d_model, cfg.norm)
+        init_gqa(store, "xattn", cfg)
     norm_param(store, "ln2", cfg.d_model, cfg.norm)
     if kind == "moe":
         init_moe(store, "moe", cfg)
@@ -152,8 +157,10 @@ def init_layer(store: ParamStore, cfg, kind: str) -> None:
         init_glu_mlp(store, "mlp", cfg.d_model, cfg.d_ff, cfg.glu)
 
 
-def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) -> Dict[str, Any]:
-    _require_ported(cfg, kind)
+def init_layer_cache(
+    cfg, kind: str, batch: int, seq_len: int, dtype, device, src_len: int = 0
+) -> Dict[str, Any]:
+    _check_kind(kind)
     if kind == "rwkv":
         return init_rwkv_state(cfg, batch, dtype, device)
     if kind == "rec":
@@ -162,7 +169,15 @@ def init_layer_cache(cfg, kind: str, batch: int, seq_len: int, dtype, device) ->
     size = min(window, seq_len) if window else seq_len
     if cfg.mla:
         return init_mla_cache(cfg, batch, size, dtype, device)
-    return init_gqa_cache(cfg, batch, size, dtype, device)
+    cache = init_gqa_cache(cfg, batch, size, dtype, device)
+    if kind == "xattn":
+        shape = (batch, cfg.num_kv_heads, src_len, cfg.head_dim)
+        cache = {
+            "self": cache,
+            "cross_k": torch.zeros(shape, dtype=dtype, device=device),
+            "cross_v": torch.zeros(shape, dtype=dtype, device=device),
+        }
+    return cache
 
 
 def _prefill_cache_from_full(h_in, lp, cfg, kind, positions, seq_len):
@@ -196,11 +211,14 @@ def apply_layer(
     positions: torch.Tensor,
     mode: str,
     cache: Optional[Dict[str, Any]] = None,
+    enc_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
     """One layer. Returns (h, cache, aux): the new cache in prefill, ``cache``
     itself (updated in place) in decode, None in train; the MoE aux loss, 0.0
-    for a layer without experts."""
-    _require_ported(cfg, kind)
+    for a layer without experts. An ``xattn`` layer takes the encoder's output
+    ``enc_out`` (B, Ssrc, d) in train and prefill; in decode it reads the cross
+    keys and values from its cache."""
+    _check_kind(kind)
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r}: this port runs {', '.join(_MODES)}")
     if kind == "rwkv":
@@ -221,6 +239,8 @@ def apply_layer(
             new_cache = cache
     else:
         layer_cache = cache if mode == "decode" else None
+        if kind == "xattn" and layer_cache is not None:
+            layer_cache = cache["self"]
         if cfg.mla:
             attn_out, new_cache = mla_attention(
                 x1, lp["attn"], cfg, positions=positions, cache=layer_cache
@@ -232,6 +252,7 @@ def apply_layer(
                 cfg,
                 positions=positions,
                 cache=layer_cache,
+                causal=kind != "enc",
                 window=_window(cfg, kind),
             )
         h = h + attn_out
@@ -239,6 +260,8 @@ def apply_layer(
             new_cache = _prefill_cache_from_full(x1, lp, cfg, kind, positions, h.shape[1])
         elif mode == "train":
             new_cache = None
+        if kind == "xattn":
+            h, new_cache = _cross_attention(h, lp, cfg, mode, cache, new_cache, enc_out)
     x2 = apply_norm(h, lp["ln2"], cfg.norm, cfg.norm_eps)
     aux = 0.0
     if kind == "moe":
@@ -246,6 +269,27 @@ def apply_layer(
     else:
         ffn_out = glu_mlp(x2, lp["mlp"], cfg.act, cfg.glu)
     return h + ffn_out, new_cache, aux
+
+
+def _cross_attention(h, lp, cfg, mode, cache, self_cache, enc_out):
+    """The ``xattn`` layer's cross-attention block, after its self-attention: the encoder's
+    keys and values projected by this layer's ``wk``, ``wv`` (train, prefill) or read from
+    ``cache`` (decode). Returns (h, the layer's cache)."""
+    xx = apply_norm(h, lp["ln_x"], cfg.norm, cfg.norm_eps)
+    xp = lp["xattn"]
+    if mode == "decode":
+        ck, cv = cache["cross_k"], cache["cross_v"]
+    else:
+        b, s_src, _ = enc_out.shape
+        kv, hd = cfg.num_kv_heads, cfg.head_dim
+        ck = dense(enc_out, xp["wk"], xp.get("bk")).reshape(b, s_src, kv, hd)
+        cv = dense(enc_out, xp["wv"], xp.get("bv")).reshape(b, s_src, kv, hd)
+        ck, cv = ck.transpose(1, 2).contiguous(), cv.transpose(1, 2).contiguous()
+    x_out, _ = gqa_attention(xx, xp, cfg, positions=None, cross_kv=(ck, cv))
+    h = h + x_out
+    if mode == "prefill":
+        return h, {"self": self_cache, "cross_k": ck, "cross_v": cv}
+    return h, cache if mode == "decode" else None
 
 
 def _apply_rwkv(h, lp, cfg, *, mode, cache):
@@ -304,38 +348,47 @@ def init_stack(
 
 
 def init_stack_cache(
-    cfg, segments, batch: int, seq_len: int, dtype, device, prefix: str = "seg"
+    cfg, segments, batch: int, seq_len: int, dtype, device, src_len: int = 0, prefix: str = "seg"
 ) -> Dict[str, Any]:
     cache: Dict[str, Any] = {}
     for si, (unit, repeats) in enumerate(segments):
         cache[f"{prefix}{si}"] = {
-            f"u{uj}": _stack([init_layer_cache(cfg, kind, batch, seq_len, dtype, device)] * repeats)
+            f"u{uj}": _stack(
+                [init_layer_cache(cfg, kind, batch, seq_len, dtype, device, src_len)] * repeats
+            )
             for uj, kind in enumerate(unit)
         }
     return cache
 
 
-def _train_unit(h, unit, unit_params, cfg, positions):
-    """One repeat of a segment unit in train mode, checkpointed as ``cfg.remat`` says."""
+def _train_unit(h, unit, unit_params, cfg, positions, enc_out):
+    """One repeat of a segment unit in train mode, checkpointed as ``cfg.remat`` says
+    when autograd records (an encoder inside a serving prefill checkpoints nothing)."""
 
     def body(x):
         aux = 0.0
         for uj, kind in enumerate(unit):
             x, _, a = apply_layer(
-                x, unit_params[f"u{uj}"], cfg, kind, positions=positions, mode="train"
+                x,
+                unit_params[f"u{uj}"],
+                cfg,
+                kind,
+                positions=positions,
+                mode="train",
+                enc_out=enc_out,
             )
             aux = aux + a
         return x, aux
 
-    if cfg.remat == "none":
-        return body(h)
-    if cfg.remat == "full":
-        return _ckpt.checkpoint(body, h, use_reentrant=False)
     if cfg.remat == "dots":
         raise NotImplementedError(
             'remat="dots" (keep the matmul outputs) is not ported: ROADMAP Queue 1 item 13'
         )
-    raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body(h)
+    return _ckpt.checkpoint(body, h, use_reentrant=False)
 
 
 def run_stack(
@@ -347,12 +400,13 @@ def run_stack(
     positions: torch.Tensor,
     mode: str,
     cache: Optional[Dict[str, Any]] = None,
+    enc_out: Optional[torch.Tensor] = None,
     prefix: str = "seg",
 ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
     """Run all segments in order. Returns (h, cache, aux): a fresh stacked cache in
     prefill, the given ``cache`` (updated in place) in decode, None in train; the
     layers' MoE aux losses summed (0.0 without MoE layers outside train, a float32
-    scalar tensor in train)."""
+    scalar tensor in train). ``enc_out`` goes to every ``xattn`` layer."""
     if mode == "decode" and cache is None:
         raise ValueError("decode needs a cache")
     new_cache: Dict[str, Any] = {} if mode == "prefill" else cache
@@ -363,7 +417,7 @@ def run_stack(
         for r in range(repeats):
             if mode == "train":
                 unit_params = {key: _index(p, r) for key, p in seg_params.items()}
-                h, aux = _train_unit(h, unit, unit_params, cfg, positions)
+                h, aux = _train_unit(h, unit, unit_params, cfg, positions, enc_out)
                 total_aux = total_aux + aux
                 continue
             for uj, kind in enumerate(unit):
@@ -377,6 +431,7 @@ def run_stack(
                     positions=positions,
                     mode=mode,
                     cache=layer_cache,
+                    enc_out=enc_out,
                 )
                 total_aux = total_aux + aux
                 if mode == "prefill":

@@ -4,7 +4,10 @@ The tree has the reference's names and layouts (``embed/table``,
 ``seg{i}/u{j}/attn/wq`` or ``seg{i}/u{j}/rwkv/time_mix/wr`` stacked on
 axis 0, ``final_norm/scale``, ``unembed``; with ``cfg.mtp`` the ``mtp``
 subtree of DeepSeek-V3's multi-token prediction: ``norm_h``, ``norm_e``,
-``proj`` (2d, d) and one dense ``layer``, unstacked), so a tree of numpy
+``proj`` (2d, d) and one dense ``layer``, unstacked; an encoder-decoder's
+``encoder`` subtree: ``frontend_proj`` (frontend_dim, d), its ``enc`` stack
+``seg{i}`` and ``final_norm``; a VLM's ``frontend``: ``proj1`` (frontend_dim, d)
+and ``proj2`` (d, d)), so a tree of numpy
 arrays taken from ``repro``'s ``model.init`` loads with :func:`from_numpy_tree` as it is, without
 renaming or transposing anything, and the reference's AdamW state (``m``,
 ``v``, ``step``) with :func:`from_numpy_opt_state`.
@@ -28,10 +31,6 @@ __all__ = ["init_params", "from_numpy_tree", "from_numpy_opt_state", "count_para
 
 
 def _draw(cfg: ModelConfig, generator: Optional[torch.Generator], device: torch.device):
-    if cfg.is_encdec or cfg.frontend != "none":
-        raise NotImplementedError(
-            "encoder and frontend params are not ported yet: ROADMAP Queue 1"
-        )
     vpad = padded_vocab(cfg)
     store = ParamStore(generator, DTYPES[cfg.param_dtype], device)
     store.sub("embed").param("table", (vpad, cfg.d_model), init="embed")
@@ -39,6 +38,15 @@ def _draw(cfg: ModelConfig, generator: Optional[torch.Generator], device: torch.
     norm_param(store, "final_norm", cfg.d_model, cfg.norm)
     if not cfg.tie_embeddings:
         store.param("unembed", (cfg.d_model, vpad), scale=0.02)
+    if cfg.is_encdec:
+        enc = store.sub("encoder")
+        enc.param("frontend_proj", (cfg.frontend_dim or cfg.d_model, cfg.d_model))
+        init_stack(enc, cfg, ("enc",) * cfg.encoder_layers, prefix="seg")
+        norm_param(enc, "final_norm", cfg.d_model, cfg.norm)
+    if cfg.frontend == "vision_stub":
+        fr = store.sub("frontend")
+        fr.param("proj1", (cfg.frontend_dim, cfg.d_model))
+        fr.param("proj2", (cfg.d_model, cfg.d_model))
     if cfg.mtp:  # drawn in the reference's order; only the MTP loss runs it
         mtp = store.sub("mtp")
         norm_param(mtp, "norm_h", cfg.d_model, cfg.norm)

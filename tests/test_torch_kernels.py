@@ -154,16 +154,30 @@ def test_non_causal_sq_greater_than_sk_is_accepted():
 
 
 def test_not_ported_kernels_name_their_roadmap_item():
-    """Every Pallas kernel has a counterpart now (WKV6 was the last); what is not
-    ported yet is layer kinds, and each names its ROADMAP item. The MoE kind is
-    ported (``models/moe.py``): its layer keeps the attention cache of a dense one."""
+    """Every Pallas kernel has a counterpart now (WKV6 was the last), and every layer kind
+    is ported: the encoder-decoder kinds keep the reference's caches (``enc`` a dense
+    layer's, ``xattn`` its self-attention's under ``self`` beside the cross keys and
+    values at the source's length). The MoE kind (``models/moe.py``) keeps the attention
+    cache of a dense one."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models.transformer import init_layer_cache as jinit_layer_cache
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_layer_cache
 
     cfg = get_config("serpytor-demo-100m")
+    jcfg = jget_config("serpytor-demo-100m")
     for kind in ("enc", "xattn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_layer_cache(cfg, kind, 1, 8, torch.float32, "cpu")
+        got = init_layer_cache(cfg, kind, 2, 8, torch.float32, "cpu", src_len=5)
+        want = jinit_layer_cache(jcfg, kind, 2, 8, jnp.float32, src_len=5)
+        shapes = jax.tree_util.tree_leaves_with_path(want)
+        for path, leaf in shapes:
+            node = got
+            for key in path:
+                node = node[key.key]
+            assert tuple(node.shape) == leaf.shape and not node.any(), (kind, path)
+        assert len(shapes) == (5 if kind == "xattn" else 3)
     moe = init_layer_cache(cfg, "moe", 1, 8, torch.float32, "cpu")
     dense = init_layer_cache(cfg, "dense", 1, 8, torch.float32, "cpu")
     assert {k: v.shape for k, v in moe.items()} == {k: v.shape for k, v in dense.items()}
