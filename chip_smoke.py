@@ -107,10 +107,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    timed beside SDPA as dispatched; edges at Sq != Sk (1 against 333, 100
    against 40); each of these held within SCALED_RTOL |want| + TOL times the
    output's RMS, and each shown to fail a planted fault (a dropped last key
-   tile, padding keys folded into the softmax). Each timed case
-   prints the kernel's time, its plain version's, one PyTorch library call's
-   where one computes the same function, and the least time the card could
-   take;
+   tile, padding keys folded into the softmax). The bfloat16 backward without
+   a mask at head dim 64, group 1: seamless-m4t-large-v2's encoder and
+   cross-attention at its train shape (1, 16, 4096, 64) and the cross-attention
+   of the encdec train phase's ragged steps (1,000 rows against 4,000 keys,
+   4,000 against 1,000, 37 against 1,000 at B = 2), on the forward's output in
+   float32 as training passes it: dQ, dK and dV against float64 autograd of
+   dense attention on the card within 2^-7 |want| + 2^-5 times the
+   gradient's RMS and a lean of 2^-10, each row shown to fail planted faults (a dropped
+   last key tile, padding keys folded in, the last query tile dropped from dK
+   and dV), bits on two launches, timed by part beside SDPA's backward as
+   dispatched; the forward with the logsumexp and the float32 output at the
+   train shape (its float32 output rounding to its bfloat16 one bit for bit).
+   Every bfloat16 backward case is also run on the plain forward's float32
+   output. Each timed case prints the kernel's time, its plain version's, one
+   PyTorch library call's where one computes the same function, and the least
+   time the card could take;
 4. demo: ``serpytor-demo-100m`` at full width and depth serves 8 requests
    through ``ContinuousBatcher(slots=4, max_len=1536)``; tokens equal
    sequential greedy decoding, the flash kernel ran in every prefill
@@ -351,6 +363,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    profiled step with the MTP head's forward and backward device time; step 0
    against attn_impl="ref" within DENSE_TRAIN_GAPS times the plain path's
    bf16-vs-f32 gap on the batch's first DEEPSEEK_PLAIN_SEQ tokens;
+14c. encdec train, in a process of its own (this file run with ``--encdec-train``,
+   set up as ``--hybrid-train``): ``seamless-m4t-large-v2`` at full size (24
+   encoder and 24 decoder layers, 1,633,931,264 params) on 4,096 frames (N(0, 1)
+   in bfloat16 from ``_gen``) beside 4,096 tokens, then ``internvl2-2b`` at full
+   width and INTERNVL_TRAIN_LAYERS layers on 256 patch embeddings before 3,840
+   tokens, each in bfloat16 with remat "full", the same 3 AdamW steps and gates:
+   step 0 replayed with equal bits, the flash launches counted (seamless: 2 x (24
+   encoder + 2 x 24 decoder attentions) forwards and 72 backwards a step; by
+   shape and mask, ``_flash_shapes``), step 0 against attn_impl="ref" within
+   DENSE_TRAIN_GAPS times the plain path's bf16-vs-f32 gap over every leaf, the
+   encoder's and the frontend's included; seamless then takes one step on each
+   SEAMLESS_RAGGED batch (its cross-attention at the shapes of the backward's
+   rows without a mask, each step's launches gated) and the first of them, 4,000
+   frames against 1,000 tokens, is held against the plain path too; step ms,
+   tokens/s, peak memory and a profiled step each;
 15. the JSON line of kernels, the card's name and power limit, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
@@ -391,7 +418,10 @@ HYBRID_TRAIN_ARG = "--hybrid-train"  # the hybrid train phase's process, set up 
 RWKV_TRAIN_ARG = "--rwkv-train"  # the rwkv train phase's process, set up as the hybrid's
 MOE_TRAIN_ARG = "--moe-train"  # the moe train phase's process, set up as the hybrid's
 DEEPSEEK_TRAIN_ARG = "--deepseek-train"  # the deepseek train phase's process, set up the same
-_BIG_TRAIN_ARGS = (HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG, MOE_TRAIN_ARG, DEEPSEEK_TRAIN_ARG)
+ENCDEC_TRAIN_ARG = "--encdec-train"  # the encdec train phase's process, set up the same
+_BIG_TRAIN_ARGS = (
+    HYBRID_TRAIN_ARG, RWKV_TRAIN_ARG, MOE_TRAIN_ARG, DEEPSEEK_TRAIN_ARG, ENCDEC_TRAIN_ARG
+)
 _TRAIN_ARGS = (TRAIN_ARG, DIST_ARG, DENSE_TRAIN_ARG, *_BIG_TRAIN_ARGS)
 if sys.argv[1:] in ([arg] for arg in _TRAIN_ARGS):
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
@@ -723,7 +753,9 @@ FLASH_BWD_F32_HD128 = (2, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "float32
 # tile, Sq = 1, D != Dv at head dims up to 64 and on either side of 64: the kernels built for
 # 1 or 2 chunks of 64 columns of each) and more edges: stablelm-1.6b's heads, a group of 16,
 # window 1, one query row. Last, granite-moe-3b-a800m's train shape (1 x 4096 tokens, 24 query
-# heads on 8 KV heads of 64, causal: a GQA group of 3 at head dim 64).
+# heads on 8 KV heads of 64, causal: a GQA group of 3 at head dim 64), and
+# seamless-m4t-large-v2's decoder self-attention at its train shape (1 x 4096 tokens, 16 heads
+# of 64, causal, group 1).
 DENSE_TRAIN_BATCH = 2
 FLASH_BWD_BF16_TRAIN = (
     DENSE_TRAIN_BATCH, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, None, "bfloat16", 128
@@ -732,6 +764,7 @@ MOE_TRAIN_BATCH = 1  # train_4k's 4096 tokens, its batch cut to one sequence on 
 FLASH_BWD_BF16_GRANITE = (
     MOE_TRAIN_BATCH, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 64, True, None, "bfloat16", 64
 )
+FLASH_BWD_BF16_SEAMLESS = (1, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 64, True, None, "bfloat16", 64)
 FLASH_BWD_BF16_CASES = [
     (1, 2, 2, 64, 64, 64, True, None, "bfloat16", 64),
     (2, 4, 2, 70, 70, 128, True, None, "bfloat16", 128),
@@ -749,8 +782,11 @@ FLASH_BWD_BF16_CASES = [
     (1, 4, 2, 150, 400, 24, True, 1, "bfloat16", 16),
     (2, 6, 2, 1, 130, 128, True, None, "bfloat16", 128),
     (1, 4, 2, 200, 333, 128, True, 100, "bfloat16", 128),
+    (1, 2, 2, 37, 100, 64, False, None, "bfloat16", 64),
+    (1, 2, 2, 200, 130, 64, False, None, "bfloat16", 64),
     FLASH_BWD_BF16_TRAIN,
     FLASH_BWD_BF16_GRANITE,
+    FLASH_BWD_BF16_SEAMLESS,
 ]
 # The bfloat16 backward against its plain version (float32 throughout, the gradients rounded
 # once): the kernels round P and dS to bfloat16 where they enter a product, and the CPU model
@@ -996,6 +1032,42 @@ ENCDEC_FLASH_EDGES = (
 # softmax (_planted_faults).
 SCALED_RTOL = 2.0**-7
 KEY_TILE = 64  # the bfloat16 forward's key tile at head dim 64
+# The bfloat16 backward without a mask at head dim 64 and a group of 1, the rows of the encdec
+# train phase: seamless-m4t-large-v2's encoder and cross-attention at its train shape (4,096
+# frames and 4,096 tokens), then the cross-attention of the phase's ragged steps: 1,000 tokens
+# against 4,000 frames (Sq < Sk), 4,000 against 1,000 (Sq > Sk), and 37 against 1,000 at B = 2
+# (both tails ragged, a walk of one query tile). The phase checks that its steps ran these
+# shapes. Each row holds dQ, dK and dV against float64 autograd of dense attention on the card
+# (_attention_f64) within SCALED_RTOL |want| + BWD_RMS_TOL * rms(want), element by element, and
+# within BWD_LEAN_LIMIT by its lean (_bwd_used), and each shows that planted faults fail that
+# limit (_bwd_faults): the walk's last key tile dropped, a ragged last key tile's zero padding
+# keys folded into the softmax, the last query tile's rows dropped from dK and dV.
+# The element-wise part allows 2^-5 of the gradient's RMS where the forward's rows allow TOL's
+# 2e-2: each gradient element sums Sk (dQ) or Sq (dK, dV) products whose P or dS operand was
+# rounded to bfloat16, as any FlashAttention-2 backward in bfloat16 rounds it. SDPA's backward
+# (cuDNN) gives the kernels' very value at every row's worst element: 8 to 24 units in the last
+# place off at an element of 0.2-0.4 of the gradient's RMS, the largest 0.018-0.019 of that RMS
+# over the 10^5 to 4 x 10^6 elements of a gradient (on an H100, with 2e-2 there: 72-88% of the
+# limit for both). A dropped key or query tile moves elements by 1 to 4 times the RMS.
+BWD_RMS_TOL = 2.0**-5
+ENCDEC_BWD_JSON = (1, 16, 16, TRAIN_SEQ, TRAIN_SEQ, 64, False, None, "bfloat16", 64)
+ENCDEC_BWD_CASES = (
+    ENCDEC_BWD_JSON,
+    (1, 16, 16, 1000, 4000, 64, False, None, "bfloat16", 64),
+    (1, 16, 16, 4000, 1000, 64, False, None, "bfloat16", 64),
+    (2, 16, 16, 37, 1000, 64, False, None, "bfloat16", 64),
+)
+# A gradient's lean: <got - want, want> / <want, want>, the share of the exact gradient that
+# the error adds or takes away along itself. Rounding to nearest leans neither way: the kernels'
+# roundings (P and dS to bfloat16 before their products, the gradients once) lean by about
+# 2^-8 / sqrt(N) over N elements, 5.7e-5 at the smallest row's dQ (4,736 elements; a CPU model
+# of the kernels' rounding gave 1e-5 to 5.3e-5 at these shapes). A key added to or taken from
+# every row's softmax moves every gradient along itself: ragged padding keys folded in at 4,000
+# keys lean by 4.7e-3 while they stay within 0.7 of the element-wise limit (a share of 0.48% of
+# each row's softmax, below bfloat16's half unit of 2^-8). Held at 2^-10, 17x the smallest row's
+# noise and a fifth of that fault.
+BWD_LEAN_LIMIT = 2.0**-10
+BWD_WALK = 64  # the bfloat16 backward's walk tiles at head dim 64: 64 query rows, 64 keys
 # the prefills' self-attention of the other serving paths of this slice, timed beside their
 # kernels-line entries: seamless's decoder at the 37-token request (causal, group 1) and
 # internvl2-2b's at its longest request, 256 patch tokens and a 513-token prompt (16 heads on 8
@@ -1477,13 +1549,15 @@ def _flash_determinism(gen) -> None:
 
 
 def _flash_bwd_inputs(gen, case):
-    """q, k, v, dO on the card in the case's dtype, and the plain forward's output and
-    logsumexp on them."""
+    """q, k, v, dO on the card in the case's dtype, and the plain forward's output in float32
+    (the backward's ``out``, as the forward saves it for training) and logsumexp on them."""
     b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
     dtype = getattr(torch, dt)
     q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, dtype)
     dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV).to(dtype)
-    out, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window, return_lse=True)
+    out, lse = ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window, return_lse=True, out_dtype=torch.float32
+    )
     return q, k, v, dout, out, lse
 
 
@@ -1497,8 +1571,9 @@ def _flash_bwd_rows(gen):
         b, hq, hkv, sq, sk, d, causal, window, _, dv = case
         q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
         masks = dict(causal=causal, window=window)
-        got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+        got_out, got_lse, got_out32 = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
         same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
+        same = same and got_out32 is got_out
         grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
         torch.cuda.synchronize()
@@ -1637,12 +1712,12 @@ def _share_of_largest(got, want, tol) -> float:
 
 
 def _flash_bwd_bf16_rows(gen):
-    """The bfloat16 backward against its plain version on every case (the plain forward's
-    output and logsumexp as inputs), at BWD_BF16_TOL of each gradient's largest entry; each
-    case also holds the bfloat16 forward's logsumexp against the plain one and its output
-    with the logsumexp equal bit for bit to its output without. At qwen3-1.7b's and
-    granite-moe-3b-a800m's train shapes: the times and the float64 yardstick. Returns the
-    rows of the kernels line (granite's under "granite")."""
+    """The bfloat16 backward against its plain version on every case, at BWD_BF16_TOL of
+    each gradient's largest entry (:func:`_flash_bwd_bf16_case`); at qwen3-1.7b's,
+    granite-moe-3b-a800m's and seamless-m4t-large-v2's decoder's train shapes the times and
+    the float64 yardstick; the Δ check on keys with a common component
+    (:func:`_common_key_row`). Returns the rows of the kernels line (granite's under
+    "granite", seamless's under "seamless")."""
     rows = {}
     for case in FLASH_BWD_BF16_CASES:
         q, k, v, dout, err, out_err = _flash_bwd_bf16_case(gen, case)
@@ -1650,46 +1725,71 @@ def _flash_bwd_bf16_rows(gen):
             rows.update(_flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, "qwen3-1.7b"))
         elif case == FLASH_BWD_BF16_GRANITE:
             rows["granite"] = _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, MOE_ARCH)
+        elif case == FLASH_BWD_BF16_SEAMLESS:
+            rows["seamless"] = _flash_bwd_bf16_timed(
+                case, q, k, v, dout, err, out_err, f"{SEAMLESS_ARCH} decoder"
+            )
     for case in FLASH_BWD_BF16_DETERMINISM:
         _flash_bwd_determinism(gen, case)
+    _common_key_row()
     rows["f32_hd128"] = _flash_bwd_f32_hd128(gen)
     return rows
 
 
+def _check_fwd_f32(label, got_out, got_out32, want32) -> float:
+    """The bfloat16 forward's float32 output (``got_out32``) against the plain one at
+    TOL["bfloat16"], and rounding to its bfloat16 output bit for bit; returns its max |err|."""
+    if got_out32.dtype != torch.float32 or not torch.equal(got_out32.to(got_out.dtype), got_out):
+        raise AssertionError(
+            f"[kernels] {label}: the float32 output ({got_out32.dtype}) does not round to the "
+            "bfloat16 output bit for bit"
+        )
+    return _check(f"{label} out in float32", got_out32, want32, TOL["bfloat16"])
+
+
 def _flash_bwd_bf16_case(gen, case):
-    """One bfloat16 backward case against its plain version at BWD_BF16_TOL, with the
-    forward's logsumexp against the plain one and its output unchanged by asking for it;
-    returns q, k, v, dout, the gradients' max |err| and the output's."""
+    """One bfloat16 case: the forward with the logsumexp (its output, its output in float32
+    and its lse against the plain ones, the float32 output rounding to the output bit for bit,
+    the output unchanged by asking for the lse), then the backward at BWD_BF16_TOL against
+    its plain version on the same inputs, both on the plain forward's float32 output and
+    logsumexp and on the kernel forward's, as training runs it; returns q, k, v, dout, the
+    gradients' max |err| and the output's."""
     b, hq, hkv, sq, sk, d, causal, window, _, dv = case
-    q, k, v, dout, out, lse = _flash_bwd_inputs(gen, case)
+    q, k, v, dout, out32, lse = _flash_bwd_inputs(gen, case)
     masks = dict(causal=causal, window=window)
-    got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    got_out, got_lse, got_out32 = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
     same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
-    grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
-    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
-    torch.cuda.synchronize()
     label = f"flash_attention_bwd q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)} " + (
         f"bfloat16 causal={causal} window={window} ({fa.bwd_path(d, dv, q.dtype)} path)"
     )
     if not same:
         raise AssertionError(f"[kernels] {label}: the bfloat16 forward's output moved with lse")
-    if any(g.dtype != torch.bfloat16 for g in grads):
-        raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
-    out_err = _check(f"{label} out", got_out, out, TOL["bfloat16"])
+    out_err = _check(f"{label} out", got_out, out32.to(q.dtype), TOL["bfloat16"])
+    out32_err = _check_fwd_f32(label, got_out, got_out32, out32)
     lse_err = _check(f"{label} lse", got_lse, lse, LSE_BF16_TOL)
     lse_used = _tol_used(got_lse, lse, LSE_BF16_TOL)
-    shares = [_share_of_largest(g, w, BWD_BF16_TOL) for g, w in zip(grads, want)]
-    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
-    finite = all(torch.isfinite(g.float()).all() for g in grads)
-    if not finite or max(shares) > 1.0:
+    shares, errs = {}, None
+    for source, o, l in (("plain", out32, lse), ("kernel", got_out32, got_lse)):
+        grads = fa.flash_attention_bwd(q, k, v, o, l, dout, **masks)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, l, dout, **masks)
+        torch.cuda.synchronize()
+        if any(g.dtype != torch.bfloat16 or not torch.isfinite(g.float()).all() for g in grads):
+            raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
+        shares[source] = [_share_of_largest(g, w, BWD_BF16_TOL) for g, w in zip(grads, want)]
+        if source == "plain":
+            errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(grads, want)]
+        del grads, want
+    if max(max(x) for x in shares.values()) > 1.0:
         raise AssertionError(
-            f"[kernels] {label}: max |err| {errs}, {[f'{100 * x:.1f}%' for x in shares]} "
-            f"of {BWD_BF16_TOL} x each gradient's largest entry"
+            f"[kernels] {label}: max |err| {errs}; shares of {BWD_BF16_TOL} x each gradient's "
+            f"largest entry on the plain and the kernel forward's outputs {shares}"
         )
     log(
         f"[kernels] {label}: max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}, "
-        f"{100 * max(shares):.1f}% of the tolerance ({BWD_BF16_TOL:.4g} x each gradient's "
-        f"largest entry); forward out max |err| {out_err:.3e} (tol {TOL['bfloat16']}), lse "
+        f"{100 * max(shares['plain']):.1f}% of the tolerance ({BWD_BF16_TOL:.4g} x each "
+        f"gradient's largest entry; on the kernel forward's float32 output and lse "
+        f"{100 * max(shares['kernel']):.1f}%); forward out max |err| {out_err:.3e}, in float32 "
+        f"{out32_err:.3e} (tol {TOL['bfloat16']}; rounds to out bit for bit), lse "
         f"{lse_err:.3e} (tol {LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse "
         "equal bit for bit"
     )
@@ -1723,13 +1823,13 @@ def _hd256_parts(case) -> int:
 
 
 def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
-    """recurrentgemma-9b's train shape: the backward (on the kernel forward's output and
-    logsumexp) against its plain version, SDPA's backward with the window as a boolean mask
+    """recurrentgemma-9b's train shape: the backward (on the kernel forward's float32 output
+    and logsumexp, as training runs it) against its plain version, SDPA's backward with the window as a boolean mask
     (K and V expanded; the backend its dispatcher picks, named) and the bound; each launch's
     device time; the float64 yardstick."""
     b, hq, hkv, sq, sk, d, causal, window, _, dv = case
     masks = dict(causal=causal, window=window)
-    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    _, lse, out = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
 
     def kernel():
         return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
@@ -1786,13 +1886,13 @@ def _flash_bwd_hd256_timed(case, q, k, v, dout, err):
 
 def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, name):
     """A model's train shape (``name``'s): the bfloat16 forward with and without its
-    logsumexp; the backward (on the kernel forward's output and logsumexp, as training runs
-    it) against its plain version, SDPA's flash-backend backward and the bound; then the
+    logsumexp (with it, the float32 output too); the backward (on the kernel forward's float32
+    output and logsumexp, as training runs it) against its plain version, SDPA's flash-backend backward and the bound; then the
     float64 yardstick: the kernel's and SDPA's errors against float64 autograd of the dense
     oracle on batch row 0's first KV group, the kernel held to twice SDPA's."""
     b, hq, hkv, sq, sk, d, causal, window, _, dv = case
     masks = dict(causal=causal, window=window)
-    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    _, lse, out = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
 
     def kernel():
         return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
@@ -1845,8 +1945,8 @@ def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, name):
         f"kernel/bound {bwd['ms'] / bound:.1f}{before}"
     )
     log(
-        f"[kernels]   {name} train shape forward (bfloat16, wgmma): with lse "
-        f"{fwd['ms']:.4f} ms, without {fwd['ms_without_lse']:.4f} ms; plain_ms "
+        f"[kernels]   {name} train shape forward (bfloat16, wgmma): with lse and the float32 "
+        f"output {fwd['ms']:.4f} ms, without {fwd['ms_without_lse']:.4f} ms; plain_ms "
         f"{fwd['plain_ms']:.4f}, library_ms (SDPA flash backend, K/V expanded) "
         f"{fwd['library_ms']:.4f}, bound_ms {fwd_bound:.5f} ({fwd_bound_by})"
     )
@@ -1854,9 +1954,10 @@ def _flash_bwd_bf16_timed(case, q, k, v, dout, err, out_err, name):
     return {"bwd": bwd, "fwd": fwd}
 
 
-def _sdpa_bwd(q, k, v, dout, backend, mask=None):
-    """SDPA on ``backend`` (the dispatcher's choice for None; causal, or the boolean ``mask``;
-    K and V expanded to q's heads beforehand): its forward, its backward alone (the forward
+def _sdpa_bwd(q, k, v, dout, backend, mask=None, causal=True):
+    """SDPA on ``backend`` (the dispatcher's choice for None; causal, the boolean ``mask``, or
+    with ``causal`` False and no mask none; K and V expanded to q's heads beforehand, which at a
+    group of 1 copies them as they are): its forward, its backward alone (the forward
     run once, not timed), and the backward's (dq, dk, dv), dk and dv summed over each group
     in float32 and rounded once to the inputs' dtype."""
     from torch.nn.attention import sdpa_kernel
@@ -1870,7 +1971,7 @@ def _sdpa_bwd(q, k, v, dout, backend, mask=None):
     def forward():
         with contextlib.nullcontext() if backend is None else sdpa_kernel(backend):
             return torch.nn.functional.scaled_dot_product_attention(
-                qx, kx, vx, attn_mask=mask, is_causal=mask is None, scale=scale
+                qx, kx, vx, attn_mask=mask, is_causal=causal and mask is None, scale=scale
             )
 
     o = forward()
@@ -1898,7 +1999,7 @@ def _flash_bwd_bf16_yardstick(q, k, v, dout, out, lse, sdpa, masks) -> None:
     sl_q = (slice(0, 1), slice(0, g))
     sl_k = (slice(0, 1), slice(0, 1))
     x64 = [x[sl].double().requires_grad_(True) for x, sl in ((q, sl_q), (k, sl_k), (v, sl_k))]
-    o64 = ref.flash_attention_dense_ref(*x64, **masks)
+    o64 = _attention_f64(*x64, **masks)
     want = torch.autograd.grad(o64, x64, dout[sl_q].double())
     parts = []
     for n, a, c, w, sl in zip("qkv", kernel, lib, want, (sl_q, sl_k, sl_k)):
@@ -1914,6 +2015,82 @@ def _flash_bwd_bf16_yardstick(q, k, v, dout, out, lse, sdpa, masks) -> None:
         f"[kernels]   float64 yardstick (batch row 0, KV head 0's {g} query heads, the dense "
         f"oracle's autograd): max |err| {'; '.join(parts)}; the kernel within 2x SDPA's"
     )
+
+
+# Keys that share a component 8 times their spread and values offset by 3, the inputs of
+# tests/test_torch_flash_bwd_bf16.py::test_delta_from_the_float32_output_keeps_dq_under_a_
+# common_key_component (numpy's generator, seed 11; B, H, Sq, Sk, D). A row's dS that does not
+# sum to zero reaches dQ = dS K times the common key: Δ from the bfloat16 output sums to
+# dO.(O - bf16(O)), and the bfloat16 dS the kernels use to its roundings. Each gradient from
+# the float32 output is held within COMMON_KEY_TOL of float64 autograd by relative L2; Δ from
+# the bfloat16 output, the fault the float32 output removes, must fail that limit.
+COMMON_KEY_CASE = (1, 2, 200, 300, 64)
+COMMON_KEY_TOL = 2.0**-8
+
+
+def _common_key_errors(d):
+    """COMMON_KEY_CASE's inputs at head dim ``d`` (numpy's generator, seed 11), the kernel
+    forward's outputs, then the relative L2 errors (dq, dk, dv) against float64 autograd of
+    dense attention: the backward from the float32 output, from the bfloat16 output (upcast
+    by the wrapper), and SDPA's backward as dispatched; and SDPA's backend."""
+    rng = np.random.default_rng(11)
+    b, h, sq, sk, _ = COMMON_KEY_CASE
+
+    def bf16(x):
+        return torch.from_numpy(x.astype(np.float32)).to(DEV).bfloat16()
+
+    q = bf16(rng.normal(size=(b, h, sq, d)))
+    k = bf16(8 * rng.normal(size=(1, 1, 1, d)) + rng.normal(size=(b, h, sk, d)))
+    v = bf16(3 + rng.normal(size=(b, h, sk, d)))
+    dout = bf16(rng.normal(size=(b, h, sq, d)))
+    want = _grads_f64(q, k, v, dout)
+    out, lse, out32 = fa.flash_attention_fwd(q, k, v, causal=False, return_lse=True)
+
+    def rel(grads):
+        return [((g.double() - w).norm() / w.norm()).item() for g, w in zip(grads, want)]
+
+    sdpa = _sdpa_bwd(q, k, v, dout, None, causal=False)["grads"]()
+    return (
+        rel(fa.flash_attention_bwd(q, k, v, out32, lse, dout, causal=False)),
+        rel(fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=False)),
+        rel(sdpa),
+        _sdpa_backend(q, k, v, None, False),
+    )
+
+
+def _common_key_row() -> None:
+    """The bfloat16 kernels' Δ and dQ on keys with a common component (COMMON_KEY_CASE,
+    :func:`_common_key_errors`): from the float32 output every gradient within
+    COMMON_KEY_TOL; from the bfloat16 output some gradient above it. Then the same inputs at
+    head dim 256, the split builds, whose dQ lacks the row-sum step: logged, not held
+    (ROADMAP Queue 3)."""
+    b, h, sq, sk, d = COMMON_KEY_CASE
+    for dim in (d, 256):
+        from_f32, from_bf16, lib, backend = _common_key_errors(dim)
+        shape = f"q,k,v,dO({b}, {h}, {sq}/{sk}, {dim}) bfloat16 no mask"
+        msg = (
+            f"relative L2 errors against float64 autograd (dq, dk, dv): Δ from the float32 "
+            f"output {', '.join(f'{x:.3e}' for x in from_f32)}, from the bfloat16 output "
+            f"{', '.join(f'{x:.3e}' for x in from_bf16)}; SDPA's backward as dispatched "
+            f"({backend}) " + ", ".join(f"{x:.3e}" for x in lib)
+        )
+        if dim != d:
+            log(
+                f"[kernels] flash_attention_bwd {shape} ({fa.bwd_path(dim, dim, torch.bfloat16)} "
+                f"path, the split builds: no row-sum step in dQ), keys with a common component: "
+                f"{msg}; not held"
+            )
+            continue
+        if max(from_f32) > COMMON_KEY_TOL or max(from_bf16) <= COMMON_KEY_TOL:
+            raise AssertionError(
+                f"[kernels] flash_attention_bwd {shape}, keys with a common component: {msg}; "
+                f"the limit {COMMON_KEY_TOL:.4g} (from the bfloat16 output it must fail)"
+            )
+        log(
+            f"[kernels] flash_attention_bwd {shape}, keys with a common component 8 times their "
+            f"spread, values offset by 3: {msg}; within {COMMON_KEY_TOL:.4g} from the float32 "
+            f"output, {max(from_bf16) / COMMON_KEY_TOL:.2f}x that limit from the bfloat16 one"
+        )
 
 
 def _flash_bwd_f32_hd128(gen) -> dict:
@@ -2537,6 +2714,7 @@ def phase_kernels():
     flash_rows.update(_mla_flash_rows(gen))
     flash_rows.update(_encdec_flash_rows(gen))
     bwd_rows["mla_train"] = _mla_train_rows(gen)
+    bwd_rows["encdec"] = _encdec_bwd_rows(gen)
     return flash_rows, demo_err, bwd_rows, decode_rows, rglru_rows, wkv6_rows
 
 
@@ -2610,11 +2788,11 @@ def _mla_flash_rows(gen) -> dict:
     return rows
 
 
-def _scaled_used(got, want) -> float:
-    """The largest |got - want| / (SCALED_RTOL |want| + TOL * rms(want)) over the elements: 1 is
-    at the limit the flash rows without a mask are held to."""
+def _scaled_used(got, want, rms_tol=TOL["bfloat16"]) -> float:
+    """The largest |got - want| / (SCALED_RTOL |want| + rms_tol * rms(want)) over the elements:
+    1 is at the limit the flash rows without a mask are held to."""
     w = want.float()
-    limit = SCALED_RTOL * w.abs() + TOL["bfloat16"] * w.square().mean().sqrt()
+    limit = SCALED_RTOL * w.abs() + rms_tol * w.square().mean().sqrt()
     return ((got.float() - w).abs() / limit).max().item()
 
 
@@ -2722,10 +2900,256 @@ def _encdec_flash_rows(gen) -> dict:
     return rows
 
 
+def _attention_f64(q, k, v, causal=False, window=None, scale=None):
+    """Dense attention in float64 for autograd, with ``ref._mask``'s masks: the exact function
+    the bfloat16 kernels are held to (``ref.flash_attention_dense_ref`` computes in float32
+    whatever its inputs' type)."""
+    g = q.shape[1] // k.shape[1]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    kx, vx = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, kx) * scale
+    sq, sk = q.shape[2], k.shape[2]
+    valid = ref._mask(sq, torch.arange(sk, device=q.device), sk, causal, window)
+    s = s.masked_fill(~valid, -torch.inf)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vx)
+
+
+def _grads_f64(q, k, v, dout, **masks):
+    """(dq, dk, dv) of :func:`_attention_f64` on the bfloat16 inputs, in float64."""
+    x64 = [x.double().requires_grad_(True) for x in (q, k, v)]
+    out = _attention_f64(*x64, **masks)
+    return torch.autograd.grad(out, x64, dout.double())
+
+
+def _bwd_used(got, want) -> float:
+    """The share of its limit that a gradient uses: the larger of the element-wise
+    :func:`_scaled_used` at BWD_RMS_TOL and its lean, |<got - want, want>| / <want, want>,
+    over BWD_LEAN_LIMIT."""
+    g, w = got.double(), want.double()
+    lean = ((g - w) * w).sum().abs().item() / max(w.square().sum().item(), 1e-300)
+    return max(_scaled_used(got, want, BWD_RMS_TOL), lean / BWD_LEAN_LIMIT)
+
+
+def _worst_element(got, want) -> str:
+    """Where a gradient uses the most of its element-wise limit: that element's |want| over
+    the gradient's RMS, and its error in units in the last place of a bfloat16 value at
+    |want|."""
+    w, g = want.double(), got.double()
+    rms = w.square().mean().sqrt()
+    limit = SCALED_RTOL * w.abs() + BWD_RMS_TOL * rms
+    i = ((g - w).abs() / limit).flatten().argmax()
+    wi, err = w.flatten()[i].abs(), (g - w).flatten()[i].abs()
+    ulp = 2.0 ** (torch.floor(torch.log2(wi.clamp_min(1e-30))) - 7)
+    return f"|want| {(wi / rms).item():.2f} x rms, off by {(err / ulp).item():.2f} units"
+
+
+def _plain_bwd(q, k, v, dout):
+    """The plain backward without a mask, on the plain forward's output and logsumexp."""
+    out, lse = ref.flash_attention_ref(q, k, v, causal=False, return_lse=True)
+    return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False)
+
+
+def _bwd_faults(q, k, v, dout, want) -> dict:
+    """The share of the limit (:func:`_bwd_used`, the largest over dQ, dK, dV) that each
+    planted fault of a walk without a mask reads, by name: the plain backward with the walk's
+    last key tile dropped (its keys' dK and dV zero; walks of more than one tile), with the
+    ragged last tile's padding keys and values, zeros, folded into the softmax (Sk no multiple
+    of BWD_WALK), and with the last query tile's rows dropped from dK and dV (walks of more
+    than one query tile)."""
+    sq, sk = q.shape[2], k.shape[2]
+    tail = sk - BWD_WALK * ((sk - 1) // BWD_WALK)  # keys in the walk's last tile
+    faults = {}
+    if sk > BWD_WALK:
+        kept = sk - tail
+        dq, dk, dv = _plain_bwd(q, k[:, :, :kept], v[:, :, :kept], dout)
+        pad = (0, 0, 0, tail)
+        faults["last key tile dropped"] = (
+            dq, torch.nn.functional.pad(dk, pad), torch.nn.functional.pad(dv, pad)
+        )
+    if tail < BWD_WALK:
+        pad = (0, 0, 0, BWD_WALK - tail)
+        kp, vp = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        dq, dk, dv = _plain_bwd(q, kp, vp, dout)
+        faults["padding keys folded in"] = (dq, dk[:, :, :sk], dv[:, :, :sk])
+    if sq > BWD_WALK:
+        kept = BWD_WALK * ((sq - 1) // BWD_WALK)
+        dq = _plain_bwd(q, k, v, dout)[0]
+        _, dk, dv = _plain_bwd(q[:, :, :kept].contiguous(), k, v, dout[:, :, :kept].contiguous())
+        faults["last query tile dropped from dK, dV"] = (dq, dk, dv)
+    return {
+        name: max(_bwd_used(g, w) for g, w in zip(grads, want))
+        for name, grads in faults.items()
+    }
+
+
+def _encdec_bwd_rows(gen) -> dict:
+    """The bfloat16 backward without a mask (ENCDEC_BWD_CASES) on the kernel forward's output
+    and logsumexp, as training runs it: dQ, dK and dV against float64 autograd of dense
+    attention (:func:`_grads_f64`) within the limit of :func:`_bwd_used`, the share used, the
+    share each planted fault reads (each must fail it), the same bits on two launches, then
+    the times: kernel ms, device us a call and by part (delta, dK/dV, dQ), the plain backward's
+    ms, SDPA's backward as dispatched (no mask, group 1: no K/V expansion; the backend named,
+    its share of the same limit logged) and the bound. At ENCDEC_BWD_JSON also the forward
+    with the logsumexp: its output against the plain one within the scaled limit, its lse
+    against the plain one at LSE_BF16_TOL, its output equal with and without the lse and on two
+    launches, timed beside its plain version, SDPA's forward as dispatched and its bound.
+    Returns the rows of the kernels line, by case, and the forward's under "fwd"."""
+    rows = {}
+    for case in ENCDEC_BWD_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+        q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.bfloat16)
+        dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV).to(torch.bfloat16)
+        out, lse, out32 = fa.flash_attention_fwd(q, k, v, causal=False, return_lse=True)
+
+        def kernel(q=q, k=k, v=v, out=out32, lse=lse, dout=dout):
+            return fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+
+        grads, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        relaunch = sum((x != y).sum().item() for x, y in zip(grads, again))
+        want = _grads_f64(q, k, v, dout)
+        shape = f"q,dO{tuple(q.shape)} k,v{tuple(k.shape)} bfloat16 no mask"
+        used = [_bwd_used(g, w) for g, w in zip(grads, want)]
+        errs = [(g.double() - w).abs().max().item() for g, w in zip(grads, want)]
+        faults = _bwd_faults(q, k, v, dout, want)
+        finite = all(torch.isfinite(g.float()).all() for g in grads)
+        if not finite or max(used) > 1.0 or relaunch:
+            raise AssertionError(
+                f"[kernels] flash_attention_bwd {shape}: {[f'{100 * x:.1f}%' for x in used]} of "
+                f"the limit, max |err| {errs}; {relaunch} elements differ between two launches"
+            )
+        if min(faults.values()) <= 1.0:
+            raise AssertionError(
+                f"[kernels] flash_attention_bwd {shape}: a planted fault passes the limit: {faults}"
+            )
+        sdpa = _sdpa_bwd(q, k, v, dout, None, causal=False)
+        lib_grads = sdpa["grads"]()
+        lib_used = [_bwd_used(g, w) for g, w in zip(lib_grads, want)]
+        worst = used.index(max(used))
+        where = (
+            f"the kernel's worst element (d{'qkv'[worst]}): "
+            f"{_worst_element(grads[worst], want[worst])}; SDPA's (d"
+            f"{'qkv'[lib_used.index(max(lib_used))]}): "
+            + _worst_element(*max(zip(lib_grads, want), key=lambda gw: _bwd_used(*gw)))
+        )
+        lib_used = max(lib_used)
+        del want, again, lib_grads
+        backend = _sdpa_backend(q, k, v, None, False)
+        bound, bound_by, bytes_ms = attention_bwd_bound_ms(
+            b, hq, hkv, sq, sk, d, dv, False, None, 2
+        )
+        row = {
+            "ms": time_ms(kernel, iters=10),
+            "device_us": device_us(kernel, launches=10),
+            **{
+                f"{n}_us": device_us(kernel, f"flash_bwd_bf16_{n}", launches=10)
+                for n in BF16_KERNEL_PARTS
+            },
+            "plain_ms": time_ms(
+                lambda q=q, k=k, v=v, out=out32, lse=lse, dout=dout: ref.flash_attention_bwd_ref(
+                    q, k, v, out, lse, dout, causal=False
+                ),
+                iters=3,
+                warmup=1,
+            ),
+            "library_ms": time_ms(sdpa["backward"], iters=10),
+            "library_backend": backend,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "max_abs_err": max(errs),
+        }
+        rows[case] = row
+        parts = ", ".join(f"{n} {row[n + '_us']:.2f}" for n in BF16_KERNEL_PARTS)
+        flops = 2.0 * b * hq * sq * sk * (3 * d + 2 * dv)
+        log(
+            f"[kernels] flash_attention_bwd {shape} ({fa.bwd_path(d, dv, q.dtype)} path): against "
+            f"float64 autograd of dense attention, max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+            f"dv {errs[2]:.3e}; the limit (2^-7 |want| + 2^-5 x rms(want) element by "
+            f"element, a lean of {BWD_LEAN_LIMIT:.3g}) used dq {100 * used[0]:.1f}%, dk "
+            f"{100 * used[1]:.1f}%, dv {100 * used[2]:.1f}% (SDPA's backward "
+            f"{100 * lib_used:.1f}%; {where}); planted faults read "
+            + ", ".join(f"{name} {x:.1f}x the limit" for name, x in faults.items())
+            + "; two launches equal bit for bit"
+        )
+        log(
+            f"[kernels]   {shape}: backward kernel_ms {row['ms']:.4f} (device "
+            f"{row['device_us']:.2f} us a call: {parts}; {b * hkv * -(-sk // 128)} dK/dV blocks "
+            f"walking {-(-sq // BWD_WALK)} query tiles, {b * hq * -(-sq // 128)} dQ blocks walking "
+            f"{-(-sk // BWD_WALK)} key tiles), plain_ms {row['plain_ms']:.4f}, library_ms (SDPA "
+            f"backward alone as dispatched, backend {backend}) {row['library_ms']:.4f} (kernel "
+            f"{'faster' if row['ms'] < row['library_ms'] else 'NOT faster'}), bound_ms "
+            f"{bound:.5f} ({bound_by}, bf16 tensor cores: 5 products, {flops:.4g} FLOPs at 989 "
+            f"TFLOP/s; bytes alone {bytes_ms:.5f}), kernel/bound {row['ms'] / bound:.2f}"
+        )
+        if case == ENCDEC_BWD_JSON:
+            rows["fwd"] = _encdec_fwd_lse_row(case, q, k, v, out, lse, out32)
+        del sdpa, grads
+    return rows
+
+
+def _encdec_fwd_lse_row(case, q, k, v, out, lse, out32) -> dict:
+    """The bfloat16 forward with the logsumexp and the float32 output, without a mask, at the
+    train shape the phase saves: ``out``, ``lse`` and ``out32`` (its launch) against the plain
+    forward (the float32 output within the same scaled limit, and rounding to ``out`` bit for
+    bit), its bits unchanged by the lse and on two launches; its times beside the plain
+    version's, SDPA's as dispatched and the bound."""
+    b, hq, hkv, sq, sk, d, causal, window, dt, dv = case
+    want32, want_lse = ref.flash_attention_ref(
+        q, k, v, causal=False, return_lse=True, out_dtype=torch.float32
+    )
+    want = want32.to(q.dtype)
+    used = max(_scaled_used(out, want), _scaled_used(out32, want32))
+    lse_err = _check("flash_attention_fwd lse, no mask", lse, want_lse, LSE_BF16_TOL)
+    again = fa.flash_attention_fwd(q, k, v, causal=False, return_lse=True)
+    plain_out = fa.flash_attention_fwd(q, k, v, causal=False)
+    shape = f"q,k,v{tuple(q.shape)} bfloat16 no mask, with the logsumexp and the float32 output"
+    same = {
+        "two launches": all(torch.equal(x, y) for x, y in zip((out, lse, out32), again)),
+        "without the lse": torch.equal(out, plain_out),
+        "the float32 output rounded": torch.equal(out, out32.to(q.dtype)),
+    }
+    if used > 1.0 or not all(same.values()):
+        raise AssertionError(
+            f"[kernels] flash_attention_fwd {shape}: {100 * used:.1f}% of the limit; equal "
+            f"bits {same}"
+        )
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=False)
+
+    bound, bound_by = attention_bound_ms(b, hq, hkv, sq, sk, d, dv, False, None, 2)
+    train = dict(causal=False, return_lse=True)  # as FlashAttentionFunction
+    row = {
+        "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, **train)),
+        "device_us": device_us(lambda: fa.flash_attention_fwd(q, k, v, **train), launches=20),
+        "ms_without_lse": time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=False)),
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_ref(q, k, v, causal=False, return_lse=True), iters=5
+        ),
+        "library_ms": time_ms(library, iters=10),
+        "library_backend": _sdpa_backend(q, k, v, None, False),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "max_abs_err": (out.float() - want.float()).abs().max().item(),
+    }
+    log(
+        f"[kernels] flash_attention_fwd {shape} ({fa.PATHS[torch.bfloat16]} path): "
+        f"{100 * used:.1f}% of the scaled limit, lse max |err| {lse_err:.3e} (tol "
+        f"{LSE_BF16_TOL}); equal bit for bit on two launches, without the lse, and the float32 "
+        f"output rounded to the bfloat16 one; kernel_ms with both {row['ms']:.4f} (device "
+        f"{row['device_us']:.2f} us a call), without "
+        f"{row['ms_without_lse']:.4f}, plain_ms {row['plain_ms']:.4f}, library_ms (SDPA "
+        f"{row['library_backend']}, dispatched) {row['library_ms']:.4f}, bound_ms {bound:.5f} "
+        f"({bound_by}), kernel/bound {row['ms'] / bound:.2f}"
+    )
+    return row
+
+
 def _mla_train_case(gen, case):
     """One case at MLA's head dims with the explicit scale: the bfloat16 forward with the
-    logsumexp against the plain one (its output equal bit for bit to its output without),
-    then the backward on the plain forward's output and logsumexp against
+    logsumexp against the plain one (its output equal bit for bit to its output without, its
+    float32 output against the plain one and rounding to its output bit for bit), then the
+    backward on the plain forward's float32 output and logsumexp against
     ``ref.flash_attention_bwd_ref`` and against ``ref.flash_attention_bwd_split_ref`` (the
     kernels' decomposition at the planned parts), each at BWD_BF16_TOL of each gradient's
     largest entry. Returns q, k, v, dO, the errors against the split plain version (the
@@ -2734,8 +3158,8 @@ def _mla_train_case(gen, case):
     masks = dict(causal=True, scale=MLA_SCALE)
     q, k, v = _inputs(gen, b, hq, hkv, sq, sk, d, dv, torch.bfloat16)
     dout = torch.randn(b, hq, sq, dv, generator=gen, device=DEV).to(torch.bfloat16)
-    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **masks)
-    got_out, got_lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    out, lse = ref.flash_attention_ref(q, k, v, return_lse=True, out_dtype=torch.float32, **masks)
+    got_out, got_lse, got_out32 = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
     same = torch.equal(got_out, fa.flash_attention_fwd(q, k, v, **masks))
     parts = fa.bwd_split_plan(sq, sk, hq, hkv, True, None)
     label = (
@@ -2745,10 +3169,11 @@ def _mla_train_case(gen, case):
     )
     if not same:
         raise AssertionError(f"[kernels] {label}: the bfloat16 forward's output moved with lse")
-    out_err = _check(f"{label} out", got_out, out, TOL["bfloat16"])
+    out_err = _check(f"{label} out", got_out, out.to(q.dtype), TOL["bfloat16"])
+    out32_err = _check_fwd_f32(label, got_out, got_out32, out)
     lse_err = _check(f"{label} lse", got_lse, lse, LSE_BF16_TOL)
     lse_used = _tol_used(got_lse, lse, LSE_BF16_TOL)
-    del got_out, got_lse
+    del got_out, got_lse, got_out32
     grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
     if any(g.dtype != torch.bfloat16 or not torch.isfinite(g.float()).all() for g in grads):
         raise AssertionError(f"[kernels] {label}: gradients {[g.dtype for g in grads]}")
@@ -2778,9 +3203,9 @@ def _mla_train_case(gen, case):
         )
     log(
         f"[kernels] {label}: {'; '.join(report)} ({BWD_BF16_TOL:.4g} x each gradient's largest "
-        f"entry); forward out max |err| {out_err:.3e} (tol {TOL['bfloat16']}), lse "
-        f"{lse_err:.3e} (tol {LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse "
-        "equal bit for bit"
+        f"entry); forward out max |err| {out_err:.3e}, in float32 {out32_err:.3e} (tol "
+        f"{TOL['bfloat16']}; rounds to out bit for bit), lse {lse_err:.3e} (tol "
+        f"{LSE_BF16_TOL}, {100 * lse_used:.1f}% used), output with lse equal bit for bit"
     )
     return q, k, v, dout, max(errs), out_err, plain_ms
 
@@ -2800,7 +3225,7 @@ def _mla_train_rows(gen) -> dict:
     _mla_train_case(gen, MLA_TRAIN_EDGE)
     q, k, v, dout, err, out_err, split_ms = _mla_train_case(gen, MLA_TRAIN)
     _mla_train_determinism(gen)
-    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
+    _, lse, out = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
 
     def kernel():
         return fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
@@ -2877,7 +3302,7 @@ def _mla_train_rows(gen) -> dict:
     }
     log(
         f"[kernels]   deepseek-v3-671b train shape forward (bfloat16, wgmma, the DC = 4 build): "
-        f"with lse {fwd['ms']:.4f} ms (device {fwd['device_us']:.2f} us a call), without "
+        f"with lse and the float32 output {fwd['ms']:.4f} ms (device {fwd['device_us']:.2f} us a call), without "
         f"{fwd['ms_without_lse']:.4f} ms; plain_ms {fwd['plain_ms']:.4f}, library_ms (SDPA "
         f"{backend}, dispatched for Dv != D) {fwd['library_ms']:.4f}, bound_ms {fwd_bound:.5f} "
         f"({fwd_bound_by}), the DC = 4 build's floor (QK^T over 256 columns) {floor:.5f}, "
@@ -2887,8 +3312,8 @@ def _mla_train_rows(gen) -> dict:
 
 
 def _mla_train_determinism(gen) -> None:
-    """At MLA_TRAIN's heads and length in a batch of 2: the forward with the logsumexp and the
-    backward on it each equal bit for bit on two launches, and batch row 0 alone equal to row
+    """At MLA_TRAIN's heads and length in a batch of 2: the forward with the logsumexp (and the
+    float32 output) and the backward on them each equal bit for bit on two launches, and batch row 0 alone equal to row
     0 of the batch."""
     _, hq, hkv, sq, sk, d, _, _, _, dv = MLA_TRAIN
     masks = dict(causal=True, scale=MLA_SCALE)
@@ -2897,7 +3322,7 @@ def _mla_train_determinism(gen) -> None:
     first = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
     again = fa.flash_attention_fwd(q, k, v, return_lse=True, **masks)
     alone = fa.flash_attention_fwd(q[:1], k[:1], v[:1], return_lse=True, **masks)
-    out, lse = first
+    _, lse, out = first
     bwd = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
     bwd_again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
     bwd_alone = fa.flash_attention_bwd(q[:1], k[:1], v[:1], out[:1], lse[:1], dout[:1], **masks)
@@ -6077,12 +6502,15 @@ def _dense_train() -> dict:
 def _layer_launches(cfg, steps: int) -> dict:
     """The kernel launches of ``steps`` train steps of ``cfg`` with remat "full", which runs
     each layer's forward again in its backward: the flash forward twice and its backward
-    once an attention layer (a dense, attn or moe layer), the RG-LRU forward twice and its
-    backward once a rec layer, the WKV6 chunk forward twice and its backward once an rwkv
-    layer; the MTP module's dense layer runs outside the remat, as the reference runs it
-    outside ``jax.checkpoint``: its flash forward and backward once each."""
+    once an attention layer (a dense, attn or moe layer, an encoder layer), twice and once
+    for each of an xattn layer's two attentions (its causal self-attention, its
+    cross-attention), the RG-LRU forward twice and its backward once a rec layer, the WKV6
+    chunk forward twice and its backward once an rwkv layer; the MTP module's dense layer
+    runs outside the remat, as the reference runs it outside ``jax.checkpoint``: its flash
+    forward and backward once each."""
     kinds = layer_pattern(cfg)
     attn = sum(kind in ("dense", "attn", "moe") for kind in kinds)
+    attn += 2 * sum(kind == "xattn" for kind in kinds) + cfg.encoder_layers
     rec = sum(kind == "rec" for kind in kinds)
     rwkv = sum(kind == "rwkv" for kind in kinds)
     mtp = int(cfg.mtp)
@@ -6096,17 +6524,62 @@ def _layer_launches(cfg, steps: int) -> dict:
     }
 
 
+@contextlib.contextmanager
+def _flash_shapes(counts: dict):
+    """Count into ``counts`` the flash forward and backward launches made through
+    ``FlashAttentionFunction`` (a train step's path), by shape and mask: the wrappers' own
+    counters read before and after each call of its forward and backward (this file's patch;
+    the port's code carries none). The backward's key is taken when its forward runs, since
+    remat's saved tensors may be read once. Keys: "fwd q(B, Hq, Sq, D) k(B, Hkv, Sk) causal"
+    (or "no mask"), and "bwd ..." the same."""
+    cls = fa.FlashAttentionFunction
+    forward, backward = cls.forward, cls.backward
+
+    def add(key, n):
+        counts[key] = counts.get(key, 0) + n
+
+    def counted_forward(ctx, q, k, v, causal, window, scale):
+        n0 = fa.flash_attention_fwd.launches
+        out = forward(ctx, q, k, v, causal, window, scale)
+        shape = f"q{tuple(q.shape)} k{tuple(k.shape[:3])} {'causal' if causal else 'no mask'}"
+        ctx.counted_as = f"bwd {shape}"
+        add(f"fwd {shape}", fa.flash_attention_fwd.launches - n0)
+        return out
+
+    def counted_backward(ctx, dout):
+        n0 = fa.flash_attention_bwd.launches
+        grads = backward(ctx, dout)
+        add(ctx.counted_as, fa.flash_attention_bwd.launches - n0)
+        return grads
+
+    cls.forward, cls.backward = staticmethod(counted_forward), staticmethod(counted_backward)
+    try:
+        yield counts
+    finally:
+        cls.forward, cls.backward = staticmethod(forward), staticmethod(backward)
+
+
 def _bf16_train(
-    cfg, batch_size: int, tag: str, state_dtype: str = "float32", plain_seq=None
+    cfg,
+    batch_size: int,
+    tag: str,
+    state_dtype: str = "float32",
+    plain_seq=None,
+    seq: int = TRAIN_SEQ,
+    inputs=None,
+    ragged=(),
 ) -> dict:
     """``cfg`` (bfloat16, remat "full") takes 3 AdamW steps (the train CLI's, with m and v in
-    ``state_dtype``) on TokenSource batches of batch_size x TRAIN_SEQ, deterministically: the
-    launch gates, step 0 replayed with equal bits, a profiled step, step 0 against
-    attn_impl="ref" (on the first ``plain_seq`` tokens of its batch where given, the
-    gradients waiting on the host during the float32 run). Step 0's result waits on the host
-    while its replay runs (params, m and v of two states take most of the card), training
-    goes on from the replay's, and the first params wait on the host over steps 1 and 2 for
-    the check against the plain path at the end."""
+    ``state_dtype``) on TokenSource batches of batch_size x ``seq``, with the frontend's
+    ``inputs(step)`` (frames or patch embeddings) beside the tokens where given,
+    deterministically: the launch gates, step 0 replayed with equal bits, a profiled step,
+    then one step on each ``ragged`` batch ((label, batch) pairs) with its own launch gate,
+    then step 0 against attn_impl="ref" (on the first ``plain_seq`` tokens of its batch where
+    given, the gradients waiting on the host during the float32 run), and the same on the
+    first ragged batch. Step 0's result waits on the host while its replay runs (params, m and
+    v of two states take most of the card), training goes on from the replay's, and the first
+    params wait on the host over steps 1 and 2 for the checks against the plain path at the
+    end. The flash launches are counted by shape and mask (:func:`_flash_shapes`)."""
     from repro_torch.launch.train import opt_config
 
     if (cfg.param_dtype, cfg.compute_dtype, cfg.remat) != ("bfloat16", "bfloat16", "full"):
@@ -6121,13 +6594,21 @@ def _bf16_train(
     state0 = make_opt_init(model, opt)(params0)
     train_step = make_train_step(model, opt)
     source = TokenSource(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch_size, seed=0)
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch_size, seed=0)
     )
     batches = [
-        {"tokens": torch.from_numpy(source.batch_at(s)["tokens"]).long().to(DEV)}
+        {
+            "tokens": torch.from_numpy(source.batch_at(s)["tokens"]).long().to(DEV),
+            **(inputs(s) if inputs else {}),
+        }
         for s in range(TRAIN_STEPS)
     ]
-    tokens = batch_size * TRAIN_SEQ
+    tokens = batch_size * seq
+    beside = "".join(
+        f" and {key} {tuple(x.shape)} {str(x.dtype)[6:]}"
+        for key, x in batches[0].items()
+        if key != "tokens"
+    )
     torch.cuda.synchronize()
     pattern = ", ".join(cfg.block_pattern) if cfg.block_pattern else layer_pattern(cfg)[0]
     heads = (
@@ -6143,32 +6624,37 @@ def _bf16_train(
         )
     if cfg.mtp:
         pattern += f"; the MTP module (a dense layer; mtp_coef {cfg.mtp_coef})"
+    if cfg.is_encdec:
+        pattern = f"{cfg.encoder_layers} encoder layers, then {pattern}"
     log(
         f"{tag} {cfg.name}: {cfg.num_layers} layers ({pattern}), d={cfg.d_model}, {heads}"
         + (f", window {cfg.window}" if cfg.block_pattern else "")
         + f", vocab {cfg.vocab_size}, {'tied' if cfg.tie_embeddings else 'untied'} embeddings, "
         f"{cfg.param_count()} params {cfg.param_dtype}, remat={cfg.remat}; batches of "
-        f"{batch_size} x {TRAIN_SEQ} tokens from TokenSource(seed=0); {opt}; "
+        f"{batch_size} x {seq} tokens from TokenSource(seed=0){beside}; {opt}; "
         f"{torch.cuda.memory_allocated()} bytes held (params, AdamW m and v), drawn in "
         f"{time.monotonic() - t_set_up:.1f} s"
     )
     torch.use_deterministic_algorithms(True)
     _reset_launches()
+    by_shape = {}
 
-    def run(step, params, state):
+    def run(step, params, state, batch=None):
         t0 = time.monotonic()
-        params, state, metrics = train_step(params, state, batches[step])
+        with _flash_shapes(by_shape):
+            params, state, metrics = train_step(params, state, batch or batches[step])
         torch.cuda.synchronize()
         ms = 1e3 * (time.monotonic() - t0)
         vals = {key: float(x) for key, x in metrics.items()}
         if not all(np.isfinite(list(vals.values()))):
             raise AssertionError(f"{tag} step {step}: metrics {vals}")
         mtp = f" mtp_loss {vals['mtp_loss']:.6f}" if "mtp_loss" in vals else ""
+        n = tokens if batch is None else batch["tokens"].numel()
         log(
             f"{tag} step {step}: loss {vals['loss']:.6f} ce {vals['ce']:.6f} z_loss "
             f"{vals['z_loss']:.4f} aux_loss {vals['aux_loss']:.6f}{mtp} grad_norm "
             f"{vals['grad_norm']:.6f} lr {vals['lr']:.4e}; "
-            f"{ms:.3f} ms, {tokens / ms * 1e3:.1f} tokens/s (host clock after a sync); "
+            f"{ms:.3f} ms, {n / ms * 1e3:.1f} tokens/s (host clock after a sync); "
             f"max_memory_allocated so far {torch.cuda.max_memory_allocated()} bytes"
         )
         return (params, state, metrics), ms
@@ -6236,7 +6722,23 @@ def _bf16_train(
         f"max_memory_allocated over steps 1-2 {peak} bytes ({peak - held} above the {held} "
         "held before them)"
     )
+    log(f"{tag} flash launches by shape and mask over those steps: {by_shape}")
+    main_shapes = dict(by_shape)
     _train_profile(model, params, state, batches[0], opt, tag=tag)
+    ragged_out = {}
+    for label, batch in ragged:
+        _reset_launches()
+        by_shape.clear()
+        (params, state, _), ms = run(label, params, state, batch)
+        got = {
+            "flash": fa.flash_attention_fwd.launches,
+            "flash_bwd": fa.flash_attention_bwd.launches,
+        }
+        expected = {k: n for k, n in _layer_launches(cfg, 1).items() if k in got}
+        if got != expected:
+            raise AssertionError(f"{tag} step {label}: launches {got}, expected {expected}")
+        log(f"{tag} step {label}: launches {got} as expected; by shape and mask {by_shape}")
+        ragged_out[label] = {**got, "by_shape": dict(by_shape), "ms": ms}
     del params, state
     _release()
     params0 = tree_map(lambda x: x.to(DEV), params0)
@@ -6247,8 +6749,18 @@ def _bf16_train(
     _check_bf16_train_against_plain(
         cfg, model, params0, plain_batch, tag, grads_to_host=bool(plain_seq)
     )
-    log(f"{tag} the check against the plain path took {time.monotonic() - t_check:.1f} s")
-    return {**launches, "step_ms": step_ms, "peak": peak}
+    for label, batch in ragged[:1]:
+        _release()
+        log(f"{tag} the check against the plain path on the batch of step {label}:")
+        _check_bf16_train_against_plain(cfg, model, params0, batch, tag)
+    log(f"{tag} the checks against the plain path took {time.monotonic() - t_check:.1f} s")
+    return {
+        **launches,
+        "step_ms": step_ms,
+        "peak": peak,
+        "by_shape": main_shapes,
+        "ragged": ragged_out,
+    }
 
 
 DENSE_DURABLE_LAYERS = 2  # of qwen3-1.7b's 28: a checkpoint pair of 4.1 GB, 412M params
@@ -6490,6 +7002,92 @@ def _deepseek_train() -> dict:
     return out
 
 
+ENCDEC_TRAIN_RESULT = "[encdec train] launches "  # the process's line of launches and times
+# seamless-m4t-large-v2 trains at full size (24 encoder and 24 decoder layers, 1,633,931,264
+# params) and internvl2-2b at full width and INTERNVL_TRAIN_LAYERS of its 24 layers (all of them:
+# 1,895,925,760 params), each on one sequence of the reference's train shape
+# (src/repro/configs/shapes.py): seamless 4,096 frames of 1,024 (the stub speech frontend's)
+# beside 4,096 tokens, internvl 256 patch embeddings of 1,024 before 3,840 tokens; frames and
+# patches N(0, 1) in bfloat16 from _gen, as the serving phases draw them. Cut internvl's depth
+# first where the script needs time: its attention is qwen3-1.7b's train shape at batch 1.
+SEAMLESS_TRAIN_PARAMS = 1_633_931_264
+INTERNVL_TRAIN_LAYERS = 24
+INTERNVL_TRAIN_SEQ = 3840
+# seamless's ragged steps after its steps 0-2: (label, B, frames, tokens). Their
+# cross-attention runs the shapes of ENCDEC_BWD_CASES' last three rows; the first batch is
+# also held against the plain path. Speech utterances come in many lengths: a step whose
+# frames and tokens are no multiple of the kernels' tiles is what such training runs.
+SEAMLESS_RAGGED = (
+    ("Sq < Sk", 1, 4000, 1000),
+    ("Sq > Sk", 1, 1000, 4000),
+    ("ragged", 2, 1000, 37),
+)
+
+
+def phase_encdec_train() -> dict:
+    """Run the encdec train phase in a process of its own (this file with
+    ``--encdec-train``); returns its launch counts, step ms and peak memory by model."""
+    return _in_process(ENCDEC_TRAIN_ARG, ENCDEC_TRAIN_RESULT, "[encdec train]")
+
+
+def _encdec_train() -> dict:
+    """seamless-m4t-large-v2 at full size and internvl2-2b at full width and
+    INTERNVL_TRAIN_LAYERS layers, each in bfloat16 (remat "full"), 3 AdamW steps on one
+    sequence of the reference's train shape, frames or patches beside TokenSource's tokens:
+    :func:`_bf16_train`; seamless then takes one step on each SEAMLESS_RAGGED batch, the first
+    held against the plain path as well. The gradients of seamless's cross-attention reach its
+    encoder through every decoder layer's ``wk`` and ``wv``; the gate holds the encoder's and
+    the frontend's leaves with the rest."""
+    tag = "[encdec train]"
+    cfg = get_config(SEAMLESS_ARCH)
+    if count_params(cfg) != SEAMLESS_TRAIN_PARAMS:
+        raise AssertionError(f"{tag} {count_params(cfg)} params, not {SEAMLESS_TRAIN_PARAMS}")
+    gen = _gen(13)
+
+    def frames(b, n):
+        x = torch.randn(b, n, cfg.frontend_dim, generator=gen, device=DEV)
+        return x.to(torch.bfloat16)
+
+    def ragged_batch(b, n_src, n_tok):
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=n_tok, global_batch=b, seed=0)
+        toks = torch.from_numpy(TokenSource(data).batch_at(0)["tokens"]).long().to(DEV)
+        return {"tokens": toks, "frames": frames(b, n_src)}
+
+    cases = (*ENCDEC_BWD_CASES, FLASH_BWD_BF16_SEAMLESS)
+    cross = {
+        f"bwd q{c[0], c[1], c[3], c[5]} k{c[0], c[2], c[4]} {'causal' if c[6] else 'no mask'}"
+        for c in cases
+    }
+    ragged = [(label, ragged_batch(*shape)) for label, *shape in SEAMLESS_RAGGED]
+    seamless = _bf16_train(
+        cfg,
+        1,
+        f"{tag} seamless",
+        seq=TRAIN_SEQ,
+        inputs=lambda step: {"frames": frames(1, TRAIN_SEQ)},
+        ragged=ragged,
+    )
+    ran = set(seamless["by_shape"])
+    for out in seamless["ragged"].values():
+        ran |= set(out["by_shape"])
+    if not cross <= ran:
+        raise AssertionError(f"{tag} the kernel rows' shapes {sorted(cross - ran)} did not run")
+    del ragged
+    _release()
+    cfg = dataclasses.replace(get_config(INTERNVL_ARCH), num_layers=INTERNVL_TRAIN_LAYERS)
+    shape = (1, cfg.num_frontend_tokens, cfg.frontend_dim)
+    internvl = _bf16_train(
+        cfg,
+        1,
+        f"{tag} internvl",
+        seq=INTERNVL_TRAIN_SEQ,
+        inputs=lambda step: {
+            "patch_embeds": torch.randn(*shape, generator=gen, device=DEV).to(torch.bfloat16)
+        },
+    )
+    return {"seamless": seamless, "internvl": internvl}
+
+
 @contextlib.contextmanager
 def _routes(out: list):
     """Record, into ``out``, the experts the MoE router picks in each call, in call order
@@ -6695,9 +7293,28 @@ def main() -> int:
     rwkv_train = _timed("rwkv train", phase_rwkv_train)
     moe_train = _timed("moe train", phase_moe_train)
     deepseek_train = _timed("deepseek train", phase_deepseek_train)
+    encdec_train = _timed("encdec train", phase_encdec_train)
 
     flash_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention.py:39"
+    bwd_bf16_src = "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu"
+    bwd_tpu = "src/repro/kernels/flash_attention.py:139"
+    seamless_train, internvl_train = encdec_train["seamless"], encdec_train["internvl"]
+
+    def by_shape(out, which, case):
+        """A train phase's launches of ``which`` at ``case``'s shape and mask."""
+        b, hq, hkv, sq, sk, d, causal = case[:7]
+        mask = "causal" if causal else "no mask"
+        return out["by_shape"].get(f"{which} q{b, hq, sq, d} k{b, hkv, sk} {mask}", 0)
+
+    # internvl2-2b's 256 patches and 3,840 tokens run qwen3-1.7b's train shape at batch 1
+    internvl_case = (1,) + FLASH_BWD_BF16_TRAIN[1:]
+    internvl_shape = {w: by_shape(internvl_train, w, internvl_case) for w in ("fwd", "bwd")}
+    if internvl_shape != {"fwd": internvl_train["flash"], "bwd": internvl_train["flash_bwd"]}:
+        raise AssertionError(
+            f"[encdec train] internvl's launches {internvl_shape} at {internvl_case}"
+        )
+    ragged = dict(zip(ENCDEC_BWD_CASES[1:], seamless_train["ragged"].values()))
     demo_row = dict(flash_rows[("demo", JSON_SEQ)], max_abs_err=demo_err)
     kernels = [
         _kernel_entry(
@@ -6728,20 +7345,85 @@ def main() -> int:
             "flash_attention_fwd_bf16_train",
             flash_src,
             flash_tpu,
-            dense_train["flash"] + dense_durable["flash_attention_fwd"],
+            dense_train["flash"] + dense_durable["flash_attention_fwd"] + internvl_shape["fwd"],
             bwd_rows["bf16"]["fwd"],
             "q(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal, with the logsumexp; launches "
-            "of the dense train and dense durable phases",
+            "of the dense train and dense durable phases and internvl2-2b's in the encdec train "
+            "phase (the same shape at batch 1)",
         ),
         _kernel_entry(
             "flash_attention_bwd_bf16",
-            "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
-            "src/repro/kernels/flash_attention.py:139",
-            dense_train["flash_bwd"] + dense_durable["flash_attention_bwd"],
+            bwd_bf16_src,
+            bwd_tpu,
+            dense_train["flash_bwd"] + dense_durable["flash_attention_bwd"] + internvl_shape["bwd"],
             bwd_rows["bf16"]["bwd"],
             "q,dO(2,16,4096,128) k,v(2,8,4096,128) bfloat16 causal; flash_bwd_bf16_delta_kernel, "
             + ", ".join(BF16_WGMMA_KERNELS[:2])
-            + "; launches of the dense train and dense durable phases",
+            + "; launches of the dense train and dense durable phases and internvl2-2b's in the "
+            "encdec train phase (the same shape at batch 1)",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_bf16_encdec_train",
+            flash_src,
+            flash_tpu,
+            by_shape(seamless_train, "fwd", ENCDEC_BWD_JSON),
+            bwd_rows["encdec"]["fwd"],
+            "q,k,v(1,16,4096,64) bfloat16, no mask, with the logsumexp (seamless-m4t-large-v2's "
+            "encoder and cross-attention at its train shape; library: SDPA "
+            f"{bwd_rows['encdec']['fwd']['library_backend']}, as dispatched); launches of the "
+            "encdec train phase's steps at that shape",
+        ),
+        _kernel_entry(
+            "flash_attention_bwd_bf16_encdec",
+            bwd_bf16_src,
+            bwd_tpu,
+            by_shape(seamless_train, "bwd", ENCDEC_BWD_JSON),
+            bwd_rows["encdec"][ENCDEC_BWD_JSON],
+            "q,k,v,dO(1,16,4096,64) bfloat16, no mask (seamless-m4t-large-v2's encoder and "
+            "cross-attention at its train shape, group 1); flash_bwd_bf16_delta_kernel, "
+            + ", ".join(BF16_WGMMA_KERNELS[:2])
+            + f"; library: SDPA's backward as dispatched "
+            f"({bwd_rows['encdec'][ENCDEC_BWD_JSON]['library_backend']}); launches of the encdec "
+            "train phase's steps at that shape",
+        ),
+        _kernel_entry(
+            "flash_attention_fwd_bf16_seamless_self_train",
+            flash_src,
+            flash_tpu,
+            by_shape(seamless_train, "fwd", FLASH_BWD_BF16_SEAMLESS),
+            bwd_rows["bf16"]["seamless"]["fwd"],
+            "q,k,v(1,16,4096,64) bfloat16 causal, with the logsumexp (seamless-m4t-large-v2's "
+            "decoder self-attention at its train shape; library: SDPA flash backend); launches "
+            "of the encdec train phase's steps at that shape",
+        ),
+        _kernel_entry(
+            "flash_attention_bwd_bf16_seamless_self",
+            bwd_bf16_src,
+            bwd_tpu,
+            by_shape(seamless_train, "bwd", FLASH_BWD_BF16_SEAMLESS),
+            bwd_rows["bf16"]["seamless"]["bwd"],
+            "q,k,v,dO(1,16,4096,64) bfloat16 causal (seamless-m4t-large-v2's decoder "
+            "self-attention at its train shape, group 1); flash_bwd_bf16_delta_kernel, "
+            + ", ".join(BF16_WGMMA_KERNELS[:2])
+            + "; library: SDPA flash backend's backward; launches of the encdec train phase's "
+            "steps at that shape",
+        ),
+        *(
+            _kernel_entry(
+                f"flash_attention_bwd_bf16_cross_{name}",
+                bwd_bf16_src,
+                bwd_tpu,
+                by_shape(out, "bwd", case),
+                bwd_rows["encdec"][case],
+                f"q,dO({case[0]},16,{case[3]},64) k,v({case[0]},16,{case[4]},64) bfloat16, no mask "
+                f"(seamless-m4t-large-v2's cross-attention, {case[3]} tokens against {case[4]} "
+                f"frames; library: SDPA's backward as dispatched, "
+                f"{bwd_rows['encdec'][case]['library_backend']}); launches of the encdec train "
+                f"phase's step {label!r}",
+            )
+            for (case, out), name, (label, *_) in zip(
+                ragged.items(), ("short", "long", "ragged"), SEAMLESS_RAGGED
+            )
         ),
         _kernel_entry(
             "flash_attention_bwd_bf16_hd256",
@@ -6985,4 +7667,6 @@ if __name__ == "__main__":
         sys.exit(_process_main(MOE_TRAIN_RESULT, _moe_train))
     if sys.argv[1:] == [DEEPSEEK_TRAIN_ARG]:
         sys.exit(_process_main(DEEPSEEK_TRAIN_RESULT, _deepseek_train))
+    if sys.argv[1:] == [ENCDEC_TRAIN_ARG]:
+        sys.exit(_process_main(ENCDEC_TRAIN_RESULT, _encdec_train))
     sys.exit(dist_main() if sys.argv[1:] == [DIST_ARG] else main())

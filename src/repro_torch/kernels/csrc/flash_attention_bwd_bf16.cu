@@ -9,8 +9,8 @@
 // the KV head h / (Hq / Hkv), a value head dim that may differ from the key head dim, ragged Sq
 // and Sk masked in the kernels.
 //
-// The FlashAttention-2 form, from the forward's bfloat16 output O and each row's float32
-// logsumexp lse (which flash_fwd_wgmma_kernel writes when asked):
+// The FlashAttention-2 form, from the forward's output O in float32 before its rounding and
+// each row's float32 logsumexp lse (which flash_fwd_wgmma_kernel writes, both, when asked):
 //   D = rowsum(dO o O);  P = exp(S scale - lse);  dV = P^T dO;  dP = dO V^T;
 //   dS = P o (dP - D);   dQ = dS K scale;         dK = dS^T Q scale.
 // P and dS are rounded to bfloat16 only where they enter a product; P stays float32 in dS.
@@ -19,7 +19,13 @@
 // Each output element is summed in a fixed order in float32 and written once:
 // no atomics, so two launches give the same bits and a batch row's gradients do not depend on
 // the batch it is in.
-//   - flash_bwd_bf16_delta_kernel: D in float32, one warp a row.
+//   - flash_bwd_bf16_delta_kernel: D in float32, one warp a row. From O in float32, D is the
+//     row's sum of P dP up to float32 rounding, and the row's dS sums to zero as in the exact
+//     gradient. From the bfloat16 O it would sum to dO.(O - bf16(O)), a rounding of up to 2^-9
+//     of each O entry, which dQ = dS K carries as that sum times the mean of the row's keys:
+//     where the keys share a common component much larger than their spread (an encoder's
+//     output after many layers of near-uniform attention), dQ would take a large share of
+//     that error.
 //   - flash_bwd_bf16_dkdv_wgmma_kernel: one block per (tile of 128 keys, KV head, batch). It
 //     walks the g = Hq / Hkv query heads of its group in order and, for each, the tiles of 64
 //     query rows that some of its keys are visible to, recomputing S^T = K Q^T and
@@ -28,7 +34,17 @@
 //     writes zeros.
 //   - flash_bwd_bf16_dq_wgmma_kernel: one block per (tile of 128 query rows, query head,
 //     batch), walking the tiles of 64 keys its rows see and recomputing S and dP; dQ stays in
-//     float32 registers and is rounded once.
+//     float32 registers and is rounded once. A row's exact dS sums to zero, but the dS that
+//     enters dQ += dS K sums to r = (the row's sum of P dP) - D plus its roundings to bfloat16,
+//     and D comes from an O that the forward summed over P rounded to bfloat16: dQ carries r
+//     times the keys' common component (keys offset by 8 times their spread: dQ 3.5e-2 off by
+//     relative L2 on an H100, 20 times the plain version's error, whose P and dS are float32).
+//     So the block also sums r over its walk, each row in float32 from the bfloat16 dS it
+//     used, and takes r kbar from dQ, kbar the mean of the first walked tile's keys (any
+//     vector would keep the exact dQ, since the exact dS sums to zero; one near the keys'
+//     common component leaves only their spread behind r). The producer warpgroup's idle warps
+//     compute kbar from global memory while the walk runs. dK += dS^T Q needs no such step: a
+//     key's dS column does not sum to zero.
 //
 // What bounds it. Five products over the (query, key) pairs the masks keep, 2 pairs (3D + 2Dv)
 // FLOPs a head, against one read of q, k, v, o, dO, lse and one write of dq, dk, dv: at
@@ -202,19 +218,19 @@ __device__ __forceinline__ void zero(float (&acc)[N]) {
   for (int n = 0; n < N; ++n) acc[n] = 0.f;
 }
 
-// D = rowsum(dO o O) in float32: one warp a row, lanes over pairs of columns, then a fixed
-// butterfly.
+// D = rowsum(dO o O) in float32, O in float32: one warp a row, lanes over pairs of columns,
+// then a fixed butterfly.
 __global__ void __launch_bounds__(256)
-    flash_bwd_bf16_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    flash_bwd_bf16_delta_kernel(const float* __restrict__ o, const bf16* __restrict__ dout,
                                 float* __restrict__ delta, size_t rows, int dv) {
   const size_t row = (size_t)blockIdx.x * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(o + row * dv);
+  const float2* a = reinterpret_cast<const float2*>(o + row * dv);
   const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(dout + row * dv);
   float s = 0.f;
   for (int c = lane; c < dv / 2; c += 32) {
-    const float2 x = __bfloat1622float2(a[c]), y = __bfloat1622float2(b[c]);
+    const float2 x = a[c], y = __bfloat1622float2(b[c]);
     s += x.x * y.x + x.y * y.y;
   }
 #pragma unroll
@@ -227,7 +243,7 @@ __global__ void __launch_bounds__(256)
 // 1024-byte-aligned base: the owned rows (the operand behind S in DC chunks of OWN rows x 64
 // columns, then the one behind dP in DVC), the ring (STAGES x [the walked tensor behind S in DC
 // chunks of WALK rows, then the one behind dP in DVC]), dK/dV's ring of lse and D (STAGES x 2 x
-// WALK floats), then the barriers (own, full, empty).
+// WALK floats), dQ's kbar (DC x 64 floats), then the barriers (own, full, empty).
 template <int DC, int DVC>
 struct Plan {
   static constexpr int OWN = 128;   // owned rows a block
@@ -238,7 +254,8 @@ struct Plan {
   static constexpr uint32_t own_p = own_s + DC * OWN_CHUNK;
   static constexpr uint32_t ring = own_p + DVC * OWN_CHUNK;
   static constexpr uint32_t lse = ring + STAGES * STAGE_BYTES;
-  static constexpr uint32_t bars = lse + STAGES * 2 * WALK * 4;
+  static constexpr uint32_t kbar = lse + STAGES * 2 * WALK * 4;
+  static constexpr uint32_t bars = kbar + DC * COLS * 4;
   static constexpr uint32_t total = bars + 8 * (1 + 2 * STAGES);
   static_assert(1024 + total <= 232448, "shared memory of a block");
 };
@@ -649,12 +666,14 @@ __global__ void __launch_bounds__(THREADS, 1)
                                    const __grid_constant__ CUtensorMap k_map,
                                    const __grid_constant__ CUtensorMap v_map,
                                    const float* __restrict__ lse, const float* __restrict__ delta,
-                                   bf16* __restrict__ dq, int batch, int hq, int hkv, int d,
-                                   int dv, Masks mk, float scale) {
+                                   const bf16* __restrict__ k, bf16* __restrict__ dq, int batch,
+                                   int hq, int hkv, int d, int dv, Masks mk, float scale) {
   using L = Plan<DC, DVC>;
   constexpr int OWN = L::OWN, STAGES = L::STAGES;
+  constexpr int KBAR_THREADS = 96 + CONSUMERS;  // the producer's warps 1-3 and the consumers
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s0 = aligned_base(smem_raw);
+  float* kbar = reinterpret_cast<float*>(smem_raw + (s0 - smem_u32(smem_raw)) + L::kbar);
   const uint32_t own_full = s0 + L::bars;
   auto full = [&](int s) { return s0 + L::bars + 8u * (1 + s); };
   auto empty = [&](int s) { return s0 + L::bars + 8u * (1 + STAGES + s); };
@@ -688,6 +707,25 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int c = 0; c < DVC; ++c)
           tma_load(stage(s) + (DC + c) * WALK_CHUNK, &v_map, full(s), c * COLS, kt, kv_bh);
       }
+    } else if (threadIdx.x >= 32) {
+      // warps 1-3: kbar, the mean of the first walked tile's keys, a column pair a thread
+      const int pair = threadIdx.x - 32, n = imin(WALK, sk - k_begin);
+      if (2 * pair < DC * COLS) {
+        float2 sum = make_float2(0.f, 0.f);
+        if (2 * pair < d) {
+          const bf16* kp = k + ((size_t)(b * hkv + hk) * sk + k_begin) * d + 2 * pair;
+          for (int j = 0; j < n; ++j) {
+            const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kp));
+            sum.x += x.x;
+            sum.y += x.y;
+            kp += d;
+          }
+        }
+        const float inv = n > 0 ? 1.f / n : 0.f;
+        kbar[2 * pair] = sum.x * inv;
+        kbar[2 * pair + 1] = sum.y * inv;
+      }
+      asm volatile("bar.arrive 2, %0;\n" ::"n"(KBAR_THREADS) : "memory");
     }
     return;
   }
@@ -711,6 +749,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float dqa[DC][32];
 #pragma unroll
   for (int c = 0; c < DC; ++c) zero(dqa[c]);
+  float rs0 = 0.f, rs1 = 0.f;  // rows row0, row1: the sums of the bfloat16 dS entering dQ
   mbar_wait(own_full, 0);
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -742,7 +781,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < WALK / 16; ++j) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) sf[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+        for (int r = 0; r < 4; ++r) {  // r even: row0's pair, odd: row1's
+          const __nv_bfloat162 ds2 =
+              __floats2bfloat162_rn(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+          const float2 used = __bfloat1622float2(ds2);
+          sf[j][r] = *reinterpret_cast<const uint32_t*>(&ds2);
+          if (r & 1)
+            rs1 += used.x + used.y;
+          else
+            rs0 += used.x + used.y;
+        }
       }
 #pragma unroll
       for (int c = 0; c < DC; ++c) pin(dqa[c]);
@@ -757,6 +805,24 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < WALK / 16; ++j) pin(sf[j]);
     }
     mbar_arrive(empty(s));  // this thread is done with stage s
+  }
+  // dQ -= r kbar: each row's r over its quad of lanes in a fixed order
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1) {
+    rs0 += __shfl_xor_sync(FULL_MASK, rs0, m);
+    rs1 += __shfl_xor_sync(FULL_MASK, rs1, m);
+  }
+  named_barrier<2, KBAR_THREADS>();  // kbar is in place
+#pragma unroll
+  for (int c = 0; c < DC; ++c) {
+#pragma unroll
+    for (int nt = 0; nt < COLS / 8; ++nt) {
+      const float2 kb = *reinterpret_cast<const float2*>(kbar + c * COLS + 8 * nt + 2 * qd);
+      dqa[c][4 * nt] -= rs0 * kb.x;
+      dqa[c][4 * nt + 1] -= rs0 * kb.y;
+      dqa[c][4 * nt + 2] -= rs1 * kb.x;
+      dqa[c][4 * nt + 3] -= rs1 * kb.y;
+    }
   }
   store_acc<DC>(dq + head * sq * d, dqa, row0, row1, sq, d, scale, qd, 0);
 }
@@ -1121,9 +1187,9 @@ size_t split_shared_bytes() {
 
 template <int DC, int DVC>
 int launch(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap& km,
-           const CUtensorMap& vm, const float* lse, const float* delta, bf16* dq, bf16* dk,
-           bf16* dv_out, int b, int hq, int hkv, int d, int dv, const Masks& mk, float scale,
-           cudaStream_t stream) {
+           const CUtensorMap& vm, const float* lse, const float* delta, const bf16* k, bf16* dq,
+           bf16* dk, bf16* dv_out, int b, int hq, int hkv, int d, int dv, const Masks& mk,
+           float scale, cudaStream_t stream) {
   constexpr int OWN = Plan<DC, DVC>::OWN;
   const size_t smem = shared_bytes<DC, DVC>();
   auto kv_kernel = flash_bwd_bf16_dkdv_wgmma_kernel<DC, DVC>;
@@ -1139,7 +1205,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap& km,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   q_kernel<<<(mk.sq + OWN - 1) / OWN * hq * b, THREADS, smem, stream>>>(
-      qm, om, km, vm, lse, delta, dq, b, hq, hkv, d, dv, mk, scale);
+      qm, om, km, vm, lse, delta, k, dq, b, hq, hkv, d, dv, mk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1182,9 +1248,10 @@ int launch_split(const CUtensorMap& qm, const CUtensorMap& om, const CUtensorMap
 
 extern "C" {
 
-// q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), o and dout (B,Hq,Sq,Dv): bfloat16,
-// contiguous, 16-byte aligned (cudaErrorMisalignedAddress otherwise: TMA's base addresses),
-// D and Dv multiples of 8 up to 256 (TMA's 16-byte row strides); lse (B,Hq,Sq) float32.
+// q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv), dout (B,Hq,Sq,Dv): bfloat16, o (B,Hq,Sq,Dv)
+// float32 (the forward's output before its rounding), all contiguous, 16-byte aligned
+// (cudaErrorMisalignedAddress otherwise: TMA's base addresses), D and Dv multiples of 8 up to
+// 256 (TMA's 16-byte row strides); lse (B,Hq,Sq) float32.
 // Writes delta (B,Hq,Sq) float32 (scratch: D = rowsum(dO o O)), dq, dk, dv in bfloat16 (shaped
 // as q, k, v), every element. window <= 0 means no window. `parts`: the pieces of each key
 // tile's walk in the split builds (head dims above 128; 1 below), at most MAX_PARTS; with more
@@ -1225,14 +1292,15 @@ int repro_flash_attention_bwd_bf16(const void* q, const void* k, const void* v, 
   float* fd = static_cast<float*>(delta);
   const size_t rows = (size_t)b * hq * sq;
   flash_bwd_bf16_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const bf16*>(o), bo, fd, rows, dv);
+      static_cast<const float*>(o), bo, fd, rows, dv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bf16* gq = static_cast<bf16*>(dq);
   bf16* gk = static_cast<bf16*>(dk);
   bf16* gv = static_cast<bf16*>(dv_out);
-#define REPRO_LAUNCH(DC, DVC) \
-  launch<DC, DVC>(qm, om, km, vm, fl, fd, gq, gk, gv, b, hq, hkv, d, dv, mk, scale, s)
+#define REPRO_LAUNCH(DC, DVC)                                                               \
+  launch<DC, DVC>(qm, om, km, vm, fl, fd, static_cast<const bf16*>(k), gq, gk, gv, b, hq, hkv, d, \
+                  dv, mk, scale, s)
 #define REPRO_SPLIT(DC, DVC)                                                                 \
   launch_split<DC, DVC>(qm, om, km, vm, dsm, fl, fd, gq, gk, gv, static_cast<float*>(partial), \
                         parts, head_tiles, b, hq, hkv, d, dv, mk, scale, s)

@@ -45,8 +45,13 @@
 //   - The running sum is per thread and is reduced across the quad once; O is divided by
 //     the clamped denominator once and stored as bfloat16. Asked for it (an lse pointer),
 //     the block also writes each row's logsumexp in float32, m ln 2 + log(l) with m the
-//     log2-domain max, for the bfloat16 backward (flash_attention_bwd_bf16.cu); the
-//     output's bits are the same either way.
+//     log2-domain max, for the bfloat16 backward (flash_attention_bwd_bf16.cu), and (an
+//     o32 pointer) the output in float32 before its rounding, from which that backward
+//     takes D = rowsum(dO o O): with the bfloat16 output each row's dS would sum to
+//     dO.(O - bf16(O)) instead of zero, and the keys' common component carries that into dQ
+//     (seamless-m4t-large-v2's cross-attention: its ln_x, wq, wk gradients 5.7 times the
+//     plain path's bfloat16-against-float32 gap from the plain path at its train shape on an
+//     H100, tools/delta_probe.py). The output's bits are the same either way.
 //   Shared memory at D = Dv = 256: Q 64 KB + 2 stages x (K 32 KB + V 32 KB) = 192 KB, one
 //   block an SM. There is no split over keys and no atomic: a row's bits depend on its own
 //   q and the keys it sees, not on B or on the other rows of its block.
@@ -747,9 +752,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
-                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int hq,
-                           int hkv, int sq, int sk, int dv, int causal, int window,
-                           float scale_log2) {
+                           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                           float* __restrict__ o32, int hq, int hkv, int sq, int sk, int dv,
+                           int causal, int window, float scale_log2) {
   constexpr uint32_t K_BYTES = DC * KV_CHUNK;
   constexpr uint32_t V_BYTES = DVC * KV_CHUNK;
   extern __shared__ uint8_t smem_raw[];
@@ -967,6 +972,24 @@ __global__ void __launch_bounds__(THREADS, 1)
                 __floats2bfloat162_rn(acc[c][4 * i + 2] / den1, acc[c][4 * i + 3] / den1);
         }
       }
+      // the same values in float32, unrounded, where the backward asks for them
+      if (o32 != nullptr) {
+        float* of = o32 + ((size_t)b * hq + h) * (size_t)sq * dv;
+#pragma unroll
+        for (int c = 0; c < DVC; ++c) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int col = c * COLS + 8 * i + quad_col;
+            if (col >= dv) continue;
+            if (row0 < sq)
+              *reinterpret_cast<float2*>(of + (size_t)row0 * dv + col) =
+                  make_float2(acc[c][4 * i] / den0, acc[c][4 * i + 1] / den0);
+            if (row1 < sq)
+              *reinterpret_cast<float2*>(of + (size_t)row1 * dv + col) =
+                  make_float2(acc[c][4 * i + 2] / den1, acc[c][4 * i + 3] / den1);
+          }
+        }
+      }
       // each row's logsumexp in natural units, as the float32 path writes it: the running max
       // back from the log2 domain, plus the log of the row's sum
       if (lse != nullptr && lane % 4 == 0) {
@@ -996,8 +1019,8 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int co
 
 template <int DC, int DVC>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
-           void* lse, int b, int hq, int hkv, int sq, int sk, int dv, int causal, int window,
-           float scale, cudaStream_t stream) {
+           void* lse, void* o32, int b, int hq, int hkv, int sq, int sk, int dv, int causal,
+           int window, float scale, cudaStream_t stream) {
   const size_t smem =
       1024 + DC * Q_CHUNK + STAGES * (DC + DVC) * KV_CHUNK + 8 * (1 + 3 * STAGES);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DC, DVC>,
@@ -1005,25 +1028,26 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
   flash_fwd_wgmma_kernel<DC, DVC><<<grid, THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), hq, hkv, sq, sk, dv,
-      causal, window, scale * LOG2E);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      static_cast<float*>(o32), hq, hkv, sq, sk, dv, causal, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int DC>
 int launch_dv(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o,
-              void* lse, int b, int hq, int hkv, int sq, int sk, int dv, int causal, int window,
-              float scale, cudaStream_t stream) {
+              void* lse, void* o32, int b, int hq, int hkv, int sq, int sk, int dv, int causal,
+              int window, float scale, cudaStream_t stream) {
 #define REPRO_LAUNCH(DVC) \
-  launch<DC, DVC>(qm, km, vm, o, lse, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
+  launch<DC, DVC>(qm, km, vm, o, lse, o32, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
   if (dv <= 64) return REPRO_LAUNCH(1);
   if (dv <= 128) return REPRO_LAUNCH(2);
   return REPRO_LAUNCH(4);
 #undef REPRO_LAUNCH
 }
 
-int run(const void* q, const void* k, const void* v, void* o, void* lse, int b, int hq, int hkv,
-        int sq, int sk, int d, int dv, int causal, int window, float scale, cudaStream_t stream) {
+int run(const void* q, const void* k, const void* v, void* o, void* lse, void* o32, int b,
+        int hq, int hkv, int sq, int sk, int d, int dv, int causal, int window, float scale,
+        cudaStream_t stream) {
   if (d % 8 != 0 || dv % 8 != 0) return (int)cudaErrorInvalidValue;  // TMA strides: 16 bytes
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
@@ -1034,7 +1058,7 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse, int b, 
   if (err == cudaSuccess) err = make_map(&vm, v, b * hkv, sk, dv, BK);
   if (err != cudaSuccess) return (int)err;
 #define REPRO_LAUNCH(DC) \
-  launch_dv<DC>(qm, km, vm, o, lse, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
+  launch_dv<DC>(qm, km, vm, o, lse, o32, b, hq, hkv, sq, sk, dv, causal, window, scale, stream)
   if (d <= 64) return REPRO_LAUNCH(1);
   if (d <= 128) return REPRO_LAUNCH(2);
   return REPRO_LAUNCH(4);
@@ -1054,19 +1078,21 @@ extern "C" {
 // piece of a query tile's walk, pieces of every query tile together; the call is refused
 // if they do not fit the shapes), and workspace is float32 scratch of at least
 // B*Hq*n_items*64*(round8(Dv) + 2) elements when some walk is split, else may be null. lse,
-// when not null, receives each row's logsumexp (B, Hq, Sq) float32, in both dtypes. The
+// when not null, receives each row's logsumexp (B, Hq, Sq) float32, in both dtypes; o32, when
+// not null (bfloat16 only), the output (B, Hq, Sq, Dv) in float32 before its rounding. The
 // caller has checked 1 <= D, Dv <= 256, Hq % Hkv == 0 and the grid limits. Returns the
 // cudaError_t of the launches (0 on success). Does not synchronise.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                              void* workspace, void* lse, int b, int hq, int hkv, int sq, int sk,
-                              int d, int dv, int causal, int window, float scale, int split_tiles,
-                              int n_items, int is_bf16, void* stream) {
-  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0)
+                              void* workspace, void* lse, void* o32, int b, int hq, int hkv,
+                              int sq, int sk, int d, int dv, int causal, int window, float scale,
+                              int split_tiles, int n_items, int is_bf16, void* stream) {
+  if (d < 1 || d > MAX_D || dv < 1 || dv > MAX_D || hkv < 1 || hq % hkv != 0 ||
+      (o32 != nullptr && (!is_bf16 || reinterpret_cast<uintptr_t>(o32) % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return bf16::run(q, k, v, o, lse, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
+    return bf16::run(q, k, v, o, lse, o32, b, hq, hkv, sq, sk, d, dv, causal, window, scale, s);
   return f32::run(q, k, v, o, workspace, lse, b, hq, hkv, sq, sk, d, dv, causal, window, scale,
                   split_tiles, n_items, s);
 }

@@ -14,13 +14,20 @@ cut a long key walk into pieces that run on separate blocks and are merged
 in a fixed order; :func:`f32_plan` chooses the cut from the shapes and
 masks alone, never from B or the card, so a row's bits do not depend on
 the batch it runs in. Asked for it, both paths also write each row's
-logsumexp in float32, which the backward needs.
+logsumexp in float32, which the backward needs, and the bfloat16 path then
+also its output in float32 before the rounding, from which the backward
+takes Δ.
 
 Backward (:func:`flash_attention_bwd`, head dims up to 256 in bfloat16 and up
 to 128 in float32): the FlashAttention-2 form, three launches (Δ =
 rowsum(dO∘O); dK and dV a block per key tile, summed over the GQA group in a
 fixed order in float32; dQ a block per query tile), no atomics: a step
-replays bit for bit. float32 runs
+replays bit for bit. Δ comes from the forward's output in float32, so that
+each row's dS sums to about zero with the P the backward recomputes, as in the
+reference's VJP, which differentiates a float32 forward. The bfloat16 dQ
+kernel (head dims up to 128) takes what is left of that sum, each row's sum of
+the bfloat16 dS it used times a mean key, from dQ, where the keys' common
+component would multiply it. float32 runs
 in 3xTF32: head dims up to 64 that are multiples of 4 (the demo's training)
 on ``wgmma`` fed by a TMA ring, every other one on ``mma.sync``. bfloat16
 runs its own kernels, also ``wgmma`` fed by a TMA ring and warp-specialised,
@@ -321,17 +328,23 @@ def flash_attention_fwd(
 ):
     """Attention forward. q (B,Hq,Sq,D), k (B,Hkv,Sk,D), v (B,Hkv,Sk,Dv) -> (B,Hq,Sq,Dv).
 
-    With ``return_lse`` it returns (out, lse), lse (B,Hq,Sq) float32 each row's
-    logsumexp, which :func:`flash_attention_bwd` takes; the output's bits are the same
-    either way. ``flash_attention_fwd.launches`` counts kernel launches (never the
-    CPU path); :data:`PATHS` names the kernel that serves each dtype.
+    With ``return_lse`` it returns what :func:`flash_attention_bwd` takes beside it:
+    (out, lse, out_f32), lse (B,Hq,Sq) float32 each row's logsumexp and out_f32 the
+    output in float32 before its rounding to q's dtype (for a float32 q, ``out`` itself).
+    The output's bits are the same either way. ``flash_attention_fwd.launches`` counts
+    kernel launches (never the CPU path); :data:`PATHS` names the kernel that serves each
+    dtype.
     """
     _check(q, k, v, causal, window)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return _ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse
-        )
+        if not return_lse:
+            return _ref.flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        out_f32, lse = _ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, scale=scale, return_lse=True,
+            out_dtype=torch.promote_types(q.dtype, torch.float32),
+        )  # fmt: skip
+        return out_f32.to(q.dtype), lse, out_f32
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device {q.device}")
     tensor_cores = PATHS[q.dtype] == "wgmma"
@@ -342,13 +355,16 @@ def flash_attention_fwd(
     hkv, sk, dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((b, hq, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    out_f32 = None
+    if return_lse and q.dtype != torch.float32:
+        out_f32 = torch.empty((b, hq, sq, dv), dtype=torch.float32, device=q.device)
     split_tiles, n_items, workspace = 0, 0, None
     if not tensor_cores and sq > 0 and b > 0:
         split_tiles, n_items = f32_plan(sq, sk, causal, window, d, dv)
         if n_items > -(-sq // F32_BLOCK_Q):  # some walk is cut: room for the pieces
             n = b * hq * n_items * F32_BLOCK_Q * (-(-dv // 8) * 8 + 2)
             workspace = torch.empty(n, dtype=torch.float32, device=q.device)
-    lib = _lib("flash_attention_fwd", 6, 9, 3)
+    lib = _lib("flash_attention_fwd", 7, 9, 3)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_fwd(
@@ -358,6 +374,7 @@ def flash_attention_fwd(
             out.data_ptr(),
             None if workspace is None else workspace.data_ptr(),
             None if lse is None else lse.data_ptr(),
+            None if out_f32 is None else out_f32.data_ptr(),
             b,
             hq,
             hkv,
@@ -375,8 +392,12 @@ def flash_attention_fwd(
         )
     _raise_on(lib, err, "flash_attention_fwd")
     count_launch(flash_attention_fwd)
-    out = out if dv == dv_out else out[..., :dv_out].contiguous()
-    return (out, lse) if return_lse else out
+    if dv != dv_out:
+        out = out[..., :dv_out].contiguous()
+        out_f32 = None if out_f32 is None else out_f32[..., :dv_out].contiguous()
+    if not return_lse:
+        return out
+    return out, lse, out if out_f32 is None else out_f32
 
 
 flash_attention_fwd.launches = 0
@@ -410,8 +431,11 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward: (dq, dk, dv) from the forward's inputs, output and logsumexp
     and the output's gradient ``dout``, all contiguous; dk and dv summed over the GQA group.
-    ``out`` and ``dout`` are in q's dtype (float32 or bfloat16), lse in float32; the
-    gradients come back in the inputs' dtype.
+    ``dout`` is in q's dtype (float32 or bfloat16), lse in float32, ``out`` in float32
+    (the forward's ``out_f32``, from which Δ matches the P the kernels recompute) or in
+    q's dtype, which the kernels take upcast: from a bfloat16 ``out`` each row's dS sums
+    to dO·(O - bf16(O)) instead of zero, an error that the keys' common component
+    carries into dQ. The gradients come back in the inputs' dtype.
 
     ``flash_attention_bwd.launches`` counts calls that launched the kernels (Δ, dK/dV, in
     the bfloat16 split builds the reduction of dK/dV's parts, and dQ: one count a call); on
@@ -445,17 +469,22 @@ def flash_attention_bwd(
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
-    saved = (("out", out, q.dtype), ("lse", lse, torch.float32), ("dout", dout, q.dtype))
-    for name, x, dtype in saved:
-        if x.dtype != dtype or not x.is_contiguous() or x.device != q.device:
+    saved = (
+        ("out", out, (q.dtype, torch.float32)),
+        ("lse", lse, (torch.float32,)),
+        ("dout", dout, (q.dtype,)),
+    )
+    for name, x, dtypes in saved:
+        if x.dtype not in dtypes or not x.is_contiguous() or x.device != q.device:
             raise ValueError(
-                f"flash_attention_bwd: {name} must be {dtype}, contiguous, on {q.device}"
+                f"flash_attention_bwd: {name} must be {' or '.join(map(str, dtypes))}, "
+                f"contiguous, on {q.device}"
             )
     if b == 0 or sq == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     path = bwd_path(d, dv, q.dtype)
     if path == "bf16":  # TMA rows of 16 bytes: head dims padded to multiples of 8
-        q, k, v, out, dout = _pad_head_dims(q, k, v, out, dout)
+        q, k, v, out, dout = _pad_head_dims(q, k, v, out.float(), dout)
         d, dv = q.shape[-1], v.shape[-1]
     elif path == "wgmma":  # TMA reads from 16-byte-aligned bases
         q, k, v, dout = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, dout))
@@ -496,18 +525,20 @@ flash_attention_bwd.launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Attention with its gradient: the forward kernel with the logsumexp saved beside
-    (q, k, v, out), the backward kernels on them, float32 or bfloat16 (the saved ``out``
-    and the incoming gradient in that dtype). The counterpart of the reference's
-    ``jax.custom_vjp`` around ``flash_attention_pallas``."""
+    """Attention with its gradient: the forward kernel with the logsumexp and the output in
+    float32 saved beside (q, k, v), the backward kernels on them, float32 or bfloat16 (the
+    incoming gradient in that dtype). The counterpart of the reference's
+    ``jax.custom_vjp`` around ``flash_attention_pallas``, whose backward differentiates a
+    float32 forward: Δ from the float32 output keeps each row's dS summing to zero as
+    there."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         _check_grad(q, k, v)
-        out, lse = flash_attention_fwd(
+        out, lse, out_f32 = flash_attention_fwd(
             q, k, v, causal=causal, window=window, scale=scale, return_lse=True
         )
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out_f32, lse)
         ctx.masks = (causal, window, scale)
         return out
 

@@ -116,6 +116,7 @@ def flash_attention_ref(
     scale: Optional[float] = None,
     block_k: int = 512,
     return_lse: bool = False,
+    out_dtype: Optional[torch.dtype] = None,
 ):
     """Blocked online-softmax attention: the Hopper kernel's plain version.
 
@@ -124,7 +125,8 @@ def flash_attention_ref(
     per head. Padded keys (past Sk) are masked like any other. With
     ``return_lse`` it returns (out, lse): lse (B, Hq, Sq) float32 is each
     row's ``m + log(l)``, the logsumexp of its scaled, masked logits; the
-    output is the same either way.
+    output is the same either way. The output is rounded once from float32
+    to ``out_dtype`` (q's dtype by default).
     """
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -154,10 +156,10 @@ def flash_attention_ref(
         l_sum = l_sum * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vq)
         m = m_new
-    out = acc / torch.clamp(l_sum[..., None], min=1e-37)
+    out = (acc / torch.clamp(l_sum[..., None], min=1e-37)).to(out_dtype or q.dtype)
     if return_lse:
-        return out.to(q.dtype), m + torch.log(l_sum)
-    return out.to(q.dtype)
+        return out, m + torch.log(l_sum)
+    return out
 
 
 def flash_attention_bwd_ref(
@@ -175,11 +177,12 @@ def flash_attention_bwd_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward, FlashAttention-2 form: the Hopper kernels' plain version.
 
-    From the forward's output ``out`` and logsumexp ``lse`` (B, Hq, Sq) float32:
-    Δ = rowsum(dO∘O); then, ``block_k`` keys at a time as the forward walks them,
-    P = exp(S·scale − lse) (0 where masked), dV = Pᵀ·dO, dS = P∘(dP − Δ) with
-    dP = dO·Vᵀ, dQ = dS·K·scale and dK = dSᵀ·Q·scale. dK and dV are summed over
-    the g query heads of each KV head. All in float32 (float64 for a float64 q);
+    From the forward's output ``out`` (q's dtype or float32) and logsumexp ``lse``
+    (B, Hq, Sq) float32: Δ = rowsum(dO∘O); then, ``block_k`` keys at a time as the
+    forward walks them, P = exp(S·scale − lse) (0 where masked), dV = Pᵀ·dO,
+    dS = P∘(dP − Δ) with dP = dO·Vᵀ, dQ = dS·K·scale and dK = dSᵀ·Q·scale. dK and dV
+    are summed over the g query heads of each KV head. All in float32 (float64 for a
+    float64 q);
     returns (dq, dk, dv) in the dtypes of q, k and v. It is the function the
     reference's custom VJP computes (``jax.vjp`` of the blocked forward), by
     another route.

@@ -109,7 +109,10 @@ def test_forward_lse_is_the_logsumexp_and_leaves_the_output_as_it_was(i):
     _, hq, hkv, sq, sk, d, causal, window, _ = CASES[i]
     q, k, v, _ = _np_inputs(i)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    out, lse = tfa.flash_attention_fwd(tq, tk, tv, causal=causal, window=window, return_lse=True)
+    out, lse, out_f32 = tfa.flash_attention_fwd(
+        tq, tk, tv, causal=causal, window=window, return_lse=True
+    )
+    assert out_f32 is out
     plain = tfa.flash_attention_fwd(tq, tk, tv, causal=causal, window=window)
     assert torch.equal(out, plain) and lse.dtype == torch.float32
     kx = np.repeat(k, hq // hkv, axis=1)

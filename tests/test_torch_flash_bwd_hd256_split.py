@@ -134,10 +134,10 @@ def _jax_grads(i):
 
 @pytest.mark.parametrize("i", range(len(CASES)), ids=IDS)
 def test_split_model_in_bfloat16_matches_jax_vjp(i):
-    """The model on bfloat16 inputs, from the bfloat16 forward's output and logsumexp as the
-    port saves them, rounding P and dS where the kernels do; printed as a share of TOL."""
+    """The model on bfloat16 inputs, from the bfloat16 forward's float32 output and logsumexp
+    as the port saves them, rounding P and dS where the kernels do; printed as a share of TOL."""
     q, k, v, dout = (torch.from_numpy(x).bfloat16() for x in _np_inputs(i))
-    out, lse = tfa.flash_attention_fwd(q, k, v, **_masks(i), return_lse=True)
+    _, lse, out = tfa.flash_attention_fwd(q, k, v, **_masks(i), return_lse=True)
     got = tref.flash_attention_bwd_split_ref(
         q, k, v, out, lse, dout, **_masks(i), parts=_parts(i)
     )

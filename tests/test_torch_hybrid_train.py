@@ -265,7 +265,7 @@ def _port_flash_grads(i, dtype, how):
         out, lse = tref.flash_attention_ref(q, k, v, **masks, return_lse=True)
         return tref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **masks)
     if how == "bwd_wrapper":
-        out, lse = tfa.flash_attention_fwd(q, k, v, **masks, return_lse=True)
+        out, lse, _ = tfa.flash_attention_fwd(q, k, v, **masks, return_lse=True)
         return tfa.flash_attention_bwd(q, k, v, out, lse, dout, **masks)
     leaves = [x.requires_grad_(True) for x in (q, k, v)]
     out = tops.flash_attention(*leaves, **masks)

@@ -113,7 +113,7 @@ def main() -> int:
         "flash", _instrument(src, FLASH_MARKS, "blockIdx.x == 0 && blockIdx.y == 0", guard)
     )
     fn = flash.repro_flash_attention_fwd
-    fn.argtypes = [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    fn.argtypes = [ptr] * 7 + [i32] * 9 + [ctypes.c_float] + [i32] * 3 + [ptr]
     for b, hq, hkv, s, d, win in ((1, 12, 4, 777, 64, None), (1, 16, 1, 3000, 256, 2048)):
         q = torch.randn(b, hq, s, d, device="cuda", generator=gen)
         k = torch.randn(b, hkv, s, d, device="cuda", generator=gen)
@@ -122,8 +122,8 @@ def main() -> int:
         split, items = fa.f32_plan(s, s, True, win, d, d)
         ws = torch.empty(b * hq * items * fa.F32_BLOCK_Q * (d + 2), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ws.data_ptr(), None, b,
-                hq, hkv, s, s, d, d, 1, win or 0, d**-0.5, split, items, 0, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ws.data_ptr(), None, None,
+                b, hq, hkv, s, s, d, d, 1, win or 0, d**-0.5, split, items, 0, stream)
         _show(f"flash f32 q{tuple(q.shape)} window={win} (block 0: the last query tile's first "
               f"piece)", FLASH_MARKS, _stamps(flash, FLASH_MARKS, lambda: fn(*args)))
 
